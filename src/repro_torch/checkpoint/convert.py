@@ -1,0 +1,66 @@
+"""Weight bridge from the reference's checkpoints to the port's policy.
+
+The reference writes a pytree as ``arrays.npz`` plus ``manifest.json``,
+whose ``leaves`` list each leaf's "/"-joined pytree path, its array name,
+dtype and shape (``repro/checkpoint/checkpointer.py:39-84``). Numpy alone
+reads it. The port's state-dict keys are those paths with ``.`` for ``/``
+and the same (in, out) layout, so leaves copy one for one.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def read_reference_checkpoint(directory: str) -> dict[str, np.ndarray]:
+    """{"/"-path: ndarray} of every leaf of a reference checkpoint."""
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    with np.load(os.path.join(directory, "arrays.npz")) as data:
+        for leaf in manifest["leaves"]:
+            arr = data[leaf["name"]]
+            if list(arr.shape) != list(leaf["shape"]):
+                raise ValueError(f"checkpoint leaf {leaf['key']!r} has shape "
+                                 f"{arr.shape}, manifest says {leaf['shape']}")
+            out[leaf["key"]] = arr
+    return out
+
+
+def split_prefix(flat: dict, prefix: str) -> dict:
+    """The leaves under ``prefix/`` with the prefix removed, e.g. the
+    ``params`` and ``state`` halves of a ``{"params", "state"}`` checkpoint."""
+    head = prefix.rstrip("/") + "/"
+    return {k[len(head):]: v for k, v in flat.items() if k.startswith(head)}
+
+
+def _copy_leaves(kind: str, targets: dict[str, torch.Tensor], flat: dict):
+    missing = sorted(set(targets) - set(flat))
+    extra = sorted(set(flat) - set(targets))
+    if missing or extra:
+        raise KeyError(f"reference {kind} do not match the policy: missing "
+                       f"{missing}, unexpected {extra}")
+    for key, t in targets.items():
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {kind} leaf {key!r}: "
+                             f"reference {arr.shape}, policy {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.tensor(arr, dtype=t.dtype))
+
+
+def load_reference_params(policy: nn.Module, params_flat: dict,
+                          state_flat: dict) -> None:
+    """Copy reference parameter and norm-state leaves ({"/"-path: array})
+    into ``policy`` in place. Raises on a missing leaf, an extra leaf, or a
+    shape mismatch."""
+    params = {name.replace(".", "/"): p for name, p in policy.named_parameters()}
+    state_keys = set(policy.state_dict()) - {n for n, _ in policy.named_parameters()}
+    buffers = {name.replace(".", "/"): b for name, b in policy.named_buffers()
+               if name in state_keys}
+    _copy_leaves("params", params, params_flat)
+    _copy_leaves("state", buffers, state_flat)

@@ -1,0 +1,46 @@
+"""Decode strategies (paper §IV-C): greedy and best-of-n sampling from a
+per-request candidate set; counterpart of ``repro/core/decode.py``.
+Random draws come from an explicit ``torch.Generator`` on the tensors'
+device."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.objective import makespan
+
+
+def greedy_decode(log_probs) -> torch.Tensor:
+    """argmax_q a_qz per request (first index on ties).
+    log_probs: (..., Z, Q) -> (..., Z) int32."""
+    return torch.argmax(log_probs, dim=-1).to(torch.int32)
+
+
+def sample_candidates(generator: torch.Generator, top_idx, top_lp,
+                      num_samples: int) -> torch.Tensor:
+    """Draw ``num_samples`` complete decisions from the factorized policy
+    restricted to each request's candidates: slot k of request z with
+    probability softmax(top_lp[z])[k]. top_idx, top_lp: (..., Z, K).
+    Returns (S, ..., Z) int64 edge indices."""
+    probs = torch.softmax(top_lp, dim=-1)
+    k = probs.shape[-1]
+    slots = torch.multinomial(probs.reshape(-1, k), num_samples,
+                              replacement=True, generator=generator)
+    slots = slots.T.reshape(num_samples, *top_lp.shape[:-1])  # (S, ..., Z)
+    cands = top_idx.long().expand(num_samples, *top_idx.shape)
+    return torch.gather(cands, -1, slots[..., None])[..., 0]
+
+
+def topk_sampling_decode(generator: torch.Generator, inst, top_idx, top_lp,
+                         num_samples: int):
+    """Best-of-n sampling from a (Z, K) candidate set: per-sample cost is
+    O(Z*K). With K = Q it draws from exactly the eq-19 distribution. The
+    greedy decision (``top_idx[..., 0]``) is always a candidate. Returns
+    (best_assignment (..., Z), best_makespan (...)); ties in makespan go to
+    the earliest candidate, greedy first."""
+    samples = sample_candidates(generator, top_idx, top_lp, num_samples)
+    samples = torch.cat([top_idx[None, ..., 0].long(), samples], dim=0)
+    costs = makespan(inst, samples)  # (S + 1, ...)
+    best = torch.argmin(costs, dim=0)  # (...)
+    assign = torch.gather(
+        samples, 0, best[None, ..., None].expand(1, *samples.shape[1:]))[0]
+    return assign.to(torch.int32), torch.gather(costs, 0, best[None])[0]

@@ -1,0 +1,60 @@
+"""Public wrappers of the policy-head kernels, dispatching by device.
+
+A CUDA tensor launches the hand-written kernel
+(:mod:`repro_torch.kernels.policy_score`); if the build or the launch
+fails, the call raises. A CPU tensor runs the plain PyTorch version
+(:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
+Both accept any leading batch shape, as the reference's ``ops`` do.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.policy_score import (policy_score_cuda,
+                                              policy_score_decode_cuda)
+
+
+def _flatten(c_emb, h_emb, edge_mask):
+    batch_shape = c_emb.shape[:-2]
+    q, d = c_emb.shape[-2:]
+    z = h_emb.shape[-2]
+    maskf = edge_mask.expand(*batch_shape, q).reshape(-1, q)
+    return (batch_shape, c_emb.reshape(-1, q, d), h_emb.reshape(-1, z, d),
+            maskf.to(torch.float32).contiguous())
+
+
+def _device_type(c_emb) -> str:
+    kind = c_emb.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no policy-head implementation for device {kind!r}")
+    return kind
+
+
+def policy_score(c_emb, h_emb, w_px, w_py, edge_mask, *, tanh_clip=10.0):
+    """Eq 16-17 head: (..., Z, Q) log a_qz."""
+    if _device_type(c_emb) == "cpu":
+        return ref.policy_score_torch(c_emb, h_emb, w_px, w_py, edge_mask,
+                                      tanh_clip)
+    batch_shape, c3, h3, maskf = _flatten(c_emb, h_emb, edge_mask)
+    out = policy_score_cuda(c3, h3, w_px, w_py, maskf, tanh_clip=tanh_clip)
+    return out.reshape(*batch_shape, *out.shape[-2:])
+
+
+def policy_score_decode(c_emb, h_emb, w_px, w_py, edge_mask, *,
+                        tanh_clip=10.0, k=1, normalize=True):
+    """Fused score + greedy/top-k decode: (top_idx, top_val), (..., Z, K).
+    On the card the (Z, Q) scores are never written to device memory."""
+    if _device_type(c_emb) == "cpu":
+        return ref.policy_score_decode_torch(c_emb, h_emb, w_px, w_py,
+                                             edge_mask, tanh_clip, k,
+                                             normalize)
+    batch_shape, c3, h3, maskf = _flatten(c_emb, h_emb, edge_mask)
+    ti, tv = policy_score_decode_cuda(c3, h3, w_px, w_py, maskf,
+                                      tanh_clip=tanh_clip, k=k,
+                                      normalize=normalize)
+    return (ti.reshape(*batch_shape, *ti.shape[-2:]),
+            tv.reshape(*batch_shape, *tv.shape[-2:]))
+
+
+__all__ = ["policy_score", "policy_score_decode", "ref"]

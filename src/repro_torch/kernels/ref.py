@@ -1,0 +1,97 @@
+"""Plain PyTorch versions of the policy-head kernels (the allclose ground
+truth, counterpart of the policy-head oracles in ``repro/kernels/ref.py``).
+
+``*_ref`` take one instance (no batch axis); ``*_torch`` take any leading
+batch shape and are what :mod:`repro_torch.kernels.ops` runs for tensors on
+the CPU. On a CUDA tensor ``ops`` launches the hand-written kernels of
+:mod:`repro_torch.kernels.policy_score` instead, and ``chip_smoke.py``
+holds those kernels against the ``*_torch`` functions here.
+
+Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
+
+* top-k ties go to the lowest edge index (stable sort; ``torch.topk``
+  promises no order among equal values);
+* ``normalize=True`` selects on the eq-16 scores ``C*tanh(u)`` with masked
+  edges at -1e9 and returns eq-17 log-probabilities;
+* ``normalize=False`` selects in u-space with masked edges at -inf and
+  applies ``C*tanh`` to the K winners only, as the reference's fused
+  kernel does (``repro/kernels/policy_score.py:197-212``). ``tanh`` is
+  monotone, so the ranking equals the reference oracle's except where
+  ``tanh`` rounds two different u to the same f32 value. Slots beyond the
+  number of valid edges hold masked edges in index order, valued ``-C``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries along the last axis, in
+    descending order, ties toward the lowest index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def policy_score_ref(c_emb, h_emb, w_px, w_py, edge_mask, tanh_clip=10.0):
+    """Fused CoRaiS policy head (paper eqs 16-17) on one instance.
+
+    c_emb: (Q, d) context-decoder edge embeddings; h_emb: (Z, d) request
+    embeddings; edge_mask: (Q,) bool. Returns log a_qz as (Z, Q)."""
+    d = c_emb.shape[-1]
+    px = c_emb.float() @ w_px.float()
+    py = h_emb.float() @ w_py.float()
+    u = (py @ px.T) / math.sqrt(d)  # (Z, Q)
+    imp = tanh_clip * torch.tanh(u)
+    imp = torch.where(edge_mask[None, :], imp, -1e9)
+    return torch.log_softmax(imp, dim=-1)
+
+
+def policy_score_torch(c_emb, h_emb, w_px, w_py, edge_mask, tanh_clip=10.0):
+    """Batched policy head over any leading batch shape: the plain version
+    of the B1 kernel. c_emb: (..., Q, d); h_emb: (..., Z, d); edge_mask:
+    (..., Q) or (Q,) bool. Returns (..., Z, Q) log a_qz."""
+    d = c_emb.shape[-1]
+    px = c_emb @ w_px
+    py = h_emb @ w_py
+    u = (py @ px.transpose(-1, -2)) / math.sqrt(d)
+    imp = tanh_clip * torch.tanh(u)  # eq (16)
+    imp = torch.where(edge_mask[..., None, :], imp, -1e9)
+    return torch.log_softmax(imp, dim=-1)  # eq (17): softmax over edges
+
+
+def _decode(u, edge_mask, tanh_clip, k, normalize):
+    keep = edge_mask[..., None, :]
+    if normalize:
+        imp = torch.where(keep, tanh_clip * torch.tanh(u), -1e9)
+        top_val, top_idx = stable_topk(imp, k)
+        top_val = top_val - torch.logsumexp(imp, dim=-1, keepdim=True)
+    else:
+        top_val, top_idx = stable_topk(torch.where(keep, u, -math.inf), k)
+        top_val = tanh_clip * torch.tanh(top_val)
+    return top_idx.to(torch.int32), top_val
+
+
+def policy_score_decode_ref(c_emb, h_emb, w_px, w_py, edge_mask,
+                            tanh_clip=10.0, k=1, normalize=True):
+    """Per-instance decode oracle: materialize the (Z, Q) scores and sort.
+
+    c_emb: (Q, d); h_emb: (Z, d); returns (top_idx int32, top_val f32),
+    both (Z, K), under the decode contract in the module docstring."""
+    d = c_emb.shape[-1]
+    px = c_emb.float() @ w_px.float()
+    py = h_emb.float() @ w_py.float()
+    u = (py @ px.T) / math.sqrt(d)
+    return _decode(u, edge_mask, tanh_clip, k, normalize)
+
+
+def policy_score_decode_torch(c_emb, h_emb, w_px, w_py, edge_mask,
+                              tanh_clip=10.0, k=1, normalize=True):
+    """Batched score + top-k decode over any leading batch shape: the plain
+    version of the B3 kernel. Same (top_idx, top_val) contract, (..., Z, K)."""
+    d = c_emb.shape[-1]
+    px = c_emb @ w_px
+    py = h_emb @ w_py
+    u = (py @ px.transpose(-1, -2)) / math.sqrt(d)
+    return _decode(u, edge_mask, tanh_clip, k, normalize)

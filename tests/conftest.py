@@ -4,6 +4,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
