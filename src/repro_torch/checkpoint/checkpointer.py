@@ -1,0 +1,132 @@
+"""Checkpoints in the reference's own format, written by the port.
+
+A tree of nested dicts of tensors is stored as ``arrays.npz`` plus a
+``manifest.json`` whose ``leaves`` give each leaf's "/"-joined path, its
+array name, dtype and shape (``repro/checkpoint/checkpointer.py:39-58``).
+A training checkpoint holds ``{"params", "state", "opt_state"}`` under the
+reference's paths, so a policy trained by the port loads into the
+reference with its ``restore_pytree``, and back into the port with
+:func:`load_train_state`. Writes go to ``<dir>.tmp`` and are renamed into
+place, so a reader never sees half a checkpoint.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.convert import (load_reference_params,
+                                            read_reference_checkpoint,
+                                            split_prefix)
+from repro_torch.nn.module import param_tree, state_tree
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """{"/"-path: leaf} of a tree of nested dicts."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for key, sub in tree.items():
+        out.update(flatten_tree(sub, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def train_tree(policy, opt_state: Optional[dict] = None) -> dict:
+    """The training state under the reference's paths."""
+    tree = {"params": param_tree(policy), "state": state_tree(policy)}
+    if opt_state is not None:
+        tree["opt_state"] = opt_state
+    return tree
+
+
+def save_pytree(tree, directory: str, extras: Optional[dict] = None) -> None:
+    tmp = directory + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest, arrays = [], {}
+    for i, (key, leaf) in enumerate(flatten_tree(tree).items()):
+        name = f"arr_{i}"
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        arrays[name] = np.asarray(leaf)
+        manifest.append({"key": key, "name": name,
+                         "dtype": str(arrays[name].dtype),
+                         "shape": list(arrays[name].shape)})
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump({"leaves": manifest, "extras": extras or {}}, f)
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.replace(tmp, directory)
+
+
+def load_train_state(policy, flat: dict) -> Optional[dict]:
+    """Load the ``params`` and ``state`` of a training checkpoint
+    ({"/"-path: array}) into ``policy`` in place; return its optimizer
+    state on the policy's device, or None when it has none."""
+    load_reference_params(policy, split_prefix(flat, "params"),
+                          split_prefix(flat, "state"))
+    if "opt_state/step" not in flat:
+        return None
+    device = policy.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a)).to(device)
+
+    return {"step": t(flat["opt_state/step"]),
+            "m": {k: t(a) for k, a in split_prefix(flat, "opt_state/m").items()},
+            "v": {k: t(a) for k, a in split_prefix(flat, "opt_state/v").items()}}
+
+
+class Checkpointer:
+    """Keep-K periodic checkpoints under ``root/step_XXXXXXXXXX`` with a
+    ``LATEST`` pointer file; saves are synchronous."""
+
+    def __init__(self, root: str, every: int = 100, keep: int = 3):
+        self.root = root
+        self.every = max(every, 1)
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.every == 0
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:010d}")
+
+    def save(self, step: int, tree, extras: Optional[dict] = None) -> None:
+        save_pytree(tree, self._dir(step), extras)
+        tmp = os.path.join(self.root, "LATEST.tmp")
+        with open(tmp, "w") as f:
+            f.write(str(step))
+        os.replace(tmp, os.path.join(self.root, "LATEST"))
+        self._gc()
+
+    def latest_step(self) -> Optional[int]:
+        path = os.path.join(self.root, "LATEST")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return int(f.read().strip())
+
+    def restore_latest(self) -> Optional[dict]:
+        """{"step", "tree": {"/"-path: ndarray}, "extras"} of the latest
+        checkpoint, or None when there is none."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        directory = self._dir(step)
+        with open(os.path.join(directory, "manifest.json")) as f:
+            extras = json.load(f).get("extras", {})
+        return {"step": step, "tree": read_reference_checkpoint(directory),
+                "extras": extras}
+
+    def _gc(self) -> None:
+        dirs = sorted(d for d in os.listdir(self.root) if d.startswith("step_"))
+        for d in dirs[: -self.keep] if self.keep > 0 else []:
+            shutil.rmtree(os.path.join(self.root, d), ignore_errors=True)

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.nn.module import param_tree, state_tree
+
 
 def read_reference_checkpoint(directory: str) -> dict[str, np.ndarray]:
     """{"/"-path: ndarray} of every leaf of a reference checkpoint."""
@@ -58,9 +60,5 @@ def load_reference_params(policy: nn.Module, params_flat: dict,
     """Copy reference parameter and norm-state leaves ({"/"-path: array})
     into ``policy`` in place. Raises on a missing leaf, an extra leaf, or a
     shape mismatch."""
-    params = {name.replace(".", "/"): p for name, p in policy.named_parameters()}
-    state_keys = set(policy.state_dict()) - {n for n, _ in policy.named_parameters()}
-    buffers = {name.replace(".", "/"): b for name, b in policy.named_buffers()
-               if name in state_keys}
-    _copy_leaves("params", params, params_flat)
-    _copy_leaves("state", buffers, state_flat)
+    _copy_leaves("params", param_tree(policy), params_flat)
+    _copy_leaves("state", state_tree(policy), state_flat)

@@ -15,6 +15,29 @@ def greedy_decode(log_probs) -> torch.Tensor:
     return torch.argmax(log_probs, dim=-1).to(torch.int32)
 
 
+def sample_assignments(generator: torch.Generator, log_probs,
+                       num_samples: int) -> torch.Tensor:
+    """Draw S complete assignments from the factorized policy: request z
+    goes to edge q with probability exp(log_probs[..., z, q]), independently.
+    log_probs: (..., Z, Q) -> (S, ..., Z) int64. No gradient flows."""
+    probs = torch.exp(log_probs.detach())
+    q = probs.shape[-1]
+    draws = torch.multinomial(probs.reshape(-1, q), num_samples,
+                              replacement=True, generator=generator)
+    return draws.T.reshape(num_samples, *log_probs.shape[:-1])
+
+
+def assignment_log_prob(log_probs, assign, req_mask) -> torch.Tensor:
+    """log p(pi) = sum_z log a_{x_z, z} over real requests.
+    log_probs: (..., Z, Q); assign: (..., Z), possibly with more leading
+    axes than ``log_probs`` (S sampled assignments) -> assign's leading
+    shape."""
+    idx = assign.long()[..., None]
+    lp = torch.gather(log_probs.expand(*idx.shape[:-1], log_probs.shape[-1]),
+                      -1, idx)[..., 0]
+    return (lp * req_mask.to(lp.dtype)).sum(-1)
+
+
 def sample_candidates(generator: torch.Generator, top_idx, top_lp,
                       num_samples: int) -> torch.Tensor:
     """Draw ``num_samples`` complete decisions from the factorized policy

@@ -1,6 +1,7 @@
 """The paper's scheduling objective, eqs (4)-(11) / reward eqs (18)-(19), in
-PyTorch; counterpart of ``phi_eval``, ``per_edge_times`` and ``makespan``
-in ``repro/core/objective.py``.
+PyTorch; counterpart of ``repro/core/objective.py``. ``per_edge_times_np``
+and ``makespan_np`` are numpy copies of the reference's scalar mirror (the
+solvers' objective), equal to it bit for bit.
 
 Conventions: assignment ``x`` maps each request to an edge index;
 ``T_q = max(kappa_q, mu_q) + eta_q`` (eq 9); objective = max_q T_q (eq 4).
@@ -9,6 +10,7 @@ S sampled decisions of one instance, (S, Z)): the instance broadcasts.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG = -1e9
@@ -58,3 +60,41 @@ def makespan(inst, assign) -> torch.Tensor:
     T = per_edge_times(inst, assign)["T"]
     T = torch.where(inst["edge_mask"], T, NEG)
     return T.amax(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# numpy mirror (scalar, for solvers)
+# ---------------------------------------------------------------------------
+
+
+def per_edge_times_np(inst, assign: np.ndarray) -> dict:
+    phi = np.asarray(inst["phi"])
+    q_pad = phi.shape[0]
+    sizes = np.asarray(inst["req_size"])
+    src = np.asarray(inst["req_src"])
+    rmask = np.asarray(inst["req_mask"])
+    w = np.asarray(inst["w"])
+    wl = np.asarray(inst["workload"])
+    reps = np.asarray(inst["replicas"])
+    ct = float(inst["ct"])
+
+    mu = wl[:, 0].copy()
+    eta = wl[:, 1].copy()
+    v = np.zeros(q_pad, np.float64)
+    for z in np.nonzero(rmask)[0]:
+        q = int(assign[z])
+        t = float(phi[q, 0] * sizes[z] + phi[q, 1])
+        if q == src[z]:
+            mu[q] += t / reps[q]
+        else:
+            eta[q] += t / reps[q]
+            v[q] = max(v[q], float(sizes[z] * w[src[z], q]))
+    kappa = np.maximum(ct * v, wl[:, 2])
+    T = np.maximum(kappa, mu) + eta
+    return {"mu": mu, "eta": eta, "kappa": kappa, "T": T}
+
+
+def makespan_np(inst, assign: np.ndarray) -> float:
+    T = per_edge_times_np(inst, assign)["T"]
+    emask = np.asarray(inst["edge_mask"])
+    return float(np.max(np.where(emask, T, -np.inf)))

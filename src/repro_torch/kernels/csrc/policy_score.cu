@@ -8,6 +8,8 @@
 //                                  (Z, Q) log-prob head ("B1")
 //   corais_policy_score_decode  <- _decode_kernel (:180), the fused score +
 //                                  greedy/top-k decode ("B3")
+//   corais_policy_score_bwd     <- _bwd_kernel    (:65), B1's custom-VJP
+//                                  backward ("B2"; its note follows B1's)
 //
 // What bounds it. At the serving shape (B=1, Q=100, Z=1000, d=256) B1 does
 // about 195 MFLOP (px 13 + py 131 + u 51) on about 2 MB of inputs and
@@ -37,6 +39,30 @@
 // Every product is a plain FMA loop written here; no library GEMM and no
 // tensor cores. Making these fast (mma.sync / wgmma on 3xTF32, a fused
 // prologue) is later work.
+//
+// corais_policy_score_bwd <- _bwd_kernel (:65), the custom-VJP backward of
+// B1 ("B2"): given the cotangent g and the saved log-probs out, both
+// (B, Z, Q), it returns dc (B, Q, d), dh (B, Z, d) and dWpx, dWpy (d, d)
+// summed over B. At the training shape (B=128, Q=5, Z=50, d=256) that is
+// about 2.8 GFLOP (the projections px, py recomputed, u recomputed, and six
+// products) on about 15 MB, so it too is bounded by operations.
+// The reference gives one program a whole (Z, d) block of one instance,
+// which fits VMEM only to a few thousand rows and leaves one program per
+// instance. Here it is five stages on one stream (seven launches: stages
+// 4 and 5 run once per weight), every sum in a fixed order and no float
+// atomics, so two runs give the same bits:
+//   1. edge_prologue<false>: pxT[b] = (c[b] @ Wpx)^T, as in B1;
+//   2. bwd_rows over (ceil(Z/16), B): per 16-row tile, py = h @ Wpy and u
+//      recomputed, gu = keep ? (g - exp(out) * sum_q g) * C * scale *
+//      (1 - tanh(u)^2) : 0, dpy = gu @ px and dh = dpy @ Wpy^T; gu, py and
+//      dpy go to wrapper-owned scratch. Rows past Z are masked, not padded;
+//   3. bwd_edges over (Q, B): dpx[b, q] = sum_z gu[b, z, q] py[b, z] in z
+//      order, then dc[b, q] = dpx[b, q] @ Wpx^T (a warp per output);
+//   4. weight_grad_partial: dWpx = sum over the B*Q rows of c^T dpx and
+//      dWpy over the B*Z rows of h^T dpy, each split over rows into
+//      `split` partial (d, d) sums, one 16x256 output tile per block;
+//   5. sum_partials adds the partials in order p = 0, 1, ...
+// Limits as B1: Q <= 128, d <= 512, any Z.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -289,6 +315,208 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
   }
 }
 
+// B2 main pass: one block per 16 request rows of one instance (see the
+// header for what it computes and writes).
+__global__ void __launch_bounds__(kThreads)
+bwd_rows(const float* __restrict__ g, const float* __restrict__ out,
+         const float* __restrict__ h, const float* __restrict__ wpy,
+         const float* __restrict__ pxT, const float* __restrict__ mask,
+         float* __restrict__ py, float* __restrict__ gu,
+         float* __restrict__ dpy, float* __restrict__ dh, int Z, int Q, int d,
+         float scale, float clip) {
+  extern __shared__ float smem[];
+  float* a_s = smem;                     // kRows * d: h tile, then dpy tile
+  float* py_s = a_s + kRows * d;         // kRows * d
+  float* m_s = py_s + kRows * d;         // kChunk * kQMax
+  float* gu_s = m_s + kChunk * kQMax;    // kRows * kQMax
+  const int b = blockIdx.y, z0 = blockIdx.x * kRows;
+  const int rows = min(kRows, Z - z0);
+  const size_t row0 = (size_t)b * Z + z0;
+  load_rows(h + row0 * d, rows, d, a_s);
+  __syncthreads();
+  // py = h tile @ Wpy, thread j owning column j of every row (as in B1)
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int k = 0; k < d; ++k) {
+      const float w = wpy[(size_t)k * d + j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a_s[r * d + k], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      py_s[r * d + j] = acc[r];
+      if (r < rows) py[(row0 + r) * d + j] = acc[r];
+    }
+  }
+  __syncthreads();
+  float acc[kRowsPerWarp][kQPerLane];
+  rows_times_edges(py_s, pxT + (size_t)b * d * Q, m_s, d, Q, acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* mask_b = mask + (size_t)b * Q;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int r = warp * kRowsPerWarp + rr;
+    float gv[kQPerLane], ov[kQPerLane];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kQPerLane; ++i) {
+      const int q = lane + 32 * i;
+      const bool live = r < rows && q < Q;
+      gv[i] = live ? g[(row0 + r) * Q + q] : 0.f;
+      ov[i] = live ? out[(row0 + r) * Q + q] : 0.f;
+      s += gv[i];
+    }
+    s = warp_sum(s);
+#pragma unroll
+    for (int i = 0; i < kQPerLane; ++i) {
+      const int q = lane + 32 * i;
+      float v = 0.f;  // masked edges, padding lanes and rows past Z
+      if (r < rows && q < Q && mask_b[q] > 0.5f) {
+        const float th = tanhf(acc[rr][i] * scale);
+        const float gi = gv[i] - expf(ov[i]) * s;
+        v = gi * (clip * scale) * (1.f - th * th);
+      }
+      gu_s[r * kQMax + q] = v;
+      if (r < rows && q < Q) gu[(row0 + r) * Q + q] = v;
+    }
+  }
+  __syncthreads();
+  // dpy = gu tile @ px, with px[q, j] = pxT[j, q]
+  const float* pxT_b = pxT + (size_t)b * d * Q;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float acc2[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc2[r] = 0.f;
+    for (int q = 0; q < Q; ++q) {
+      const float p = pxT_b[(size_t)j * Q + q];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc2[r] = fmaf(gu_s[r * kQMax + q], p, acc2[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      a_s[r * d + j] = acc2[r];
+      if (r < rows) dpy[(row0 + r) * d + j] = acc2[r];
+    }
+  }
+  __syncthreads();
+  // dh = dpy tile @ Wpy^T
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const float* w_row = wpy + (size_t)i * d;
+    float acc2[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc2[r] = 0.f;
+    for (int j = 0; j < d; ++j) {
+      const float w = w_row[j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc2[r] = fmaf(a_s[r * d + j], w, acc2[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows) dh[(row0 + r) * d + i] = acc2[r];
+  }
+}
+
+// B2: dpx[b, q] = sum_z gu[b, z, q] py[b, z] in z order, then
+// dc[b, q] = dpx[b, q] @ Wpx^T; one block per (q, b).
+__global__ void __launch_bounds__(kThreads)
+bwd_edges(const float* __restrict__ gu, const float* __restrict__ py,
+          const float* __restrict__ wpx, float* __restrict__ dpx,
+          float* __restrict__ dc, int Z, int Q, int d) {
+  extern __shared__ float smem[];
+  float* dpx_s = smem;  // d
+  const int q = blockIdx.x, b = blockIdx.y;
+  const float* gu_b = gu + (size_t)b * Z * Q + q;
+  const float* py_b = py + (size_t)b * Z * d;
+  const size_t row = (size_t)b * Q + q;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float acc = 0.f;
+    for (int z = 0; z < Z; ++z)
+      acc = fmaf(gu_b[(size_t)z * Q], py_b[(size_t)z * d + j], acc);
+    dpx_s[j] = acc;
+    dpx[row * d + j] = acc;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < d; i += kWarps) {
+    const float* w_row = wpx + (size_t)i * d;
+    float acc = 0.f;
+    for (int k = lane; k < d; k += 32) acc = fmaf(w_row[k], dpx_s[k], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) dc[row * d + i] = acc;
+  }
+}
+
+constexpr int kWRows = 16;    // output rows (k) of a weight-gradient tile
+constexpr int kNChunk = 64;   // input rows staged per step
+
+// B2 weight gradient, partial p = blockIdx.z:
+//   partial[p, k, j] = sum_{n in chunk p} a[n, k] bm[n, j]
+// over rows [p * per, (p + 1) * per) of the (N, d) inputs, in row order.
+// A block owns 16 rows k and 256 columns j of the (d, d) output.
+__global__ void __launch_bounds__(kThreads)
+weight_grad_partial(const float* __restrict__ a, const float* __restrict__ bm,
+                    float* __restrict__ partial, int N, int d, int per) {
+  __shared__ float a_s[kNChunk * kWRows];
+  const int k0 = blockIdx.x * kWRows;
+  const int j = blockIdx.y * kThreads + threadIdx.x;
+  const int p = blockIdx.z;
+  const int n_begin = p * per, n_end = min(N, n_begin + per);
+  float acc[kWRows];
+#pragma unroll
+  for (int r = 0; r < kWRows; ++r) acc[r] = 0.f;
+  for (int n0 = n_begin; n0 < n_end; n0 += kNChunk) {
+    const int nc = min(kNChunk, n_end - n0);
+    for (int t = threadIdx.x; t < kNChunk * kWRows; t += blockDim.x) {
+      const int nn = t / kWRows, r = t % kWRows;
+      a_s[t] = (nn < nc && k0 + r < d) ? a[(size_t)(n0 + nn) * d + k0 + r] : 0.f;
+    }
+    __syncthreads();
+    if (j < d) {
+      for (int nn = 0; nn < nc; ++nn) {
+        const float bv = bm[(size_t)(n0 + nn) * d + j];
+#pragma unroll
+        for (int r = 0; r < kWRows; ++r)
+          acc[r] = fmaf(a_s[nn * kWRows + r], bv, acc[r]);
+      }
+    }
+    __syncthreads();
+  }
+  if (j < d) {
+#pragma unroll
+    for (int r = 0; r < kWRows; ++r)
+      if (k0 + r < d) partial[((size_t)p * d + k0 + r) * d + j] = acc[r];
+  }
+}
+
+// out[i] = sum of the `split` partials at i, added in order p = 0, 1, ...
+__global__ void __launch_bounds__(kThreads)
+sum_partials(const float* __restrict__ partial, float* __restrict__ out,
+             int split, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < split; ++p) s += partial[(size_t)p * n + i];
+  out[i] = s;
+}
+
+// out (d, d) = a^T bm over N rows, through `split` partials.
+cudaError_t weight_grad(const float* a, const float* bm, float* partial,
+                        float* out, int N, int d, int split, cudaStream_t s) {
+  const int per = (N + split - 1) / split;
+  const dim3 grid((d + kWRows - 1) / kWRows, (d + kThreads - 1) / kThreads,
+                  split);
+  weight_grad_partial<<<grid, kThreads, 0, s>>>(a, bm, partial, N, d, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)d * d;
+  sum_partials<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      partial, out, split, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -333,6 +561,41 @@ int corais_policy_score_decode(const float* c, const float* h,
   decode_rows<<<dim3((Z + kRows - 1) / kRows, B), kThreads, smem, s>>>(
       h, pxy, mask, top_idx, top_val, Z, Q, d, K, normalize, scale, clip);
   return cudaGetLastError();
+}
+
+// B2. Scratch the wrapper owns: pxT (B, d, Q), py and dpy (B, Z, d),
+// gu (B, Z, Q), dpx (B, Q, d) and partial (max(split_x, split_y), d, d).
+// split_x / split_y: partial sums of dWpx (over B*Q rows) and dWpy (over
+// B*Z rows); the one partial buffer serves both, in stream order.
+int corais_policy_score_bwd(const float* g, const float* out, const float* c,
+                            const float* h, const float* wpx,
+                            const float* wpy, const float* mask, float* pxT,
+                            float* py, float* gu, float* dpy, float* dpx,
+                            float* partial, float* dc, float* dh,
+                            float* dwpx, float* dwpy, int B, int Q, int Z,
+                            int d, int split_x, int split_y, float scale,
+                            float clip, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  edge_prologue<false><<<dim3(Q, B), kThreads, 2 * d * sizeof(float), s>>>(
+      c, wpx, nullptr, pxT, Q, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem =
+      (2 * kRows * d + kChunk * kQMax + kRows * kQMax) * sizeof(float);
+  err = cudaFuncSetAttribute(bwd_rows,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  bwd_rows<<<dim3((Z + kRows - 1) / kRows, B), kThreads, smem, s>>>(
+      g, out, h, wpy, pxT, mask, py, gu, dpy, dh, Z, Q, d, scale, clip);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_edges<<<dim3(Q, B), kThreads, d * sizeof(float), s>>>(gu, py, wpx, dpx,
+                                                            dc, Z, Q, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = weight_grad(c, dpx, partial, dwpx, B * Q, d, split_x, s);
+  if (err != cudaSuccess) return err;
+  return weight_grad(h, dpy, partial, dwpy, B * Z, d, split_y, s);
 }
 
 const char* corais_cuda_error_string(int err) {

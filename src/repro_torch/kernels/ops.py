@@ -5,13 +5,19 @@ A CUDA tensor launches the hand-written kernel
 fails, the call raises. A CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
 Both accept any leading batch shape, as the reference's ``ops`` do.
+
+:func:`policy_score` is differentiable through :class:`PolicyScore`, the
+counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
+on the card, their plain versions on the CPU.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.policy_score import (policy_score_cuda,
+from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
+                                              policy_score_cuda,
                                               policy_score_decode_cuda)
 
 
@@ -31,13 +37,41 @@ def _device_type(c_emb) -> str:
     return kind
 
 
+class PolicyScore(torch.autograd.Function):
+    """The eq 16-17 head on flattened inputs (c (B, Q, d), h (B, Z, d),
+    maskf (B, Q) float) with the reference's residuals
+    (``repro/kernels/policy_score.py:132``): the backward recomputes ``u``
+    from them rather than saving it. Gradients flow to c, h, w_px and w_py;
+    the mask and the clip get none."""
+
+    @staticmethod
+    def forward(ctx, c, h, w_px, w_py, maskf, tanh_clip):
+        if _device_type(c) == "cuda":
+            out = policy_score_cuda(c, h, w_px, w_py, maskf,
+                                    tanh_clip=tanh_clip)
+        else:
+            out = ref.policy_score_torch(c, h, w_px, w_py, maskf > 0.5,
+                                         tanh_clip)
+        ctx.save_for_backward(c, h, w_px, w_py, maskf, out)
+        ctx.tanh_clip = tanh_clip
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        c, h, w_px, w_py, maskf, out = ctx.saved_tensors
+        fn = (policy_score_bwd_cuda if _device_type(c) == "cuda"
+              else ref.policy_score_bwd_torch)
+        grads = fn(g.contiguous(), out, c, h, w_px, w_py, maskf,
+                   tanh_clip=ctx.tanh_clip)
+        return (*grads, None, None)
+
+
 def policy_score(c_emb, h_emb, w_px, w_py, edge_mask, *, tanh_clip=10.0):
-    """Eq 16-17 head: (..., Z, Q) log a_qz."""
-    if _device_type(c_emb) == "cpu":
-        return ref.policy_score_torch(c_emb, h_emb, w_px, w_py, edge_mask,
-                                      tanh_clip)
+    """Eq 16-17 head: (..., Z, Q) log a_qz, differentiable wrt the
+    embeddings and both projections (:class:`PolicyScore`)."""
     batch_shape, c3, h3, maskf = _flatten(c_emb, h_emb, edge_mask)
-    out = policy_score_cuda(c3, h3, w_px, w_py, maskf, tanh_clip=tanh_clip)
+    out = PolicyScore.apply(c3, h3, w_px, w_py, maskf, float(tanh_clip))
     return out.reshape(*batch_shape, *out.shape[-2:])
 
 
@@ -57,4 +91,4 @@ def policy_score_decode(c_emb, h_emb, w_px, w_py, edge_mask, *,
             tv.reshape(*batch_shape, *tv.shape[-2:]))
 
 
-__all__ = ["policy_score", "policy_score_decode", "ref"]
+__all__ = ["PolicyScore", "policy_score", "policy_score_decode", "ref"]

@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for the CoRaiS policy head: build, bind, launch.
 
-Two kernels, both in ``csrc/policy_score.cu`` (its header note says what
+Three kernels, all in ``csrc/policy_score.cu`` (its header note says what
 bounds them and how they are laid out):
 
 * :func:`policy_score_cuda`, the materialized eq 16-17 head, replaces the
   Pallas ``_fwd_kernel`` (``repro/kernels/policy_score.py:51``);
+* :func:`policy_score_bwd_cuda`, its backward, replaces the Pallas
+  ``_bwd_kernel`` (``repro/kernels/policy_score.py:65``); the two meet in
+  the ``torch.autograd.Function`` of :mod:`repro_torch.kernels.ops`;
 * :func:`policy_score_decode_cuda`, the fused score + top-k decode,
   replaces the Pallas ``_decode_kernel`` (``repro/kernels/policy_score.py:180``).
 
@@ -40,7 +43,7 @@ MAX_WIDTH = 512
 
 #: Launches per wrapper since the last :func:`reset_launch_counts`; a
 #: wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"policy_score": 0, "policy_score_decode": 0}
+LAUNCHES = {"policy_score": 0, "policy_score_bwd": 0, "policy_score_decode": 0}
 
 _LIB: ctypes.CDLL | None = None  # loaded at the first launch
 
@@ -102,6 +105,9 @@ def _lib() -> ctypes.CDLL:
     lib.corais_policy_score_decode.argtypes = (
         [ptr] * 8 + [i32] * 6 + [f32, f32, ptr])
     lib.corais_policy_score_decode.restype = i32
+    lib.corais_policy_score_bwd.argtypes = (
+        [ptr] * 17 + [i32] * 6 + [f32, f32, ptr])
+    lib.corais_policy_score_bwd.restype = i32
     lib.corais_cuda_error_string.argtypes = [i32]
     lib.corais_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -185,3 +191,43 @@ def policy_score_decode_cuda(c, h, w_px, w_py, maskf, *,
     _raise_on(err, lib, "policy_score_decode")
     LAUNCHES["policy_score_decode"] += 1
     return top_idx, top_val
+
+
+def _row_split(n: int) -> int:
+    """Partial sums for a B2 weight gradient over ``n`` rows: at least 128
+    rows each, at most 32 partials (enough blocks to fill the card at the
+    training shape, B*Z = 6400 rows)."""
+    per = max(128, -(-n // 32))
+    return -(-n // per)
+
+
+def policy_score_bwd_cuda(g, out, c, h, w_px, w_py, maskf, *,
+                          tanh_clip: float = 10.0):
+    """B2: the backward of B1. g, out: (B, Z, Q) cotangent and saved
+    log-probs; other inputs as :func:`policy_score_cuda`. Returns
+    ``(dc (B, Q, d), dh (B, Z, d), dw_px (d, d), dw_py (d, d))``, the weight
+    gradients summed over B in a fixed order (no atomics: two calls give the
+    same bits)."""
+    b, q, z, d = _check_inputs(c, h, w_px, w_py, maskf)
+    _check("g", g, (b, z, q), c.device)
+    _check("out", out, (b, z, q), c.device)
+    lib = _lib()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=c.device)
+
+    dc, dh, dw_px, dw_py = empty(b, q, d), empty(b, z, d), empty(d, d), empty(d, d)
+    split_x, split_y = _row_split(b * q), _row_split(b * z)
+    scratch = (empty(b, d, q), empty(b, z, d), empty(b, z, q), empty(b, z, d),
+               empty(b, q, d), empty(max(split_x, split_y), d, d))
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        err = lib.corais_policy_score_bwd(
+            g.data_ptr(), out.data_ptr(), c.data_ptr(), h.data_ptr(),
+            w_px.data_ptr(), w_py.data_ptr(), maskf.data_ptr(),
+            *(t.data_ptr() for t in scratch), dc.data_ptr(), dh.data_ptr(),
+            dw_px.data_ptr(), dw_py.data_ptr(), b, q, z, d, split_x, split_y,
+            1.0 / math.sqrt(d), float(tanh_clip), stream)
+    _raise_on(err, lib, "policy_score_bwd")
+    LAUNCHES["policy_score_bwd"] += 1
+    return dc, dh, dw_px, dw_py

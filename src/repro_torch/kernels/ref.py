@@ -5,7 +5,9 @@ truth, counterpart of the policy-head oracles in ``repro/kernels/ref.py``).
 batch shape and are what :mod:`repro_torch.kernels.ops` runs for tensors on
 the CPU. On a CUDA tensor ``ops`` launches the hand-written kernels of
 :mod:`repro_torch.kernels.policy_score` instead, and ``chip_smoke.py``
-holds those kernels against the ``*_torch`` functions here.
+holds those kernels against the ``*_torch`` functions here. The B2 kernel's
+plain version, :func:`policy_score_bwd_torch`, is the head's explicit
+backward.
 
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
@@ -59,6 +61,34 @@ def policy_score_torch(c_emb, h_emb, w_px, w_py, edge_mask, tanh_clip=10.0):
     imp = tanh_clip * torch.tanh(u)  # eq (16)
     imp = torch.where(edge_mask[..., None, :], imp, -1e9)
     return torch.log_softmax(imp, dim=-1)  # eq (17): softmax over edges
+
+
+def policy_score_bwd_torch(g, out, c, h, w_px, w_py, maskf, tanh_clip=10.0):
+    """The plain version of the B2 kernel: the backward of the eq 16-17 head,
+    the formulas of the reference's ``_bwd_kernel``
+    (``repro/kernels/policy_score.py:65-91``) written out, not autograd.
+
+    g, out: (..., Z, Q) cotangent and saved log-probs; c: (..., Q, d);
+    h: (..., Z, d); maskf: (..., Q) float, > 0.5 = real edge. Returns
+    ``(dc, dh, dw_px, dw_py)`` with the weight gradients summed over the
+    leading batch; the mask gets no gradient."""
+    d = c.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    # d log_softmax: g - softmax * sum_q g (softmax = exp(saved log-probs))
+    gi = g - torch.exp(out) * g.sum(-1, keepdim=True)
+    px = c @ w_px
+    py = h @ w_py
+    th = torch.tanh((py @ px.transpose(-1, -2)) * scale)
+    # masked edges saw a constant -1e9: no gradient flows through them
+    keep = (maskf > 0.5)[..., None, :]
+    gu = torch.where(keep, gi * (tanh_clip * scale) * (1.0 - th * th), 0.0)
+    dpy = gu @ px                    # (..., Z, d)
+    dpx = gu.transpose(-1, -2) @ py  # (..., Q, d)
+    dc = dpx @ w_px.T
+    dh = dpy @ w_py.T
+    dw_px = c.reshape(-1, d).T @ dpx.reshape(-1, d)
+    dw_py = h.reshape(-1, d).T @ dpy.reshape(-1, d)
+    return dc, dh, dw_px, dw_py
 
 
 def _decode(u, edge_mask, tanh_clip, k, normalize):

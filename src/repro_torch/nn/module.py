@@ -21,3 +21,17 @@ def uniform_init(generator: torch.Generator, shape: tuple[int, ...],
 
 def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def param_tree(module: nn.Module) -> dict[str, nn.Parameter]:
+    """{reference "/"-path: parameter}, e.g. ``edge_layers/0/align/mha/wq``."""
+    return {name.replace(".", "/"): p for name, p in module.named_parameters()}
+
+
+def state_tree(module: nn.Module) -> dict[str, torch.Tensor]:
+    """{reference "/"-path: buffer} of the persistent buffers (the norm
+    state the reference carries beside its parameters)."""
+    params = {n for n, _ in module.named_parameters()}
+    keys = set(module.state_dict()) - params
+    return {name.replace(".", "/"): b for name, b in module.named_buffers()
+            if name in keys}

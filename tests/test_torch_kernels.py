@@ -5,9 +5,13 @@ against the reference's ``ops`` (Pallas in interpret mode) and its
 ``kernels/ref.py`` oracles on the same numpy inputs. Tolerances: log-probs
 and decode values atol 1e-5 (f32, different summation order); indices
 exactly, on seeds whose every row has a gap above 1e-5 between consecutive
-valid scores of its top K+1 (asserted). The CUDA kernels themselves run only
-on a card: ``tests/test_torch_cuda.py`` skips without one, and
-``chip_smoke.py`` holds them at full width.
+valid scores of its top K+1 (asserted). The head's backward (B2's plain
+version and the ``PolicyScore`` Function) is held against ``jax.vjp`` of the
+reference's custom VJP (Pallas interpret) and against autograd through the
+plain forward, each gradient to 1e-5 of its largest entry (sums over Z, Q
+and d in another order). The CUDA kernels themselves run only on a card:
+``tests/test_torch_cuda.py`` skips without one, and ``chip_smoke.py`` holds
+them at full width.
 """
 import jax
 import numpy as np
@@ -16,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.policy_score import policy_score_fwd as j_policy_score_fwd
 from repro_torch.kernels import ops, policy_score, ref
 
 torch.set_num_threads(1)
@@ -151,19 +156,26 @@ def test_unbatched_and_broadcast_mask_shapes():
 
 
 def test_cpu_tensors_never_touch_the_kernels():
-    """Dispatch is by device: CPU tensors run the plain versions and leave
-    the launch counters at 0; the CUDA wrappers refuse CPU tensors."""
+    """Dispatch is by device: CPU tensors run the plain versions, forward
+    and backward, and leave the launch counters at 0; the CUDA wrappers
+    refuse CPU tensors."""
     c, h, wx, wy, mask = _t(*_inputs(3, 3, 6, 12))
     policy_score.reset_launch_counts()
-    ops.policy_score(c, h, wx, wy, mask)
+    c.requires_grad_(True)
+    ops.policy_score(c, h, wx, wy, mask).sum().backward()
+    assert c.grad is not None
+    c = c.detach()
     ops.policy_score_decode(c, h, wx, wy, mask, k=2, normalize=False)
-    assert policy_score.LAUNCHES == {"policy_score": 0,
+    assert policy_score.LAUNCHES == {"policy_score": 0, "policy_score_bwd": 0,
                                      "policy_score_decode": 0}
     maskf = mask.to(torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         policy_score.policy_score_cuda(c, h, wx, wy, maskf)
     with pytest.raises(ValueError, match="CUDA tensors"):
         policy_score.policy_score_decode_cuda(c, h, wx, wy, maskf, k=1)
+    g = torch.zeros(3, 12, 6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        policy_score.policy_score_bwd_cuda(g, g, c, h, wx, wy, maskf)
 
 
 @pytest.mark.parametrize("q,d", [(129, 32), (5, 513)])
@@ -173,3 +185,84 @@ def test_cuda_wrappers_reject_shapes_beyond_the_kernel_limits(q, d):
     w = torch.zeros(d, d)
     with pytest.raises(ValueError, match="unsupported shape"):
         policy_score.policy_score_cuda(c, h, w, w, torch.ones(1, q))
+    g = torch.zeros(1, 4, q)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        policy_score.policy_score_bwd_cuda(g, g, c, h, w, w, torch.ones(1, q))
+
+
+# -- the backward (B2) ---------------------------------------------------------
+
+GRAD_TOL = 1e-5  # of each gradient's largest entry
+
+
+def _close_rel(got, want, tol=GRAD_TOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+BWD_CASES = [(1, "full", 1), (3, "padded", 12), (2, "single", 37)]
+
+
+@pytest.mark.parametrize("b,mask_case,z", BWD_CASES)
+def test_backward_matches_reference_vjp_and_autograd(b, mask_case, z):
+    """B2's plain version and the PolicyScore Function against jax.vjp of
+    the reference's Pallas custom VJP, and against autograd through the
+    plain forward, on the same cotangent."""
+    c, h, wx, wy, mask = _inputs(b, *MASKS[mask_case], z, seed=3)
+    g = np.random.default_rng(4).normal(size=(b, z, mask.shape[1])).astype(
+        np.float32)
+    out, vjp = jax.vjp(lambda *a: j_policy_score_fwd(*a, mask, interpret=True),
+                       c, h, wx, wy)
+    want = [np.asarray(x) for x in vjp(g)]
+
+    tc, th, twx, twy, tm, tg = _t(c, h, wx, wy, mask, g)
+    maskf = tm.to(torch.float32)
+    got = ref.policy_score_bwd_torch(tg, torch.from_numpy(np.array(out)),
+                                     tc, th, twx, twy, maskf)
+    for x, w in zip(got, want):
+        _close_rel(x, w)
+
+    leaves = [t.clone().requires_grad_(True) for t in (tc, th, twx, twy)]
+    ops.policy_score(*leaves, tm).backward(tg)
+    for x, w in zip(leaves, want):
+        _close_rel(x.grad, w)
+    leaves = [t.clone().requires_grad_(True) for t in (tc, th, twx, twy)]
+    ref.policy_score_torch(*leaves, tm).backward(tg)
+    for x, w in zip(leaves, want):
+        _close_rel(x.grad, w)
+
+
+def test_backward_over_any_leading_batch_shape():
+    """(2, 3) leading axes flatten to B = 6 and sum the weight gradients
+    over all six."""
+    c, h, wx, wy, mask = _inputs(6, 3, 6, 12, seed=5)
+    tc, th, twx, twy, tm = _t(c, h, wx, wy, mask)
+    leaves = [tc.reshape(2, 3, 6, D), th.reshape(2, 3, 12, D), twx, twy]
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    out = ops.policy_score(*leaves, tm.reshape(2, 3, 6))
+    assert out.shape == (2, 3, 12, 6)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(g)
+    flat = [t.clone().requires_grad_(True) for t in (tc, th, twx, twy)]
+    ref.policy_score_torch(*flat, tm).backward(g.reshape(6, 12, 6))
+    for x, w in zip(leaves, flat):
+        _close_rel(x.grad.reshape(w.grad.shape), w.grad.numpy())
+
+
+def test_policy_score_function_gradcheck_f64():
+    """torch.autograd.gradcheck on the Function in f64. Masked entries of
+    the output sit at -1e9 - lse, which central differences cannot resolve
+    in f64, so the checked function zeroes them."""
+    gen = torch.Generator().manual_seed(0)
+    c, h = torch.randn(2, 4, 6, generator=gen), torch.randn(2, 5, 6, generator=gen)
+    wx, wy = torch.randn(6, 6, generator=gen), torch.randn(6, 6, generator=gen)
+    maskf = torch.tensor([[1., 1., 0., 1.], [0., 1., 1., 1.]])
+    leaves = [t.double().requires_grad_(True) for t in (c, h, wx, wy)]
+
+    def fn(*a):
+        return ops.PolicyScore.apply(*a, maskf, 10.0) * maskf[:, None, :]
+
+    assert torch.autograd.gradcheck(fn, leaves)
