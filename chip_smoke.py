@@ -7,11 +7,12 @@ Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or /usr/local/cuda).
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. require CUDA; print the card's name and power limit; TF32 off;
-2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version on the card at every
-   ``DEFAULT_BUCKETS`` shape at d=256, B in {1, 8}, with partial edge masks,
-   plus the no-(Z, Q) memory guarantee of the fused decode; the backward
-   (B2) also at the training shape B=128, Q=5, Z=50;
+2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
+3. hold each policy-head kernel against its plain PyTorch version on the
+   card at every ``DEFAULT_BUCKETS`` shape at d=256, B in {1, 8}, with
+   partial edge masks, plus the no-(Z, Q) memory guarantee of the fused
+   decode; the backward (B2) also at the training shape B=128, Q=5, Z=50;
 4. drive the serving decision path at full width (``PolicyConfig()``, about
    4M parameters, random weights from a seed) through ``DecisionFastPath``
    at all four buckets: greedy fused decode, then greedy materialized and
@@ -26,16 +27,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``TRAIN_STEPS`` steps; B1 and B2 must launch every step, every metric be
    finite with ``cost_best <= cost_mean``, and the parameters move; B2 is
    checked again on the encoder outputs of a training batch;
-7. time each kernel and its plain version (CUDA events; B1 and B3 at the
-   serving shape 100x1000, B2 at the training shape) and print a
-   ``{"kernels": [...]}`` line, the per-bucket decision latency and the
-   training step's numbers.
+7. hold the attention kernels B4 (flash attention) and B5 (decode
+   attention) against their plain versions at qwen3-4b and olmo-1b head
+   shapes, bf16 and f32, ragged lengths, a window, a rolling cache;
+8. drive the LM edge servers at full width, the flow of
+   ``examples/serve_multi_edge.py``: three ``LMEdgeBackend`` edges (lanes
+   1, 2, 4; 4096-slot caches) serving qwen3-4b in bf16 with random weights
+   from a seed, a phi warm-up of eight prefills per edge (256-2560
+   tokens), greedy dispatch of 18 requests (256-2560 prompt tokens, 32
+   generated each) over ``snapshot_instance``; all must be served, the
+   4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
+   per admission and B5 36 times per decode step;
+9. one request (1500 prompt tokens, 16 teacher-forced decode steps)
+   through the kernel path and the plain path with the same weights:
+   logits within 1e-3 of the largest |logit| with the weights in f32, and
+   within 0.1 in bf16, where 1-ulp rounding differences compound over 36
+   layers;
+10. time each kernel, its plain version and, for B4 and B5, PyTorch's
+    ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
+    shape 100x1000, B2 at the training shape, B4 at a 2048-token prefill,
+    B5 at the 4-lane edge's cache after serving) and print a
+    ``{"kernels": [...]}`` line;
+11. trace one prefill and five decode steps with ``torch.profiler``: device
+    busy ms, idle share and kernels per step.
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
 summary. Details of every comparison go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -59,6 +80,23 @@ TRAIN_WARMUP = 2
 # over d and Q in another order; dW sums over B*Z = 6400 rows at the
 # training shape, in partials, so its rounding grows with the row count.
 BWD_TOL = {"dc": 2e-5, "dh": 2e-5, "dw_px": 1e-4, "dw_py": 1e-4}
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+# B4/B5 against their plain versions: the reference's bars
+# (tests/test_kernels.py), as allclose with atol = rtol
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+LM_ARCH = "qwen3-4b"   # the LM each edge serves, full width, bf16
+LM_MAX_SEQ = 4096      # KV-cache slots per lane
+LM_REQUESTS = 18       # dispatched requests (examples/serve_multi_edge.py)
+LM_GEN = 32            # generated tokens per dispatched request
+LM_WARM = 100_000      # request ids of the phi warm-up start here
+LM_SEED = 0
+# kernel vs plain path at full width, of each row's largest |logit|: f32
+# sums in another order (f32); in bf16 the attention outputs round to 1 ulp
+# apart on about 0.03 % of elements, which compounds over 36 layers to
+# 3-4 % of the logits (measured on an H100, PERF.md), so bf16 gets a sanity bar
+LM_LOGIT_TOL_F32 = 1e-3
+LM_LOGIT_TOL_BF16 = 0.1
+LM_GAP = 2e-2          # argmax compared where the top-2 gap exceeds this
 
 
 def check(ok: bool, msg: str) -> None:
@@ -497,7 +535,7 @@ def drive_training(pol, tr, tinst, policy_score, profiler_steps=3):
     return summary, enc
 
 
-# -- phase 7: timing ------------------------------------------------------
+# -- phase 10: timing --------------------------------------------------------
 
 
 def time_ms(fn, reps=25, inner=20):
@@ -536,27 +574,30 @@ def time_ms(fn, reps=25, inner=20):
     return float(np.median(times))
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+def bound(flops, nbytes, peak=F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def _row(name, line, kern, plain, flops, nbytes, launches, err, shape):
+def _row(name, line, kern, plain, flops, nbytes, launches, err, shape, *,
+         source="policy_score.cu", replaces="policy_score.py", library=None,
+         peak=F32_FLOPS, reps=25, inner=20):
     """One kernel's entry of the ``{"kernels": [...]}`` line, timed in the
-    order plain, kernel, kernel, plain."""
-    plain_a = time_ms(plain)
-    kern_a = time_ms(kern)
-    kern_b = time_ms(kern)
-    plain_b = time_ms(plain)
-    bound_ms, bound_by = bound(flops, nbytes)
+    order plain, kernel, kernel, plain (then the library call, if any)."""
+    plain_a = time_ms(plain, reps, inner)
+    kern_a = time_ms(kern, reps, inner)
+    kern_b = time_ms(kern, reps, inner)
+    plain_b = time_ms(plain, reps, inner)
+    library_ms = time_ms(library, reps, inner) if library else None
+    bound_ms, bound_by = bound(flops, nbytes, peak)
     return {
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/policy_score.cu",
-        "replaces": f"src/repro/kernels/policy_score.py:{line}",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": f"src/repro/kernels/{replaces}:{line}",
         "launches": sum(launches.values()), "max_abs_err": err,
         "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "shape": shape, "launches_by_path": launches,
         "ms_runs": [kern_a, kern_b], "plain_ms_runs": [plain_a, plain_b],
     }
@@ -625,17 +666,390 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     return rows
 
 
+# -- phases 7-9 and 11: the LM edge server (kernels B4 and B5) --------------
+
+
+def _attn_err(got, want, dtype):
+    """(largest |got - want|, largest excess over allclose's atol + rtol
+    |want| with atol = rtol = ATTN_TOL[dtype])."""
+    diff = (got.float() - want.float()).abs()
+    tol = ATTN_TOL[dtype]
+    return float(diff.max()), float((diff - tol * want.float().abs()).max())
+
+
+def _slot_cache(gen, b, w, kv, hd, dtype, fills=None, rolling_from=None):
+    """K/V caches (B, W, KV, hd) with lane i holding positions
+    0..fills[i]-1 (the rest empty, ``pos`` the last one), or, with
+    ``rolling_from``, positions p0..p0+W-1 at their slots p % W."""
+    kc, vc = (torch.randn(b, w, kv, hd, generator=gen).to("cuda", dtype)
+              for _ in range(2))
+    slot_pos = torch.full((b, w), -1, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    for i in range(b):
+        if rolling_from is None:
+            n = fills[i]
+            slot_pos[i, :n] = torch.arange(n, dtype=torch.int32)
+            pos[i] = max(n - 1, 0)
+        else:
+            tail = torch.arange(rolling_from[i], rolling_from[i] + w,
+                                dtype=torch.int32)
+            slot_pos[i, (tail % w).long()] = tail
+            pos[i] = rolling_from[i] + w - 1
+    return kc, vc, slot_pos.cuda(), pos.cuda()
+
+
+def compare_attention(ops, ref, errs):
+    """B4 and B5 against their plain versions on the card at the listed
+    cases; raises on a disagreement beyond the reference's bars (2e-4 f32,
+    2e-2 bf16) and folds the largest errors into ``errs``."""
+    gen = torch.Generator().manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    report = []
+    for b, s, h, kv, hd, dtype, causal, window in (
+            (1, 37, 32, 8, 128, bf16, True, None),     # qwen3 heads
+            (1, 2048, 32, 8, 128, bf16, True, None),
+            (2, 300, 16, 16, 128, f32, True, None),    # olmo heads
+            (1, 1024, 32, 8, 128, bf16, True, 256),    # G=4, window 256
+            (1, 1024, 32, 8, 128, bf16, False, None)):  # non-causal
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda", dtype)
+                   for n in (h, kv, kv))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+        err, excess = _attn_err(got, want, dtype)
+        check(got.shape == q.shape and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention output malformed at {(b, s, h, kv, hd)}")
+        check(excess <= ATTN_TOL[dtype], f"flash_attention err {err} beyond "
+              f"allclose({ATTN_TOL[dtype]}) at "
+              f"{(b, s, h, kv, hd, str(dtype), causal, window)}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        report.append({"kernel": "flash_attention", "B": b, "S": s, "H": h,
+                       "KV": kv, "hd": hd, "dtype": str(dtype),
+                       "causal": causal, "window": window, "err": err})
+    for b, w, h, kv, hd, dtype, fills, roll, window in (
+            (4, 4096, 32, 8, 128, bf16, (1, 700, 2600, 4096), None, None),
+            (2, 256, 32, 8, 128, bf16, None, (900, 4000), 256),  # rolling
+            (3, 96, 32, 8, 128, bf16, (5, 60, 96), None, None),  # W=96
+            (2, 96, 16, 16, 128, f32, (30, 96), None, 20)):
+        kc, vc, slot_pos, pos = _slot_cache(gen, b, w, kv, hd, dtype, fills,
+                                            roll)
+        q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
+        got = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+        want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos,
+                                          window=window)
+        err, excess = _attn_err(got, want, dtype)
+        check(got.shape == q.shape and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"decode_attention output malformed at {(b, w, h, kv, hd)}")
+        check(excess <= ATTN_TOL[dtype], f"decode_attention err {err} beyond "
+              f"allclose({ATTN_TOL[dtype]}) at "
+              f"{(b, w, h, kv, hd, str(dtype), fills, roll, window)}")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        report.append({"kernel": "decode_attention", "B": b, "W": w, "H": h,
+                       "KV": kv, "hd": hd, "dtype": str(dtype),
+                       "fills": fills, "rolling_from": roll,
+                       "window": window, "err": err})
+    torch.cuda.synchronize()
+    return report
+
+
+def drive_lm_serving(cfg, params, batching, state, heuristics, build):
+    """The example's flow (examples/serve_multi_edge.py) at full width: three
+    ``LMEdgeBackend`` edges with lanes [1, 2, 4] share one weight set; a phi
+    warm-up of eight prefills per edge; ``snapshot_instance`` + greedy
+    dispatch of LM_REQUESTS requests; drain. The launch counters are set to
+    0 just before and read just after. Returns the summary and the edges."""
+    lanes = [1, 2, 4]
+    edges = [batching.LMEdgeBackend(cfg, params, lanes=n, max_seq=LM_MAX_SEQ,
+                                    seed=i) for i, n in enumerate(lanes)]
+    steps = {"admit_ms": [], "decode_ms": [], "decode_tokens": 0,
+             "decode_steps": 0}
+
+    def step(be):
+        n_phi = len(be.phi._xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        active = be.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if active:
+            steps["decode_steps"] += 1
+            if len(be.phi._xs) == n_phi:  # no admission in this step
+                steps["decode_ms"].append(ms)
+                steps["decode_tokens"] += active
+
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    for i, be in enumerate(edges):  # phi warm-up (paper Fig. 4 fit)
+        for rid, plen in enumerate((8, 16, 32, 48, 64, 80, 24, 40)):
+            be.submit(LM_WARM + 1000 * i + rid, plen * 32, 1)
+        while be._queue or any(s.remaining for s in be._lane_states):
+            step(be)
+    warm_s = time.perf_counter() - t_start
+
+    rng = np.random.default_rng(LM_SEED)
+    reqs = [state.QueuedRequest(rid=rid, data_size=float(rng.integers(
+        256, 2561)), source_edge=int(rng.integers(0, 3)))
+        for rid in range(LM_REQUESTS)]
+    states = [state.EdgeServiceState(edge_id=i, coords=(float(i), 0.0),
+                                     phi=be.phi, replicas=be.lanes)
+              for i, be in enumerate(edges)]
+    w = np.abs(np.arange(3)[:, None] - np.arange(3)[None]).astype(
+        np.float32) * 1e-4
+    inst = state.snapshot_instance(states, reqs, w, ct=1.0)
+    assign = heuristics.solve_greedy(inst)
+    share = {i: int(np.sum(assign[:len(reqs)] == i)) for i in range(3)}
+    t0 = time.perf_counter()
+    for r, target in zip(reqs, assign):
+        edges[int(target)].submit(r.rid, int(r.data_size), gen_len=LM_GEN)
+
+    def real_done():
+        return sum(len([r for r in be.finished if r < LM_WARM])
+                   for be in edges)
+
+    rounds = 0
+    while real_done() < len(reqs) and rounds < 10_000:
+        for be in edges:
+            step(be)
+        rounds += 1
+    serve_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("flash_attention",
+                                               "decode_attention")}
+    admissions = sum(len(be.phi._xs) for be in edges)
+    check(real_done() == len(reqs), f"served {real_done()} of {len(reqs)}")
+    check(share[2] >= share[0], f"dispatch share {share}: the 4-lane edge "
+          "got fewer requests than the 1-lane edge")
+    for be in edges:
+        for rid, n in be.finished.items():
+            want = 1 if rid >= LM_WARM else LM_GEN
+            check(n == want, f"request {rid} generated {n} tokens, not {want}")
+    check(launches["flash_attention"] == cfg.num_layers * admissions,
+          f"B4 launched {launches['flash_attention']} times for {admissions} "
+          f"admissions of {cfg.num_layers} layers")
+    check(launches["decode_attention"] == cfg.num_layers * steps[
+        "decode_steps"], f"B5 launched {launches['decode_attention']} times "
+          f"for {steps['decode_steps']} decode steps of {cfg.num_layers} "
+          "layers")
+    dec = steps["decode_ms"]
+    summary = {
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "params": sum(t.numel() for t in _leaves(params)),
+        "lanes": lanes, "max_seq": LM_MAX_SEQ, "requests": len(reqs),
+        "gen_len": LM_GEN, "dispatch_share": share,
+        "served": {i: len([r for r in be.finished if r < LM_WARM])
+                   for i, be in enumerate(edges)},
+        "admissions": admissions, "decode_steps": steps["decode_steps"],
+        "launches": launches, "warmup_s": warm_s, "serve_s": serve_s,
+        "phi": {i: {"a": be.phi.a, "b": be.phi.b,
+                    "prompt_tokens": list(be.phi._xs),
+                    "prefill_ms": [y * 1e3 for y in be.phi._ys]}
+                for i, be in enumerate(edges)},
+        "decode_step_ms": {"p50": float(np.percentile(dec, 50)),
+                           "p95": float(np.percentile(dec, 95)),
+                           "n": len(dec)},
+        "decode_tokens_per_s": steps["decode_tokens"] / (sum(dec) / 1e3),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    return summary, edges
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def profile_lm(cfg, params, lm, edge, prompt_len=2048, n_decode=5):
+    """Device busy ms, idle share and kernels per unit from torch.profiler
+    traces of one prefill (``prompt_len`` tokens) and of ``n_decode`` decode
+    steps over ``edge``'s batch cache (all its lanes)."""
+    from torch.profiler import ProfilerActivity, profile
+    head = lm.head_f32(params, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32).cuda()
+    lm.prefill(params, {"tokens": tokens}, cfg, max_seq=LM_MAX_SEQ, head=head)
+    torch.cuda.synchronize()
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(params, {"tokens": tokens}, cfg, max_seq=LM_MAX_SEQ,
+                   head=head)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["prefill"] = {"prompt_tokens": prompt_len,
+                      **_device_summary(prof, 1, wall_ms)}
+    token = torch.zeros(edge.lanes, dtype=torch.int32, device=edge.device)
+    cache = edge._cache
+    cache, _ = lm.decode_step(params, cache, {"token": token}, cfg, head=head)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_decode):
+            cache, _ = lm.decode_step(params, cache, {"token": token}, cfg,
+                                      head=head)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+    out["decode"] = {"lanes": edge.lanes,
+                     "pos": cache["pos"].tolist(),
+                     **_device_summary(prof, n_decode, wall_ms)}
+    return out
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f32(v) for v in tree]
+    return tree.float()
+
+
+def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
+                       n_decode=16):
+    """One request through the kernel path (B4, B5) and the plain path
+    (their plain versions on the card), same weights, teacher-forced on the
+    same tokens, in bf16 (the serving path) and with the same weights in
+    f32. Each logits row's largest difference is taken relative to its
+    largest |logit|: f32 must agree to LM_LOGIT_TOL_F32, bf16 to
+    LM_LOGIT_TOL_BF16 (1-ulp rounding differences of the attention output
+    compound over 36 layers; PERF.md). Reports the share of steps with
+    equal argmax among those whose top-2 gap exceeds LM_GAP of the largest
+    |logit|."""
+    from unittest import mock
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
+                           dtype=torch.int32).cuda()
+    forced = torch.randint(0, cfg.vocab_size, (n_decode, 1), generator=gen,
+                           dtype=torch.int32).cuda()
+
+    def run(cfg, params, head):
+        cache, logits = lm.prefill(params, {"tokens": prompt}, cfg,
+                                   max_seq=prompt_len + n_decode, head=head)
+        rows = [logits]
+        for tok in forced:
+            cache, logits = lm.decode_step(params, cache, {"token": tok}, cfg,
+                                           head=head)
+            rows.append(logits)
+        return torch.cat(rows)[:, :cfg.vocab_size]
+
+    def compare(cfg, params, tol):
+        head = lm.head_f32(params, cfg)
+        kern = run(cfg, params, head)
+        with mock.patch.object(ops, "flash_attention",
+                               lambda q, k, v, *, causal, window:
+                               ref.flash_attention_torch(
+                                   q, k, v, causal=causal, window=window)), \
+                mock.patch.object(ops, "decode_attention",
+                                  lambda q, kc, vc, sp, pos, *, window:
+                                  ref.decode_attention_torch(
+                                      q, kc, vc, sp, pos, window=window)):
+            plain = run(cfg, params, head)
+        torch.cuda.synchronize()
+        scale = plain.abs().amax(-1)
+        err = (kern - plain).abs().amax(-1) / scale
+        top = plain.topk(2, dim=-1).values
+        gapped = (top[:, 0] - top[:, 1]) > LM_GAP * scale
+        same = kern.argmax(-1) == plain.argmax(-1)
+        check(bool(torch.isfinite(kern).all()),
+              f"non-finite kernel-path logits ({cfg.dtype})")
+        check(float(err.max()) <= tol, f"kernel-path logits ({cfg.dtype}) "
+              f"differ from the plain path's by {float(err.max())} of the "
+              f"largest |logit|, above {tol}")
+        return {"tol": tol, "max_rel_err": float(err.max()),
+                "rel_err_prefill": float(err[0]),
+                "rel_err_steps": [float(e) for e in err],
+                "gapped_steps": int(gapped.sum()),
+                "argmax_equal_share_gapped": (
+                    float(same[gapped].float().mean())
+                    if bool(gapped.any()) else None),
+                "argmax_equal_share_all": float(same.float().mean())}
+
+    out = {"prompt_tokens": prompt_len, "decode_steps": n_decode,
+           "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16)}
+    params32 = _to_f32(params)
+    out["f32"] = compare(dataclasses.replace(cfg, dtype="float32"), params32,
+                         LM_LOGIT_TOL_F32)
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_timings(ops, ref, edge, launches, errs):
+    """B4 at (1, 2048, 32, 8, 128) bf16 causal and B5 at the 4-lane edge's
+    batch cache after serving (W=4096, 8 KV heads, 32 query heads, its
+    slot positions; random q), each beside its plain version, SDPA and its
+    bound (bf16 tensor-core peak against the memory rate)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(31)
+    b, s, h, kv, hd = 1, 2048, 32, 8, 128
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+               for n in (h, kv, kv))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = b * s * (s + 1) // 2  # causal (row, column) pairs
+    b4_flops = 4 * h * hd * pairs
+    b4_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    rows = [_row("flash_attention", 26,
+                 lambda: ops.flash_attention(q, k, v, causal=True),
+                 lambda: ref.flash_attention_torch(q, k, v, causal=True),
+                 b4_flops, b4_bytes, launches["flash_attention"],
+                 errs["flash_attention"],
+                 f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal",
+                 source="flash_attention.cu",
+                 replaces="flash_attention.py",
+                 library=lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, enable_gqa=True),
+                 peak=BF16_FLOPS, reps=10, inner=5)]
+
+    kc = edge._cache["layers"]["k"][0]
+    vc = edge._cache["layers"]["v"][0]
+    slot_pos, pos = edge._cache["slot_pos"], edge._cache["pos"]
+    bb, w = slot_pos.shape
+    qd = torch.randn(bb, h, hd, generator=gen).to("cuda", torch.bfloat16)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    n_valid = int(valid.sum())
+    b5_flops = 4 * h * hd * n_valid
+    b5_bytes = (2 * n_valid * kv * hd * 2 + 2 * 2 * bb * h * hd
+                + 4 * bb * w + 4 * bb)
+    kct, vct = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    mask = valid[:, None, None, :]
+    rows.append(_row(
+        "decode_attention", 25,
+        lambda: ops.decode_attention(qd, kc, vc, slot_pos, pos),
+        lambda: ref.decode_attention_torch(qd, kc, vc, slot_pos, pos),
+        b5_flops, b5_bytes, launches["decode_attention"],
+        errs["decode_attention"],
+        f"B={bb} W={w} H={h} KV={kv} hd={hd} bf16, {n_valid} valid slots",
+        source="decode_attention.cu", replaces="decode_attention.py",
+        library=lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True),
+        peak=BF16_FLOPS))
+    rows[-1]["valid_slot_share"] = n_valid / (bb * w)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core import heuristics, state
     from repro_torch.core import instances as tinst
     from repro_torch.core import objective as obj
     from repro_torch.core import policy as pol
     from repro_torch.core import train as tr
-    from repro_torch.kernels import ops, policy_score, ref
+    from repro_torch.kernels import build, ops, policy_score, ref
+    from repro_torch.models import lm
     from repro_torch.nn import param_count
+    from repro_torch.serving import batching
     from repro_torch.serving import fastpath as fpm
 
     # phase 1: the card
@@ -644,9 +1058,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
+    # phase 2: build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    reports = policy_score.build(force=True)
+    reports = build.build(force=True)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
     for src, rep in reports.items():
@@ -654,9 +1068,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
 
-    # phase 3: kernels against their plain versions
+    # phase 3: policy-head kernels against their plain versions
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
-            "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0}
+            "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
+            "flash_attention": 0.0, "decode_attention": 0.0}
     random = random_cases(fpm.DEFAULT_BUCKETS)
     cases = compare_kernels(ops, ref, random, errs)
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
@@ -683,13 +1098,40 @@ def main() -> int:
     bwd += compare_backward(policy_score, ref, [("encoder", *enc_train)],
                             errs)
 
-    # phase 7: timing
+    # phase 7: the attention kernels against their plain versions
+    attn_cases = compare_attention(ops, ref, errs)
+    print(f"compare attention: max_abs_err flash "
+          f"{errs['flash_attention']}, decode {errs['decode_attention']} "
+          f"over {len(attn_cases)} cases", flush=True)
+
+    # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    lm_serving, edges = drive_lm_serving(cfg, params, batching, state,
+                                         heuristics, build)
+    print(f"lm serving: {json.dumps(lm_serving)}", flush=True)
+
+    # phase 9: the kernel path against the plain path at full width
+    lm_parity = lm_kernel_vs_plain(cfg, params, lm, ops, ref)
+    print(f"lm kernel vs plain: {json.dumps(lm_parity)}", flush=True)
+
+    # phase 10: timing
     launches = {name: {"serving": summary["launches"].get(name, 0),
                        "training": training["launches"].get(name, 0)}
-                for name in policy_score.LAUNCHES}
+                for name in ("policy_score", "policy_score_bwd",
+                             "policy_score_decode")}
     launches["policy_score_decode"].pop("training")
     launches["policy_score_bwd"].pop("serving")
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
+    kernels += attention_timings(
+        ops, ref, edges[2],
+        {k: {"lm_serving": n} for k, n in lm_serving["launches"].items()},
+        errs)
+
+    # phase 11: device busy and idle share of the LM steps
+    lm_profile = profile_lm(cfg, params, lm, edges[2])
+    print(f"lm profile: {json.dumps(lm_profile)}", flush=True)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -697,6 +1139,8 @@ def main() -> int:
         "card": card, "build_s": build_s, "main_path": summary,
         "gradient_parity": parity, "training": training,
         "compare": cases, "compare_backward": bwd, "memory": mem,
+        "compare_attention": attn_cases, "lm_serving": lm_serving,
+        "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "kernels": kernels}, indent=1))
 
     print(json.dumps({"decision_ms": summary["decision_ms"],
@@ -706,6 +1150,15 @@ def main() -> int:
                       "train_profile": {k: training["profile"][k] for k in
                                         ("wall_ms", "device_busy_ms",
                                          "idle_share", "kernels_per_unit")},
+                      "lm_decode_step_ms": lm_serving["decode_step_ms"],
+                      "lm_decode_tokens_per_s":
+                          lm_serving["decode_tokens_per_s"],
+                      "lm_max_memory_allocated_bytes":
+                          lm_serving["max_memory_allocated_bytes"],
+                      "lm_profile": {k: {m: v[m] for m in
+                                         ("wall_ms", "device_busy_ms",
+                                          "idle_share", "kernels_per_unit")}
+                                     for k, v in lm_profile.items()},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,14 @@
-"""Weight bridge from the reference's checkpoints to the port's policy.
+"""Weight bridge from the reference's checkpoints to the port's policy and
+LM.
 
 The reference writes a pytree as ``arrays.npz`` plus ``manifest.json``,
 whose ``leaves`` list each leaf's "/"-joined pytree path, its array name,
 dtype and shape (``repro/checkpoint/checkpointer.py:39-84``). Numpy alone
 reads it. The port's state-dict keys are those paths with ``.`` for ``/``
-and the same (in, out) layout, so leaves copy one for one.
+and the same (in, out) layout, so leaves copy one for one. The LM's
+reference params stack the layers on a leading L axis
+(``repro/models/lm.py:67-68``); :func:`load_reference_lm_params` splits
+them onto the port's per-layer leaves.
 """
 from __future__ import annotations
 
@@ -62,3 +66,59 @@ def load_reference_params(policy: nn.Module, params_flat: dict,
     shape mismatch."""
     _copy_leaves("params", param_tree(policy), params_flat)
     _copy_leaves("state", state_tree(policy), state_flat)
+
+
+def reference_tensor(arr) -> torch.Tensor:
+    """A CPU tensor of a reference leaf. bf16 numpy arrays (dtype name
+    ``bfloat16``, from ``ml_dtypes``, which ``torch.tensor`` refuses) are
+    reinterpreted bit for bit through int16, without importing
+    ``ml_dtypes``."""
+    arr = np.array(arr)  # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_param_groups(params: dict) -> dict[str, list[torch.Tensor]]:
+    """{reference "/"-path: [port tensors]} of an LM's params: one tensor
+    for a top-level leaf, one per layer (in order) for a ``layers/`` leaf."""
+    groups: dict[str, list[torch.Tensor]] = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, f"{prefix}/{key}" if prefix else str(key))
+        else:
+            groups.setdefault(prefix, []).append(tree)
+
+    for key, sub in params.items():
+        if key == "layers":
+            for layer in sub:
+                walk(layer, "layers")
+        else:
+            walk(sub, key)
+    return groups
+
+
+def load_reference_lm_params(params: dict, flat: dict) -> None:
+    """Copy a reference LM's leaves ({"/"-path: array}, layers stacked on a
+    leading L axis, f32 or bf16) into the port's ``params`` in place.
+    Raises on a missing leaf, an extra leaf, or a shape mismatch."""
+    groups = lm_param_groups(params)
+    missing = sorted(set(groups) - set(flat))
+    extra = sorted(set(flat) - set(groups))
+    if missing or extra:
+        raise KeyError(f"reference params do not match the LM: missing "
+                       f"{missing}, unexpected {extra}")
+    n_layers = len(params["layers"])
+    for key, tensors in groups.items():
+        src = reference_tensor(flat[key])
+        stacked = key.startswith("layers/")
+        want = ((n_layers, *tensors[0].shape) if stacked
+                else tuple(tensors[0].shape))
+        if tuple(src.shape) != tuple(want):
+            raise ValueError(f"shape mismatch for LM leaf {key!r}: "
+                             f"reference {tuple(src.shape)}, port {want}")
+        with torch.no_grad():
+            for i, t in enumerate(tensors):
+                t.copy_(src[i] if stacked else src)

@@ -1,2 +1,4 @@
-"""Policy-head kernels: hand-written CUDA (``policy_score``), their plain
+"""The port's kernels: hand-written CUDA for the policy head (B1-B3,
+``policy_score``) and the LM attention (B4 ``flash_attention``, B5
+``decode_attention``), their shared build helper (``build``), their plain
 PyTorch versions (``ref``) and the device-dispatching wrappers (``ops``)."""

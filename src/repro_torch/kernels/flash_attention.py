@@ -1,0 +1,99 @@
+"""B4: hand-written CUDA flash-attention forward (``csrc/flash_attention.cu``).
+
+Replaces the Pallas ``_kernel`` of ``repro/kernels/flash_attention.py:26``
+(causal / sliding-window GQA flash attention, online softmax in f32, dead
+tiles skipped, KV head ``h // G``). Unlike the Pallas kernel it takes any
+sequence length. The source's header note says what bounds it on the H100
+and what its design does about that.
+
+:func:`flash_attention_cuda` takes CUDA tensors only; its plain version is
+:func:`repro_torch.kernels.ref.flash_attention_torch`, and
+:func:`repro_torch.kernels.ops.flash_attention` chooses between the two by
+the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import LAUNCHES, load, raise_on
+
+MAX_HEAD_DIM = 128
+DTYPES = (torch.float32, torch.bfloat16)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"corais_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P]}
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
+                 device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype`` on ``device``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {name} on "
+                         f"{t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_vector_loads(hd: int, dtype, **tensors) -> None:
+    """The kernels load K and V in 16-byte chunks: hd must be a multiple of
+    8 (bf16) or 4 (f32) and each tensor's data 16-byte aligned."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if hd % vec:
+        raise ValueError(f"hd={hd} must be a multiple of {vec} for {dtype}")
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def window_arg(window) -> int:
+    """The C interface's window: a positive width, or -1 for none."""
+    if window is None:
+        return -1
+    if int(window) < 1:
+        raise ValueError(f"window must be positive or None, got {window}")
+    return int(window)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
+    """B4: q (B, S, H, hd); k, v (B, S, KV, hd), H a multiple of KV,
+    hd <= 128 and a multiple of 8 (bf16) or 4 (f32), all f32 or all bf16,
+    contiguous, k and v 16-byte aligned, on one card. Returns (B, S, H, hd)
+    in q's dtype."""
+    win = window_arg(window)
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("q must be (B, S, H, hd) and k, v (B, S, KV, hd)")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if not (b >= 1 and s >= 1 and kv >= 1 and h % kv == 0
+            and 1 <= hd <= MAX_HEAD_DIM):
+        raise ValueError(f"unsupported shape B={b} S={s} H={h} KV={kv} "
+                         f"hd={hd}: the kernel takes H % KV == 0 and "
+                         f"1 <= hd <= {MAX_HEAD_DIM}")
+    check_tensor("q", q, (b, s, h, hd), q.dtype, q.device)
+    check_tensor("k", k, (b, s, kv, hd), q.dtype, q.device)
+    check_tensor("v", v, (b, s, kv, hd), q.dtype, q.device)
+    check_vector_loads(hd, q.dtype, k=k, v=v)
+    lib = load("flash_attention.cu", _SIGNATURES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.corais_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+            kv, hd, int(bool(causal)), win, 1.0 / math.sqrt(hd),
+            int(q.dtype == torch.bfloat16), stream)
+    raise_on(err, lib, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,10 +1,14 @@
-"""Public wrappers of the policy-head kernels, dispatching by device.
+"""Public wrappers of the port's kernels, dispatching by device.
 
 A CUDA tensor launches the hand-written kernel
-(:mod:`repro_torch.kernels.policy_score`); if the build or the launch
-fails, the call raises. A CPU tensor runs the plain PyTorch version
+(:mod:`repro_torch.kernels.policy_score` for B1-B3,
+:mod:`~repro_torch.kernels.flash_attention` for B4,
+:mod:`~repro_torch.kernels.decode_attention` for B5); if the build or the
+launch fails, the call raises. A CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
-Both accept any leading batch shape, as the reference's ``ops`` do.
+The policy-head wrappers accept any leading batch shape, as the
+reference's ``ops`` do; the attention wrappers take the reference kernels'
+layouts.
 
 :func:`policy_score` is differentiable through :class:`PolicyScore`, the
 counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
@@ -16,6 +20,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
                                               policy_score_decode_cuda)
@@ -33,7 +39,7 @@ def _flatten(c_emb, h_emb, edge_mask):
 def _device_type(c_emb) -> str:
     kind = c_emb.device.type
     if kind not in ("cuda", "cpu"):
-        raise ValueError(f"no policy-head implementation for device {kind!r}")
+        raise ValueError(f"no kernel implementation for device {kind!r}")
     return kind
 
 
@@ -91,4 +97,23 @@ def policy_score_decode(c_emb, h_emb, w_px, w_py, edge_mask, *,
             tv.reshape(*batch_shape, *tv.shape[-2:]))
 
 
-__all__ = ["PolicyScore", "policy_score", "policy_score_decode", "ref"]
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """B4: GQA flash attention, q (B, S, H, hd), k, v (B, S, KV, hd) ->
+    (B, S, H, hd) in q's dtype, any S."""
+    if _device_type(q) == "cpu":
+        return ref.flash_attention_torch(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
+    """B5: one query token per sequence, q (B, H, hd), over a rolling cache
+    (B, W, KV, hd) with slot positions (B, W) and query positions (B,)."""
+    if _device_type(q) == "cpu":
+        return ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
+                                          window=window)
+    return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
+                                 window=window)
+
+
+__all__ = ["PolicyScore", "policy_score", "policy_score_decode",
+           "flash_attention", "decode_attention", "ref"]

@@ -11,107 +11,38 @@ bounds them and how they are laid out):
 * :func:`policy_score_decode_cuda`, the fused score + top-k decode,
   replaces the Pallas ``_decode_kernel`` (``repro/kernels/policy_score.py:180``).
 
-The sources are compiled with ``nvcc`` into ``build/torch_kernels/`` at the
-first launch (never at import: the CPU tests import this module on
-machines without ``nvcc``) and loaded with ``ctypes``. A wrapper checks its
-inputs, allocates outputs and scratch with ``torch.empty``, launches on the
-current stream, raises on a CUDA error, and adds one to its entry in
-:data:`LAUNCHES`. It takes only CUDA tensors; the plain versions for the
-CPU live in :mod:`repro_torch.kernels.ref`, and :mod:`repro_torch.kernels.ops`
-chooses between the two by the tensors' device.
+:mod:`repro_torch.kernels.build` compiles the source at the first launch
+and loads it with ``ctypes``. A wrapper checks its inputs, allocates
+outputs and scratch with ``torch.empty``, launches on the current stream,
+raises on a CUDA error, and adds one to its entry in :data:`LAUNCHES`.
+It takes only CUDA tensors; the plain versions for the CPU live in
+:mod:`repro_torch.kernels.ref`, and :mod:`repro_torch.kernels.ops` chooses
+between the two by the tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("policy_score.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels.build import (LAUNCHES, build, load, raise_on,
+                                       reset_launch_counts)
 
 #: Kernel limits: Q edges (four per lane of a warp), d model width.
 MAX_EDGES = 128
 MAX_WIDTH = 512
 
-#: Launches per wrapper since the last :func:`reset_launch_counts`; a
-#: wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"policy_score": 0, "policy_score_bwd": 0, "policy_score_decode": 0}
-
-_LIB: ctypes.CDLL | None = None  # loaded at the first launch
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []) + [
-            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                       "are compiled from csrc/ at first use")
-
-
-def _library(source: str) -> Path:
-    return BUILD_DIR / f"lib{Path(source).stem}.so"
-
-
-def build(force: bool = False) -> dict[str, str]:
-    """Compile every stale source in ``csrc/`` (one ``nvcc`` per source, all
-    started together) into ``build/torch_kernels/``. Returns
-    {source: nvcc's report (registers, shared memory, spills)}; raises if a
-    compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stale = [s for s in SOURCES if force or not _library(s).exists()
-             or _library(s).stat().st_mtime < (CSRC / s).stat().st_mtime]
-    procs = {}
-    nvcc = _nvcc() if stale else None
-    for src in stale:
-        tmp = _library(src).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    reports = {}
-    for src, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
-        os.replace(tmp, _library(src))  # atomic: a reader never sees half
-        reports[src] = out
-    return reports
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "corais_policy_score": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
+    "corais_policy_score_decode": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    "corais_policy_score_bwd": [_P] * 17 + [_I] * 6 + [_F, _F, _P],
+}
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    build()
-    lib = ctypes.CDLL(str(_library("policy_score.cu")))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.corais_policy_score.argtypes = [ptr] * 7 + [i32] * 4 + [f32, f32, ptr]
-    lib.corais_policy_score.restype = i32
-    lib.corais_policy_score_decode.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [f32, f32, ptr])
-    lib.corais_policy_score_decode.restype = i32
-    lib.corais_policy_score_bwd.argtypes = (
-        [ptr] * 17 + [i32] * 6 + [f32, f32, ptr])
-    lib.corais_policy_score_bwd.restype = i32
-    lib.corais_cuda_error_string.argtypes = [i32]
-    lib.corais_cuda_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    return load("policy_score.cu", _SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -144,12 +75,6 @@ def _check_inputs(c, h, w_px, w_py, maskf):
     return b, q, z, d
 
 
-def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
-    if err != 0:
-        msg = lib.corais_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def policy_score_cuda(c, h, w_px, w_py, maskf, *, tanh_clip: float = 10.0):
     """B1: log a_qz (eq 17) as (B, Z, Q) f32. c: (B, Q, d); h: (B, Z, d);
     w_px, w_py: (d, d); maskf: (B, Q) f32, > 0.5 = real edge."""
@@ -163,7 +88,7 @@ def policy_score_cuda(c, h, w_px, w_py, maskf, *, tanh_clip: float = 10.0):
             c.data_ptr(), h.data_ptr(), w_px.data_ptr(), w_py.data_ptr(),
             maskf.data_ptr(), px_t.data_ptr(), out.data_ptr(), b, q, z, d,
             1.0 / math.sqrt(d), float(tanh_clip), stream)
-    _raise_on(err, lib, "policy_score")
+    raise_on(err, lib, "policy_score")
     LAUNCHES["policy_score"] += 1
     return out
 
@@ -188,7 +113,7 @@ def policy_score_decode_cuda(c, h, w_px, w_py, maskf, *,
             maskf.data_ptr(), pxy.data_ptr(), top_idx.data_ptr(),
             top_val.data_ptr(), b, q, z, d, int(k), int(bool(normalize)),
             1.0 / math.sqrt(d), float(tanh_clip), stream)
-    _raise_on(err, lib, "policy_score_decode")
+    raise_on(err, lib, "policy_score_decode")
     LAUNCHES["policy_score_decode"] += 1
     return top_idx, top_val
 
@@ -228,6 +153,10 @@ def policy_score_bwd_cuda(g, out, c, h, w_px, w_py, maskf, *,
             *(t.data_ptr() for t in scratch), dc.data_ptr(), dh.data_ptr(),
             dw_px.data_ptr(), dw_py.data_ptr(), b, q, z, d, split_x, split_y,
             1.0 / math.sqrt(d), float(tanh_clip), stream)
-    _raise_on(err, lib, "policy_score_bwd")
+    raise_on(err, lib, "policy_score_bwd")
     LAUNCHES["policy_score_bwd"] += 1
     return dc, dh, dw_px, dw_py
+
+
+__all__ = ["LAUNCHES", "build", "reset_launch_counts", "policy_score_cuda",
+           "policy_score_decode_cuda", "policy_score_bwd_cuda"]

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the policy-head kernels (the allclose ground
-truth, counterpart of the policy-head oracles in ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the port's kernels (the allclose ground truth,
+counterpart of the oracles in ``repro/kernels/ref.py``): the policy head
+(B1-B3) and the LM attention (B4, B5).
 
 ``*_ref`` take one instance (no batch axis); ``*_torch`` take any leading
 batch shape and are what :mod:`repro_torch.kernels.ops` runs for tensors on
@@ -7,7 +8,9 @@ the CPU. On a CUDA tensor ``ops`` launches the hand-written kernels of
 :mod:`repro_torch.kernels.policy_score` instead, and ``chip_smoke.py``
 holds those kernels against the ``*_torch`` functions here. The B2 kernel's
 plain version, :func:`policy_score_bwd_torch`, is the head's explicit
-backward.
+backward. The attention twins (:func:`flash_attention_torch`,
+:func:`decode_attention_torch`) use f32 math, the -1e30 mask, GQA by
+reshape, and return the input dtype, as the reference's oracles do.
 
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
@@ -125,3 +128,46 @@ def policy_score_decode_torch(c_emb, h_emb, w_px, w_py, edge_mask,
     py = h_emb @ w_py
     u = (py @ px.transpose(-1, -2)) / math.sqrt(d)
     return _decode(u, edge_mask, tanh_clip, k, normalize)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention_torch(q, k, v, *, causal=True, window=None):
+    """Plain version of B4, twin of ``ref.flash_attention_ref``
+    (``repro/kernels/ref.py:10``). q: (B, S, H, hd); k, v: (B, S, KV, hd)
+    -> (B, S, H, hd) in q's dtype."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd).float()
+    sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, k.float()) / math.sqrt(hd)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    sc = torch.where(mask, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
+                           window=None):
+    """Plain version of B5, twin of ``ref.decode_attention_ref``
+    (``repro/kernels/ref.py:30``). q: (B, H, hd); k/v_cache: (B, W, KV, hd);
+    slot_pos: (B, W) absolute position per slot (-1 = empty); pos: (B,)
+    -> (B, H, hd) in q's dtype."""
+    b, w, kv, hd = k_cache.shape
+    h = q.shape[1]
+    qg = q.reshape(b, kv, h // kv, hd).float()
+    sc = torch.einsum("bkgd,bmkd->bkgm", qg, k_cache.float()) / math.sqrt(hd)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        valid &= slot_pos > (pos[:, None] - window)
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
+    return o.reshape(b, h, hd).to(q.dtype)

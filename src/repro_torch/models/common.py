@@ -1,0 +1,79 @@
+"""Shared LM building blocks: norm dispatch, qk-norm and rotary position
+embeddings (counterpart of ``repro/models/common.py``).
+
+Parameters are plain tensors in nested dicts with the reference's leaf
+names. M-RoPE and the sinusoidal table wait for the VLM and audio slices
+(ROADMAP A11); the depthwise conv waits for the SSM slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.layers import nonparametric_layernorm
+
+
+def norm_init(cfg: ModelConfig, dim: int, device=None):
+    """The reference's norm leaves: a (0,) placeholder for the
+    nonparametric norm (kept, so the weight bridge maps leaf for leaf),
+    {"scale", "bias"} for layernorm, {"scale"} for rmsnorm; all f32."""
+    if cfg.norm == "nonparametric":
+        return torch.zeros((0,), dtype=torch.float32, device=device)
+    scale = torch.ones((dim,), dtype=torch.float32, device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": scale,
+                "bias": torch.zeros((dim,), dtype=torch.float32,
+                                    device=device)}
+    return {"scale": scale}
+
+
+def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Normalise over the last axis in f32; return x's dtype."""
+    dtype = x.dtype
+    if cfg.norm == "nonparametric":
+        return nonparametric_layernorm(x).to(dtype)
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mean).mean(-1, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + 1e-5) * p["scale"]
+                + p["bias"]).to(dtype)
+    ms = torch.square(xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * p["scale"]).to(dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """qk-norm (qwen3): RMSNorm over head_dim with a learned (head_dim,)
+    scale."""
+    xf = x.float()
+    ms = torch.square(xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-halves RoPE. x: (..., S, H, hd); positions broadcastable to
+    (..., S). Angles in f32; returns x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def position_encode(cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """q/k position encoding. positions: (..., S) int."""
+    if cfg.mrope:
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl) is not ported yet: it waits for the VLM part "
+            "of ROADMAP A11")
+    return apply_rope(x, positions, cfg.rope_theta)

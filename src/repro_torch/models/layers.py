@@ -1,0 +1,160 @@
+"""Per-layer blocks of the dense LM family: attention (prefill + decode),
+the MLP and the decoder layer (counterpart of ``repro/models/layers.py``).
+
+Parameters are nested dicts of tensors with the reference's leaf names and
+(in, out) layouts. MoE (mixtral), SSM (falcon-mamba), hybrid (hymba) and
+the whisper encoder/decoder layers are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (norm_apply, norm_init,
+                                       position_encode, rms_head_norm)
+from repro_torch.nn.module import normal_init
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for the layer families this port does not have yet (called
+    where params and caches are made, ``lm.init_params`` / ``init_cache``)."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "SSM layers (falcon-mamba) wait for the next slice: kernel B6 "
+            "with models/ssm.py (ROADMAP A11)")
+    if cfg.hybrid:
+        raise NotImplementedError(
+            "hybrid attention + SSM layers (hymba) wait for ROADMAP A11")
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers (mixtral) wait for ROADMAP A11")
+    if cfg.encoder_decoder or cfg.family == "audio":
+        raise NotImplementedError(
+            "the whisper encoder/decoder layers wait for ROADMAP A11")
+
+
+# ---------------------------------------------------------------------------
+# attention block
+# ---------------------------------------------------------------------------
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype,
+              device=None):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def w(shape):
+        return normal_init(generator, shape, 0.02, dtype, device)
+
+    p = {"wq": w((d, h * hd)), "wk": w((d, kv * hd)), "wv": w((d, kv * hd)),
+         "wo": w((h * hd, d))}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    return p
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    b, s = x.shape[0], x.shape[1]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if "q_norm" in p:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    q = position_encode(cfg, q, positions)
+    k = position_encode(cfg, k, positions)
+    return q, k, v
+
+
+def attn_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True):
+    """Full-sequence attention (prefill) through B4. x: (B, S, D). Returns
+    (out (B, S, D), (k, v)) with k, v (B, S, KV, hd) after RoPE."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = attn_lib.flash_attention(q, k, v, causal=causal,
+                                   window=cfg.sliding_window,
+                                   logit_softcap=cfg.attn_logit_softcap)
+    b, s = x.shape[0], x.shape[1]
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return out, (k, v)
+
+
+def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
+    """One-token attention through B5. x_t: (B, D); layer_cache: {"k", "v"}
+    (B, W, KV, hd); slot_pos (B, W) already holds ``pos`` in its slot.
+
+    The new K/V row is written into slot ``pos % W`` of the cache in place
+    (the reference blends it in with a one-hot mask,
+    ``repro/models/layers.py:90-92``; for finite caches the result is the
+    same). Returns (out (B, D), layer_cache)."""
+    b = x_t.shape[0]
+    q, k, v = _project_qkv(p, x_t[:, None, :], cfg, pos[:, None])
+    q = q[:, 0]  # (B, H, hd)
+    w = layer_cache["k"].shape[1]
+    rows = torch.arange(b, device=x_t.device)
+    slot = (pos % w).long()
+    layer_cache["k"][rows, slot] = k[:, 0]
+    layer_cache["v"][rows, slot] = v[:, 0]
+    out = attn_lib.decode_attention(q, layer_cache["k"], layer_cache["v"],
+                                    slot_pos, pos,
+                                    logit_softcap=cfg.attn_logit_softcap,
+                                    window=cfg.sliding_window)
+    return out.reshape(b, cfg.num_heads * cfg.head_dim) @ p["wo"], layer_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype,
+             device=None):
+    d, f = cfg.d_model, cfg.d_ff
+
+    def w(shape):
+        return normal_init(generator, shape, 0.02, dtype, device)
+
+    if cfg.act == "silu":
+        return {"wg": w((d, f)), "wu": w((d, f)), "wo": w((f, d))}
+    return {"wi": w((d, f)), "wo": w((f, d))}
+
+
+def mlp_apply(p, x, cfg: ModelConfig):
+    """SwiGLU, or a GELU MLP with jax's default tanh approximation."""
+    if "wg" in p:
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# decoder layer (dense family)
+# ---------------------------------------------------------------------------
+
+
+def layer_init(generator: torch.Generator, cfg: ModelConfig, dtype,
+               device=None):
+    return {"ln1": norm_init(cfg, cfg.d_model, device),
+            "attn": attn_init(generator, cfg, dtype, device),
+            "ln2": norm_init(cfg, cfg.d_model, device),
+            "mlp": mlp_init(generator, cfg, dtype, device)}
+
+
+def layer_forward(p, x, positions, cfg: ModelConfig):
+    """Full-sequence decoder layer. Returns (x, (k, v))."""
+    a, kv = attn_forward(p["attn"], norm_apply(cfg, p["ln1"], x), positions,
+                         cfg, causal=True)
+    x = x + a
+    return x + mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg), kv
+
+
+def layer_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
+    """One-token decoder layer. x_t: (B, D). Returns (x_t, layer_cache),
+    the cache updated in place."""
+    a, layer_cache = attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x_t),
+                                 layer_cache, slot_pos, pos, cfg)
+    x_t = x_t + a
+    y = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x_t), cfg)
+    return x_t + y, layer_cache

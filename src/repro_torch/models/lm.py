@@ -1,0 +1,196 @@
+"""The dense LM: init, prefill and decode (counterpart of
+``repro/models/lm.py``).
+
+Public surface, as the reference's, on parameters held as nested dicts of
+tensors with the reference's leaf names:
+
+    init_params(cfg, generator=..., device=...) -> params
+    prefill(params, batch, cfg, max_seq=None)  -> (cache, last_logits)
+    decode_step(params, cache, batch, cfg)     -> (cache, logits)
+    init_cache(cfg, batch, max_seq, device)    -> cache
+
+``params["layers"]`` is a list with one dict per layer where the reference
+stacks layers on a leading L axis for ``lax.scan``; the layer loop is a
+Python loop. The cache keeps the reference's layout: ``pos`` (B,) and
+``slot_pos`` (B, W) int32, ``layers/k`` and ``layers/v`` (L, B, W, KV, hd).
+``decode_step`` updates the cache in place and returns it.
+
+Only the dense family runs here (olmo, qwen3, mistral-large, llama3); the
+others raise ``NotImplementedError`` (see ``layers.check_family``). The
+LM training loss waits for the LM-training slice of ROADMAP A11.
+
+The logits are an f32 product, as in the reference (``_logits``, which
+upcasts the head). For a bf16 model with a tied embedding that upcast is a
+(d, V) f32 copy, 1.56 GB for qwen3-4b; a caller that runs many steps holds
+one copy (:func:`head_f32`) and passes it as ``head``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import norm_apply, norm_init
+from repro_torch.nn.module import normal_init
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device=None) -> dict:
+    """Random weights at the reference's init (normal, std 0.02, drawn in
+    f32 and cast to ``cfg.dtype``; norms at ones), drawn from ``generator``
+    on ``device`` (the generator's device by default)."""
+    L.check_family(cfg)
+    dtype = _dtype(cfg)
+    device = generator.device if device is None else torch.device(device)
+    params = {"embed": normal_init(generator, (cfg.padded_vocab, cfg.d_model),
+                                   0.02, dtype, device)}
+    params["layers"] = [L.layer_init(generator, cfg, dtype, device)
+                        for _ in range(cfg.num_layers)]
+    params["final_norm"] = norm_init(cfg, cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(generator,
+                                        (cfg.d_model, cfg.padded_vocab), 0.02,
+                                        dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _embed_in(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if "embeds" in batch:
+        return batch["embeds"].to(_dtype(cfg))
+    return params["embed"][batch["tokens"]]
+
+
+def head_f32(params, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head (d, V_pad) in f32: the tied embedding's transpose or
+    ``lm_head``. A copy unless the model is f32 already."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head.float()
+
+
+def _logits(params, cfg: ModelConfig, x, head=None) -> torch.Tensor:
+    x = norm_apply(cfg, params["final_norm"], x)
+    if head is None:
+        head = head_f32(params, cfg)
+    logits = x.float() @ head
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    return logits
+
+
+def _run_layers(params, cfg: ModelConfig, x, positions):
+    """The decoder stack. Returns (x, {"k", "v"}: (L, B, S, KV, hd))."""
+    ks, vs = [], []
+    for p_layer in params["layers"]:
+        x, (k, v) = L.layer_forward(p_layer, x, positions, cfg)
+        ks.append(k)
+        vs.append(v)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+
+def cache_window(cfg: ModelConfig, max_seq: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_seq)
+    return max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """Zero cache for ``batch`` sequences with capacity ``max_seq``."""
+    L.check_family(cfg)
+    w = cache_window(cfg, max_seq)
+    kvd = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "slot_pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                   device=device),
+            "layers": {"k": torch.zeros(kvd, dtype=_dtype(cfg),
+                                        device=device),
+                       "v": torch.zeros(kvd, dtype=_dtype(cfg),
+                                        device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
+            head=None):
+    """Process the full prompt (``batch["tokens"]`` (B, S) or
+    ``batch["embeds"]``); return (cache, last-token logits (B, V_pad))."""
+    x = _embed_in(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    x, kvs = _run_layers(params, cfg, x, positions)
+    cache = init_cache(cfg, b, max_seq or s, x.device)
+    cache = _fill_kv(cache, kvs, cfg, s)
+    cache["pos"].fill_(s)
+    return cache, _logits(params, cfg, x[:, -1], head)
+
+
+def _fill_kv(cache, kvs, cfg: ModelConfig, s: int):
+    """Place prefill K/V (L, B, S, KV, hd) into the (rolling) cache, in
+    place: positions 0..S-1 in slots 0..S-1 when they fit, else the last W
+    positions at their rolling slots p % W."""
+    k, v = cache["layers"]["k"], cache["layers"]["v"]
+    w = k.shape[2]
+    dev = k.device
+    if s <= w:
+        k[:, :, :s] = kvs["k"]
+        v[:, :, :s] = kvs["v"]
+        cache["slot_pos"][:, :s] = torch.arange(s, dtype=torch.int32,
+                                                device=dev)
+    else:
+        tail = torch.arange(s - w, s, dtype=torch.int32, device=dev)
+        slots = (tail % w).long()  # a permutation of [0, w)
+        k[:, :, slots] = kvs["k"][:, :, s - w:]
+        v[:, :, slots] = kvs["v"][:, :, s - w:]
+        cache["slot_pos"][:, slots] = tail
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
+    """One token for every sequence. batch: {"token": (B,)} or {"embed":
+    (B, D)}. Updates ``cache`` in place (the new slot position, each
+    layer's K/V row, ``pos`` + 1) and returns (cache, logits (B, V_pad))."""
+    if "embed" in batch:
+        x = batch["embed"].to(_dtype(cfg))
+    else:
+        x = params["embed"][batch["token"]]
+    b = x.shape[0]
+    pos = cache["pos"]
+    slot_pos = cache["slot_pos"]
+    rows = torch.arange(b, device=x.device)
+    slot_pos[rows, (pos % slot_pos.shape[1]).long()] = pos
+    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    for i, p_layer in enumerate(params["layers"]):
+        x, _ = L.layer_decode(p_layer, x, {"k": ks[i], "v": vs[i]}, slot_pos,
+                              pos, cfg)
+    logits = _logits(params, cfg, x, head)
+    cache["pos"] = pos + 1
+    return cache, logits

@@ -141,3 +141,12 @@ class LayerNorm(nn.Module):
         var = torch.square(x - mean).mean(-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.scale + self.bias
+
+
+def nonparametric_layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo-style LayerNorm without learnable parameters (arXiv:2402.00838),
+    in f32 (counterpart of ``repro/nn/layers.py:141``)."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = torch.square(x - mean).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)

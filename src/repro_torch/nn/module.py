@@ -19,6 +19,19 @@ def uniform_init(generator: torch.Generator, shape: tuple[int, ...],
     return (2.0 * u - 1.0) * bound
 
 
+def normal_init(generator: torch.Generator, shape: tuple[int, ...],
+                stddev: float = 0.02, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """``stddev * N(0, 1)`` drawn in f32 from ``generator`` on ``device``
+    (the generator's own device when None), then cast to ``dtype``. The
+    reference's ``normal_init`` draws in the target dtype; jax and torch
+    draws never agree, so parity tests bridge the reference's weights."""
+    device = generator.device if device is None else torch.device(device)
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (stddev * x).to(dtype)
+
+
 def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 

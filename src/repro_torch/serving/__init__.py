@@ -1,1 +1,2 @@
-"""Serving side of the port: the bucketed decision fast path."""
+"""Serving side of the port: the bucketed decision fast path
+(``fastpath``) and the continuous-batching LM edge server (``batching``)."""

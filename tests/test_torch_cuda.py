@@ -9,6 +9,10 @@ machine that has only torch:
 Tolerance 2e-5: f32 sums in another order, scaled by C=10 through tanh.
 The backward (B2) is held relative to each gradient's largest entry: 2e-5
 for dc and dh, 1e-4 for the weight gradients, whose sums run over B*Z rows.
+The attention kernels (B4, B5) are held at the reference's bars
+(``tests/test_kernels.py``): 2e-4 in f32, 2e-2 in bf16 (the output is
+rounded to bf16; the plain version computes in f32 from the same bf16
+inputs).
 """
 import dataclasses
 
@@ -20,7 +24,12 @@ from repro_torch.core import instances as tinst
 from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig,
                                      corais_encode, corais_score_decode)
 from repro_torch.core.train import RLConfig, loss_and_grads, to_device
-from repro_torch.kernels import ops, policy_score, ref
+from repro_torch.configs import get_reduced_config
+from repro_torch.kernels import build, ops, policy_score, ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models import lm
+from repro_torch.serving.batching import LMEdgeBackend
 from repro_torch.serving.fastpath import DecisionFastPath
 
 pytestmark = pytest.mark.cuda
@@ -61,8 +70,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, normalize):
                                            normalize)
     torch.testing.assert_close(ti, wi)
     torch.testing.assert_close(tv, wv, atol=ATOL, rtol=0)
-    assert policy_score.LAUNCHES == {"policy_score": 1, "policy_score_bwd": 0,
-                                     "policy_score_decode": 1}
+    assert {k: policy_score.LAUNCHES[k] for k in (
+        "policy_score", "policy_score_bwd", "policy_score_decode")} == {
+            "policy_score": 1, "policy_score_bwd": 0, "policy_score_decode": 1}
 
 
 def test_cuda_wrappers_reject_bad_inputs(cuda_device):
@@ -183,3 +193,156 @@ def test_backward_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="CUDA tensors"):
         policy_score.policy_score_bwd_cuda(g.cpu(), g.cpu(), c.cpu(), h.cpu(),
                                            wx.cpu(), wy.cpu(), maskf.cpu())
+
+
+def _attn_tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else \
+        dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,dtype,causal,window", [
+    (1, 37, 32, 8, 128, torch.bfloat16, True, None),   # qwen3 heads, ragged
+    (2, 300, 16, 16, 128, torch.float32, True, None),  # olmo heads
+    (1, 520, 32, 8, 128, torch.bfloat16, True, 256),   # a window, dead tiles
+    (2, 130, 4, 2, 16, torch.float32, False, None),    # non-causal, hd=16
+    (1, 200, 8, 2, 64, torch.float32, False, 50),      # non-causal window
+])
+def test_flash_attention_kernel_matches_plain_version(
+        cuda_device, b, s, h, kv, hd, dtype, causal, window):
+    gen = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (h, kv, kv))
+    build.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_torch(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def _cache(b, w, kv, hd, fills, dtype, device, rolling_from=None, seed=0):
+    """Caches with lane i holding positions 0..fills[i]-1 (rest empty), or,
+    with ``rolling_from``, positions p0..p0+w-1 at their slots p % w."""
+    gen = torch.Generator().manual_seed(seed)
+    kc, vc = (torch.randn(b, w, kv, hd, generator=gen).to(device, dtype)
+              for _ in range(2))
+    slot_pos = torch.full((b, w), -1, dtype=torch.int32)
+    pos = torch.zeros(b, dtype=torch.int32)
+    for i, n in enumerate(fills):
+        if rolling_from is None:
+            slot_pos[i, :n] = torch.arange(n, dtype=torch.int32)
+            pos[i] = max(n - 1, 0)
+        else:
+            tail = torch.arange(rolling_from, rolling_from + w,
+                                dtype=torch.int32)
+            slot_pos[i, (tail % w).long()] = tail
+            pos[i] = rolling_from + w - 1
+    return kc, vc, slot_pos.to(device), pos.to(device)
+
+
+@pytest.mark.parametrize("b,w,h,kv,hd,dtype,fills,window,roll", [
+    (4, 4096, 32, 8, 128, torch.bfloat16, (1, 700, 2600, 4096), None, None),
+    (2, 256, 32, 8, 128, torch.bfloat16, (256, 256), 256, 900),  # rolling
+    (3, 96, 16, 16, 128, torch.bfloat16, (5, 60, 96), None, None),
+    (2, 96, 4, 1, 16, torch.float32, (30, 96), 20, None),  # G=4, hd=16
+    (2, 64, 8, 8, 64, torch.float32, (0, 0), None, None),  # empty caches
+])
+def test_decode_attention_kernel_matches_plain_version(
+        cuda_device, b, w, h, kv, hd, dtype, fills, window, roll):
+    kc, vc, slot_pos, pos = _cache(b, w, kv, hd, fills, dtype, cuda_device,
+                                   rolling_from=roll)
+    q = torch.randn(b, h, hd, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device, dtype)
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 1
+    want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_attention_wrappers_reject_bad_inputs(cuda_device):
+    q = torch.randn(1, 40, 8, 64, device=cuda_device)
+    k = torch.randn(1, 40, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        flash_attention_cuda(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                             k)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        flash_attention_cuda(*(torch.randn(1, 8, 2, 256, device=cuda_device)
+                               for _ in range(3)))
+    with pytest.raises(ValueError, match="multiple of 4"):  # 16-byte loads
+        flash_attention_cuda(*(torch.randn(1, 8, 2, 6, device=cuda_device)
+                               for _ in range(3)))
+    shifted = torch.randn(k.numel() + 1, device=cuda_device)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, shifted, k)
+    kc, vc, slot_pos, pos = _cache(1, 64, 2, 64, (10,), torch.float32,
+                                   cuda_device)
+    qd = torch.randn(1, 8, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention_cuda(qd, kc, vc, slot_pos.long(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_cuda(qd, kc, vc.transpose(1, 2).contiguous(
+            ).transpose(1, 2), slot_pos, pos)
+    with pytest.raises(TypeError, match="bfloat16"):
+        decode_attention_cuda(qd.bfloat16(), kc, vc, slot_pos, pos)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "olmo-1b"])
+def test_lm_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Reduced f32 model, same weights: prefill and three decode steps on
+    the card (B4 in every layer of the prefill, B5 in every layer of each
+    step) against the CPU (plain versions), logits to 1e-4."""
+    cfg = get_reduced_config(arch)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 45),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    build.reset_launch_counts()
+    cache_g, lg = lm.prefill(gpu, {"tokens": tokens.to(cuda_device)}, cfg,
+                             max_seq=64)
+    cache_c, lc = lm.prefill(cpu, {"tokens": tokens}, cfg, max_seq=64)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    for step in range(3):
+        tok = torch.tensor([step + 3, 7 * step], dtype=torch.int32)
+        cache_g, lg = lm.decode_step(gpu, cache_g, {"token": tok.to(
+            cuda_device)}, cfg)
+        cache_c, lc = lm.decode_step(cpu, cache_c, {"token": tok}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert build.LAUNCHES["decode_attention"] == 3 * cfg.num_layers
+    torch.testing.assert_close(cache_g["layers"]["k"].cpu(),
+                               cache_c["layers"]["k"], atol=1e-5, rtol=1e-5)
+
+
+def test_lm_edge_backend_on_the_card(cuda_device):
+    """The serving loop on the card: every request finishes with its
+    generation length; one phi observation per admission."""
+    cfg = get_reduced_config("qwen3-4b")
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    be = LMEdgeBackend(cfg, params, lanes=2, max_seq=64)
+    build.reset_launch_counts()
+    for rid, (plen, glen) in enumerate([(8, 4), (12, 3), (5, 6), (20, 2)]):
+        be.submit(rid, plen, glen)
+    be.drain()
+    assert be.finished == {0: 4, 1: 3, 2: 6, 3: 2}
+    assert len(be.phi._xs) == 4
+    assert build.LAUNCHES["flash_attention"] == 4 * cfg.num_layers
+    assert build.LAUNCHES["decode_attention"] > 0

@@ -166,8 +166,9 @@ def test_cpu_tensors_never_touch_the_kernels():
     assert c.grad is not None
     c = c.detach()
     ops.policy_score_decode(c, h, wx, wy, mask, k=2, normalize=False)
-    assert policy_score.LAUNCHES == {"policy_score": 0, "policy_score_bwd": 0,
-                                     "policy_score_decode": 0}
+    assert {"policy_score", "policy_score_bwd",
+            "policy_score_decode"} <= set(policy_score.LAUNCHES)
+    assert set(policy_score.LAUNCHES.values()) == {0}
     maskf = mask.to(torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         policy_score.policy_score_cuda(c, h, wx, wy, maskf)
