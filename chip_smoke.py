@@ -28,8 +28,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    finite with ``cost_best <= cost_mean``, and the parameters move; B2 is
    checked again on the encoder outputs of a training batch;
 7. hold the attention kernels B4 (flash attention) and B5 (decode
-   attention) against their plain versions at qwen3-4b and olmo-1b head
-   shapes, bf16 and f32, ragged lengths, a window, a rolling cache;
+   attention) against their plain versions at qwen3-4b, olmo-1b and
+   hymba-1.5b head shapes, bf16 and f32, ragged lengths, a window,
+   rolling caches (hymba's 4-lane cache past its 2048 window); and
+   the selective scan B6 against its plain version at falcon-mamba's and
+   hymba's prefill shapes, a ragged one and the reference sweep's, within
+   the reference's 5e-4 and bit for bit across two calls;
 8. drive the LM edge servers at full width, the flow of
    ``examples/serve_multi_edge.py``: three ``LMEdgeBackend`` edges (lanes
    1, 2, 4; 4096-slot caches) serving qwen3-4b in bf16 with random weights
@@ -37,25 +41,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tokens), greedy dispatch of 18 requests (256-2560 prompt tokens, 32
    generated each) over ``snapshot_instance``; all must be served, the
    4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
-   per admission and B5 36 times per decode step;
+   per admission, B5 36 times per decode step and B6 never; the plain
+   versions of B4-B6 must not be reached;
 9. one request (1500 prompt tokens, 16 teacher-forced decode steps)
    through the kernel path and the plain path with the same weights:
    logits within 1e-3 of the largest |logit| with the weights in f32, and
    within 0.1 in bf16, where 1-ulp rounding differences compound over 36
    layers;
-10. time each kernel, its plain version and, for B4 and B5, PyTorch's
+10. trace one prefill and five decode steps with ``torch.profiler``: device
+    busy ms, idle share and kernels per step; then free qwen3-4b;
+11. the same serving flow with falcon-mamba-7b ``CONFIG`` (64 SSM layers,
+    bf16, random weights from a seed): B6 launches exactly 64 times per
+    admission and B4/B5 never; a profiled 2048-token prefill and 4-lane
+    decode step; one 512-token request with 16 teacher-forced steps
+    through the kernel path and the plain path (logits within 1e-3 of the
+    largest |logit| in f32, 0.1 in bf16, beside the reading that one f32
+    ulp of B6's y gives); then free it;
+12. the same with hymba-1.5b ``CONFIG`` (32 hybrid layers, a 2048-token
+    attention window, so prompts above 2048 tokens take the rolling
+    cache): B4 and B6 launch 32 times per admission, B5 32 times per
+    decode step; the same profile; a 2300-token request through the
+    kernel and the plain path (1e-3 in f32, 0.1 in bf16);
+13. time each kernel, its plain version and, for B4 and B5, PyTorch's
     ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
     shape 100x1000, B2 at the training shape, B4 at a 2048-token prefill,
-    B5 at the 4-lane edge's cache after serving) and print a
-    ``{"kernels": [...]}`` line;
-11. trace one prefill and five decode steps with ``torch.profiler``: device
-    busy ms, idle share and kernels per step.
+    B5 at the 4-lane qwen3-4b edge's cache after serving, B6 at
+    falcon-mamba's prefill shape) beside their bounds, and print the
+    ``{"kernels": [...]}`` line (six rows, each with its launches on every
+    main path above).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
 summary. Details of every comparison go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -91,12 +111,27 @@ LM_GEN = 32            # generated tokens per dispatched request
 LM_WARM = 100_000      # request ids of the phi warm-up start here
 LM_SEED = 0
 # kernel vs plain path at full width, of each row's largest |logit|: f32
-# sums in another order (f32); in bf16 the attention outputs round to 1 ulp
-# apart on about 0.03 % of elements, which compounds over 36 layers to
-# 3-4 % of the logits (measured on an H100, PERF.md), so bf16 gets a sanity bar
+# sums in another order (f32); in bf16 one kernel output rounded 1 ulp
+# apart from its plain version's compounds over the layers to percents of
+# the logits (measured on an H100, PERF.md: qwen3-4b's attention outputs
+# 3-4 %, hymba's 2-3 %; one f32 ulp added to all of B6's y moves
+# falcon-mamba's by 1.6 %), so bf16 gets a sanity bar above those
 LM_LOGIT_TOL_F32 = 1e-3
 LM_LOGIT_TOL_BF16 = 0.1
 LM_GAP = 2e-2          # argmax compared where the top-2 gap exceeds this
+LM_SSM_ARCH = "falcon-mamba-7b"  # SSM edge serving, full width, bf16
+LM_HYBRID_ARCH = "hymba-1.5b"    # hybrid (attention window 2048 + SSM)
+# kernel vs plain for the SSM model: a 512-token prompt, since the plain
+# scan is a Python loop over S in each of the 64 layers; for the hybrid
+# one a prompt past its 2048-token window, so the rolling fill and B5's
+# window run at full width
+LM_SSM_PROMPT = 512
+LM_HYBRID_PROMPT = 2300
+SCAN_TOL = 5e-4        # B6 against its plain version (tests/test_kernels.py)
+# B6 cases (B, S, d, N): falcon-mamba's prefill, hymba's four lanes, a
+# ragged one and the reference sweep's; the first is also timed
+SCAN_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16), (1, 37, 200, 4),
+              (2, 128, 64, 8))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -535,7 +570,7 @@ def drive_training(pol, tr, tinst, policy_score, profiler_steps=3):
     return summary, enc
 
 
-# -- phase 10: timing --------------------------------------------------------
+# -- phase 13: timing ------------------------------------------------------
 
 
 def time_ms(fn, reps=25, inner=20):
@@ -666,7 +701,7 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     return rows
 
 
-# -- phases 7-9 and 11: the LM edge server (kernels B4 and B5) --------------
+# -- phases 7-12: the LM edge servers (kernels B4, B5 and B6) --------------
 
 
 def _attn_err(got, want, dtype):
@@ -679,14 +714,15 @@ def _attn_err(got, want, dtype):
 
 def _slot_cache(gen, b, w, kv, hd, dtype, fills=None, rolling_from=None):
     """K/V caches (B, W, KV, hd) with lane i holding positions
-    0..fills[i]-1 (the rest empty, ``pos`` the last one), or, with
-    ``rolling_from``, positions p0..p0+W-1 at their slots p % W."""
+    0..fills[i]-1 (the rest empty, ``pos`` the last one), or, where
+    ``rolling_from[i]`` is not None, positions p0..p0+W-1 at their slots
+    p % W."""
     kc, vc = (torch.randn(b, w, kv, hd, generator=gen).to("cuda", dtype)
               for _ in range(2))
     slot_pos = torch.full((b, w), -1, dtype=torch.int32)
     pos = torch.zeros(b, dtype=torch.int32)
     for i in range(b):
-        if rolling_from is None:
+        if rolling_from is None or rolling_from[i] is None:
             n = fills[i]
             slot_pos[i, :n] = torch.arange(n, dtype=torch.int32)
             pos[i] = max(n - 1, 0)
@@ -700,7 +736,8 @@ def _slot_cache(gen, b, w, kv, hd, dtype, fills=None, rolling_from=None):
 
 def compare_attention(ops, ref, errs):
     """B4 and B5 against their plain versions on the card at the listed
-    cases; raises on a disagreement beyond the reference's bars (2e-4 f32,
+    cases, among them the shapes the qwen3-4b and hymba-1.5b edges give
+    them; raises on a disagreement beyond the reference's bars (2e-4 f32,
     2e-2 bf16) and folds the largest errors into ``errs``."""
     gen = torch.Generator().manual_seed(21)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -710,7 +747,10 @@ def compare_attention(ops, ref, errs):
             (1, 2048, 32, 8, 128, bf16, True, None),
             (2, 300, 16, 16, 128, f32, True, None),    # olmo heads
             (1, 1024, 32, 8, 128, bf16, True, 256),    # G=4, window 256
-            (1, 1024, 32, 8, 128, bf16, False, None)):  # non-causal
+            (1, 1024, 32, 8, 128, bf16, False, None),  # non-causal
+            # hymba heads (G=5, hd=64) and window: prompts past it and not
+            (1, 2560, 25, 5, 64, bf16, True, 2048),
+            (1, 1000, 25, 5, 64, bf16, True, 2048)):
         q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda", dtype)
                    for n in (h, kv, kv))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -731,7 +771,12 @@ def compare_attention(ops, ref, errs):
             (4, 4096, 32, 8, 128, bf16, (1, 700, 2600, 4096), None, None),
             (2, 256, 32, 8, 128, bf16, None, (900, 4000), 256),  # rolling
             (3, 96, 32, 8, 128, bf16, (5, 60, 96), None, None),  # W=96
-            (2, 96, 16, 16, 128, f32, (30, 96), None, 20)):
+            (2, 96, 16, 16, 128, f32, (30, 96), None, 20),
+            # hymba's 4-lane cache: two lanes rolled past the 2048 window
+            # (a 2560-token prompt plus a step; 2049 tokens), one partly
+            # filled, one with a single slot; G*hd = 320
+            (4, 2048, 25, 5, 64, bf16, (0, 0, 700, 1), (513, 1, None, None),
+             2048)):
         kc, vc, slot_pos, pos = _slot_cache(gen, b, w, kv, hd, dtype, fills,
                                             roll)
         q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
@@ -754,12 +799,73 @@ def compare_attention(ops, ref, errs):
     return report
 
 
-def drive_lm_serving(cfg, params, batching, state, heuristics, build):
+def _scan_inputs(gen, b, s, d, n):
+    """As ``tests/test_kernels.py`` makes them: u, B, C normal, dt =
+    softplus(normal) * 0.1, A = -exp(0.2 * normal); f32 on the card."""
+    u = torch.randn(b, s, d, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, d, generator=gen))
+    bm = torch.randn(b, s, n, generator=gen)
+    cm = torch.randn(b, s, n, generator=gen)
+    a = -torch.exp(0.2 * torch.randn(d, n, generator=gen))
+    return [t.cuda() for t in (u, dt * 0.1, bm, cm, a)]
+
+
+def compare_scan(ops, ref, errs):
+    """B6 against its plain version on the card at SCAN_CASES: y and h_last
+    within allclose(atol = rtol = SCAN_TOL), and two calls bit for bit.
+    Folds the largest error into ``errs``; returns the report and the
+    first case's inputs (falcon-mamba's prefill shape, timed later)."""
+    gen = torch.Generator().manual_seed(41)
+    report, first = [], None
+    for b, s, d, n in SCAN_CASES:
+        args = _scan_inputs(gen, b, s, d, n)
+        y, h = ops.mamba_scan(*args)
+        y2, h2 = ops.mamba_scan(*args)
+        wy, wh = ref.mamba_scan_torch(*args)
+        torch.cuda.synchronize()
+        check(y.shape == (b, s, d) and h.shape == (b, d, n)
+              and bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+              f"mamba_scan output malformed at {(b, s, d, n)}")
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"mamba_scan differs between two calls at {(b, s, d, n)}")
+        row = {"kernel": "mamba_scan", "B": b, "S": s, "d": d, "N": n}
+        for name, got, want in (("y", y, wy), ("h_last", h, wh)):
+            diff = (got - want).abs()
+            err = float(diff.max())
+            excess = float((diff - SCAN_TOL * want.abs()).max())
+            check(excess <= SCAN_TOL, f"mamba_scan {name} err {err} beyond "
+                  f"allclose({SCAN_TOL}) at {(b, s, d, n)}")
+            row[f"{name}_err"] = err
+            errs["mamba_scan"] = max(errs["mamba_scan"], err)
+        report.append(row)
+        if first is None:
+            first = args
+    return report, first
+
+
+def _plain_guard(ref):
+    """Patches that make the plain versions of B4-B6 raise: the main path
+    on the card must reach only the kernels."""
+    from unittest import mock
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise RuntimeError(f"the main path reached the plain {name}")
+        return mock.patch.object(ref, name, fn)
+
+    return [refuse(n) for n in ("flash_attention_torch",
+                                "decode_attention_torch", "mamba_scan_torch")]
+
+
+def drive_lm_serving(cfg, params, batching, state, heuristics, build, ref):
     """The example's flow (examples/serve_multi_edge.py) at full width: three
     ``LMEdgeBackend`` edges with lanes [1, 2, 4] share one weight set; a phi
     warm-up of eight prefills per edge; ``snapshot_instance`` + greedy
     dispatch of LM_REQUESTS requests; drain. The launch counters are set to
-    0 just before and read just after. Returns the summary and the edges."""
+    0 just before and read just after; each family's kernels must launch
+    exactly once per layer that runs them (B4 and B6 per admission, B5 per
+    decode step) and the plain versions never. Returns the summary and the
+    edges."""
     lanes = [1, 2, 4]
     edges = [batching.LMEdgeBackend(cfg, params, lanes=n, max_seq=LM_MAX_SEQ,
                                     seed=i) for i, n in enumerate(lanes)]
@@ -779,6 +885,9 @@ def drive_lm_serving(cfg, params, batching, state, heuristics, build):
                 steps["decode_ms"].append(ms)
                 steps["decode_tokens"] += active
 
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(ref):
+        guard.enter_context(patch)
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
@@ -817,7 +926,9 @@ def drive_lm_serving(cfg, params, batching, state, heuristics, build):
     serve_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {k: build.LAUNCHES[k] for k in ("flash_attention",
-                                               "decode_attention")}
+                                               "decode_attention",
+                                               "mamba_scan")}
+    guard.close()
     admissions = sum(len(be.phi._xs) for be in edges)
     check(real_done() == len(reqs), f"served {real_done()} of {len(reqs)}")
     check(share[2] >= share[0], f"dispatch share {share}: the 4-lane edge "
@@ -826,16 +937,19 @@ def drive_lm_serving(cfg, params, batching, state, heuristics, build):
         for rid, n in be.finished.items():
             want = 1 if rid >= LM_WARM else LM_GEN
             check(n == want, f"request {rid} generated {n} tokens, not {want}")
-    check(launches["flash_attention"] == cfg.num_layers * admissions,
-          f"B4 launched {launches['flash_attention']} times for {admissions} "
-          f"admissions of {cfg.num_layers} layers")
-    check(launches["decode_attention"] == cfg.num_layers * steps[
-        "decode_steps"], f"B5 launched {launches['decode_attention']} times "
-          f"for {steps['decode_steps']} decode steps of {cfg.num_layers} "
-          "layers")
+    attn = int(cfg.family != "ssm")
+    scan = int(cfg.family in ("ssm", "hybrid"))
+    want = {"flash_attention": cfg.num_layers * admissions * attn,
+            "decode_attention": cfg.num_layers * steps["decode_steps"] * attn,
+            "mamba_scan": cfg.num_layers * admissions * scan}
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times, "
+              f"not {n}: {admissions} admissions and {steps['decode_steps']} "
+              f"decode steps of {cfg.num_layers} {cfg.family} layers")
     dec = steps["decode_ms"]
     summary = {
-        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+        "arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+        "layers": cfg.num_layers,
         "params": sum(t.numel() for t in _leaves(params)),
         "lanes": lanes, "max_seq": LM_MAX_SEQ, "requests": len(reqs),
         "gen_len": LM_GEN, "dispatch_share": share,
@@ -912,16 +1026,19 @@ def _to_f32(tree):
 
 
 def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
-                       n_decode=16):
-    """One request through the kernel path (B4, B5) and the plain path
+                       n_decode=16, scan_ulp=False):
+    """One request through the kernel path (B4, B5, B6) and the plain path
     (their plain versions on the card), same weights, teacher-forced on the
     same tokens, in bf16 (the serving path) and with the same weights in
     f32. Each logits row's largest difference is taken relative to its
     largest |logit|: f32 must agree to LM_LOGIT_TOL_F32, bf16 to
-    LM_LOGIT_TOL_BF16 (1-ulp rounding differences of the attention output
-    compound over 36 layers; PERF.md). Reports the share of steps with
-    equal argmax among those whose top-2 gap exceeds LM_GAP of the largest
-    |logit|."""
+    LM_LOGIT_TOL_BF16 (1-ulp rounding differences compound over the
+    layers; PERF.md). Reports the share of steps with equal argmax among those
+    whose top-2 gap exceeds LM_GAP of the largest |logit|. With
+    ``scan_ulp``, also reports (and does not check) how far the bf16
+    logits move when B6's y is nudged by one f32 ulp everywhere: the
+    reading that shows LM_LOGIT_TOL_BF16 admits a B6 rounded 1 ulp apart
+    from its plain version."""
     from unittest import mock
     gen = torch.Generator().manual_seed(6)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
@@ -939,7 +1056,10 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
             rows.append(logits)
         return torch.cat(rows)[:, :cfg.vocab_size]
 
-    def compare(cfg, params, tol):
+    def rel_err(got, plain):
+        return (got - plain).abs().amax(-1) / plain.abs().amax(-1)
+
+    def compare(cfg, params, tol, nudge=False):
         head = lm.head_f32(params, cfg)
         kern = run(cfg, params, head)
         with mock.patch.object(ops, "flash_attention",
@@ -949,11 +1069,12 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                 mock.patch.object(ops, "decode_attention",
                                   lambda q, kc, vc, sp, pos, *, window:
                                   ref.decode_attention_torch(
-                                      q, kc, vc, sp, pos, window=window)):
+                                      q, kc, vc, sp, pos, window=window)), \
+                mock.patch.object(ops, "mamba_scan", ref.mamba_scan_torch):
             plain = run(cfg, params, head)
         torch.cuda.synchronize()
         scale = plain.abs().amax(-1)
-        err = (kern - plain).abs().amax(-1) / scale
+        err = rel_err(kern, plain)
         top = plain.topk(2, dim=-1).values
         gapped = (top[:, 0] - top[:, 1]) > LM_GAP * scale
         same = kern.argmax(-1) == plain.argmax(-1)
@@ -961,8 +1082,20 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
               f"non-finite kernel-path logits ({cfg.dtype})")
         check(float(err.max()) <= tol, f"kernel-path logits ({cfg.dtype}) "
               f"differ from the plain path's by {float(err.max())} of the "
-              f"largest |logit|, above {tol}")
-        return {"tol": tol, "max_rel_err": float(err.max()),
+              f"largest |logit|, above {tol} (PERF.md section 6 says how "
+              f"each bar was set)")
+        out = {}
+        if nudge:
+            kernel_scan = ops.mamba_scan
+
+            def nudged(*args):
+                y, h = kernel_scan(*args)
+                return torch.nextafter(y, torch.full_like(y, math.inf)), h
+
+            with mock.patch.object(ops, "mamba_scan", nudged):
+                out["one_ulp_of_y_rel_err"] = float(rel_err(
+                    run(cfg, params, head), plain).max())
+        return {**out, "tol": tol, "max_rel_err": float(err.max()),
                 "rel_err_prefill": float(err[0]),
                 "rel_err_steps": [float(e) for e in err],
                 "gapped_steps": int(gapped.sum()),
@@ -972,7 +1105,8 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                 "argmax_equal_share_all": float(same.float().mean())}
 
     out = {"prompt_tokens": prompt_len, "decode_steps": n_decode,
-           "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16)}
+           "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16,
+                           nudge=scan_ulp)}
     params32 = _to_f32(params)
     out["f32"] = compare(dataclasses.replace(cfg, dtype="float32"), params32,
                          LM_LOGIT_TOL_F32)
@@ -981,11 +1115,20 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     return out
 
 
-def attention_timings(ops, ref, edge, launches, errs):
-    """B4 at (1, 2048, 32, 8, 128) bf16 causal and B5 at the 4-lane edge's
-    batch cache after serving (W=4096, 8 KV heads, 32 query heads, its
-    slot positions; random q), each beside its plain version, SDPA and its
-    bound (bf16 tensor-core peak against the memory rate)."""
+def edge_cache(edge):
+    """Layer 0's K and V, the slot positions and positions of ``edge``'s
+    batch cache, copied so that they outlive the model."""
+    c = edge._cache
+    return tuple(t.clone() for t in (c["layers"]["k"][0], c["layers"]["v"][0],
+                                     c["slot_pos"], c["pos"]))
+
+
+def attention_timings(ops, ref, cache, launches, errs):
+    """B4 at (1, 2048, 32, 8, 128) bf16 causal and B5 at the 4-lane qwen3-4b
+    edge's batch cache after serving (``edge_cache``: W=4096, 8 KV heads,
+    32 query heads, its slot positions; random q), each beside its plain
+    version, SDPA and its bound (bf16 tensor-core peak against the memory
+    rate)."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(31)
     b, s, h, kv, hd = 1, 2048, 32, 8, 128
@@ -1008,9 +1151,7 @@ def attention_timings(ops, ref, edge, launches, errs):
                      qt, kt, vt, is_causal=True, enable_gqa=True),
                  peak=BF16_FLOPS, reps=10, inner=5)]
 
-    kc = edge._cache["layers"]["k"][0]
-    vc = edge._cache["layers"]["v"][0]
-    slot_pos, pos = edge._cache["slot_pos"], edge._cache["pos"]
+    kc, vc, slot_pos, pos = cache
     bb, w = slot_pos.shape
     qd = torch.randn(bb, h, hd, generator=gen).to("cuda", torch.bfloat16)
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
@@ -1033,6 +1174,24 @@ def attention_timings(ops, ref, edge, launches, errs):
         peak=BF16_FLOPS))
     rows[-1]["valid_slot_share"] = n_valid / (bb * w)
     return rows
+
+
+def scan_timing(ops, ref, args, launches, errs):
+    """B6 at falcon-mamba's prefill shape (B=1, S=2048, d=8192, N=16) beside
+    its plain version and its bound: u and dt read and y written once, B,
+    C, A read and h_last written once; 8 f32 operations per (t, c, n), the
+    exponential counted as one. No single PyTorch call computes a selective
+    scan, so no library time. The plain version is a Python loop of S
+    steps, so few repetitions."""
+    u, _, _, _, a = args
+    b, s, d = u.shape
+    n = a.shape[-1]
+    return _row("mamba_scan", 21, lambda: ops.mamba_scan(*args),
+                lambda: ref.mamba_scan_torch(*args), 8 * b * s * d * n,
+                4 * (3 * b * s * d + 2 * b * s * n + d * n + b * d * n),
+                launches, errs["mamba_scan"], f"B={b} S={s} d={d} N={n} f32",
+                source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
+                inner=2)
 
 
 def main() -> int:
@@ -1071,7 +1230,8 @@ def main() -> int:
     # phase 3: policy-head kernels against their plain versions
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
-            "flash_attention": 0.0, "decode_attention": 0.0}
+            "flash_attention": 0.0, "decode_attention": 0.0,
+            "mamba_scan": 0.0}
     random = random_cases(fpm.DEFAULT_BUCKETS)
     cases = compare_kernels(ops, ref, random, errs)
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
@@ -1098,40 +1258,80 @@ def main() -> int:
     bwd += compare_backward(policy_score, ref, [("encoder", *enc_train)],
                             errs)
 
-    # phase 7: the attention kernels against their plain versions
+    # phase 7: the attention and scan kernels against their plain versions
     attn_cases = compare_attention(ops, ref, errs)
     print(f"compare attention: max_abs_err flash "
           f"{errs['flash_attention']}, decode {errs['decode_attention']} "
           f"over {len(attn_cases)} cases", flush=True)
+    scan_cases, scan_args = compare_scan(ops, ref, errs)
+    print(f"compare scan: {json.dumps(scan_cases)}", flush=True)
+
+    # {kernel: {path: launches}} from each main-path run
+    launches = {}
+
+    def record(path, counts):
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, {})[path] = n
+
+    record("serving", summary["launches"])
+    record("training", training["launches"])
 
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
     cfg = get_config(LM_ARCH)
     params = lm.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(LM_SEED))
     lm_serving, edges = drive_lm_serving(cfg, params, batching, state,
-                                         heuristics, build)
+                                         heuristics, build, ref)
     print(f"lm serving: {json.dumps(lm_serving)}", flush=True)
+    record("lm_serving", lm_serving["launches"])
 
     # phase 9: the kernel path against the plain path at full width
     lm_parity = lm_kernel_vs_plain(cfg, params, lm, ops, ref)
     print(f"lm kernel vs plain: {json.dumps(lm_parity)}", flush=True)
 
-    # phase 10: timing
-    launches = {name: {"serving": summary["launches"].get(name, 0),
-                       "training": training["launches"].get(name, 0)}
-                for name in ("policy_score", "policy_score_bwd",
-                             "policy_score_decode")}
-    launches["policy_score_decode"].pop("training")
-    launches["policy_score_bwd"].pop("serving")
-    kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
-    kernels += attention_timings(
-        ops, ref, edges[2],
-        {k: {"lm_serving": n} for k, n in lm_serving["launches"].items()},
-        errs)
-
-    # phase 11: device busy and idle share of the LM steps
+    # phase 10: device busy and idle share of the LM steps; then free it,
+    # keeping the 4-lane edge's cache for B5's timing
     lm_profile = profile_lm(cfg, params, lm, edges[2])
     print(f"lm profile: {json.dumps(lm_profile)}", flush=True)
+    qwen3_cache = edge_cache(edges[2])
+    del params, edges
+    torch.cuda.empty_cache()
+
+    def serve_lm(label, arch, prompt_len, scan_ulp=False):
+        """Serve, profile and check one model's kernel path against its
+        plain path, then free it."""
+        cfg = get_config(arch)
+        params = lm.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(LM_SEED))
+        served, edges = drive_lm_serving(cfg, params, batching, state,
+                                         heuristics, build, ref)
+        print(f"{label} lm serving: {json.dumps(served)}", flush=True)
+        record(f"{label}_lm_serving", served["launches"])
+        profiled = profile_lm(cfg, params, lm, edges[2])
+        print(f"{label} lm profile: {json.dumps(profiled)}", flush=True)
+        del edges
+        torch.cuda.empty_cache()
+        parity = lm_kernel_vs_plain(cfg, params, lm, ops, ref,
+                                    prompt_len=prompt_len, scan_ulp=scan_ulp)
+        print(f"{label} lm kernel vs plain: {json.dumps(parity)}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        return {"serving": served, "profile": profiled,
+                "kernel_vs_plain": parity}
+
+    # phase 11: SSM edge serving (falcon-mamba-7b, B6 in every layer)
+    ssm_lm = {LM_SSM_ARCH: serve_lm("ssm", LM_SSM_ARCH, LM_SSM_PROMPT,
+                                    scan_ulp=True)}
+    # phase 12: hybrid edge serving (hymba-1.5b: B4, B5 windowed; B6)
+    ssm_lm[LM_HYBRID_ARCH] = serve_lm("hybrid", LM_HYBRID_ARCH,
+                                      LM_HYBRID_PROMPT)
+
+    # phase 13: every kernel timed beside its plain version; the kernels line
+    kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
+    kernels += attention_timings(ops, ref, qwen3_cache, launches, errs)
+    kernels.append(scan_timing(ops, ref, scan_args, launches["mamba_scan"],
+                               errs))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1141,6 +1341,7 @@ def main() -> int:
         "compare": cases, "compare_backward": bwd, "memory": mem,
         "compare_attention": attn_cases, "lm_serving": lm_serving,
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
+        "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "kernels": kernels}, indent=1))
 
     print(json.dumps({"decision_ms": summary["decision_ms"],
@@ -1159,6 +1360,13 @@ def main() -> int:
                                          ("wall_ms", "device_busy_ms",
                                           "idle_share", "kernels_per_unit")}
                                      for k, v in lm_profile.items()},
+                      "ssm_lm": {arch: {
+                          "decode_step_ms": r["serving"]["decode_step_ms"],
+                          "decode_tokens_per_s":
+                              r["serving"]["decode_tokens_per_s"],
+                          "max_memory_allocated_bytes":
+                              r["serving"]["max_memory_allocated_bytes"]}
+                          for arch, r in ssm_lm.items()},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,8 @@ first launch of one of its kernels (never at import: the CPU tests import
 the wrappers on machines without ``nvcc``), and loaded with ``ctypes``.
 Each library has a plain C interface whose entry points return the first
 CUDA error of their launches; :func:`raise_on` turns that into an
-exception. :func:`build` compiles all stale sources at once, one ``nvcc``
+exception, and :func:`check_tensor` checks a wrapper's tensors before a
+launch. :func:`build` compiles all stale sources at once, one ``nvcc``
 per source, started together.
 
 :data:`LAUNCHES` counts kernel launches per wrapper: a wrapper adds one
@@ -22,14 +23,15 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("policy_score.cu", "flash_attention.cu", "decode_attention.cu")
+SOURCES = ("policy_score.cu", "flash_attention.cu", "decode_attention.cu",
+           "mamba_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"policy_score": 0, "policy_score_bwd": 0, "policy_score_decode": 0,
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0, "mamba_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}  # source -> library, loaded at first use
 
@@ -106,3 +108,20 @@ def raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
     if err != 0:
         msg = lib.corais_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def check_tensor(name: str, t, shape: tuple, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype`` on ``device``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {name} on "
+                         f"{t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -18,9 +18,9 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load, raise_on
+from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
+                                       raise_on)
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 check_tensor,
                                                  check_vector_loads,
                                                  window_arg)
 

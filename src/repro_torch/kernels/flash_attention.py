@@ -18,31 +18,14 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import LAUNCHES, load, raise_on
+from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
+                                       raise_on)
 
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"corais_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P]}
-
-
-def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
-                 device) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
-    ``dtype`` on ``device``."""
-    if t.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {name} on "
-                         f"{t.device}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def check_vector_loads(hd: int, dtype, **tensors) -> None:

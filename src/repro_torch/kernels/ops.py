@@ -3,12 +3,13 @@
 A CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.policy_score` for B1-B3,
 :mod:`~repro_torch.kernels.flash_attention` for B4,
-:mod:`~repro_torch.kernels.decode_attention` for B5); if the build or the
+:mod:`~repro_torch.kernels.decode_attention` for B5,
+:mod:`~repro_torch.kernels.mamba_scan` for B6); if the build or the
 launch fails, the call raises. A CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
 The policy-head wrappers accept any leading batch shape, as the
-reference's ``ops`` do; the attention wrappers take the reference kernels'
-layouts.
+reference's ``ops`` do; the attention and scan wrappers take the reference
+kernels' layouts.
 
 :func:`policy_score` is differentiable through :class:`PolicyScore`, the
 counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
@@ -22,6 +23,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
                                               policy_score_decode_cuda)
@@ -115,5 +117,14 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
                                  window=window)
 
 
+def mamba_scan(u, dt, B_mat, C_mat, A):
+    """B6: the mamba-1 selective scan from a zero state, u, dt (B, S, d),
+    B_mat, C_mat (B, S, N), A (d, N), f32 -> (y (B, S, d), h_last
+    (B, d, N)), any S."""
+    if _device_type(u) == "cpu":
+        return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A)
+    return mamba_scan_cuda(u, dt, B_mat, C_mat, A)
+
+
 __all__ = ["PolicyScore", "policy_score", "policy_score_decode",
-           "flash_attention", "decode_attention", "ref"]
+           "flash_attention", "decode_attention", "mamba_scan", "ref"]

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth,
 counterpart of the oracles in ``repro/kernels/ref.py``): the policy head
-(B1-B3) and the LM attention (B4, B5).
+(B1-B3), the LM attention (B4, B5) and the mamba-1 selective scan (B6).
 
 ``*_ref`` take one instance (no batch axis); ``*_torch`` take any leading
 batch shape and are what :mod:`repro_torch.kernels.ops` runs for tensors on
@@ -11,6 +11,8 @@ plain version, :func:`policy_score_bwd_torch`, is the head's explicit
 backward. The attention twins (:func:`flash_attention_torch`,
 :func:`decode_attention_torch`) use f32 math, the -1e30 mask, GQA by
 reshape, and return the input dtype, as the reference's oracles do.
+:func:`mamba_scan_torch` is B6's plain version: a sequential loop over S
+in f32.
 
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
@@ -171,3 +173,26 @@ def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
     return o.reshape(b, h, hd).to(q.dtype)
+
+
+def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None):
+    """Plain version of B6, twin of ``ref.mamba_scan_ref``
+    (``repro/kernels/ref.py:46``): a sequential loop over S in f32, from
+    ``h0`` (B, d, N) or zeros. u, dt: (B, S, d); B_mat, C_mat: (B, S, N);
+    A: (d, N). Returns (y (B, S, d) f32, h_last (B, d, N) f32).
+
+    The reference discretises all S steps up front, a (B, S, d, N) tensor;
+    here each step's ``exp(dt * A)`` and ``dt * B * u`` are formed inside
+    the loop, with the same elementwise roundings."""
+    b, s, d = u.shape
+    n = A.shape[-1]
+    u, dt, B_mat, C_mat, A = (t.float() for t in (u, dt, B_mat, C_mat, A))
+    h = (torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
+    ys = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
+    for t in range(s):
+        dt_t = dt[:, t, :, None]
+        dbu = dt_t * B_mat[:, t, None, :] * u[:, t, :, None]
+        h = torch.exp(dt_t * A) * h + dbu
+        ys[:, t] = (h * C_mat[:, t, None, :]).sum(-1)
+    return ys, h

@@ -1,9 +1,10 @@
-"""Shared LM building blocks: norm dispatch, qk-norm and rotary position
-embeddings (counterpart of ``repro/models/common.py``).
+"""Shared LM building blocks: norm dispatch, qk-norm, rotary position
+embeddings and the mamba front's causal depthwise conv (counterpart of
+``repro/models/common.py``).
 
 Parameters are plain tensors in nested dicts with the reference's leaf
 names. M-RoPE and the sinusoidal table wait for the VLM and audio slices
-(ROADMAP A11); the depthwise conv waits for the SSM slice.
+(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -77,3 +78,35 @@ def position_encode(cfg: ModelConfig, x: torch.Tensor,
             "M-RoPE (qwen2-vl) is not ported yet: it waits for the VLM part "
             "of ROADMAP A11")
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (mamba front)
+# ---------------------------------------------------------------------------
+# The K taps are explicit f32 multiply-adds, not ``F.conv1d``: cuDNN may run
+# an f32 convolution in TF32 (``torch.backends.cudnn.allow_tf32`` defaults
+# to True), where the reference's ``conv_general_dilated`` is exact f32.
+
+
+def causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """u: (B, S, C); w: (C, K); b: (C,). Causal depthwise 1-D conv:
+    ``out[t, c] = sum_k u[t - K + 1 + k, c] * w[c, k] + b[c]``, with zeros
+    before the start."""
+    k = w.shape[-1]
+    s = u.shape[1]
+    pad = torch.nn.functional.pad(u, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[:, 0]
+    for j in range(1, k):
+        out = out + pad[:, j:j + s] * w[:, j]
+    return out + b
+
+
+def conv_step(u_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the causal depthwise conv. u_t: (B, C) new input;
+    conv_state: (B, K-1, C) previous inputs. Returns (y_t (B, C), new_state
+    (B, K-1, C))."""
+    window = torch.cat([conv_state, u_t[:, None, :]], dim=1)  # (B, K, C)
+    y = (window * w.T).sum(1) + b
+    return y, window[:, 1:, :]

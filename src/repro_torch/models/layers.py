@@ -1,10 +1,10 @@
-"""Per-layer blocks of the dense LM family: attention (prefill + decode),
-the MLP and the decoder layer (counterpart of ``repro/models/layers.py``).
+"""Per-layer blocks of the LM: attention (prefill + decode), the MLP and
+the decoder layer of the dense, SSM (falcon-mamba) and hybrid (hymba)
+families (counterpart of ``repro/models/layers.py``).
 
 Parameters are nested dicts of tensors with the reference's leaf names and
-(in, out) layouts. MoE (mixtral), SSM (falcon-mamba), hybrid (hymba) and
-the whisper encoder/decoder layers are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+(in, out) layouts. MoE (mixtral) and the whisper encoder/decoder layers are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,19 +15,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (norm_apply, norm_init,
                                        position_encode, rms_head_norm)
+from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
 
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the layer families this port does not have yet (called
     where params and caches are made, ``lm.init_params`` / ``init_cache``)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "SSM layers (falcon-mamba) wait for the next slice: kernel B6 "
-            "with models/ssm.py (ROADMAP A11)")
-    if cfg.hybrid:
-        raise NotImplementedError(
-            "hybrid attention + SSM layers (hymba) wait for ROADMAP A11")
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE layers (mixtral) wait for ROADMAP A11")
@@ -130,31 +124,67 @@ def mlp_apply(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# decoder layer (dense family)
+# decoder layer (dense / ssm / hybrid)
 # ---------------------------------------------------------------------------
 
 
 def layer_init(generator: torch.Generator, cfg: ModelConfig, dtype,
                device=None):
-    return {"ln1": norm_init(cfg, cfg.d_model, device),
-            "attn": attn_init(generator, cfg, dtype, device),
-            "ln2": norm_init(cfg, cfg.d_model, device),
-            "mlp": mlp_init(generator, cfg, dtype, device)}
+    p = {"ln1": norm_init(cfg, cfg.d_model, device)}
+    if cfg.family == "ssm":
+        p["ssm"] = ssm_init(generator, cfg, dtype, device)
+        return p
+    p["attn"] = attn_init(generator, cfg, dtype, device)
+    if cfg.hybrid:
+        p["ssm"] = ssm_init(generator, cfg, dtype, device)
+        p["attn_branch_norm"] = torch.ones((cfg.d_model,),
+                                           dtype=torch.float32, device=device)
+        p["ssm_branch_norm"] = torch.ones((cfg.d_model,),
+                                          dtype=torch.float32, device=device)
+    p["ln2"] = norm_init(cfg, cfg.d_model, device)
+    p["mlp"] = mlp_init(generator, cfg, dtype, device)
+    return p
+
+
+def _branch_rms(scale, x):
+    """hymba's per-branch RMSNorm (eps 1e-6) in f32; returns x's dtype."""
+    xf = x.float()
+    ms = torch.square(xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale).to(x.dtype)
+
+
+def _hybrid_mix(p, a, s):
+    return 0.5 * (_branch_rms(p["attn_branch_norm"], a)
+                  + _branch_rms(p["ssm_branch_norm"], s))
 
 
 def layer_forward(p, x, positions, cfg: ModelConfig):
-    """Full-sequence decoder layer. Returns (x, (k, v))."""
-    a, kv = attn_forward(p["attn"], norm_apply(cfg, p["ln1"], x), positions,
-                         cfg, causal=True)
+    """Full-sequence decoder layer. Returns (x, (k, v) or None, SSM state
+    {"h", "conv"} or None)."""
+    h = norm_apply(cfg, p["ln1"], x)
+    if cfg.family == "ssm":
+        y, ssm_state = ssm_apply(p["ssm"], h, cfg)
+        return x + y, None, ssm_state
+    a, kv = attn_forward(p["attn"], h, positions, cfg, causal=True)
+    ssm_state = None
+    if cfg.hybrid:
+        s, ssm_state = ssm_apply(p["ssm"], h, cfg)
+        a = _hybrid_mix(p, a, s)
     x = x + a
-    return x + mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg), kv
+    y = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg)
+    return x + y, kv, ssm_state
 
 
 def layer_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
-    """One-token decoder layer. x_t: (B, D). Returns (x_t, layer_cache),
-    the cache updated in place."""
-    a, layer_cache = attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x_t),
-                                 layer_cache, slot_pos, pos, cfg)
+    """One-token decoder layer. x_t: (B, D); layer_cache holds this layer's
+    "k", "v" (attention) and "h", "conv" (SSM) views of the cache, updated
+    in place. Returns x_t."""
+    h = norm_apply(cfg, p["ln1"], x_t)
+    if cfg.family == "ssm":
+        return x_t + ssm_decode_step(p["ssm"], h, layer_cache, cfg)
+    a, _ = attn_decode(p["attn"], h, layer_cache, slot_pos, pos, cfg)
+    if cfg.hybrid:
+        a = _hybrid_mix(p, a, ssm_decode_step(p["ssm"], h, layer_cache, cfg))
     x_t = x_t + a
     y = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x_t), cfg)
-    return x_t + y, layer_cache
+    return x_t + y

@@ -1,5 +1,4 @@
-"""The dense LM: init, prefill and decode (counterpart of
-``repro/models/lm.py``).
+"""The LM: init, prefill and decode (counterpart of ``repro/models/lm.py``).
 
 Public surface, as the reference's, on parameters held as nested dicts of
 tensors with the reference's leaf names:
@@ -11,13 +10,17 @@ tensors with the reference's leaf names:
 
 ``params["layers"]`` is a list with one dict per layer where the reference
 stacks layers on a leading L axis for ``lax.scan``; the layer loop is a
-Python loop. The cache keeps the reference's layout: ``pos`` (B,) and
-``slot_pos`` (B, W) int32, ``layers/k`` and ``layers/v`` (L, B, W, KV, hd).
-``decode_step`` updates the cache in place and returns it.
+Python loop. The cache keeps the reference's layout, by family: ``pos``
+(B,) int32 always; with attention (dense, hybrid) ``slot_pos`` (B, W)
+int32 and ``layers/k``, ``layers/v`` (L, B, W, KV, hd); with an SSM (ssm,
+hybrid) ``layers/h`` (L, B, d_inner, N) and ``layers/conv`` (L, B, K-1,
+d_inner), both f32. ``decode_step`` updates the cache in place and returns
+it.
 
-Only the dense family runs here (olmo, qwen3, mistral-large, llama3); the
-others raise ``NotImplementedError`` (see ``layers.check_family``). The
-LM training loss waits for the LM-training slice of ROADMAP A11.
+The dense (olmo, qwen3, mistral-large, llama3), SSM (falcon-mamba) and
+hybrid (hymba) families run here; MoE and whisper raise
+``NotImplementedError`` (see ``layers.check_family``). The LM training
+loss waits for the LM-training slice of ROADMAP A11.
 
 The logits are an f32 product, as in the reference (``_logits``, which
 upcasts the head). For a bf16 model with a tied embedding that upcast is a
@@ -31,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import norm_apply, norm_init
+from repro_torch.models.ssm import ssm_state_shapes
 from repro_torch.nn.module import normal_init
 
 
@@ -92,13 +96,23 @@ def _logits(params, cfg: ModelConfig, x, head=None) -> torch.Tensor:
 
 
 def _run_layers(params, cfg: ModelConfig, x, positions):
-    """The decoder stack. Returns (x, {"k", "v"}: (L, B, S, KV, hd))."""
-    ks, vs = [], []
+    """The decoder stack. Returns (x, {"k", "v"}: (L, B, S, KV, hd) or None
+    without attention, {"h", "conv"}: (L, B, ...) or None without an SSM)."""
+    outs = {"k": [], "v": [], "h": [], "conv": []}
     for p_layer in params["layers"]:
-        x, (k, v) = L.layer_forward(p_layer, x, positions, cfg)
-        ks.append(k)
-        vs.append(v)
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        x, kv, ssm_state = L.layer_forward(p_layer, x, positions, cfg)
+        if kv is not None:
+            outs["k"].append(kv[0])
+            outs["v"].append(kv[1])
+        if ssm_state is not None:
+            outs["h"].append(ssm_state["h"])
+            outs["conv"].append(ssm_state["conv"])
+
+    def stacked(keys):
+        return ({key: torch.stack(outs[key]) for key in keys}
+                if outs[keys[0]] else None)
+
+    return x, stacked(("k", "v")), stacked(("h", "conv"))
 
 
 # ---------------------------------------------------------------------------
@@ -113,17 +127,25 @@ def cache_window(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Zero cache for ``batch`` sequences with capacity ``max_seq``."""
+    """Zero cache for ``batch`` sequences with capacity ``max_seq``: K/V
+    and slot positions where the family has attention, SSM states where it
+    has an SSM (``repro/models/lm.py:226-244``)."""
     L.check_family(cfg)
-    w = cache_window(cfg, max_seq)
-    kvd = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "slot_pos": torch.full((batch, w), -1, dtype=torch.int32,
-                                   device=device),
-            "layers": {"k": torch.zeros(kvd, dtype=_dtype(cfg),
-                                        device=device),
-                       "v": torch.zeros(kvd, dtype=_dtype(cfg),
-                                        device=device)}}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    lcache = {}
+    if cfg.family != "ssm":
+        w = cache_window(cfg, max_seq)
+        kvd = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
+        lcache["k"] = torch.zeros(kvd, dtype=_dtype(cfg), device=device)
+        lcache["v"] = torch.zeros(kvd, dtype=_dtype(cfg), device=device)
+        cache["slot_pos"] = torch.full((batch, w), -1, dtype=torch.int32,
+                                       device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        for key, shape in ssm_state_shapes(cfg, batch).items():
+            lcache[key] = torch.zeros((cfg.num_layers, *shape),
+                                      dtype=torch.float32, device=device)
+    cache["layers"] = lcache
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +163,13 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    x, kvs = _run_layers(params, cfg, x, positions)
+    x, kvs, ssm_states = _run_layers(params, cfg, x, positions)
     cache = init_cache(cfg, b, max_seq or s, x.device)
-    cache = _fill_kv(cache, kvs, cfg, s)
+    if kvs is not None:
+        cache = _fill_kv(cache, kvs, cfg, s)
+    if ssm_states is not None:
+        cache["layers"]["h"].copy_(ssm_states["h"])
+        cache["layers"]["conv"].copy_(ssm_states["conv"])
     cache["pos"].fill_(s)
     return cache, _logits(params, cfg, x[:, -1], head)
 
@@ -176,21 +202,23 @@ def _fill_kv(cache, kvs, cfg: ModelConfig, s: int):
 
 def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     """One token for every sequence. batch: {"token": (B,)} or {"embed":
-    (B, D)}. Updates ``cache`` in place (the new slot position, each
-    layer's K/V row, ``pos`` + 1) and returns (cache, logits (B, V_pad))."""
+    (B, D)}. Updates ``cache`` in place (the new slot position and each
+    layer's K/V row where there is attention, each layer's SSM state where
+    there is an SSM, ``pos`` + 1) and returns (cache, logits (B, V_pad))."""
     if "embed" in batch:
         x = batch["embed"].to(_dtype(cfg))
     else:
         x = params["embed"][batch["token"]]
     b = x.shape[0]
     pos = cache["pos"]
-    slot_pos = cache["slot_pos"]
-    rows = torch.arange(b, device=x.device)
-    slot_pos[rows, (pos % slot_pos.shape[1]).long()] = pos
-    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    slot_pos = cache.get("slot_pos")
+    if slot_pos is not None:
+        rows = torch.arange(b, device=x.device)
+        slot_pos[rows, (pos % slot_pos.shape[1]).long()] = pos
+    layers = cache["layers"]
     for i, p_layer in enumerate(params["layers"]):
-        x, _ = L.layer_decode(p_layer, x, {"k": ks[i], "v": vs[i]}, slot_pos,
-                              pos, cfg)
+        x = L.layer_decode(p_layer, x, {key: t[i] for key, t in
+                                        layers.items()}, slot_pos, pos, cfg)
     logits = _logits(params, cfg, x, head)
     cache["pos"] = pos + 1
     return cache, logits

@@ -9,13 +9,16 @@ from torch import nn
 
 
 def uniform_init(generator: torch.Generator, shape: tuple[int, ...],
-                 fan_in: int | None = None) -> torch.Tensor:
+                 fan_in: int | None = None, device=None) -> torch.Tensor:
     """Paper §V.A init: Uniform(-1/sqrt(d), 1/sqrt(d)) with d the input dim,
-    drawn on the CPU from ``generator`` (f32)."""
+    drawn in f32 from ``generator`` on ``device`` (the generator's own
+    device when None)."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) == 1 else shape[-2]
     bound = 1.0 / math.sqrt(max(fan_in, 1))
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    device = generator.device if device is None else torch.device(device)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device)
     return (2.0 * u - 1.0) * bound
 
 

@@ -2,10 +2,11 @@
 (counterpart of ``repro/serving/batching.py``).
 
 ``LMEdgeBackend`` runs an actual model on one device: prefill on
-admission (kernel B4 in every layer on the card), then decode steps over
-the active batch (kernel B5 in every layer), admitting queued requests into
-free lanes between steps (vLLM-style continuous batching with a fixed batch
-shape). Measured (prompt_tokens, latency) pairs feed the edge's
+admission (on the card, kernel B4 in every attention layer and kernel B6 in
+every SSM layer), then decode steps over the active batch (kernel B5 in
+every attention layer; the SSM step is plain torch ops), admitting queued
+requests into free lanes between steps (vLLM-style continuous batching
+with a fixed batch shape). Measured (prompt_tokens, latency) pairs feed the edge's
 PhiEstimator: the live demonstration that LM serving is an *ideal service*
 in the paper's sense (§III-C1, runtime affine in input size), closing the
 loop between the serving substrate and the paper's state-evaluation model.
@@ -124,14 +125,19 @@ class LMEdgeBackend:
 
 def _splice_cache(batch_cache, one_cache, lane: int):
     """Insert a single-sequence cache into lane ``lane`` of a batched cache,
-    in place. Handles differing sequence capacity (pads/crops the window
-    axis)."""
+    in place (``repro/serving/batching.py:117-137``). The slot positions
+    and the K/V window axis are padded or cropped to the batch's window
+    where the family has attention; SSM states ``h`` and ``conv`` do not
+    depend on length and are copied whole."""
     batch_cache["pos"][lane] = one_cache["pos"][0]
-    w_b = batch_cache["slot_pos"].shape[1]
-    sp = _fit_axis(one_cache["slot_pos"], w_b, axis=1, fill=-1)
-    batch_cache["slot_pos"][lane] = sp[0]
+    if "slot_pos" in batch_cache:
+        w_b = batch_cache["slot_pos"].shape[1]
+        sp = _fit_axis(one_cache["slot_pos"], w_b, axis=1, fill=-1)
+        batch_cache["slot_pos"][lane] = sp[0]
     for key, b in batch_cache["layers"].items():
-        o = _fit_axis(one_cache["layers"][key], b.shape[2], axis=2, fill=0)
+        o = one_cache["layers"][key]
+        if key in ("k", "v"):
+            o = _fit_axis(o, b.shape[2], axis=2, fill=0)
         b[:, lane] = o[:, 0]
     return batch_cache
 

@@ -12,7 +12,8 @@ for dc and dh, 1e-4 for the weight gradients, whose sums run over B*Z rows.
 The attention kernels (B4, B5) are held at the reference's bars
 (``tests/test_kernels.py``): 2e-4 in f32, 2e-2 in bf16 (the output is
 rounded to bf16; the plain version computes in f32 from the same bf16
-inputs).
+inputs). The selective scan (B6) is held at the reference's 5e-4
+(``tests/test_kernels.py:78``), and two calls must give the same bits.
 """
 import dataclasses
 
@@ -28,6 +29,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.kernels import build, ops, policy_score, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.models import lm
 from repro_torch.serving.batching import LMEdgeBackend
 from repro_torch.serving.fastpath import DecisionFastPath
@@ -206,6 +208,8 @@ def _attn_tol(dtype):
     (1, 520, 32, 8, 128, torch.bfloat16, True, 256),   # a window, dead tiles
     (2, 130, 4, 2, 16, torch.float32, False, None),    # non-causal, hd=16
     (1, 200, 8, 2, 64, torch.float32, False, 50),      # non-causal window
+    (1, 300, 25, 5, 64, torch.bfloat16, True, 128),    # hymba heads: G=5
+    (2, 100, 25, 5, 64, torch.float32, True, 40),
 ])
 def test_flash_attention_kernel_matches_plain_version(
         cuda_device, b, s, h, kv, hd, dtype, causal, window):
@@ -223,21 +227,24 @@ def test_flash_attention_kernel_matches_plain_version(
 
 def _cache(b, w, kv, hd, fills, dtype, device, rolling_from=None, seed=0):
     """Caches with lane i holding positions 0..fills[i]-1 (rest empty), or,
-    with ``rolling_from``, positions p0..p0+w-1 at their slots p % w."""
+    with ``rolling_from`` p0 (one for every lane, or a tuple with None for
+    the lanes that keep their fill), positions p0..p0+w-1 at their slots
+    p % w."""
     gen = torch.Generator().manual_seed(seed)
     kc, vc = (torch.randn(b, w, kv, hd, generator=gen).to(device, dtype)
               for _ in range(2))
     slot_pos = torch.full((b, w), -1, dtype=torch.int32)
     pos = torch.zeros(b, dtype=torch.int32)
-    for i, n in enumerate(fills):
-        if rolling_from is None:
+    if not isinstance(rolling_from, tuple):
+        rolling_from = (rolling_from,) * b
+    for i, (n, p0) in enumerate(zip(fills, rolling_from)):
+        if p0 is None:
             slot_pos[i, :n] = torch.arange(n, dtype=torch.int32)
             pos[i] = max(n - 1, 0)
         else:
-            tail = torch.arange(rolling_from, rolling_from + w,
-                                dtype=torch.int32)
+            tail = torch.arange(p0, p0 + w, dtype=torch.int32)
             slot_pos[i, (tail % w).long()] = tail
-            pos[i] = rolling_from + w - 1
+            pos[i] = p0 + w - 1
     return kc, vc, slot_pos.to(device), pos.to(device)
 
 
@@ -247,6 +254,12 @@ def _cache(b, w, kv, hd, fills, dtype, device, rolling_from=None, seed=0):
     (3, 96, 16, 16, 128, torch.bfloat16, (5, 60, 96), None, None),
     (2, 96, 4, 1, 16, torch.float32, (30, 96), 20, None),  # G=4, hd=16
     (2, 64, 8, 8, 64, torch.float32, (0, 0), None, None),  # empty caches
+    # hymba heads (G*hd = 320, not a multiple of the block's 256 threads):
+    # rolled lanes past the window, a partly filled and a one-slot lane
+    (4, 64, 25, 5, 64, torch.bfloat16, (0, 0, 10, 1), 64, (100, 65, None,
+                                                            None)),
+    (4, 64, 25, 5, 64, torch.float32, (0, 50, 10, 1), 40, (100, None, None,
+                                                           None)),
 ])
 def test_decode_attention_kernel_matches_plain_version(
         cuda_device, b, w, h, kv, hd, dtype, fills, window, roll):
@@ -346,3 +359,88 @@ def test_lm_edge_backend_on_the_card(cuda_device):
     assert len(be.phi._xs) == 4
     assert build.LAUNCHES["flash_attention"] == 4 * cfg.num_layers
     assert build.LAUNCHES["decode_attention"] > 0
+
+
+def _scan_inputs(b, s, d, n, device, seed=0):
+    """As ``tests/test_kernels.py`` makes them: u, B, C normal, dt =
+    softplus(normal) * 0.1, A = -exp(0.2 * normal); f32 on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, s, d, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, d, generator=gen)) * 0.1
+    bm = torch.randn(b, s, n, generator=gen)
+    cm = torch.randn(b, s, n, generator=gen)
+    a = -torch.exp(0.2 * torch.randn(d, n, generator=gen))
+    return [t.to(device) for t in (u, dt, bm, cm, a)]
+
+
+@pytest.mark.parametrize("b,s,d,n", [
+    (1, 256, 512, 16),   # falcon-mamba's N, a short prompt
+    (4, 100, 320, 16),   # hymba's lanes, d not a multiple of the block
+    (1, 37, 200, 4),     # ragged S and d, N = 4
+    (2, 128, 64, 8),     # the reference sweep's shape
+    (2, 70, 33, 32),     # the largest N
+    (1, 5, 300, 1),
+    (3, 9, 17, 3),
+])
+def test_mamba_scan_kernel_matches_plain_version(cuda_device, b, s, d, n):
+    args = _scan_inputs(b, s, d, n, cuda_device, seed=s)
+    build.reset_launch_counts()
+    y, h = ops.mamba_scan(*args)
+    y2, h2 = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mamba_scan"] == 2
+    wy, wh = ref.mamba_scan_torch(*args)
+    assert y.shape == (b, s, d) and h.shape == (b, d, n)
+    torch.testing.assert_close(y, wy, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(h, wh, atol=5e-4, rtol=5e-4)
+    assert torch.equal(y, y2) and torch.equal(h, h2)  # the same bits
+
+
+def test_mamba_scan_wrapper_rejects_bad_inputs(cuda_device):
+    u, dt, bm, cm, a = _scan_inputs(1, 16, 40, 4, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        mamba_scan_cuda(u.double(), dt, bm, cm, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan_cuda(u, dt.transpose(1, 2).contiguous().transpose(1, 2),
+                        bm, cm, a)
+    with pytest.raises(ValueError, match="shape"):
+        mamba_scan_cuda(u, dt, bm[:, :8], cm, a)
+    with pytest.raises(ValueError, match="N <= 32"):
+        mamba_scan_cuda(u, dt, *(torch.randn(1, 16, 33, device=cuda_device)
+                                 for _ in range(2)),
+                        torch.randn(40, 33, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mamba_scan_cuda(u.cpu(), dt, bm, cm, a)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_lm_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Reduced f32 SSM and hybrid models, same weights: a 40-token prefill
+    (B6 in every layer; hymba's rolling window) and three decode steps on
+    the card against the CPU (plain versions), logits to 1e-4."""
+    cfg = get_reduced_config(arch)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    build.reset_launch_counts()
+    cache_g, lg = lm.prefill(gpu, {"tokens": tokens.to(cuda_device)}, cfg,
+                             max_seq=64)
+    cache_c, lc = lm.prefill(cpu, {"tokens": tokens}, cfg, max_seq=64)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    for step in range(3):
+        tok = torch.tensor([step + 3, 7 * step], dtype=torch.int32)
+        cache_g, lg = lm.decode_step(gpu, cache_g, {"token": tok.to(
+            cuda_device)}, cfg)
+        cache_c, lc = lm.decode_step(cpu, cache_c, {"token": tok}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    torch.cuda.synchronize()
+    attn = cfg.num_layers if cfg.hybrid else 0
+    assert build.LAUNCHES["mamba_scan"] == cfg.num_layers
+    assert build.LAUNCHES["flash_attention"] == attn
+    assert build.LAUNCHES["decode_attention"] == 3 * attn
+    for key in ("h", "conv"):
+        torch.testing.assert_close(cache_g["layers"][key].cpu(),
+                                   cache_c["layers"][key], atol=1e-5,
+                                   rtol=1e-5)

@@ -2,14 +2,15 @@
 ``core/state.py`` against the JAX reference, on the CPU.
 
 ``core/state.py`` is a copy and must match bit for bit. ``LMEdgeBackend``
-runs with the reference's own weights, bridged, at reduced olmo-1b and
-qwen3-4b (f32) on the requests of ``tests/test_data_and_batching.py``, in
+runs with the reference's own weights, bridged, at reduced olmo-1b,
+qwen3-4b, falcon-mamba-7b (SSM) and hymba-1.5b (hybrid, a 16-token window)
+in f32 on the requests of ``tests/test_data_and_batching.py``, in
 lockstep with the reference's backend: the same prompts, the same finished
 counts, one phi observation per admission, and the same greedy tokens. A
 token is held exactly where the reference's top-2 logit gap exceeds 1e-4;
 elsewhere the port is teacher-forced with the reference's logits, so one
 near-tie cannot fork the two runs. Logits agree to atol 1e-4 at every
-prefill and decode step, the final caches' K/V to 1e-5.
+prefill and decode step, the final caches' K/V and SSM states to 1e-5.
 """
 import dataclasses
 
@@ -91,7 +92,8 @@ def _gapped(logits):
     return (top[..., 1] - top[..., 0]) > GAP
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-4b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
 def test_lm_edge_backend_matches_reference(arch, monkeypatch):
     jcfg = j_reduced(arch)
     cfg = get_reduced_config(arch)
@@ -163,14 +165,15 @@ def test_lm_edge_backend_matches_reference(arch, monkeypatch):
         REQUESTS)
     assert port.phi._xs == ref.phi._xs  # prompt lengths, one per admission
     assert sum(forced) <= 2, forced
-    for key in ("k", "v"):
+    assert set(port._cache) == set(ref._cache)
+    assert set(port._cache["layers"]) == set(ref._cache["layers"])
+    for key, want in ref._cache["layers"].items():
         np.testing.assert_allclose(port._cache["layers"][key].numpy(),
-                                   np.asarray(ref._cache["layers"][key]),
-                                   atol=1e-5, rtol=1e-5)
-    np.testing.assert_array_equal(port._cache["slot_pos"].numpy(),
-                                  np.asarray(ref._cache["slot_pos"]))
-    np.testing.assert_array_equal(port._cache["pos"].numpy(),
-                                  np.asarray(ref._cache["pos"]))
+                                   np.asarray(want), atol=1e-5, rtol=1e-5)
+    for key in ("slot_pos", "pos"):
+        if key in ref._cache:
+            np.testing.assert_array_equal(port._cache[key].numpy(),
+                                          np.asarray(ref._cache[key]))
 
 
 def test_lm_edge_backend_needs_params_on_its_device():
