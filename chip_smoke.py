@@ -29,16 +29,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    checked again on the encoder outputs of a training batch;
 7. hold the attention kernels B4 (flash attention) and B5 (decode
    attention) against their plain versions at qwen3-4b, olmo-1b and
-   hymba-1.5b head shapes, bf16 and f32, ragged lengths, a window,
-   rolling caches (hymba's 4-lane cache past its 2048 window); and
+   hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
+   bf16 head widths 16 to 128, windows causal and not, rolling caches
+   (hymba's 4-lane cache past its 2048 window), a lane with no valid
+   slot, one lane over 4096 slots and W = 1; each bit for bit across two
+   calls; and
    the selective scan B6 against its plain version at falcon-mamba's and
    hymba's prefill shapes, a ragged one and the reference sweep's, within
    the reference's 5e-4 and bit for bit across two calls;
 8. drive the LM edge servers at full width, the flow of
    ``examples/serve_multi_edge.py``: three ``LMEdgeBackend`` edges (lanes
    1, 2, 4; 4096-slot caches) serving qwen3-4b in bf16 with random weights
-   from a seed, a phi warm-up of eight prefills per edge (256-2560
-   tokens), greedy dispatch of 18 requests (256-2560 prompt tokens, 32
+   from a seed, untimed prefills at the phi warm-up's sizes, then the
+   phi warm-up of eight prefills per edge (256-2560 tokens), after which
+   each edge's phi must have accepted a fit (a flat history fits a = 0,
+   as where the host's launches bound the prefill), greedy
+   dispatch of 18 requests (256-2560 prompt tokens, 32
    generated each) over ``snapshot_instance``; all must be served, the
    4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
    per admission, B5 36 times per decode step and B6 never; the plain
@@ -64,8 +70,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     kernel and the plain path (1e-3 in f32, 0.1 in bf16);
 13. time each kernel, its plain version and, for B4 and B5, PyTorch's
     ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
-    shape 100x1000, B2 at the training shape, B4 at a 2048-token prefill,
-    B5 at the 4-lane qwen3-4b edge's cache after serving, B6 at
+    shape 100x1000, B2 at the training shape, B4 at qwen3-4b's and
+    hymba-1.5b's 2048-token prefills, B5 at the 4-lane qwen3-4b edge's
+    cache after serving and at hymba's rolled 4-lane cache, B6 at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
     main path above).
@@ -109,6 +116,8 @@ LM_MAX_SEQ = 4096      # KV-cache slots per lane
 LM_REQUESTS = 18       # dispatched requests (examples/serve_multi_edge.py)
 LM_GEN = 32            # generated tokens per dispatched request
 LM_WARM = 100_000      # request ids of the phi warm-up start here
+# phi warm-up prompts (the example's sizes times 32)
+PHI_PROMPTS = tuple(32 * n for n in (8, 16, 32, 48, 64, 80, 24, 40))
 LM_SEED = 0
 # kernel vs plain path at full width, of each row's largest |logit|: f32
 # sums in another order (f32); in bf16 one kernel output rounded 1 ulp
@@ -127,6 +136,12 @@ LM_HYBRID_ARCH = "hymba-1.5b"    # hybrid (attention window 2048 + SSM)
 # window run at full width
 LM_SSM_PROMPT = 512
 LM_HYBRID_PROMPT = 2300
+# hymba-1.5b's 4-lane decode cache (B, W, H, KV, hd, dtype, fills,
+# rolling_from, window): two lanes rolled past the 2048 window (a
+# 2560-token prompt plus a step; 2049 tokens), one partly filled, one with
+# a single slot; G*hd = 320. Compared in phase 7, timed in phase 13.
+HYMBA_CACHE = (4, 2048, 25, 5, 64, torch.bfloat16, (0, 0, 700, 1),
+               (513, 1, None, None), 2048)
 SCAN_TOL = 5e-4        # B6 against its plain version (tests/test_kernels.py)
 # B6 cases (B, S, d, N): falcon-mamba's prefill, hymba's four lanes, a
 # ragged one and the reference sweep's; the first is also timed
@@ -738,7 +753,8 @@ def compare_attention(ops, ref, errs):
     """B4 and B5 against their plain versions on the card at the listed
     cases, among them the shapes the qwen3-4b and hymba-1.5b edges give
     them; raises on a disagreement beyond the reference's bars (2e-4 f32,
-    2e-2 bf16) and folds the largest errors into ``errs``."""
+    2e-2 bf16) or when two calls differ in a bit, and folds the largest
+    errors into ``errs``."""
     gen = torch.Generator().manual_seed(21)
     bf16, f32 = torch.bfloat16, torch.float32
     report = []
@@ -750,10 +766,19 @@ def compare_attention(ops, ref, errs):
             (1, 1024, 32, 8, 128, bf16, False, None),  # non-causal
             # hymba heads (G=5, hd=64) and window: prompts past it and not
             (1, 2560, 25, 5, 64, bf16, True, 2048),
-            (1, 1000, 25, 5, 64, bf16, True, 2048)):
+            (1, 1000, 25, 5, 64, bf16, True, 2048),
+            # bf16 tensor-core tiles: ragged S at hymba's window, head
+            # widths 16 and 32, a non-causal window
+            (1, 1, 25, 5, 64, bf16, True, 2048),
+            (1, 63, 25, 5, 64, bf16, True, 2048),
+            (1, 65, 25, 5, 64, bf16, True, 2048),
+            (2, 200, 4, 2, 16, bf16, True, None),
+            (1, 150, 8, 4, 32, bf16, True, None),
+            (1, 300, 16, 4, 128, bf16, False, 70)):
         q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda", dtype)
                    for n in (h, kv, kv))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_torch(q, k, v, causal=causal,
                                          window=window)
         err, excess = _attn_err(got, want, dtype)
@@ -763,24 +788,31 @@ def compare_attention(ops, ref, errs):
         check(excess <= ATTN_TOL[dtype], f"flash_attention err {err} beyond "
               f"allclose({ATTN_TOL[dtype]}) at "
               f"{(b, s, h, kv, hd, str(dtype), causal, window)}")
+        check(torch.equal(got, again), "flash_attention differs between two "
+              f"calls at {(b, s, h, kv, hd, str(dtype), causal, window)}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
         report.append({"kernel": "flash_attention", "B": b, "S": s, "H": h,
                        "KV": kv, "hd": hd, "dtype": str(dtype),
                        "causal": causal, "window": window, "err": err})
     for b, w, h, kv, hd, dtype, fills, roll, window in (
             (4, 4096, 32, 8, 128, bf16, (1, 700, 2600, 4096), None, None),
+            # as served (4,506 valid slots): 22 splits of 3 tiles, the
+            # last of 1
+            (4, 4096, 32, 8, 128, bf16, (2303, 1100, 600, 503), None, None),
             (2, 256, 32, 8, 128, bf16, None, (900, 4000), 256),  # rolling
             (3, 96, 32, 8, 128, bf16, (5, 60, 96), None, None),  # W=96
             (2, 96, 16, 16, 128, f32, (30, 96), None, 20),
-            # hymba's 4-lane cache: two lanes rolled past the 2048 window
-            # (a 2560-token prompt plus a step; 2049 tokens), one partly
-            # filled, one with a single slot; G*hd = 320
-            (4, 2048, 25, 5, 64, bf16, (0, 0, 700, 1), (513, 1, None, None),
-             2048)):
+            HYMBA_CACHE,
+            # split-W: a lane with no valid slot and no roll (the mean of
+            # V), one lane over 4096 slots (64 splits), W = 1
+            (3, 300, 32, 8, 128, bf16, (0, 120, 300), None, None),
+            (1, 4096, 32, 8, 128, bf16, (3000,), None, None),
+            (2, 1, 32, 8, 128, bf16, (1, 0), None, None)):
         kc, vc, slot_pos, pos = _slot_cache(gen, b, w, kv, hd, dtype, fills,
                                             roll)
         q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
         got = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+        again = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
         want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos,
                                           window=window)
         err, excess = _attn_err(got, want, dtype)
@@ -790,6 +822,8 @@ def compare_attention(ops, ref, errs):
         check(excess <= ATTN_TOL[dtype], f"decode_attention err {err} beyond "
               f"allclose({ATTN_TOL[dtype]}) at "
               f"{(b, w, h, kv, hd, str(dtype), fills, roll, window)}")
+        check(torch.equal(got, again), "decode_attention differs between two "
+              f"calls at {(b, w, h, kv, hd, str(dtype), fills, roll, window)}")
         errs["decode_attention"] = max(errs["decode_attention"], err)
         report.append({"kernel": "decode_attention", "B": b, "W": w, "H": h,
                        "KV": kv, "hd": hd, "dtype": str(dtype),
@@ -857,18 +891,27 @@ def _plain_guard(ref):
                                 "decode_attention_torch", "mamba_scan_torch")]
 
 
-def drive_lm_serving(cfg, params, batching, state, heuristics, build, ref):
+def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
+                     ref):
     """The example's flow (examples/serve_multi_edge.py) at full width: three
     ``LMEdgeBackend`` edges with lanes [1, 2, 4] share one weight set; a phi
-    warm-up of eight prefills per edge; ``snapshot_instance`` + greedy
-    dispatch of LM_REQUESTS requests; drain. The launch counters are set to
-    0 just before and read just after; each family's kernels must launch
-    exactly once per layer that runs them (B4 and B6 per admission, B5 per
-    decode step) and the plain versions never. Returns the summary and the
-    edges."""
+    warm-up of eight prefills per edge, after which each edge's phi must
+    have accepted a fit (a flat or falling history fits a = 0, which keeps
+    a host-bound edge in the dispatch); ``snapshot_instance`` + greedy
+    dispatch of LM_REQUESTS requests; drain. Untimed prefills at the
+    warm-up's sizes come first, so that first-call costs do not land in
+    phi. The launch counters are set to 0 just before the edges serve and
+    read just after; each family's kernels must launch exactly once per
+    layer that runs them (B4 and B6 per admission, B5 per decode step) and
+    the plain versions never. Returns the summary and the edges."""
     lanes = [1, 2, 4]
     edges = [batching.LMEdgeBackend(cfg, params, lanes=n, max_seq=LM_MAX_SEQ,
                                     seed=i) for i, n in enumerate(lanes)]
+    for plen in PHI_PROMPTS:  # the model warm, as before serving traffic
+        lm.prefill(params, {"tokens": torch.zeros(
+            (1, plen), dtype=torch.int32, device=edges[0].device)}, cfg,
+            max_seq=LM_MAX_SEQ, head=edges[0]._head)
+    torch.cuda.synchronize()
     steps = {"admit_ms": [], "decode_ms": [], "decode_tokens": 0,
              "decode_steps": 0}
 
@@ -891,11 +934,14 @@ def drive_lm_serving(cfg, params, batching, state, heuristics, build, ref):
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
+    prior = state.PhiEstimator().coefficients  # phi before any accepted fit
     for i, be in enumerate(edges):  # phi warm-up (paper Fig. 4 fit)
-        for rid, plen in enumerate((8, 16, 32, 48, 64, 80, 24, 40)):
-            be.submit(LM_WARM + 1000 * i + rid, plen * 32, 1)
+        for j, plen in enumerate(PHI_PROMPTS):
+            be.submit(LM_WARM + 1000 * i + j, plen, 1)
         while be._queue or any(s.remaining for s in be._lane_states):
             step(be)
+        check(be.phi.coefficients != prior, f"edge {i}'s phi accepted no fit "
+              f"from its warm-up: {be.phi._xs}, {be.phi._ys}")
     warm_s = time.perf_counter() - t_start
 
     rng = np.random.default_rng(LM_SEED)
@@ -955,7 +1001,8 @@ def drive_lm_serving(cfg, params, batching, state, heuristics, build, ref):
         "gen_len": LM_GEN, "dispatch_share": share,
         "served": {i: len([r for r in be.finished if r < LM_WARM])
                    for i, be in enumerate(edges)},
-        "admissions": admissions, "decode_steps": steps["decode_steps"],
+        "admissions": admissions,
+        "decode_steps": steps["decode_steps"],
         "launches": launches, "warmup_s": warm_s, "serve_s": serve_s,
         "phi": {i: {"a": be.phi.a, "b": be.phi.b,
                     "prompt_tokens": list(be.phi._xs),
@@ -1123,57 +1170,143 @@ def edge_cache(edge):
                                      c["slot_pos"], c["pos"]))
 
 
-def attention_timings(ops, ref, cache, launches, errs):
-    """B4 at (1, 2048, 32, 8, 128) bf16 causal and B5 at the 4-lane qwen3-4b
-    edge's batch cache after serving (``edge_cache``: W=4096, 8 KV heads,
-    32 query heads, its slot positions; random q), each beside its plain
-    version, SDPA and its bound (bf16 tensor-core peak against the memory
-    rate)."""
+SHAPE_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "ms_runs", "plain_ms_runs")
+SPLIT_SWEEP = (1, 2, 3, 4, 7, 16)  # B5's tiles per split, timed
+
+
+def _timed_err(kern, plain, where):
+    """The largest |kernel - plain| on the inputs a row times; raises beyond
+    the bf16 bar (ATTN_TOL) or when two calls differ in a bit."""
+    got, again, want = kern(), kern(), plain()
+    err, excess = _attn_err(got, want, torch.bfloat16)
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          f"{where}: output malformed")
+    check(excess <= ATTN_TOL[torch.bfloat16], f"{where}: err {err} beyond "
+          f"allclose({ATTN_TOL[torch.bfloat16]})")
+    check(torch.equal(got, again), f"{where}: two calls differ")
+    return err
+
+
+def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches):
+    """B4 at (b, s, h, kv, hd) bf16, causal with ``window``, held against
+    its plain version on the inputs it is timed on, beside that version,
+    SDPA and its bound: the (row, column) pairs the mask keeps on the bf16
+    tensor cores against q, k, v read and o written."""
     import torch.nn.functional as F
-    gen = torch.Generator().manual_seed(31)
-    b, s, h, kv, hd = 1, 2048, 32, 8, 128
     q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda",
                                                          torch.bfloat16)
                for n in (h, kv, kv))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = b * s * (s + 1) // 2  # causal (row, column) pairs
-    b4_flops = 4 * h * hd * pairs
-    b4_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    rows = [_row("flash_attention", 26,
-                 lambda: ops.flash_attention(q, k, v, causal=True),
-                 lambda: ref.flash_attention_torch(q, k, v, causal=True),
-                 b4_flops, b4_bytes, launches["flash_attention"],
-                 errs["flash_attention"],
-                 f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal",
-                 source="flash_attention.cu",
-                 replaces="flash_attention.py",
-                 library=lambda: F.scaled_dot_product_attention(
-                     qt, kt, vt, is_causal=True, enable_gqa=True),
-                 peak=BF16_FLOPS, reps=10, inner=5)]
+    w = s if window is None else min(window, s)
+    pairs = b * (w * (w + 1) // 2 + (s - w) * w)
+    mask = None
+    if w < s:  # SDPA takes a window only as a mask
+        i = torch.arange(s, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
+    shape = (f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal"
+             + (f" window {window}" if window else ""))
 
+    def kern():
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain():
+        return ref.flash_attention_torch(q, k, v, causal=True, window=window)
+
+    err = _timed_err(kern, plain, f"flash_attention at {shape}")
+    return _row("flash_attention", 26, kern, plain, 4 * h * hd * pairs,
+                2 * (2 * b * s * h * hd + 2 * b * s * kv * hd), launches, err,
+                shape,
+                source="flash_attention.cu", replaces="flash_attention.py",
+                library=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True),
+                peak=BF16_FLOPS, reps=10, inner=5)
+
+
+def _decode_row(ops, ref, da, gen, cache, h, window, launches):
+    """B5 over ``cache`` (k, v, slot positions, positions) with ``h`` query
+    heads and random q, held against its plain version on those inputs,
+    beside that version, SDPA and its bound: the valid slots' K and V rows
+    against the tensor-core peak. ``split_sweep``: the kernel's time and
+    error at SPLIT_SWEEP tiles per split (module ``da`` launched with an
+    explicit plan), each checked like the plan's own choice."""
+    import torch.nn.functional as F
     kc, vc, slot_pos, pos = cache
-    bb, w = slot_pos.shape
-    qd = torch.randn(bb, h, hd, generator=gen).to("cuda", torch.bfloat16)
+    b, w, kv, hd = kc.shape
+    qd = torch.randn(b, h, hd, generator=gen).to("cuda", torch.bfloat16)
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        valid &= slot_pos > pos[:, None] - window
     n_valid = int(valid.sum())
-    b5_flops = 4 * h * hd * n_valid
-    b5_bytes = (2 * n_valid * kv * hd * 2 + 2 * 2 * bb * h * hd
-                + 4 * bb * w + 4 * bb)
     kct, vct = (t.transpose(1, 2).contiguous() for t in (kc, vc))
     mask = valid[:, None, None, :]
-    rows.append(_row(
-        "decode_attention", 25,
-        lambda: ops.decode_attention(qd, kc, vc, slot_pos, pos),
-        lambda: ref.decode_attention_torch(qd, kc, vc, slot_pos, pos),
-        b5_flops, b5_bytes, launches["decode_attention"],
-        errs["decode_attention"],
-        f"B={bb} W={w} H={h} KV={kv} hd={hd} bf16, {n_valid} valid slots",
+    shape = (f"B={b} W={w} H={h} KV={kv} hd={hd} bf16"
+             + (f" window {window}" if window else "")
+             + f", {n_valid} valid slots")
+
+    def kern(plan=None):
+        if plan is None:
+            return ops.decode_attention(qd, kc, vc, slot_pos, pos,
+                                        window=window)
+        return da.decode_attention_cuda(qd, kc, vc, slot_pos, pos,
+                                        window=window, plan=plan)
+
+    def plain():
+        return ref.decode_attention_torch(qd, kc, vc, slot_pos, pos,
+                                          window=window)
+
+    err = _timed_err(kern, plain, f"decode_attention at {shape}")
+    row = _row(
+        "decode_attention", 25, kern, plain, 4 * h * hd * n_valid,
+        2 * n_valid * kv * hd * 2 + 2 * 2 * b * h * hd + 4 * b * w + 4 * b,
+        launches, err, shape,
         source="decode_attention.cu", replaces="decode_attention.py",
         library=lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True),
-        peak=BF16_FLOPS))
-    rows[-1]["valid_slot_share"] = n_valid / (bb * w)
-    return rows
+        peak=BF16_FLOPS)
+    row["valid_slot_share"] = n_valid / (b * w)
+    row["split_plan"] = da.split_plan(
+        w, b, kv, torch.cuda.get_device_properties(0).multi_processor_count)
+    row["split_sweep"] = []
+    for per in SPLIT_SWEEP:
+        plan = (-(-w // (da.TILE * per)), per)
+        row["split_sweep"].append({
+            "splits": plan[0], "tiles_per_split": per,
+            "max_abs_err": _timed_err(lambda: kern(plan), plain,
+                                      f"decode_attention at {shape}, "
+                                      f"plan {plan}"),
+            "ms": time_ms(lambda: kern(plan))})
+    return row
+
+
+def attention_timings(ops, ref, da, cache, launches, errs):
+    """B4 and B5 at the main paths' shapes, each held against its plain
+    version on the inputs it is timed on (that error is the row's
+    ``max_abs_err``; ``compare_max_abs_err`` is compare_attention's), beside
+    that version, SDPA and its bound (bf16 tensor-core peak against the
+    memory rate):
+    B4 at qwen3-4b's (1, 2048, 32, 8, 128) causal prefill, and at
+    hymba-1.5b's (1, 2048, 25, 5, 64) with its 2048 window; B5 at the
+    4-lane qwen3-4b edge's batch cache after serving (``edge_cache``:
+    W=4096, 8 KV heads, 32 query heads, its slot positions; random q), and
+    at hymba's rolled 4-lane cache (HYMBA_CACHE). The hymba readings go
+    into each row under ``hymba_shape``."""
+    gen = torch.Generator().manual_seed(31)
+    b4 = _flash_row(ops, ref, gen, 1, 2048, 32, 8, 128, None,
+                    launches["flash_attention"])
+    hymba = _flash_row(ops, ref, gen, 1, 2048, 25, 5, 64, 2048, {})
+    b4["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS}
+    b4["compare_max_abs_err"] = errs["flash_attention"]
+    b5 = _decode_row(ops, ref, da, gen, cache, 32, None,
+                     launches["decode_attention"])
+    b, w, h, kv, hd, dtype, fills, roll, window = HYMBA_CACHE
+    hymba = _decode_row(ops, ref, da, gen, _slot_cache(
+        gen, b, w, kv, hd, dtype, fills, roll), h, window, {})
+    b5["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS + (
+        "valid_slot_share", "split_plan", "split_sweep")}
+    b5["compare_max_abs_err"] = errs["decode_attention"]
+    return [b4, b5]
 
 
 def scan_timing(ops, ref, args, launches, errs):
@@ -1206,6 +1339,7 @@ def main() -> int:
     from repro_torch.core import policy as pol
     from repro_torch.core import train as tr
     from repro_torch.kernels import build, ops, policy_score, ref
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.models import lm
     from repro_torch.nn import param_count
     from repro_torch.serving import batching
@@ -1281,7 +1415,7 @@ def main() -> int:
     cfg = get_config(LM_ARCH)
     params = lm.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(LM_SEED))
-    lm_serving, edges = drive_lm_serving(cfg, params, batching, state,
+    lm_serving, edges = drive_lm_serving(cfg, params, lm, batching, state,
                                          heuristics, build, ref)
     print(f"lm serving: {json.dumps(lm_serving)}", flush=True)
     record("lm_serving", lm_serving["launches"])
@@ -1304,7 +1438,7 @@ def main() -> int:
         cfg = get_config(arch)
         params = lm.init_params(cfg, generator=torch.Generator(
             device="cuda").manual_seed(LM_SEED))
-        served, edges = drive_lm_serving(cfg, params, batching, state,
+        served, edges = drive_lm_serving(cfg, params, lm, batching, state,
                                          heuristics, build, ref)
         print(f"{label} lm serving: {json.dumps(served)}", flush=True)
         record(f"{label}_lm_serving", served["launches"])
@@ -1329,7 +1463,7 @@ def main() -> int:
 
     # phase 13: every kernel timed beside its plain version; the kernels line
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
-    kernels += attention_timings(ops, ref, qwen3_cache, launches, errs)
+    kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
     kernels.append(scan_timing(ops, ref, scan_args, launches["mamba_scan"],
                                errs))
 

@@ -9,7 +9,9 @@ per edge from measured prefill latencies, and :func:`snapshot_instance`
 freezes the live system into a scheduling instance for the solvers and
 the policy. The array twin ``slot_workload_features`` (jnp, used by the
 batched engine) waits for ROADMAP A8. ``tests/test_torch_lm_serving.py``
-holds this copy against the original bit for bit.
+holds this copy against the original bit for bit, apart from the one
+place where :class:`PhiEstimator` differs on purpose (a history whose
+least-squares slope is not positive).
 """
 from __future__ import annotations
 
@@ -31,6 +33,14 @@ class PhiEstimator:
     request instead of an O(n) refit; the closed-form coefficients equal
     ``np.polyfit(window, 1)`` (pinned by a test). Set ``frozen`` to pin the
     coefficients (oracle mode for engine-equivalence runs).
+
+    Where the window's least-squares slope is not positive, phi is the
+    least-squares fit with ``a >= 0``: ``a = 0`` and ``b`` the mean runtime.
+    The reference keeps its previous coefficients there, at first the prior
+    ``a = 1`` s per unit of size, and a dispatch over that prior sends the
+    edge nothing. Such a history is what an edge whose runtime does not
+    grow with the size measures: an LM prefill that the host's launches
+    bound (ROADMAP C).
     """
 
     a: float = 1.0
@@ -78,8 +88,11 @@ class PhiEstimator:
             return  # constant-size history: the affine fit is degenerate
         a = (self._sxy - self._sx * self._sy / n) / (self._sxx - self._sx**2 / n)
         b = (self._sy - a * self._sx) / n
-        if np.isfinite(a) and np.isfinite(b) and a > 0:
-            self.a, self.b = float(a), float(max(b, 0.0))
+        if not (np.isfinite(a) and np.isfinite(b)):
+            return
+        if a <= 0:  # flat or falling: the least-squares fit with a >= 0
+            a, b = 0.0, self._sy / n
+        self.a, self.b = float(a), float(max(b, 0.0))
 
     def __call__(self, data_size) -> float:
         return self.a * np.asarray(data_size) + self.b

@@ -18,26 +18,46 @@
 // What bounds it. At the prefill of the LM edge server (qwen3-4b heads:
 // H=32, KV=8, hd=128) and a prompt of S=2048, the causal half is about
 // 34 GFLOP on about 21 MB of q, k, v and o in bf16: some 1,600 operations
-// per byte, so the card's arithmetic bounds it (0.035 ms at the bf16
-// tensor-core peak).
+// per byte, so the card's tensor cores bound it (0.035 ms at the bf16
+// peak).
 //
-// What the design does about it, for now: nothing beyond being right and
-// simple. One block of 256 threads per (64-row q tile, head, batch row).
-// The q tile and each 64-row K and V tile of KV head h / G are widened to
-// f32 in shared memory (116 KB at hd=128, opted in as dynamic shared
-// memory); each thread owns a 4x4 block of the 64x64 score tile and a
-// 4x8 block of the 64x128 output accumulator, all products as f32 FMAs on
-// the CUDA cores (no tensor cores). Per row the running max, sum and
-// rescale factor live in shared memory; one warp updates eight rows. Tiles
-// that are dead under causality or the window are skipped, as the Pallas
-// kernel's pl.when(live) does. K and V tiles arrive in 16-byte loads, all
-// of a thread's loads for a tile issued before any is widened, so a tile
-// costs one memory round trip, not one per element (hence hd a multiple of
-// 8 in bf16, 4 in f32, and 16-byte aligned k, v). P is kept in f32 for
-// P.V (the reference
-// model's pure-jnp path does so; the Pallas kernel casts P to v's dtype).
-// The tensor-core form (mma.sync / wgmma on bf16 tiles fed by TMA, with
-// warp specialisation) is later work.
+// Two kernels, chosen by dtype.
+//
+// bf16 (the serving path), `flash_fwd_tc`: FlashAttention-2's structure on
+// mma.sync tensor-core products. One block of 4 warps per (64-row q tile,
+// head, batch row); each warp owns 16 query rows, and the q tiles launch
+// heaviest first (the last tile of every head in the first wave), so under
+// causality the long rows do not form the tail. K and V tiles of 64 slots
+// of KV head h / G arrive by 16-byte cp.async copies in a 2-stage ring:
+// tile j+1 is in flight while tile j computes; rows past S are zero-filled
+// (src-size 0). Shared memory rows are hd/8 16-byte chunks, stored at
+// chunk ^ (row % 8) in a row padded to a multiple of 8 chunks, so that
+// ldmatrix reads 8 rows of one chunk from 8 distinct bank groups. Q is
+// read once into registers with ldmatrix. S = Q K^T is
+// mma.m16n8k16.row.col.f32.bf16 (K row-major (slot, hd) is the .col
+// operand, plain ldmatrix): products of bf16 values are exact, the sums
+// f32; the scale comes after the product. The online softmax stays in
+// registers: a thread holds 2 rows of its warp's 16, row maxima over the
+// 4 threads of a quad by xor shuffles; masks are evaluated only on tiles
+// that cut the diagonal, the window edge or the end of S, dead tiles are
+// not visited. O += P V with P carried to about 16 bits: the S accumulator
+// fragments are repacked in registers into the A fragments of P_hi =
+// bf16(P) and P_lo = bf16(P - P_hi), and two mma.sync run per step (V
+// through ldmatrix.trans). The reference and the plain version keep P in
+// f32; one bf16 rounding of P (as SDPA does) would move every output and
+// compound over the layers, the split keeps P to ~2^-16 relative for 1.5x
+// the tensor-core work of the two products. The epilogue divides by l,
+// rounds to bf16, stages the warp's rows in the freed Q tile and stores
+// 16-byte chunks of the rows below S. hd is a template parameter, a
+// multiple of 16 up to 128; at 128 shared memory is 80 KB (Q, 2 x K,
+// 2 x V), two blocks per SM.
+//
+// f32 (parity runs), `flash_fwd`: the first, simple design, kept as is.
+// One block of 256 threads per (64-row q tile, head, batch row); the q
+// tile and each K and V tile widened into shared memory; each thread owns
+// a 4x4 block of the score tile and a 4x8 block of the output, f32 FMAs on
+// the CUDA cores; the row max, sum and rescale factor in shared memory;
+// dead tiles skipped; K and V in 16-byte loads (hd a multiple of 4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,15 +72,9 @@ constexpr int kHdPerThread = kMaxHd / 16;  // output columns per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
-// 16-byte chunks: 8 bf16 or 4 f32 elements, loaded with one instruction
+// 16-byte chunks: 4 f32 elements, loaded with one instruction
 constexpr int kMaxChunks = kBK * kMaxHd / 4 / kThreads;  // per thread, f32
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
@@ -70,16 +84,6 @@ __device__ __forceinline__ void widen(uint4 u, float* dst, const float*) {
   dst[1] = f.y;
   dst[2] = f.z;
   dst[3] = f.w;
-}
-__device__ __forceinline__ void widen(uint4 u, float* dst,
-                                      const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    dst[2 * j] = f.x;
-    dst[2 * j + 1] = f.y;
-  }
 }
 
 size_t smem_bytes(int hd) {
@@ -270,44 +274,372 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int hd, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int hd, int causal, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, hd, causal,
+  flash_fwd<float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, hd,
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16: tensor cores (mma.sync m16n8k16), cp.async ring, ldmatrix ----
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;  // 16 query rows per warp
+constexpr int kStages = 2;                 // K/V tiles in flight: j and j+1
+
+using bf16 = __nv_bfloat16;
+
+// Shared-memory tile of 64 rows of HD bf16: HD/8 16-byte chunks per row,
+// the row padded to a multiple of 8 chunks, chunk c of row r stored at
+// c ^ (r % 8).
+template <int HD>
+struct Tile {
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kRowElems = (kChunks + 7) / 8 * 64;
+  static constexpr int kElems = kBK * kRowElems;
+};
+
+__device__ __forceinline__ int swz(int row, int chunk, int row_elems) {
+  return row * row_elems + ((chunk ^ (row & 7)) << 3);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8, f32) += a (16x16, bf16, row) . b (16x8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+// (x0, x1) -> bf16x2 of the rounded pair (hi) and of what it left (lo)
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+// Copy rows r0 .. r0+63 of a (row stride `stride`) matrix into a swizzled
+// tile, zero-filling rows at or past S.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long stride, int r0, int S,
+                                          int tid) {
+  using L = Tile<HD>;
+#pragma unroll
+  for (int c = tid; c < kBK * L::kChunks; c += kTcThreads) {
+    const int r = c / L::kChunks, ch = c % L::kChunks, s = r0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + swz(r, ch, L::kRowElems),
+               src + (long)(ok ? s : 0) * stride + ch * 8, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H,
+             int KV, int causal, int window, float scale) {
+  using L = Tile<HD>;
+  constexpr int kKSteps = HD / 16;  // k16 steps of Q K^T
+  constexpr int kDTiles = HD / 8;   // n8 tiles of the output
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* ks = qs + L::kElems;            // kStages tiles
+  bf16* vs = ks + kStages * L::kElems;  // kStages tiles
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest tile first
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column pair
+
+  const long q_stride = (long)H * HD;
+  const long kv_stride = (long)KV * HD;
+  const bf16* qb = q + (long)b * S * q_stride + (long)h * HD;
+  const bf16* kb = k + (long)b * S * kv_stride + (long)kvh * HD;
+  const bf16* vb = v + (long)b * S * kv_stride + (long)kvh * HD;
+
+  // live kv tiles: [lo, hi]
+  const int last_row = min(q0 + kBQ - 1, S - 1);
+  const int hi = causal ? last_row / kBK : (S - 1) / kBK;
+  int lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
+
+  load_tile<HD>(qs, qb, q_stride, q0, S, tid);
+  load_tile<HD>(ks, kb, kv_stride, lo * kBK, S, tid);
+  cp_async_commit();  // Q and K[lo]
+  load_tile<HD>(vs, vb, kv_stride, lo * kBK, S, tid);
+  cp_async_commit();  // V[lo]
+
+  unsigned qf[kKSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // this thread's two rows: row0 (fragment elements 0, 1), row0 + 8 (2, 3)
+  const int row0 = q0 + warp * 16 + gq;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad at the end
+
+  for (int j = lo; j <= hi; ++j) {
+    const int stage = (j - lo) % kStages;
+    const bf16* kt = ks + stage * L::kElems;
+    const bf16* vt = vs + stage * L::kElems;
+    cp_async_wait<1>();  // K[j] (pending: V[j])
+    __syncthreads();     // K[j] visible; every warp is past tile j-1
+    if (j < hi) {        // tile j+1 into the other stage
+      const int nxt = (stage + 1) % kStages;
+      load_tile<HD>(ks + nxt * L::kElems, kb, kv_stride, (j + 1) * kBK, S,
+                    tid);
+      cp_async_commit();
+      load_tile<HD>(vs + nxt * L::kElems, vb, kv_stride, (j + 1) * kBK, S,
+                    tid);
+    } else {
+      cp_async_commit();  // empty groups keep the count
+    }
+    cp_async_commit();
+
+    if (j == lo) {  // Q fragments, once
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldsm_x4(qf[kk], qs + swz(warp * 16 + (lane & 15), 2 * kk + lane / 16,
+                                 L::kRowElems));
+    }
+
+    // S = Q K^T: 8 n8 tiles of 64 key slots
+    float sc[kBK / 8][4];
+#pragma unroll
+    for (int i = 0; i < kBK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {
+        unsigned kf[4];
+        ldsm_x4(kf, kt + swz(np * 16 + (lane & 7) + (lane / 16) * 8,
+                             2 * kk + (lane / 8) % 2, L::kRowElems));
+        mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale; masks only on tiles that cut the diagonal, window or end of S
+    const int k0 = j * kBK;
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + kBQ - 1 - window);
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[nt][e] * scale;
+        if (edge) {
+          const int col = k0 + nt * 8 + 2 * tq + (e & 1);
+          const int row = row0 + (e / 2) * 8;
+          bool ok = col < S;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && col > row - window;
+          if (!ok) s = kNegInf;
+        }
+        sc[nt][e] = s;
+      }
+
+    // online softmax in registers, rows shared by the 4 threads of a quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = sc[0][2 * i];
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(sc[nt][2 * i], sc[nt][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const float p = expf(sc[nt][e] - m_new);
+          sc[nt][e] = p;
+          sum += p;
+        }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; ++dt) {
+        acc[dt][2 * i] *= alpha;
+        acc[dt][2 * i + 1] *= alpha;
+      }
+    }
+
+    cp_async_wait<2>();  // V[j] (pending: K[j+1], V[j+1])
+    __syncthreads();     // V[j] visible
+
+    // O += P_hi V + P_lo V, k16 steps of 16 key slots
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      unsigned ph[4], pl[4];  // A fragments: rows g, g+8; columns 2t, 2t+8
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        unsigned vf[4];
+        ldsm_x4_t(vf, vt + swz(kk * 16 + (lane & 7) + ((lane / 8) % 2) * 8,
+                               2 * dp + lane / 16, L::kRowElems));
+        mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
+        mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // epilogue: o = acc / l in bf16, staged in this warp's rows of the Q tile
+  // (read only at tile lo, before two barriers), stored in 16-byte chunks
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + gq + 8 * i;
+      *reinterpret_cast<__nv_bfloat162*>(qs + swz(r, dt, L::kRowElems) +
+                                         2 * tq) =
+          __floats2bfloat162_rn(acc[dt][2 * i] / l[i],
+                                acc[dt][2 * i + 1] / l[i]);
+    }
+  __syncwarp();
+  bf16* ob = o + (long)b * S * q_stride + (long)h * HD;
+#pragma unroll
+  for (int c = lane; c < 16 * L::kChunks; c += 32) {
+    const int r = warp * 16 + c / L::kChunks, ch = c % L::kChunks;
+    const int s = q0 + r;
+    if (s < S)
+      *reinterpret_cast<uint4*>(ob + s * q_stride + ch * 8) =
+          *reinterpret_cast<const uint4*>(qs + swz(r, ch, L::kRowElems));
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int S, int H, int KV, int causal, int window, float scale,
+              cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (1 + 2 * kStages) * Tile<HD>::kElems;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, (S + kBQ - 1) / kBQ, B);
+  flash_fwd_tc<HD><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
       window, scale);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KV, int hd, int causal, int window,
+                float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch_tc<16>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 48: return launch_tc<48>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 80: return launch_tc<80>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 96: return launch_tc<96>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 112: return launch_tc<112>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, S, H, hd); k, v: (B, S, KV, hd), 16-byte aligned; contiguous,
-// all f32 or all bf16 (is_bf16), hd a multiple of 8 (bf16) or 4 (f32).
-// window <= 0 means no window. Returns the first CUDA error
-// of the launch (0 when it was accepted).
+// q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, all f32 or all
+// bf16 (is_bf16). f32: hd <= 128 a multiple of 4, k and v 16-byte aligned.
+// bf16: hd <= 128 a multiple of 16, q, k, v and o 16-byte aligned.
+// window <= 0 means no window. Returns the first CUDA error of the launch
+// (0 when it was accepted).
 int corais_flash_attention(const void* q, const void* k, const void* v,
                            void* o, int B, int S, int H, int KV, int hd,
                            int causal, int window, float scale, int is_bf16,
                            void* stream) {
-  const int vec = is_bf16 ? 8 : 4;  // elements per 16-byte load
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || hd < 1 || hd > kMaxHd ||
-      hd % vec != 0 || reinterpret_cast<size_t>(k) % 16 != 0 ||
-      reinterpret_cast<size_t>(v) % 16 != 0)
+      !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal,
-                                         window, scale, st)
-                 : launch<float>(q, k, v, o, B, S, H, KV, hd, causal, window,
-                                 scale, st);
+  if (is_bf16) {
+    if (hd % 16 != 0 || !aligned16(q) || !aligned16(o))
+      return (int)cudaErrorInvalidValue;
+    return launch_bf16(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
+                       st);
+  }
+  if (hd % 4 != 0) return (int)cudaErrorInvalidValue;
+  return launch_f32(q, k, v, o, B, S, H, KV, hd, causal, window, scale, st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -3,8 +3,10 @@
 Replaces the Pallas ``_kernel`` of ``repro/kernels/decode_attention.py:25``:
 one query token per sequence over a (possibly rolling) KV cache, the G
 query heads of a KV head sharing each cache read, slot validity from
-``slot_pos`` and ``pos`` evaluated in the kernel. The source's header note
-says what bounds it on the H100 and what its design does about that.
+``slot_pos`` and ``pos`` evaluated in the kernel. It splits W over many
+blocks (split-W flash-decode) and combines their partial softmaxes in the
+same launch; :func:`split_plan` chooses the splits. The source's header
+note says what bounds it on the H100 and what its design does about that.
 
 :func:`decode_attention_cuda` takes CUDA tensors only; its plain version is
 :func:`repro_torch.kernels.ref.decode_attention_torch`, and
@@ -26,17 +28,78 @@ from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
 
 #: G * hd: the query heads of one KV head times the head width.
 MAX_GROUP_WIDTH = 2048
+#: Cache slots per tile; a split owns whole tiles (the kernel's kBW).
+TILE = 64
+#: Tiles one split may own: the kernel keeps a validity flag per slot of
+#: its split in shared memory (kMaxTilesPerSplit).
+MAX_TILES_PER_SPLIT = 64
+#: Blocks per SM the split plan aims at, and the floor it keeps where W
+#: allows. On an H100, splits of 2 to 4 tiles beat longer ones, and
+#: one-tile splits cost more in set-up than they hide (the split sweep of
+#: ``chip_smoke.py``; PERF.md section 6).
+BLOCKS_PER_SM = 4
+MIN_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"corais_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _P]}
+_SIGNATURES = {"corais_decode_attention":
+               [_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + [_P]}
+_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None):
+def split_plan(w: int, b: int, kv: int, sm_count: int) -> tuple[int, int]:
+    """(splits, tiles per split) of B5's grid (splits, KV, B) over a cache
+    of ``w`` slots: every split owns whole 64-slot tiles, at most
+    MAX_TILES_PER_SPLIT; none is empty (the last owns at least one tile);
+    the grid aims at BLOCKS_PER_SM * ``sm_count`` blocks and has at least
+    MIN_BLOCKS_PER_SM * ``sm_count`` wherever W has that many tiles per
+    (lane, KV head); a split owns two tiles or more where that floor
+    allows."""
+    tiles = -(-w // TILE)
+    pairs = b * kv
+    want = -(-BLOCKS_PER_SM * sm_count // pairs)  # splits per pair
+    per = max(1, min(tiles // want, MAX_TILES_PER_SPLIT))
+    if per == 1 and -(-tiles // 2) * pairs >= MIN_BLOCKS_PER_SM * sm_count:
+        per = 2
+    return -(-tiles // per), per
+
+
+def check_plan(w: int, splits: int, per: int) -> None:
+    """Raises ValueError unless ``splits`` splits of ``per`` tiles cover a
+    cache of ``w`` slots in whole 64-slot tiles with no split empty and at
+    most MAX_TILES_PER_SPLIT tiles a split (what the kernel takes)."""
+    if not (splits >= 1 and 1 <= per <= MAX_TILES_PER_SPLIT
+            and (splits - 1) * per * TILE < w <= splits * per * TILE):
+        raise ValueError(f"split plan ({splits}, {per}) does not cover W={w} "
+                         f"in splits of 1 to {MAX_TILES_PER_SPLIT} "
+                         f"{TILE}-slot tiles with none empty")
+
+
+def split_ranges(w: int, per: int) -> list[tuple[int, int]]:
+    """The slot range [start, end) of each split of ``per`` tiles, in split
+    order, as the kernel computes them."""
+    return [(s, min(s + per * TILE, w)) for s in range(0, w, per * TILE)]
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The (lane, KV head) counters for the in-launch combine: int32,
+    zeroed once; every launch leaves them 0. One buffer per (card, stream):
+    the launches that share it run one after another on their stream, and
+    launches on two streams never share one."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
+    return buf
+
+
+def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
+                          plan=None):
     """B5: q (B, H, hd); k_cache, v_cache (B, W, KV, hd), all f32 or all
     bf16, 16-byte aligned; slot_pos (B, W) int32 (-1 = empty); pos (B,)
     int32; contiguous, on one card; H a multiple of KV, hd <= 128 and a
-    multiple of 8 (bf16) or 4 (f32), (H / KV) * hd <= 2048. Returns
-    (B, H, hd) in q's dtype."""
+    multiple of 8 (bf16) or 4 (f32), (H / KV) * hd <= 2048. ``plan``,
+    (splits, tiles per split), replaces :func:`split_plan`'s choice (see
+    :func:`check_plan`). Returns (B, H, hd) in q's dtype."""
     win = window_arg(window)
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError("q must be (B, H, hd) and the caches (B, W, KV, hd)")
@@ -58,13 +121,23 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None):
     check_tensor("pos", pos, (b,), torch.int32, dev)
     check_vector_loads(hd, q.dtype, k_cache=k_cache, v_cache=v_cache)
     lib = load("decode_attention.cu", _SIGNATURES)
+    if plan is None:
+        plan = split_plan(w, b, kv, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    splits, per = plan
+    check_plan(w, splits, per)
+    g = h // kv
     out = torch.empty_like(q)
+    part = torch.empty(b * kv * splits * (g * hd + 2 * g),
+                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = _counters(dev, stream, b * kv)
         err = lib.corais_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(), b, w, h, kv,
-            hd, win, 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+            slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), b, w, h, kv, hd, win,
+            1.0 / math.sqrt(hd), splits, per, int(q.dtype == torch.bfloat16),
             stream)
     raise_on(err, lib, "decode_attention")
     LAUNCHES["decode_attention"] += 1

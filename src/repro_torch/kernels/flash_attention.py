@@ -3,8 +3,9 @@
 Replaces the Pallas ``_kernel`` of ``repro/kernels/flash_attention.py:26``
 (causal / sliding-window GQA flash attention, online softmax in f32, dead
 tiles skipped, KV head ``h // G``). Unlike the Pallas kernel it takes any
-sequence length. The source's header note says what bounds it on the H100
-and what its design does about that.
+sequence length. bf16 runs on the tensor cores (hd a multiple of 16), f32
+on the CUDA cores (hd a multiple of 4). The source's header note says what
+bounds it on the H100 and what its design does about that.
 
 :func:`flash_attention_cuda` takes CUDA tensors only; its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_torch`, and
@@ -23,6 +24,8 @@ from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
 
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
+#: bf16 head widths are whole k16 steps of the tensor-core product.
+BF16_HEAD_DIM_MULTIPLE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"corais_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P]}
@@ -50,9 +53,9 @@ def window_arg(window) -> int:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     """B4: q (B, S, H, hd); k, v (B, S, KV, hd), H a multiple of KV,
-    hd <= 128 and a multiple of 8 (bf16) or 4 (f32), all f32 or all bf16,
-    contiguous, k and v 16-byte aligned, on one card. Returns (B, S, H, hd)
-    in q's dtype."""
+    hd <= 128 and a multiple of 16 (bf16) or 4 (f32), all f32 or all bf16,
+    contiguous, k and v (and q in bf16) 16-byte aligned, on one card.
+    Returns (B, S, H, hd) in q's dtype."""
     win = window_arg(window)
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError("q must be (B, S, H, hd) and k, v (B, S, KV, hd)")
@@ -68,7 +71,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     check_tensor("q", q, (b, s, h, hd), q.dtype, q.device)
     check_tensor("k", k, (b, s, kv, hd), q.dtype, q.device)
     check_tensor("v", v, (b, s, kv, hd), q.dtype, q.device)
-    check_vector_loads(hd, q.dtype, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        if hd % BF16_HEAD_DIM_MULTIPLE:
+            raise ValueError(f"hd={hd} must be a multiple of "
+                             f"{BF16_HEAD_DIM_MULTIPLE} for torch.bfloat16 "
+                             f"(tensor-core k16 steps)")
+        check_vector_loads(hd, q.dtype, q=q, k=k, v=v)
+    else:
+        check_vector_loads(hd, q.dtype, k=k, v=v)
     lib = load("flash_attention.cu", _SIGNATURES)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -26,7 +26,8 @@ from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig,
                                      corais_encode, corais_score_decode)
 from repro_torch.core.train import RLConfig, loss_and_grads, to_device
 from repro_torch.configs import get_reduced_config
-from repro_torch.kernels import build, ops, policy_score, ref
+from repro_torch.kernels import (build, decode_attention, ops, policy_score,
+                                 ref)
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
@@ -276,6 +277,106 @@ def test_decode_attention_kernel_matches_plain_version(
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
+    (2, 200, 4, 2, 16, True, None),      # bf16 head widths 16 to 128 (the
+    (1, 150, 8, 4, 32, True, None),      # configs use 16, 64 and 128)
+    (1, 333, 8, 2, 48, True, 100),
+    (1, 257, 25, 5, 64, True, 2048),
+    (1, 190, 32, 8, 128, True, None),
+    (1, 1, 25, 5, 64, True, 2048),       # hymba heads and window, ragged S
+    (1, 63, 25, 5, 64, True, 2048),
+    (1, 65, 25, 5, 64, True, 2048),
+    (1, 1000, 25, 5, 64, True, 2048),
+    (1, 300, 16, 4, 128, False, 70),     # non-causal with a window
+    (2, 129, 8, 8, 96, False, None),
+])
+def test_flash_attention_bf16_tensor_cores_match_plain_version(
+        cuda_device, b, s, h, kv, hd, causal, window):
+    gen = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device,
+                                                         torch.bfloat16)
+               for n in (h, kv, kv))
+    build.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 2
+    want = ref.flash_attention_torch(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    assert torch.equal(got, again)  # the same bits
+
+
+@pytest.mark.parametrize("b,w,h,kv,hd,dtype,fills,window", [
+    # a lane with no valid slot and no roll: the mean of all W V rows
+    (3, 300, 32, 8, 128, torch.bfloat16, (0, 120, 300), None),
+    (2, 300, 25, 5, 64, torch.float32, (0, 77), 40),
+    (1, 4096, 32, 8, 128, torch.bfloat16, (3000,), None),  # many splits
+    (1, 4096, 25, 5, 64, torch.float32, (4096,), 2048),
+    (2, 1, 32, 8, 128, torch.bfloat16, (1, 0), None),      # W = 1
+    (2, 1, 4, 1, 16, torch.float32, (1, 1), None),
+])
+def test_decode_attention_split_w_matches_plain_version(
+        cuda_device, b, w, h, kv, hd, dtype, fills, window):
+    kc, vc, slot_pos, pos = _cache(b, w, kv, hd, fills, dtype, cuda_device,
+                                   seed=w)
+    q = torch.randn(b, h, hd, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda_device, dtype)
+    build.reset_launch_counts()
+    got = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    again = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 2
+    want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    assert torch.equal(got, again)  # the same bits
+    # every launch leaves the combine's counters at 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    assert not bool(decode_attention._COUNTERS[(q.device, stream)].any())
+
+
+@pytest.mark.parametrize("per", [1, 2, 3, 7, 64])
+def test_decode_attention_explicit_split_plans_match_plain_version(
+        cuda_device, per):
+    # the 4-lane qwen3-4b cache as served (split_plan gives 22 splits of 3
+    # tiles there, the last of 1): every tiles-per-split, ragged last splits
+    b, w = 4, 4096
+    kc, vc, slot_pos, pos = _cache(b, w, 8, 128, (2303, 1100, 600, 503),
+                                   torch.bfloat16, cuda_device, seed=per)
+    q = torch.randn(b, 32, 128, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda_device, torch.bfloat16)
+    plan = (-(-w // (decode_attention.TILE * per)), per)
+    got = decode_attention_cuda(q, kc, vc, slot_pos, pos, plan=plan)
+    again = decode_attention_cuda(q, kc, vc, slot_pos, pos, plan=plan)
+    want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    assert torch.equal(got, again)
+
+
+def test_decode_attention_on_two_streams_at_once(cuda_device):
+    # launches on two streams combine with counters of their own
+    caches = [_cache(4, 2048, 8, 128, (2048, 900, 30, 0), torch.bfloat16,
+                     cuda_device, seed=i) for i in range(2)]
+    qs = [torch.randn(4, 32, 128, generator=torch.Generator().manual_seed(i)
+                      ).to(cuda_device, torch.bfloat16) for i in range(2)]
+    want = [ref.decode_attention_torch(q, *c) for q, c in zip(qs, caches)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(decode_attention_cuda(qs[i], *caches[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in got[i]:
+            torch.testing.assert_close(out.float(), want[i].float(),
+                                       **_attn_tol(torch.bfloat16))
+
+
 def test_attention_wrappers_reject_bad_inputs(cuda_device):
     q = torch.randn(1, 40, 8, 64, device=cuda_device)
     k = torch.randn(1, 40, 2, 64, device=cuda_device)
@@ -295,6 +396,10 @@ def test_attention_wrappers_reject_bad_inputs(cuda_device):
     shifted = torch.randn(k.numel() + 1, device=cuda_device)[1:].view(k.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_cuda(q, shifted, k)
+    with pytest.raises(ValueError, match="multiple of 16"):  # bf16: k16 steps
+        flash_attention_cuda(*(torch.randn(1, 8, 2, 24, device=cuda_device,
+                                           dtype=torch.bfloat16)
+                               for _ in range(3)))
     kc, vc, slot_pos, pos = _cache(1, 64, 2, 64, (10,), torch.float32,
                                    cuda_device)
     qd = torch.randn(1, 8, 64, device=cuda_device)
@@ -305,6 +410,8 @@ def test_attention_wrappers_reject_bad_inputs(cuda_device):
             ).transpose(1, 2), slot_pos, pos)
     with pytest.raises(TypeError, match="bfloat16"):
         decode_attention_cuda(qd.bfloat16(), kc, vc, slot_pos, pos)
+    with pytest.raises(ValueError, match="split plan"):  # a split empty
+        decode_attention_cuda(qd, kc, vc, slot_pos, pos, plan=(2, 1))
 
 
 def _to(tree, device):

@@ -1,7 +1,10 @@
 """The port's LM edge server (``serving/batching.py``) and its numpy copy of
 ``core/state.py`` against the JAX reference, on the CPU.
 
-``core/state.py`` is a copy and must match bit for bit. ``LMEdgeBackend``
+``core/state.py`` is a copy and must match bit for bit, apart from
+``PhiEstimator`` on a history whose least-squares slope is not positive,
+where the port fits ``a = 0`` and the reference keeps its previous
+coefficients (tested as such). ``LMEdgeBackend``
 runs with the reference's own weights, bridged, at reduced olmo-1b,
 qwen3-4b, falcon-mamba-7b (SSM) and hymba-1.5b (hybrid, a 16-token window)
 in f32 on the requests of ``tests/test_data_and_batching.py``, in
@@ -54,6 +57,55 @@ def test_phi_estimator_copy_matches_bit_for_bit(kw):
     assert got._xs == want._xs and got._ys == want._ys
     sizes = np.array([1.0, 17.0, 333.0])
     np.testing.assert_array_equal(got(sizes), want(sizes))
+
+
+# eight hymba-1.5b prefill times (s) over prompt lengths (tokens), read on
+# an H100 whose host's kernel launches bounded every one of them: flat in
+# the size, with a least-squares slope below zero
+FLAT_X = (256.0, 512.0, 1024.0, 1536.0, 2048.0, 2560.0, 768.0, 1280.0)
+FLAT_Y = (0.1203, 0.0765, 0.0956, 0.0871, 0.0702, 0.0742, 0.1058, 0.0710)
+
+
+@pytest.mark.parametrize("case", ["flat", "falling", "fitted_then_flat"])
+def test_phi_estimator_fits_zero_slope_where_the_reference_keeps_its_prior(
+        case):
+    """A history with no positive least-squares slope gives a = 0 and b the
+    mean runtime (the least-squares fit with a >= 0). The reference keeps
+    its previous coefficients there, the prior a = 1 at first, so a
+    dispatch over it sends the edge nothing. Wherever the slope is positive
+    the two stay the same bit for bit."""
+    got, want = state.PhiEstimator(window=16), jstate.PhiEstimator(window=16)
+    if case == "flat":
+        xs, ys = FLAT_X, FLAT_Y
+    elif case == "falling":
+        xs = np.arange(1.0, 13.0) * 200.0
+        ys = 0.2 - 1e-5 * xs
+    else:  # a positive fit first, then a whole window of flat readings
+        x0, y0 = _stream(16, 1)
+        xs = np.concatenate([x0, FLAT_X, FLAT_X])
+        ys = np.concatenate([y0, FLAT_Y, FLAT_Y])
+    accepted = []
+    for x, y in zip(xs, ys):
+        got.observe(x, y)
+        want.observe(x, y)
+        n = len(got._xs[-16:])
+        if n < got.min_samples:
+            assert got.coefficients == want.coefficients == (1.0, 0.0)
+            continue
+        wx, wy = np.array(got._xs[-16:]), np.array(got._ys[-16:])
+        slope = np.polyfit(wx, wy, 1)[0]
+        if slope > 0:
+            accepted.append(want.coefficients)
+            assert got.coefficients == want.coefficients
+        else:
+            assert got.a == 0.0
+            np.testing.assert_allclose(got.b, wy.mean(), rtol=1e-12)
+            # the reference: its last accepted fit, else the prior
+            assert want.coefficients == (accepted[-1] if accepted
+                                         else (1.0, 0.0))
+    assert got.a == 0.0 and want.a != 0.0
+    if case != "fitted_then_flat":
+        assert want.coefficients == (1.0, 0.0)
 
 
 def _edges(mod, rng):
