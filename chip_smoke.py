@@ -36,7 +36,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    calls; and
    the selective scan B6 against its plain version at falcon-mamba's and
    hymba's prefill shapes, a ragged one and the reference sweep's, within
-   the reference's 5e-4 and bit for bit across two calls;
+   the reference's 5e-4 and bit for bit across two calls; and B6's gated
+   entry (dt's softplus, the scan, the D skip and the SiLU gate) against
+   its plain version at falcon-mamba's and hymba's prefill shapes and a
+   ragged one, z a strided view of in_proj's output in bf16 (5e-4 plus
+   half a bf16 ulp of the plain f32 value) and in f32 (5e-4), bit for bit
+   across two calls;
 8. drive the LM edge servers at full width, the flow of
    ``examples/serve_multi_edge.py``: three ``LMEdgeBackend`` edges (lanes
    1, 2, 4; 4096-slot caches) serving qwen3-4b in bf16 with random weights
@@ -48,21 +53,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    generated each) over ``snapshot_instance``; all must be served, the
    4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
    per admission, B5 36 times per decode step and B6 never; the plain
-   versions of B4-B6 must not be reached;
+   versions of B4-B6 (and of B6's gated entry) and B6's bare entry must
+   not be reached;
 9. one request (1500 prompt tokens, 16 teacher-forced decode steps)
    through the kernel path and the plain path with the same weights:
    logits within 1e-3 of the largest |logit| with the weights in f32, and
    within 0.1 in bf16, where 1-ulp rounding differences compound over 36
    layers;
 10. trace one prefill and five decode steps with ``torch.profiler``: device
-    busy ms, idle share and kernels per step; then free qwen3-4b;
+    busy ms, idle share, kernels per step and device ms by kind (B6,
+    element-wise, GEMM, other); then free qwen3-4b;
 11. the same serving flow with falcon-mamba-7b ``CONFIG`` (64 SSM layers,
     bf16, random weights from a seed): B6 launches exactly 64 times per
-    admission and B4/B5 never; a profiled 2048-token prefill and 4-lane
-    decode step; one 512-token request with 16 teacher-forced steps
-    through the kernel path and the plain path (logits within 1e-3 of the
-    largest |logit| in f32, 0.1 in bf16, beside the reading that one f32
-    ulp of B6's y gives); then free it;
+    admission, all through its gated entry, and B4/B5 never; a profiled
+    2048-token prefill and 4-lane decode step; one 512-token request with
+    16 teacher-forced steps through the kernel path and the plain path
+    (logits within 1e-3 of the largest |logit| in f32, 0.1 in bf16, beside
+    the reading that one f32 ulp of B6's y gives, through B6's bare entry
+    and the gated entry's plain prologue and epilogue); then free it;
 12. the same with hymba-1.5b ``CONFIG`` (32 hybrid layers, a 2048-token
     attention window, so prompts above 2048 tokens take the rolling
     cache): B4 and B6 launch 32 times per admission, B5 32 times per
@@ -72,7 +80,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
     shape 100x1000, B2 at the training shape, B4 at qwen3-4b's and
     hymba-1.5b's 2048-token prefills, B5 at the 4-lane qwen3-4b edge's
-    cache after serving and at hymba's rolled 4-lane cache, B6 at
+    cache after serving and at hymba's rolled 4-lane cache, B6's gated
+    entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
     main path above).
@@ -147,6 +156,13 @@ SCAN_TOL = 5e-4        # B6 against its plain version (tests/test_kernels.py)
 # ragged one and the reference sweep's; the first is also timed
 SCAN_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16), (1, 37, 200, 4),
               (2, 128, 64, 8))
+# B6's gated entry (B, S, d, N): falcon-mamba's and hymba's prefills and a
+# ragged one (some dt above softplus's threshold 20); z a strided view of
+# in_proj's (B, S, 2d) output, bf16 and f32. The bf16 output is held
+# against the plain version's f32 value within SCAN_TOL plus bf16's own
+# rounding, half an ulp: 2^-8 of the value.
+SCAN_GATED_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16), (1, 37, 200, 4))
+BF16_HALF_ULP = 2.0 ** -8
 
 
 def check(ok: bool, msg: str) -> None:
@@ -432,9 +448,18 @@ def drive_main_path(pol, obj, fpm, tinst, policy_score, param_count):
     return summary, enc
 
 
+# device ms per unit by kind of kernel, from the trace's kernel names: the
+# port's scan (B6, both entries), PyTorch's element-wise kernels, and the
+# library GEMMs (bf16 nvjet and f32 cutlass SGEMM)
+KERNEL_KINDS = (("B6", ("scan_chunked",)),
+                ("elementwise", ("elementwise_kernel",)),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
 def _device_summary(prof, n, wall_ms):
-    """Device busy ms, idle share, kernels and the heaviest kernels per unit
-    of work (a decision or a step) from a torch.profiler trace of ``n``."""
+    """Device busy ms, idle share, kernels, device ms by kind
+    (KERNEL_KINDS) and the heaviest kernels per unit of work (a decision or
+    a step) from a torch.profiler trace of ``n``."""
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
 
@@ -442,11 +467,19 @@ def _device_summary(prof, n, wall_ms):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    def kind(e):
+        return next((k for k, marks in KERNEL_KINDS
+                     if any(m in e.key for m in marks)), "other")
+
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    by_kind = {k: 0.0 for k, _ in KERNEL_KINDS + (("other", ()),)}
+    for e in kernels:
+        by_kind[kind(e)] += dev_us(e) / 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "kernels_per_unit": sum(e.count for e in kernels) / n,
+            "device_ms_by_kind": by_kind,
             "top": [{"kernel": e.key[:80], "us": dev_us(e) / n,
                      "calls": e.count / n} for e in top]}
 
@@ -844,55 +877,124 @@ def _scan_inputs(gen, b, s, d, n):
     return [t.cuda() for t in (u, dt * 0.1, bm, cm, a)]
 
 
+def _gated_inputs(gen, b, s, d, n, over_threshold=False):
+    """u normal, dt_raw = 0.5 * normal, dt_bias the inverse softplus of a
+    dt log-uniform in [1e-3, 0.1] (the model's initialisation), B, C
+    normal, A as ``_scan_inputs``, D = 1 + 0.1 * normal, and uz (B, S, 2d)
+    normal in bf16, whose second half is z; f32 on the card."""
+    u = torch.randn(b, s, d, generator=gen)
+    dt_raw = 0.5 * torch.randn(b, s, d, generator=gen)
+    if over_threshold:  # softplus(x) = x above 20
+        dt_raw[..., ::7] = 25.0
+    dt0 = torch.exp(torch.rand(d, generator=gen) * (math.log(0.1)
+                                                   - math.log(1e-3))
+                    + math.log(1e-3))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))
+    bm = torch.randn(b, s, n, generator=gen)
+    cm = torch.randn(b, s, n, generator=gen)
+    a = -torch.exp(0.2 * torch.randn(d, n, generator=gen))
+    dskip = 1 + 0.1 * torch.randn(d, generator=gen)
+    uz = torch.randn(b, s, 2 * d, generator=gen).to(torch.bfloat16)
+    return [t.cuda() for t in (u, dt_raw, bias, bm, cm, a, dskip)], uz.cuda()
+
+
+def _within(name, got, want, tol, where, rel_extra=0.0):
+    """Largest |got - want|; raises beyond allclose(atol = rtol = tol),
+    plus ``rel_extra`` of |want|."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    excess = float((diff - (tol + rel_extra) * want.abs()).max())
+    err = float(diff.max())
+    check(excess <= tol, f"{where} {name} err {err} beyond allclose({tol})"
+          + (f" + {rel_extra} of |want|" if rel_extra else ""))
+    return err
+
+
 def compare_scan(ops, ref, errs):
-    """B6 against its plain version on the card at SCAN_CASES: y and h_last
-    within allclose(atol = rtol = SCAN_TOL), and two calls bit for bit.
-    Folds the largest error into ``errs``; returns the report and the
-    first case's inputs (falcon-mamba's prefill shape, timed later)."""
+    """B6 against its plain version on the card: the bare entry at
+    SCAN_CASES (y and h_last within allclose(atol = rtol = SCAN_TOL)), the
+    gated entry at SCAN_GATED_CASES with z a strided bf16 view (the output
+    within SCAN_TOL plus half a bf16 ulp of the plain version's f32 value)
+    and a strided f32 view (within SCAN_TOL); each entry twice, bit for
+    bit. Folds each entry's largest error into ``errs``; returns the
+    report and the first case's inputs of each entry (falcon-mamba's
+    prefill shape, timed later)."""
     gen = torch.Generator().manual_seed(41)
-    report, first = [], None
+    report, first, first_gated = [], None, None
     for b, s, d, n in SCAN_CASES:
         args = _scan_inputs(gen, b, s, d, n)
         y, h = ops.mamba_scan(*args)
         y2, h2 = ops.mamba_scan(*args)
         wy, wh = ref.mamba_scan_torch(*args)
         torch.cuda.synchronize()
+        where = f"mamba_scan at {(b, s, d, n)}"
         check(y.shape == (b, s, d) and h.shape == (b, d, n)
               and bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
-              f"mamba_scan output malformed at {(b, s, d, n)}")
+              f"{where}: output malformed")
         check(torch.equal(y, y2) and torch.equal(h, h2),
-              f"mamba_scan differs between two calls at {(b, s, d, n)}")
-        row = {"kernel": "mamba_scan", "B": b, "S": s, "d": d, "N": n}
-        for name, got, want in (("y", y, wy), ("h_last", h, wh)):
-            diff = (got - want).abs()
-            err = float(diff.max())
-            excess = float((diff - SCAN_TOL * want.abs()).max())
-            check(excess <= SCAN_TOL, f"mamba_scan {name} err {err} beyond "
-                  f"allclose({SCAN_TOL}) at {(b, s, d, n)}")
-            row[f"{name}_err"] = err
-            errs["mamba_scan"] = max(errs["mamba_scan"], err)
+              f"{where}: two calls differ")
+        row = {"kernel": "mamba_scan", "B": b, "S": s, "d": d, "N": n,
+               "y_err": _within("y", y, wy, SCAN_TOL, where),
+               "h_last_err": _within("h_last", h, wh, SCAN_TOL, where)}
+        errs["mamba_scan"] = max(errs["mamba_scan"], row["y_err"],
+                                 row["h_last_err"])
         report.append(row)
         if first is None:
             first = args
-    return report, first
+    for b, s, d, n in SCAN_GATED_CASES:
+        args, uz = _gated_inputs(gen, b, s, d, n, over_threshold=s < 100)
+        z16, z32 = uz[..., d:], uz.float()[..., d:]
+        want, wh = ref.mamba_scan_gated_torch(*args, z32)
+        row = {"kernel": "mamba_scan_gated", "B": b, "S": s, "d": d, "N": n}
+        for z in (z16, z32):
+            o, h = ops.mamba_scan_gated(*args, z)
+            o2, h2 = ops.mamba_scan_gated(*args, z)
+            torch.cuda.synchronize()
+            name = str(z.dtype).split(".")[-1]
+            where = f"mamba_scan_gated ({name} z) at {(b, s, d, n)}"
+            check(o.shape == (b, s, d) and o.dtype == z.dtype
+                  and h.shape == (b, d, n)
+                  and bool(torch.isfinite(o).all()
+                           and torch.isfinite(h).all()),
+                  f"{where}: output malformed")
+            check(torch.equal(o, o2) and torch.equal(h, h2),
+                  f"{where}: two calls differ")
+            row[f"out_err_{name}"] = _within(
+                "out", o, want, SCAN_TOL, where,
+                BF16_HALF_ULP if z.dtype == torch.bfloat16 else 0.0)
+            row[f"h_last_err_{name}"] = _within("h_last", h, wh, SCAN_TOL,
+                                               where)
+            errs["mamba_scan_gated"] = max(errs["mamba_scan_gated"],
+                                           row[f"out_err_{name}"],
+                                           row[f"h_last_err_{name}"])
+            if z.dtype == torch.bfloat16:
+                row["bf16_equal_share"] = float(
+                    (o == want.to(torch.bfloat16)).float().mean())
+        report.append(row)
+        if first_gated is None:
+            first_gated = (args, z16)
+    return report, first, first_gated
 
 
-def _plain_guard(ref):
-    """Patches that make the plain versions of B4-B6 raise: the main path
-    on the card must reach only the kernels."""
+def _plain_guard(ref, ops):
+    """Patches that make the plain versions of B4-B6 raise, B6's gated
+    entry's too, and B6's bare entry: the main path on the card must reach
+    only the kernels, and the SSM block only B6's gated entry."""
     from unittest import mock
 
-    def refuse(name):
+    def refuse(module, name, what):
         def fn(*args, **kwargs):
-            raise RuntimeError(f"the main path reached the plain {name}")
-        return mock.patch.object(ref, name, fn)
+            raise RuntimeError(f"the main path reached {what} {name}")
+        return mock.patch.object(module, name, fn)
 
-    return [refuse(n) for n in ("flash_attention_torch",
-                                "decode_attention_torch", "mamba_scan_torch")]
+    return [refuse(ref, n, "the plain") for n in (
+        "flash_attention_torch", "decode_attention_torch",
+        "mamba_scan_torch", "mamba_scan_gated_torch")] + [
+        refuse(ops, "mamba_scan", "B6's bare entry")]
 
 
 def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
-                     ref):
+                     ref, ops):
     """The example's flow (examples/serve_multi_edge.py) at full width: three
     ``LMEdgeBackend`` edges with lanes [1, 2, 4] share one weight set; a phi
     warm-up of eight prefills per edge, after which each edge's phi must
@@ -902,8 +1004,9 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
     warm-up's sizes come first, so that first-call costs do not land in
     phi. The launch counters are set to 0 just before the edges serve and
     read just after; each family's kernels must launch exactly once per
-    layer that runs them (B4 and B6 per admission, B5 per decode step) and
-    the plain versions never. Returns the summary and the edges."""
+    layer that runs them (B4 and B6 per admission, B5 per decode step), the
+    plain versions never, and B6 only through its gated entry. Returns the
+    summary and the edges."""
     lanes = [1, 2, 4]
     edges = [batching.LMEdgeBackend(cfg, params, lanes=n, max_seq=LM_MAX_SEQ,
                                     seed=i) for i, n in enumerate(lanes)]
@@ -929,7 +1032,7 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
                 steps["decode_tokens"] += active
 
     guard = contextlib.ExitStack()
-    for patch in _plain_guard(ref):
+    for patch in _plain_guard(ref, ops):
         guard.enter_context(patch)
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1085,7 +1188,9 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     ``scan_ulp``, also reports (and does not check) how far the bf16
     logits move when B6's y is nudged by one f32 ulp everywhere: the
     reading that shows LM_LOGIT_TOL_BF16 admits a B6 rounded 1 ulp apart
-    from its plain version."""
+    from its plain version. The gated entry never exposes its f32 y, so
+    the nudged run takes the gated entry's plain version with B6's bare
+    entry in place of its plain scan."""
     from unittest import mock
     gen = torch.Generator().manual_seed(6)
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
@@ -1117,7 +1222,9 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                                   lambda q, kc, vc, sp, pos, *, window:
                                   ref.decode_attention_torch(
                                       q, kc, vc, sp, pos, window=window)), \
-                mock.patch.object(ops, "mamba_scan", ref.mamba_scan_torch):
+                mock.patch.object(ops, "mamba_scan", ref.mamba_scan_torch), \
+                mock.patch.object(ops, "mamba_scan_gated",
+                                  ref.mamba_scan_gated_torch):
             plain = run(cfg, params, head)
         torch.cuda.synchronize()
         scale = plain.abs().amax(-1)
@@ -1139,7 +1246,9 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                 y, h = kernel_scan(*args)
                 return torch.nextafter(y, torch.full_like(y, math.inf)), h
 
-            with mock.patch.object(ops, "mamba_scan", nudged):
+            with mock.patch.object(ops, "mamba_scan_gated",
+                                   ref.mamba_scan_gated_torch), \
+                    mock.patch.object(ref, "mamba_scan_torch", nudged):
                 out["one_ulp_of_y_rel_err"] = float(rel_err(
                     run(cfg, params, head), plain).max())
         return {**out, "tol": tol, "max_rel_err": float(err.max()),
@@ -1309,22 +1418,61 @@ def attention_timings(ops, ref, da, cache, launches, errs):
     return [b4, b5]
 
 
-def scan_timing(ops, ref, args, launches, errs):
-    """B6 at falcon-mamba's prefill shape (B=1, S=2048, d=8192, N=16) beside
-    its plain version and its bound: u and dt read and y written once, B,
-    C, A read and h_last written once; 8 f32 operations per (t, c, n), the
-    exponential counted as one. No single PyTorch call computes a selective
-    scan, so no library time. The plain version is a Python loop of S
-    steps, so few repetitions."""
+def scan_timing(ops, ref, args, gated, launches, errs):
+    """B6 at falcon-mamba's prefill shape (B=1, S=2048, d=8192, N=16). The
+    row is the gated entry's, the one the main paths launch, held against
+    its plain version on the inputs it times as compare_scan holds it
+    (that error is the row's ``max_abs_err``; compare_scan's largest is
+    kept as ``compare_max_abs_err``), beside that version and its bound:
+    u and dt_raw f32
+    and z bf16 read and the output bf16 written, 12 bytes per (t, c), and
+    B, C, A, dt_bias and D read and h_last written once; 8 f32 operations
+    per (t, c, n), the exponential counted as one, and 9 more per (t, c)
+    for the softplus, the D skip and the gate. The bare entry, which no
+    main path launches, under ``bare``, held and timed the same way: u and
+    dt read and y written, the same 12 bytes per (t, c), and the 8
+    operations per (t, c, n). No single
+    PyTorch call computes a selective scan, so no library time. The plain
+    versions are Python loops of S steps, so few repetitions."""
     u, _, _, _, a = args
     b, s, d = u.shape
     n = a.shape[-1]
-    return _row("mamba_scan", 21, lambda: ops.mamba_scan(*args),
+    gargs, z = gated
+    where = f"timed mamba_scan_gated at {(b, s, d, n)}"
+    got, again, want = (ops.mamba_scan_gated(*gargs, z),
+                        ops.mamba_scan_gated(*gargs, z),
+                        ref.mamba_scan_gated_torch(*gargs, z.float()))
+    torch.cuda.synchronize()
+    check(all(map(torch.equal, got, again)), f"{where}: two calls differ")
+    err = max(_within("out", got[0], want[0], SCAN_TOL, where,
+                      BF16_HALF_ULP),
+              _within("h_last", got[1], want[1], SCAN_TOL, where))
+    where = f"timed mamba_scan at {(b, s, d, n)}"
+    got, again, want = (ops.mamba_scan(*args), ops.mamba_scan(*args),
+                        ref.mamba_scan_torch(*args))
+    torch.cuda.synchronize()
+    check(all(map(torch.equal, got, again)), f"{where}: two calls differ")
+    bare_err = max(_within("y", got[0], want[0], SCAN_TOL, where),
+                   _within("h_last", got[1], want[1], SCAN_TOL, where))
+    del got, again, want
+    row = _row("mamba_scan", 21, lambda: ops.mamba_scan_gated(*gargs, z),
+               lambda: ref.mamba_scan_gated_torch(*gargs, z),
+               (8 * n + 9) * b * s * d,
+               b * s * d * (4 + 4 + 2 + 2) + 4 * (2 * b * s * n + d * n
+                                                  + 2 * d + b * d * n),
+               launches, err, f"B={b} S={s} d={d} N={n} f32, z and out bf16",
+               source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
+               inner=2)
+    bare = _row("mamba_scan", 21, lambda: ops.mamba_scan(*args),
                 lambda: ref.mamba_scan_torch(*args), 8 * b * s * d * n,
-                4 * (3 * b * s * d + 2 * b * s * n + d * n + b * d * n),
-                launches, errs["mamba_scan"], f"B={b} S={s} d={d} N={n} f32",
+                4 * (3 * b * s * d + 2 * b * s * n + d * n + b * d * n), {},
+                bare_err, f"B={b} S={s} d={d} N={n} f32",
                 source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
                 inner=2)
+    row["compare_max_abs_err"] = errs["mamba_scan_gated"]
+    row["bare"] = {k: bare[k] for k in SHAPE_KEYS}
+    row["bare"]["compare_max_abs_err"] = errs["mamba_scan"]
+    return row
 
 
 def main() -> int:
@@ -1365,7 +1513,7 @@ def main() -> int:
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0,
-            "mamba_scan": 0.0}
+            "mamba_scan": 0.0, "mamba_scan_gated": 0.0}
     random = random_cases(fpm.DEFAULT_BUCKETS)
     cases = compare_kernels(ops, ref, random, errs)
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
@@ -1397,7 +1545,7 @@ def main() -> int:
     print(f"compare attention: max_abs_err flash "
           f"{errs['flash_attention']}, decode {errs['decode_attention']} "
           f"over {len(attn_cases)} cases", flush=True)
-    scan_cases, scan_args = compare_scan(ops, ref, errs)
+    scan_cases, scan_args, gated_args = compare_scan(ops, ref, errs)
     print(f"compare scan: {json.dumps(scan_cases)}", flush=True)
 
     # {kernel: {path: launches}} from each main-path run
@@ -1416,7 +1564,7 @@ def main() -> int:
     params = lm.init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(LM_SEED))
     lm_serving, edges = drive_lm_serving(cfg, params, lm, batching, state,
-                                         heuristics, build, ref)
+                                         heuristics, build, ref, ops)
     print(f"lm serving: {json.dumps(lm_serving)}", flush=True)
     record("lm_serving", lm_serving["launches"])
 
@@ -1439,7 +1587,7 @@ def main() -> int:
         params = lm.init_params(cfg, generator=torch.Generator(
             device="cuda").manual_seed(LM_SEED))
         served, edges = drive_lm_serving(cfg, params, lm, batching, state,
-                                         heuristics, build, ref)
+                                         heuristics, build, ref, ops)
         print(f"{label} lm serving: {json.dumps(served)}", flush=True)
         record(f"{label}_lm_serving", served["launches"])
         profiled = profile_lm(cfg, params, lm, edges[2])
@@ -1464,8 +1612,8 @@ def main() -> int:
     # phase 13: every kernel timed beside its plain version; the kernels line
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
-    kernels.append(scan_timing(ops, ref, scan_args, launches["mamba_scan"],
-                               errs))
+    kernels.append(scan_timing(ops, ref, scan_args, gated_args,
+                               launches["mamba_scan"], errs))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

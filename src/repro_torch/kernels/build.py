@@ -113,11 +113,22 @@ def raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 def check_tensor(name: str, t, shape: tuple, dtype, device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
     ``dtype`` on ``device``."""
+    check_device(name, t, device)
+    check_layout(name, t, shape, dtype)
+
+
+def check_device(name: str, t, device) -> None:
+    """Raise unless ``t`` is a CUDA tensor on ``device``."""
     if t.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {name} on "
                          f"{t.device}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def check_layout(name: str, t, shape: tuple, dtype) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and
+    ``dtype``, on any device."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -3,14 +3,17 @@
 Replaces the Pallas ``_kernel`` of ``repro/kernels/mamba_scan.py:21``
 (``h = exp(dt*A)*h + (dt*u)*B_t``, ``y_t = sum_n h*C_t``, the state carried
 over the whole sequence). Unlike the Pallas kernel, which needs
-``S % chunk == 0`` and ``d % bd == 0``, it takes any S and d. The source's
-header note says what bounds it on the H100 and what its design does about
-that.
+``S % chunk == 0`` and ``d % bd == 0``, it takes any S and d. The scan is
+chunk-parallel over time; the source's header note says what bounds it on
+the H100 and what its design does about that.
 
-:func:`mamba_scan_cuda` takes CUDA tensors only; its plain version is
-:func:`repro_torch.kernels.ref.mamba_scan_torch`, and
-:func:`repro_torch.kernels.ops.mamba_scan` chooses between the two by the
-tensors' device.
+Two entries share the kernel body: :func:`mamba_scan_cuda`, the bare scan
+(plain version :func:`repro_torch.kernels.ref.mamba_scan_torch`), and
+:func:`mamba_scan_gated_cuda`, the SSM block's tail with dt's softplus
+before the scan and the D skip and SiLU gate after it (plain version
+:func:`repro_torch.kernels.ref.mamba_scan_gated_torch`). Both count into
+``LAUNCHES["mamba_scan"]``. :mod:`repro_torch.kernels.ops` chooses between
+each entry and its plain version by the tensors' device.
 """
 from __future__ import annotations
 
@@ -18,20 +21,21 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
-                                       raise_on)
+from repro_torch.kernels.build import (LAUNCHES, check_device, check_layout,
+                                       check_tensor, load, raise_on)
 
-#: The largest state width N the kernel takes (one thread per state).
+#: The largest state width N the kernel takes.
 MAX_STATE = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"corais_mamba_scan": [_P] * 7 + [_I] * 4 + [_P]}
+_SIGNATURES = {
+    "corais_mamba_scan": [_P] * 7 + [_I] * 4 + [_P],
+    "corais_mamba_scan_gated": ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 2
+                                + [_I] * 4 + [_P]),
+}
 
 
-def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
-    """B6: u, dt (B, S, d); B_mat, C_mat (B, S, N); A (d, N); all f32,
-    contiguous, on one card; B <= 65535, 1 <= N <= 32. Returns
-    (y (B, S, d), h_last (B, d, N)), f32, from a zero state."""
+def _shape(u, B_mat, A):
     if u.ndim != 3 or B_mat.ndim != 3 or A.ndim != 2:
         raise ValueError("u, dt must be (B, S, d), B_mat, C_mat (B, S, N) "
                          "and A (d, N)")
@@ -41,6 +45,18 @@ def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
         raise ValueError(f"unsupported shape B={b} S={s} d={d} N={n}: the "
                          f"kernel takes B <= 65535, S, d >= 1 and "
                          f"1 <= N <= {MAX_STATE}")
+    return b, s, d, n
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
+    """B6: u, dt (B, S, d); B_mat, C_mat (B, S, N); A (d, N); all f32,
+    contiguous, on one card; B <= 65535, 1 <= N <= 32. Returns
+    (y (B, S, d), h_last (B, d, N)), f32, from a zero state."""
+    b, s, d, n = _shape(u, B_mat, A)
     dev = u.device
     check_tensor("u", u, (b, s, d), torch.float32, dev)
     check_tensor("dt", dt, (b, s, d), torch.float32, dev)
@@ -51,10 +67,64 @@ def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
     y = torch.empty_like(u)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.corais_mamba_scan(
             u.data_ptr(), dt.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
-            A.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, d, n, stream)
+            A.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, d, n,
+            _stream(dev))
     raise_on(err, lib, "mamba_scan")
     LAUNCHES["mamba_scan"] += 1
     return y, h_last
+
+
+def _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    """Layout checks of the gated entry, before any device check (so that
+    they hold on any device)."""
+    b, s, d, n = _shape(u, B_mat, A)
+    for name, t, shape in (("u", u, (b, s, d)), ("dt_raw", dt_raw, (b, s, d)),
+                           ("dt_bias", dt_bias, (d,)),
+                           ("B_mat", B_mat, (b, s, n)),
+                           ("C_mat", C_mat, (b, s, n)), ("A", A, (d, n)),
+                           ("D", D, (d,))):
+        check_layout(name, t, shape, torch.float32)
+    if z.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"z must be torch.bfloat16 or torch.float32, got "
+                        f"{z.dtype}")
+    if tuple(z.shape) != (b, s, d):
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected "
+                         f"{(b, s, d)}")
+    row = z.stride(1)
+    if z.stride(2) != 1 or row < d or (b > 1 and z.stride(0) != s * row):
+        raise ValueError(f"z needs a unit last stride and evenly spaced rows "
+                         f"of at least d={d} elements, got strides "
+                         f"{z.stride()}")
+    return b, s, d, n
+
+
+def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    """B6 with the SSM block's prologue and epilogue: dt = softplus(dt_raw +
+    dt_bias) (F.softplus: x above 20 stays x), the scan from a zero state,
+    then (y + D*u) * silu(z), stored once in z's dtype.
+
+    u, dt_raw (B, S, d), B_mat, C_mat (B, S, N), A (d, N), dt_bias and D
+    (d,): f32, contiguous. z (B, S, d): bf16 or f32, a unit last stride and
+    evenly spaced rows (the strided half of in_proj's output is taken as it
+    is, not copied). All on one card; B <= 65535, 1 <= N <= 32. Returns
+    (out (B, S, d) in z's dtype, h_last (B, d, N) f32)."""
+    b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+    dev = u.device
+    for name, t in (("u", u), ("dt_raw", dt_raw), ("dt_bias", dt_bias),
+                    ("B_mat", B_mat), ("C_mat", C_mat), ("A", A), ("D", D),
+                    ("z", z)):
+        check_device(name, t, dev)
+    lib = load("mamba_scan.cu", _SIGNATURES)
+    out = torch.empty((b, s, d), dtype=z.dtype, device=dev)
+    h_last = torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.corais_mamba_scan_gated(
+            u.data_ptr(), dt_raw.data_ptr(), dt_bias.data_ptr(),
+            B_mat.data_ptr(), C_mat.data_ptr(), A.data_ptr(), D.data_ptr(),
+            z.data_ptr(), z.stride(1), int(z.dtype == torch.bfloat16),
+            out.data_ptr(), h_last.data_ptr(), b, s, d, n, _stream(dev))
+    raise_on(err, lib, "mamba_scan_gated")
+    LAUNCHES["mamba_scan"] += 1
+    return out, h_last

@@ -4,8 +4,8 @@ A CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.policy_score` for B1-B3,
 :mod:`~repro_torch.kernels.flash_attention` for B4,
 :mod:`~repro_torch.kernels.decode_attention` for B5,
-:mod:`~repro_torch.kernels.mamba_scan` for B6); if the build or the
-launch fails, the call raises. A CPU tensor runs the plain PyTorch version
+:mod:`~repro_torch.kernels.mamba_scan` for B6, bare and gated); if the
+build or the launch fails, the call raises. A CPU tensor runs the plain PyTorch version
 (:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
 The policy-head wrappers accept any leading batch shape, as the
 reference's ``ops`` do; the attention and scan wrappers take the reference
@@ -23,7 +23,8 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                            mamba_scan_gated_cuda)
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
                                               policy_score_decode_cuda)
@@ -126,5 +127,18 @@ def mamba_scan(u, dt, B_mat, C_mat, A):
     return mamba_scan_cuda(u, dt, B_mat, C_mat, A)
 
 
+def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    """B6's gated entry, the SSM block's tail: dt = softplus(dt_raw +
+    dt_bias), the scan from a zero state, then (y + D*u) * silu(z) in z's
+    dtype. u, dt_raw (B, S, d), B_mat, C_mat (B, S, N), A (d, N), dt_bias,
+    D (d,) f32; z (B, S, d) bf16 or f32 with a unit last stride ->
+    (out (B, S, d), h_last (B, d, N) f32)."""
+    if _device_type(u) == "cpu":
+        return ref.mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat,
+                                          A, D, z)
+    return mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+
+
 __all__ = ["PolicyScore", "policy_score", "policy_score_decode",
-           "flash_attention", "decode_attention", "mamba_scan", "ref"]
+           "flash_attention", "decode_attention", "mamba_scan",
+           "mamba_scan_gated", "ref"]

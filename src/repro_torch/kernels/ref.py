@@ -12,7 +12,8 @@ backward. The attention twins (:func:`flash_attention_torch`,
 :func:`decode_attention_torch`) use f32 math, the -1e30 mask, GQA by
 reshape, and return the input dtype, as the reference's oracles do.
 :func:`mamba_scan_torch` is B6's plain version: a sequential loop over S
-in f32.
+in f32; :func:`mamba_scan_gated_torch` is that of B6's gated entry, the SSM
+block's softplus, scan, D skip, SiLU gate and cast as plain ops.
 
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
@@ -32,6 +33,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -196,3 +198,16 @@ def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None):
         h = torch.exp(dt_t * A) * h + dbu
         ys[:, t] = (h * C_mat[:, t, None, :]).sum(-1)
     return ys, h
+
+
+def mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    """Plain version of B6's gated entry: the tail of the reference's
+    ``ssm_apply`` (``repro/models/ssm.py:114-120``) as its own ops, in its
+    order: dt = softplus(dt_raw + dt_bias), :func:`mamba_scan_torch`,
+    y + D*u, times silu(z) in f32, cast to z's dtype. Returns (out (B, S, d)
+    in z's dtype, h_last (B, d, N) f32)."""
+    dt = F.softplus(dt_raw + dt_bias)
+    y, h_last = mamba_scan_torch(u, dt, B_mat, C_mat, A)
+    y = y + D * u
+    y = y * F.silu(z.float())
+    return y.to(z.dtype), h_last

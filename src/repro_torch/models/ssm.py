@@ -1,9 +1,12 @@
 """Mamba-1 selective SSM block: falcon-mamba's layer and hymba's SSM branch
 (counterpart of ``repro/models/ssm.py``).
 
-The full-sequence scan goes through :func:`repro_torch.kernels.ops.mamba_scan`:
-kernel B6 on a CUDA tensor, its plain version on a CPU tensor. The decode
-step is plain torch ops, as in the reference. Casts follow the reference:
+The full-sequence block's tail (dt's softplus, the scan, the D skip and
+the SiLU gate, the cast before ``out_proj``) goes through
+:func:`repro_torch.kernels.ops.mamba_scan_gated`: kernel B6's gated entry on
+a CUDA tensor, its plain version (the reference's own ops) on a CPU tensor.
+:func:`ssm_scan` is the bare scan. The decode step is plain torch ops, as in
+the reference. Casts follow the reference:
 the conv input, the conv, the SiLU, dt, B, C and the scan in f32; the
 projections in the model's dtype.
 
@@ -84,12 +87,12 @@ def ssm_scan(u, dt, B_mat, C_mat, A):
 
 
 def _dt_b_c(p, xdbc, cfg: ModelConfig):
+    """dt before its bias and softplus (``dt_low @ dt_proj``), B and C, f32."""
     dr, ds = cfg.ssm_dt_rank, cfg.ssm_state
     dt_low = xdbc[..., :dr].float()
     B_mat = xdbc[..., dr:dr + ds].float()
     C_mat = xdbc[..., dr + ds:].float()
-    dt = F.softplus(dt_low @ p["dt_proj"] + p["dt_bias"])
-    return dt, B_mat, C_mat
+    return dt_low @ p["dt_proj"], B_mat, C_mat
 
 
 def ssm_apply(p, x, cfg: ModelConfig):
@@ -102,11 +105,12 @@ def ssm_apply(p, x, cfg: ModelConfig):
     u_raw, z = uz.chunk(2, dim=-1)
     u_raw = u_raw.float()
     u = F.silu(causal_depthwise_conv(u_raw, p["conv_w"], p["conv_b"]))
-    dt, B_mat, C_mat = _dt_b_c(p, u.to(x.dtype) @ p["x_proj"], cfg)
+    dt_raw, B_mat, C_mat = _dt_b_c(p, u.to(x.dtype) @ p["x_proj"], cfg)
     A = -torch.exp(p["A_log"])
-    y, h_last = ssm_scan(u, dt, B_mat, C_mat, A)
-    y = y + p["D"] * u
-    y = y * F.silu(z.float())
+    # softplus, scan, D skip, gate and the cast to z's (= x's) dtype
+    y, h_last = ops.mamba_scan_gated(u, dt_raw, p["dt_bias"],
+                                     B_mat.contiguous(), C_mat.contiguous(),
+                                     A, p["D"], z)
     # conv state = the last K-1 raw (pre-conv) inputs, as conv_step takes;
     # a copy, so the state does not hold all of u_raw (B, S, d) alive
     s_len = u_raw.shape[1]
@@ -114,7 +118,7 @@ def ssm_apply(p, x, cfg: ModelConfig):
         conv_state = u_raw[:, s_len - (k - 1):, :].clone()
     else:
         conv_state = F.pad(u_raw, (0, 0, k - 1 - s_len, 0))
-    return y.to(x.dtype) @ p["out_proj"], {"h": h_last, "conv": conv_state}
+    return y @ p["out_proj"], {"h": h_last, "conv": conv_state}
 
 
 def ssm_decode_step(p, x_t, state, cfg: ModelConfig):
@@ -126,7 +130,8 @@ def ssm_decode_step(p, x_t, state, cfg: ModelConfig):
     u_c, conv_state = conv_step(u.float(), state["conv"], p["conv_w"],
                                 p["conv_b"])
     u_c = F.silu(u_c)
-    dt, B_mat, C_mat = _dt_b_c(p, u_c.to(x_t.dtype) @ p["x_proj"], cfg)
+    dt_raw, B_mat, C_mat = _dt_b_c(p, u_c.to(x_t.dtype) @ p["x_proj"], cfg)
+    dt = F.softplus(dt_raw + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[..., None] * A)  # (B, d, N)
     dBu = dt[..., None] * B_mat[:, None, :] * u_c[..., None]

@@ -13,7 +13,10 @@ The attention kernels (B4, B5) are held at the reference's bars
 (``tests/test_kernels.py``): 2e-4 in f32, 2e-2 in bf16 (the output is
 rounded to bf16; the plain version computes in f32 from the same bf16
 inputs). The selective scan (B6) is held at the reference's 5e-4
-(``tests/test_kernels.py:78``), and two calls must give the same bits.
+(``tests/test_kernels.py:78``), and two calls must give the same bits;
+B6's gated entry too, its bf16 output against the plain version's f32
+value within 5e-4 plus half a bf16 ulp (2^-8 of the value), the rounding
+of the cast itself.
 """
 import dataclasses
 
@@ -30,7 +33,8 @@ from repro_torch.kernels import (build, decode_attention, ops, policy_score,
                                  ref)
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                            mamba_scan_gated_cuda)
 from repro_torch.models import lm
 from repro_torch.serving.batching import LMEdgeBackend
 from repro_torch.serving.fastpath import DecisionFastPath
@@ -518,6 +522,78 @@ def test_mamba_scan_wrapper_rejects_bad_inputs(cuda_device):
                         torch.randn(40, 33, device=cuda_device))
     with pytest.raises(ValueError, match="CUDA tensors"):
         mamba_scan_cuda(u.cpu(), dt, bm, cm, a)
+
+
+SCAN_SHAPES = [(1, 256, 512, 16), (4, 100, 320, 16), (1, 37, 200, 4),
+               (2, 128, 64, 8), (2, 70, 33, 32), (1, 5, 300, 1), (3, 9, 17, 3)]
+
+
+def _gated_inputs(b, s, d, n, device, zdtype, seed=0):
+    """u normal, dt_raw 0.5 * normal (every 7th channel 25, above
+    softplus's threshold), dt_bias the inverse softplus of dt in [1e-3,
+    0.1], B, C, A as ``_scan_inputs``, D near 1; z the second half of a
+    (B, S, 2d) tensor in ``zdtype`` (a strided view)."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, s, d, generator=gen)
+    dt_raw = 0.5 * torch.randn(b, s, d, generator=gen)
+    dt_raw[..., ::7] = 25.0
+    dt0 = torch.exp(torch.rand(d, generator=gen) * (np.log(0.1)
+                                                   - np.log(1e-3))
+                    + np.log(1e-3))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))
+    bm = torch.randn(b, s, n, generator=gen)
+    cm = torch.randn(b, s, n, generator=gen)
+    a = -torch.exp(0.2 * torch.randn(d, n, generator=gen))
+    dskip = 1 + 0.1 * torch.randn(d, generator=gen)
+    uz = torch.randn(b, s, 2 * d, generator=gen).to(device, zdtype)
+    args = [t.to(device) for t in (u, dt_raw, bias, bm, cm, a, dskip)]
+    return args, uz[..., d:]
+
+
+@pytest.mark.parametrize("zdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,d,n", SCAN_SHAPES)
+def test_mamba_scan_gated_kernel_matches_plain_version(cuda_device, b, s, d,
+                                                      n, zdtype):
+    """The gated entry (softplus, scan, D skip, SiLU gate, cast) at the
+    bare test's shapes, z a strided view of a (B, S, 2d) tensor, against
+    its plain version's f32 value: 5e-4, plus half a bf16 ulp in bf16;
+    h_last to 5e-4; two calls the same bits; one launch each, counted as
+    B6's."""
+    args, z = _gated_inputs(b, s, d, n, cuda_device, zdtype, seed=s)
+    assert z.stride(-1) == 1 and not z.is_contiguous()
+    build.reset_launch_counts()
+    out, h = ops.mamba_scan_gated(*args, z)
+    out2, h2 = ops.mamba_scan_gated(*args, z)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mamba_scan"] == 2
+    want, wh = ref.mamba_scan_gated_torch(*args, z.float())
+    assert out.shape == (b, s, d) and out.dtype == zdtype
+    assert h.shape == (b, d, n) and h.dtype == torch.float32
+    half_ulp = 2.0 ** -8 if zdtype == torch.bfloat16 else 0.0
+    diff = (out.float() - want).abs()
+    assert float((diff - 5e-4 - (5e-4 + half_ulp) * want.abs()).max()) <= 0
+    torch.testing.assert_close(h, wh, atol=5e-4, rtol=5e-4)
+    assert torch.equal(out, out2) and torch.equal(h, h2)  # the same bits
+
+
+def test_mamba_scan_gated_wrapper_rejects_bad_inputs(cuda_device):
+    args, z = _gated_inputs(1, 16, 40, 4, cuda_device, torch.bfloat16)
+    u, dt_raw, bias, bm, cm, a, dskip = args
+    with pytest.raises(TypeError, match="float32"):
+        mamba_scan_gated_cuda(u.double(), dt_raw, bias, bm, cm, a, dskip, z)
+    with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+        mamba_scan_gated_cuda(u, dt_raw, bias, bm, cm, a, dskip, z.half())
+    with pytest.raises(ValueError, match="unit last stride"):
+        mamba_scan_gated_cuda(u, dt_raw, bias, bm, cm, a, dskip,
+                              z.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        mamba_scan_gated_cuda(u, dt_raw, bias, bm[:, :8], cm, a, dskip, z)
+    with pytest.raises(ValueError, match="N <= 32"):
+        mamba_scan_gated_cuda(u, dt_raw, bias, *(torch.randn(
+            1, 16, 33, device=cuda_device) for _ in range(2)), torch.randn(
+            40, 33, device=cuda_device), dskip, z)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mamba_scan_gated_cuda(u.cpu(), dt_raw, bias, bm, cm, a, dskip, z)
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
