@@ -11,8 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (one ``nvcc`` per source, all started together);
 3. hold each policy-head kernel against its plain PyTorch version on the
    card at every ``DEFAULT_BUCKETS`` shape at d=256, B in {1, 8}, with
-   partial edge masks, plus the no-(Z, Q) memory guarantee of the fused
-   decode; the backward (B2) also at the training shape B=128, Q=5, Z=50;
+   partial edge masks, and at ``EDGE_CASES`` (Q = 1, 5 and 128, Z = 1 and
+   37); the fused decode (B3) at K = 1, 8 and Q, normalized and not, the
+   same bits across two calls, and on exact-arithmetic inputs with
+   duplicated edges (``TIE_CASES``), whose indices must equal the plain
+   version's on every row; plus the no-(Z, Q) memory guarantee of the
+   fused decode; the backward (B2) also at the training shape B=128, Q=5,
+   Z=50;
 4. drive the serving decision path at full width (``PolicyConfig()``, about
    4M parameters, random weights from a seed) through ``DecisionFastPath``
    at all four buckets: greedy fused decode, then greedy materialized and
@@ -76,9 +81,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
     cache): B4 and B6 launch 32 times per admission, B5 32 times per
     decode step; the same profile; a 2300-token request through the
     kernel and the plain path (1e-3 in f32, 0.1 in bf16);
-13. time each kernel, its plain version and, for B4 and B5, PyTorch's
+13. print the device time per launch of B3 (K = 1 and the sampled path's
+    K = Q = 100) and B2 (``launch_split``, a torch.profiler trace); then
+    time each kernel, its plain version and, for B4 and B5, PyTorch's
     ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
-    shape 100x1000, B2 at the training shape, B4 at qwen3-4b's and
+    shape 100x1000, B3 also at K = Q = 100 normalized under ``sampled``, B2
+    at the training shape, B4 at qwen3-4b's and
     hymba-1.5b's 2048-token prefills, B5 at the 4-lane qwen3-4b edge's
     cache after serving and at hymba's rolled 4-lane cache, B6's gated
     entry (the one the main paths launch) and its bare entry at
@@ -163,6 +171,12 @@ SCAN_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16), (1, 37, 200, 4),
 # rounding, half an ulp: 2^-8 of the value.
 SCAN_GATED_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16), (1, 37, 200, 4))
 BF16_HALF_ULP = 2.0 ** -8
+# policy-head shapes beside the buckets (B, Q, Z, valid edges per
+# instance): one edge, the training Q, the widest Q, one request row
+EDGE_CASES = ((2, 1, 37, (1, 1)), (3, 5, 1, (5, 1, 3)), (1, 5, 50, (4,)),
+              (2, 128, 37, (128, 90)))
+# B3 on exact-arithmetic inputs with duplicated edges (B, Q, Z)
+TIE_CASES = ((2, 5, 45), (1, 100, 1000), (2, 128, 37))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -206,6 +220,9 @@ def _gapped_rows(vals, mask, k):
     limit = torch.minimum(torch.full_like(n_valid, k), n_valid - 1)
     use = idx[None, None, :] < limit[:, None, None]
     gaps = torch.where(use, gaps, torch.inf)
+    if gaps.shape[-1] == 0:  # one edge: nothing to tell apart
+        return torch.ones(vals.shape[:-1], dtype=torch.bool,
+                          device=vals.device)
     return gaps.amin(-1) > GAP  # (B, Z)
 
 
@@ -223,6 +240,61 @@ def random_cases(buckets):
             cases.append(("random", b, q, z,
                           *_inputs(gen, b, q, z, valid=valid)))
     return cases
+
+
+def edge_cases():
+    """EDGE_CASES with random inputs and their valid-edge counts."""
+    gen = torch.Generator().manual_seed(6)
+    return [("random", b, q, z, *_inputs(gen, b, q, z, valid=list(valid)))
+            for b, q, z, valid in EDGE_CASES]
+
+
+def _exact_inputs(b, q, z, seed=0):
+    """Small multiples of 2^-6 (embeddings) and 2^-7 (weights): every score
+    is exact in f32 whatever the summation order, so ties are exact; edge 1
+    duplicates edge 0 and edge 3 edge 2. Every third edge from the fifth
+    on is masked."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-3, 4, size=(b, q, D)) / 64.0
+    h = rng.integers(-3, 4, size=(b, z, D)) / 64.0
+    wx = rng.integers(-2, 3, size=(D, D)) / 128.0
+    wy = rng.integers(-2, 3, size=(D, D)) / 128.0
+    for src, dst in ((0, 1), (2, 3)):
+        if dst < q:
+            c[:, dst] = c[:, src]
+    mask = np.ones((b, q), bool)
+    mask[:, 4::3] = False
+    return [torch.from_numpy(a.astype(np.float32)).cuda()
+            for a in (c, h, wx, wy)] + [torch.from_numpy(mask).cuda()]
+
+
+def compare_decode_ties(ops, ref):
+    """B3 on TIE_CASES at K = 1, 3 and Q, normalized and not: indices equal
+    the plain version's on every row, values within ATOL, the same bits
+    across two calls. Returns a report per case."""
+    report = []
+    for b, q, z in TIE_CASES:
+        c, h, wx, wy, mask = _exact_inputs(b, q, z)
+        for normalize in (True, False):
+            for k in sorted({1, 3, q}):
+                ti, tv = ops.policy_score_decode(c, h, wx, wy, mask, k=k,
+                                                 normalize=normalize)
+                ti2, tv2 = ops.policy_score_decode(c, h, wx, wy, mask, k=k,
+                                                   normalize=normalize)
+                wi, wv = ref.policy_score_decode_torch(c, h, wx, wy, mask,
+                                                       10.0, k, normalize)
+                where = f"tie case {(b, q, z, k, normalize)}"
+                check(torch.equal(ti, ti2) and torch.equal(tv, tv2),
+                      f"decode differs between two calls at {where}")
+                bad = int((ti != wi).any(-1).sum())
+                check(bad == 0, f"decode indices differ on {bad} rows at "
+                      f"{where}")
+                err = float((tv - wv).abs().max())
+                check(err <= ATOL, f"decode err {err} > {ATOL} at {where}")
+                report.append({"B": b, "Q": q, "Z": z, "k": k,
+                               "normalize": normalize, "val_err": err})
+    torch.cuda.synchronize()
+    return report
 
 
 def train_shape_case(seed=4, b=128, q=5, z=50):
@@ -283,9 +355,14 @@ def compare_kernels(ops, ref, cases, errs):
         for normalize in (True, False):
             _, sorted_vals = ref.policy_score_decode_torch(
                 c, h, wx, wy, mask, 10.0, q, normalize)
-            for k in sorted({1, 8, q}):
+            for k in sorted({1, min(8, q), q}):
                 ti, tv = ops.policy_score_decode(c, h, wx, wy, mask, k=k,
                                                  normalize=normalize)
+                ti2, tv2 = ops.policy_score_decode(c, h, wx, wy, mask, k=k,
+                                                   normalize=normalize)
+                check(torch.equal(ti, ti2) and torch.equal(tv, tv2),
+                      f"decode differs between two calls at "
+                      f"{(b, q, z, k, normalize)}")
                 wi, wv = ref.policy_score_decode_torch(c, h, wx, wy, mask,
                                                        10.0, k, normalize)
                 rows = _gapped_rows(sorted_vals, mask, k)
@@ -657,6 +734,44 @@ def time_ms(fn, reps=25, inner=20):
     return float(np.median(times))
 
 
+def launch_split(fn, n=20):
+    """Device us per call of each kernel that ``fn`` launches, heaviest
+    first, from a torch.profiler trace of ``n`` calls after a warm-up:
+    {"total_us", "kernels": [{"kernel", "us", "launches"}]}. A launch is
+    charged from the later of its start and the end of the launch before
+    it to its own end: a programmatic dependent launch starts while its
+    predecessor runs and waits for it, and that wait is the predecessor's
+    time. The trace may miss a few launches of the window, so us is the
+    mean over the launches it holds times the launches per call,
+    rounded."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    stats, prev_end = {}, -math.inf
+    for e in kernels:
+        own = e.time_range.end - max(e.time_range.start, prev_end)
+        prev_end = max(prev_end, e.time_range.end)
+        total, count = stats.get(e.name, (0.0, 0))
+        stats[e.name] = (total + max(own, 0.0), count + 1)
+    rows = []
+    for name, (total, count) in stats.items():
+        per_call = max(1, round(count / n))
+        rows.append({"kernel": name[:80], "us": total / count * per_call,
+                     "launches": per_call})
+    rows.sort(key=lambda r: -r["us"])
+    check(rows and sum(r["us"] for r in rows) > 0,
+          "the profiler saw no device time")
+    return {"total_us": sum(r["us"] for r in rows), "kernels": rows}
+
+
 def bound(flops, nbytes, peak=F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -693,11 +808,44 @@ def _head_counts(c, h):
     return b, q, z, d, in_bytes
 
 
+def policy_head_split(ops, policy_score, enc, enc_train):
+    """Device us per launch of B3 on the real encoder outputs at 100x1000
+    (K = 1 as greedy serving, and K = Q normalized as the sampled path) and
+    of B2 at the training shape (``launch_split``)."""
+    c, h, wx, wy, mask = enc[3:]
+    maskf = mask.to(torch.float32)
+    q = c.shape[1]
+    split = {}
+    for k, normalize in ((1, False), (q, True)):
+        split[f"policy_score_decode K={k}" + " normalized" * normalize] = \
+            launch_split(lambda: policy_score.policy_score_decode_cuda(
+                c, h, wx, wy, maskf, k=k, normalize=normalize))
+    c, h, wx, wy, mask = enc_train[3:]
+    maskf = mask.to(torch.float32)
+    out = ops.policy_score(c, h, wx, wy, mask)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(12)
+                    ).cuda()
+    split["policy_score_bwd"] = launch_split(
+        lambda: policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy,
+                                                   maskf))
+    return split
+
+
+SHAPE_ROW_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ms_runs",
+                  "plain_ms_runs")
+
+
 def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     """B1 and B3 at the serving shape (100x1000, one instance; B1 also at
-    the training shape), B2 at the training shape (B=128, Q=5, Z=50), each
-    beside its plain version and its bound. ``launches``: {kernel: {path:
-    count}} from the main-path runs."""
+    the training shape, B3 also at K = Q = 100 normalized, the sampled
+    path's call, under ``sampled``), B2 at the training shape (B=128, Q=5,
+    Z=50), each beside its plain version and its bound. B3's operations are
+    the reference's fold (px, pxy = Wpy px^T, h pxy); B2's are its kernel's
+    fold (px, pxy^T, u, dh, ghx, dpx, dc and the two weight gradients: six
+    B*Q x d x d products and three B*Z x Q x d ones), with the unfolded
+    count it was bounded by before (py, u and px recomputed, six products)
+    as ``bound_ms_unfolded``. ``launches``: {kernel: {path: count}} from
+    the main-path runs."""
     c, h, wx, wy, mask = enc[3:]
     b, q, z, d, in_bytes = _head_counts(c, h)
     k = 1
@@ -719,6 +867,14 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
              launches["policy_score_decode"], errs["policy_score_decode"],
              shape + f" K={k}"),
     ]
+    sampled = _row("policy_score_decode", 180,
+                   lambda: ops.policy_score_decode(c, h, wx, wy, mask, k=q,
+                                                   normalize=True),
+                   lambda: ref.policy_score_decode_torch(c, h, wx, wy, mask,
+                                                         10.0, q, True),
+                   b3_flops, in_bytes + 8 * b * z * q, {}, None,
+                   shape + f" K={q} normalized")
+    rows[1]["sampled"] = {k_: sampled[k_] for k_ in SHAPE_ROW_KEYS}
 
     # the training shape: B1 forward, then B2 on its output
     c, h, wx, wy, mask = enc_train[3:]
@@ -733,11 +889,8 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
                     lambda: ref.policy_score_torch(c, h, wx, wy, mask),
                     2 * b * (q * d * d + z * d * d + z * q * d),
                     in_bytes + 4 * b * z * q, {}, None, shape)
-    rows[0]["train_shape"] = {k_: b1_train[k_] for k_ in
-                              ("shape", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "ms_runs", "plain_ms_runs")}
-    # recomputed px, py and u, then dpy, dpx, dc, dh, dWpx, dWpy
-    b2_flops = 2 * b * (3 * q * d * d + 3 * z * d * d + 3 * z * q * d)
+    rows[0]["train_shape"] = {k_: b1_train[k_] for k_ in SHAPE_ROW_KEYS}
+    b2_flops = 2 * b * (6 * q * d * d + 3 * z * q * d)
     b2_bytes = in_bytes + 8 * b * z * q + 4 * (b * q * d + b * z * d + 2 * d * d)
     rows.append(_row(
         "policy_score_bwd", 65,
@@ -746,6 +899,8 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
         b2_flops, b2_bytes, launches["policy_score_bwd"],
         errs["policy_score_bwd"], shape))
     rows[-1]["max_rel_err"] = errs["policy_score_bwd_rel"]
+    rows[-1]["bound_ms_unfolded"] = bound(
+        2 * b * (3 * q * d * d + 3 * z * d * d + 3 * z * q * d), b2_bytes)[0]
     return rows
 
 
@@ -1514,14 +1669,15 @@ def main() -> int:
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0,
             "mamba_scan": 0.0, "mamba_scan_gated": 0.0}
-    random = random_cases(fpm.DEFAULT_BUCKETS)
+    random = random_cases(fpm.DEFAULT_BUCKETS) + edge_cases()
     cases = compare_kernels(ops, ref, random, errs)
+    ties = compare_decode_ties(ops, ref)
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
                            errs)
     mem = memory_check(ops, ref)
     print(f"compare: max_abs_err {json.dumps(errs)} over {len(cases)} "
-          f"forward and {len(bwd)} backward shapes; memory {json.dumps(mem)}",
-          flush=True)
+          f"forward and {len(bwd)} backward shapes, {len(ties)} exact-tie "
+          f"decodes; memory {json.dumps(mem)}", flush=True)
 
     # phase 4: the serving decision path at full width
     summary, enc = drive_main_path(pol, obj, fpm, tinst, policy_score,
@@ -1609,7 +1765,10 @@ def main() -> int:
     ssm_lm[LM_HYBRID_ARCH] = serve_lm("hybrid", LM_HYBRID_ARCH,
                                       LM_HYBRID_PROMPT)
 
-    # phase 13: every kernel timed beside its plain version; the kernels line
+    # phase 13: the policy head's device time per launch; every kernel timed
+    # beside its plain version; the kernels line
+    head_split = policy_head_split(ops, policy_score, enc, enc_train)
+    print(f"policy head launch split: {json.dumps(head_split)}", flush=True)
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
@@ -1620,7 +1779,9 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "main_path": summary,
         "gradient_parity": parity, "training": training,
-        "compare": cases, "compare_backward": bwd, "memory": mem,
+        "compare": cases, "compare_decode_ties": ties,
+        "compare_backward": bwd, "memory": mem,
+        "policy_head_split": head_split,
         "compare_attention": attn_cases, "lm_serving": lm_serving,
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,

@@ -1,72 +1,81 @@
 // CoRaiS policy head (paper eqs 16-17) on Hopper (sm_90a), f32 on the CUDA
-// cores. Built by repro_torch/kernels/policy_score.py with
+// cores. Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C interface at the end of this file.
 //
 // What it replaces (JAX reference, src/repro/kernels/policy_score.py):
 //   corais_policy_score         <- _fwd_kernel    (:51), the materialized
 //                                  (Z, Q) log-prob head ("B1")
+//   corais_policy_score_bwd     <- _bwd_kernel    (:65), B1's custom-VJP
+//                                  backward ("B2")
 //   corais_policy_score_decode  <- _decode_kernel (:180), the fused score +
 //                                  greedy/top-k decode ("B3")
-//   corais_policy_score_bwd     <- _bwd_kernel    (:65), B1's custom-VJP
-//                                  backward ("B2"; its note follows B1's)
+// Every product is an f32 FMA loop written here: no library GEMM, no tensor
+// cores. Sums run in a fixed order and no float atomics are used, so two
+// calls give the same bits.
 //
-// What bounds it. At the serving shape (B=1, Q=100, Z=1000, d=256) B1 does
-// about 195 MFLOP (px 13 + py 131 + u 51) on about 2 MB of inputs and
-// outputs, and B3 about 77 MFLOP on about 1.7 MB: both have more than 20
-// FLOP per byte, so in f32 on the CUDA cores (no TF32: parity needs 1e-5)
-// they are bounded by operations, a few microseconds each, which is near
-// the cost of a launch.
+// What bounds them. At the serving shape (B=1, Q=100, Z=1000, d=256) B3
+// does 77 MFLOP on 1.7 MB, 1.2 us at the card's f32 peak; its three
+// dependent launches take longer than that however they are laid out, so
+// each is spread over the card and kept short. At the training shape
+// (B=128, Q=5, Z=50, d=256) B2 computes the reference's backward with the
+// reference decode's fold (below): 0.55 GFLOP, 8 us at the f32 peak, where
+// the unfolded products take 2.8 GFLOP; its six launches are bound by
+// latency more than by operations. PERF.md section 6 has their times on
+// the card. B1 keeps its first design (edge_prologue + score_rows);
+// redesigning it is later work.
 //
-// What the design does about it. On the TPU each Z-block of the Pallas grid
-// recomputes the edge-side projection, which is free there because the grid
-// runs in order on one core. Here the Z-blocks run in parallel on 132 SMs,
-// so recomputing it per block would multiply the work about five times.
-// Each function is therefore two launches on one stream:
-//   1. edge_prologue, one block per (edge q, instance b): the edge-side
-//      projection, computed once, into a scratch buffer the wrapper owns:
-//        B1: pxT[b] = (c[b] @ Wpx)^T           (d, Q)
-//        B3: pxy[b] = Wpy @ (c[b] @ Wpx)^T     (d, Q)  (the reference's fold)
-//   2. a Z-tiled main kernel over a (ceil(Z/16), B) grid, 16 request rows per
-//      block, 8 warps, two rows per warp and up to four edges per lane
-//      (Q <= 128). The (d, Q) edge matrix is staged through shared memory in
-//      32-deep chunks, shared by the block's 8 warps.
-//        B1: py tile = h tile @ Wpy, u = py . pxT * scale, C*tanh, the mask
-//            (-1e9), the row log-sum-exp, and a store of the (16, Q) tile.
-//        B3: u = h tile @ pxy * scale, then per row K passes of a warp
-//            arg-max (lowest index on ties); only (16, K) indices and values
-//            are stored, never the (Z, Q) scores.
-// Every product is a plain FMA loop written here; no library GEMM and no
-// tensor cores. Making these fast (mma.sync / wgmma on 3xTF32, a fused
-// prologue) is later work.
+// One register-blocked tile routine (Tile) computes every weight product:
+// a block owns a BM x BN output tile, each thread TM x TN of it, and walks
+// the reduction in BK-deep chunks of A and B staged in shared memory by
+// 16-byte cp.async, double-buffered; KSPLIT groups of threads split
+// each chunk's k range and add their sums in group order. Operands are
+// read in place: A as (m, k) or (k, m) rows, B as (k, n) or (n, k) rows,
+// so W and W^T need no copy. Every kernel of a call after the first is a
+// programmatic dependent launch (Hopper): it is scheduled while the one
+// before runs and waits (griddepcontrol.wait) for its results, which
+// hides most of the gap between two short launches.
 //
-// corais_policy_score_bwd <- _bwd_kernel (:65), the custom-VJP backward of
-// B1 ("B2"): given the cotangent g and the saved log-probs out, both
-// (B, Z, Q), it returns dc (B, Q, d), dh (B, Z, d) and dWpx, dWpy (d, d)
-// summed over B. At the training shape (B=128, Q=5, Z=50, d=256) that is
-// about 2.8 GFLOP (the projections px, py recomputed, u recomputed, and six
-// products) on about 15 MB, so it too is bounded by operations.
-// The reference gives one program a whole (Z, d) block of one instance,
-// which fits VMEM only to a few thousand rows and leaves one program per
-// instance. Here it is five stages on one stream (seven launches: stages
-// 4 and 5 run once per weight), every sum in a fixed order and no float
-// atomics, so two runs give the same bits:
-//   1. edge_prologue<false>: pxT[b] = (c[b] @ Wpx)^T, as in B1;
-//   2. bwd_rows over (ceil(Z/16), B): per 16-row tile, py = h @ Wpy and u
-//      recomputed, gu = keep ? (g - exp(out) * sum_q g) * C * scale *
-//      (1 - tanh(u)^2) : 0, dpy = gu @ px and dh = dpy @ Wpy^T; gu, py and
-//      dpy go to wrapper-owned scratch. Rows past Z are masked, not padded;
-//   3. bwd_edges over (Q, B): dpx[b, q] = sum_z gu[b, z, q] py[b, z] in z
-//      order, then dc[b, q] = dpx[b, q] @ Wpx^T (a warp per output);
-//   4. weight_grad_partial: dWpx = sum over the B*Q rows of c^T dpx and
-//      dWpy over the B*Z rows of h^T dpy, each split over rows into
-//      `split` partial (d, d) sums, one 16x256 output tile per block;
-//   5. sum_partials adds the partials in order p = 0, 1, ...
-// Limits as B1: Q <= 128, d <= 512, any Z.
+// B3, three launches on one stream:
+//   1. gemm<EdgeTile>:  px = c @ Wpx over all B*Q edge rows;
+//   2. gemm<EdgeTileT>: pxy[b] = Wpy @ px[b]^T (d, Q), the reference's fold,
+//      so that only the Z x d x Q product touches the request axis;
+//   3. decode_rows<QP>, QP = Q padded to 32, 64 or 128: a block owns
+//      1024/QP request rows of one instance (8 at Q > 64: 125 blocks at
+//      Z=1000); its 8 warps split the d axis, each staging its own slice
+//      of the h rows and of pxy (256-deep chunks) in four pieces it waits
+//      for one at a time, each lane holding 8 rows x 4 edges; the warps'
+//      partial sums are added in warp order. Then one warp per row
+//      selects: K=1 is one arg-max (lowest index on ties); K>1 is a bitonic
+//      sort of the QP (value desc, index asc) keys in the warp's registers.
+//      normalize selects on C*tanh(u), masked -1e9, and returns log-probs
+//      (the row's log-sum-exp); else it selects in u-space, masked -inf,
+//      and applies C*tanh to the winners. Only (Z, K) indices and values
+//      are stored, never the (Z, Q) scores.
+// B2, six launches (the first design took seven), folded as B3 is: with
+// pxy^T = px @ Wpy^T, u = h pxy^T[b]^T, dh = gu @ pxy^T[b], and with ghx =
+// gu^T h per instance, dpx = ghx @ Wpy and dWpy = ghx^T px, so no product
+// has a (Z, d) x (d, d) shape:
+//   1. gemm<PxTile>: px = c @ Wpx; it also zeroes the counters of 6;
+//   2. gemm<PxyTile>: pxy^T = px @ Wpy^T;
+//   3. bwd_rows, 16 of the flattened B*Z request rows per block, across
+//      instance boundaries: per row and its instance's Q edges only, u, gu
+//      = keep ? (g - exp(out) sum_q g) C scale (1 - tanh(u scale)^2) : 0
+//      and dh = gu @ pxy^T[b]; gu goes to scratch the wrapper owns;
+//   4. bwd_ghx, per instance and 64 columns: ghx = sum_z gu[z] h[z] in z
+//      order;
+//   5. gemm<PxTile>: dpx = ghx @ Wpy;
+//   6. bwd_weights, one launch of three kinds of tiles: 64x64 ones of dWpy
+//      = ghx^T px and dWpx = c^T dpx over the B*Q edge rows, each split
+//      over rows into partials that the split's last block to finish (an
+//      integer counter per tile) adds in order p = 0, 1, ...; and 32x64
+//      ones of dc = dpx @ Wpx^T.
+// Limits: Q <= 128, d <= 512, any Z.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <utility>
 
 namespace {
 
@@ -77,54 +86,38 @@ constexpr int kRowsPerWarp = kRows / kWarps;     // 2
 constexpr int kQMax = 128;                       // edges per instance
 constexpr int kQPerLane = kQMax / 32;            // 4
 constexpr int kChunk = 32;                       // depth of one staged tile
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+    v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// Edge-side prologue, one block per (q, b). px = c[b, q] @ Wpx in shared
-// memory, then FOLD=false stores pxT[b, :, q] = px and FOLD=true stores
-// pxy[b, :, q] = Wpy @ px (one warp per output row, lanes along k so that
-// the Wpy row is read coalesced).
-template <bool FOLD>
+// ---------------------------------------------------------------- B1 --
+
+// B1's edge-side prologue, one block per (q, b): pxT[b, :, q] = c[b, q] @
+// Wpx, through shared memory.
 __global__ void __launch_bounds__(kThreads)
 edge_prologue(const float* __restrict__ c, const float* __restrict__ wpx,
-              const float* __restrict__ wpy, float* __restrict__ out,
-              int Q, int d) {
+              float* __restrict__ out, int Q, int d) {
   extern __shared__ float smem[];
   float* c_s = smem;        // d
-  float* px_s = smem + d;   // d
   const int q = blockIdx.x, b = blockIdx.y;
   const float* c_row = c + ((size_t)b * Q + q) * d;
   for (int k = threadIdx.x; k < d; k += blockDim.x) c_s[k] = c_row[k];
   __syncthreads();
+  float* out_b = out + (size_t)b * d * Q;
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
     float acc = 0.f;
     for (int k = 0; k < d; ++k) acc = fmaf(c_s[k], wpx[(size_t)k * d + j], acc);
-    px_s[j] = acc;
-  }
-  __syncthreads();
-  float* out_b = out + (size_t)b * d * Q;
-  if constexpr (!FOLD) {
-    for (int j = threadIdx.x; j < d; j += blockDim.x)
-      out_b[(size_t)j * Q + q] = px_s[j];
-  } else {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int i = warp; i < d; i += kWarps) {
-      const float* w_row = wpy + (size_t)i * d;
-      float acc = 0.f;
-      for (int k = lane; k < d; k += 32) acc = fmaf(w_row[k], px_s[k], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) out_b[(size_t)i * Q + q] = acc;
-    }
+    out_b[(size_t)j * Q + q] = acc;
   }
 }
 
@@ -233,43 +226,490 @@ score_rows(const float* __restrict__ h, const float* __restrict__ wpy,
   }
 }
 
-// B3 main kernel: per request row, the top-K edges and their values.
+// ------------------------------------------------- staging and the tile --
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Programmatic dependent launch: B2's and B3's kernels after the first of
+// a call are launched so that they may start while their predecessor on
+// the stream runs (launch() below). Each lets its own dependents start at
+// once, and waits in griddep_wait() until its predecessor has finished
+// and its writes are visible before it touches what that kernel wrote. A
+// kernel launched the ordinary way returns from griddep_wait() at once.
+__device__ __forceinline__ void griddep_start() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// wait until at most n (0..3, a constant after unrolling) groups pend
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// dst[o * pitch + i] = src[(o0 + o) * ld + i0 + i] for o < outer, i <
+// inner, and 0 where o0 + o >= omax or i0 + i >= imax, as asynchronous
+// copies the caller commits and waits for, shared by nthreads threads of
+// which this is thread tid. With `vec` the copies are 16 bytes (inner,
+// pitch, ld, i0 and imax multiples of 4, src 16-byte aligned), else 4.
+__device__ __forceinline__ void stage(float* dst, int pitch, int outer,
+                                      int inner,
+                                      const float* __restrict__ src, int ld,
+                                      int o0, int omax, int i0, int imax,
+                                      bool vec, int tid, int nthreads) {
+  if (vec) {
+    const int groups = inner / 4;
+    for (int t = tid; t < outer * groups; t += nthreads) {
+      const int o = t / groups, i = 4 * (t - o * groups);
+      const bool ok = o0 + o < omax && i0 + i < imax;
+      cp_async16(dst + o * pitch + i,
+                 ok ? src + (size_t)(o0 + o) * ld + i0 + i : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int t = tid; t < outer * inner; t += nthreads) {
+      const int o = t / inner, i = t - o * inner;
+      const bool ok = o0 + o < omax && i0 + i < imax;
+      cp_async4(dst + o * pitch + i,
+                ok ? src + (size_t)(o0 + o) * ld + i0 + i : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// The tile routine: acc[i][j] = sum_k A(m0 + row(i), k) B(k, n0 + col(j))
+// over k < K for a block of kThreads threads. A(m, k) sits at A[k * lda +
+// m] when A_KMAJOR, else at A[m * lda + k]; B(k, n) at B[k * ldb + n] when
+// B_KMAJOR, else at B[n * ldb + k]. Both are staged in BK-deep chunks,
+// double-buffered, in their own layout (rows padded by 4 floats against
+// bank conflicts); out-of-range rows, columns and k read as 0.
+// KSPLIT groups of MT x NT threads split every chunk's k range; group g
+// sums its quarter (or half) of each chunk in k order, and the groups'
+// sums are added in order g = 0, 1, ... into group 0 (the leader), whose
+// accumulators hold the result. More groups put more warps on an SM
+// without shrinking the register tile.
+template <int BM_, int BN_, int BK_, int TM_, int TN_, bool A_KMAJOR,
+          bool B_KMAJOR, int KSPLIT = 1>
+struct Tile {
+  static constexpr int STAGES = 2;
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_;
+  static constexpr int MT = BM / TM, NT = BN / TN, kGroup = MT * NT;
+  static constexpr int kThreads = kGroup * KSPLIT, KG = BK / KSPLIT;
+  // a warp covers LY x LX threads of the MT x NT grid, so that its A reads
+  // touch LY rows and its B reads LX columns (each one wavefront)
+  static constexpr int LX = NT < 8 ? NT : 8, LY = 32 / LX, WX = NT / LX;
+  static constexpr int kPA = (A_KMAJOR ? BM : BK) + 4;
+  static constexpr int kPB = (B_KMAJOR ? BN : BK) + 4;
+  static constexpr int kA = (A_KMAJOR ? BK : BM) * kPA;  // floats a stage
+  static constexpr int kB = (B_KMAJOR ? BK : BN) * kPB;
+  static constexpr int kSmemStaged = STAGES * (kA + kB);  // floats
+  static constexpr bool kVecA = A_KMAJOR && TM % 4 == 0;
+  static constexpr bool kVecB = B_KMAJOR && TN % 4 == 0;
+  static_assert(KG % 4 == 0 && BM % TM == 0 && BN % TN == 0 &&
+                    NT % LX == 0 && MT % LY == 0 && kGroup % 32 == 0 &&
+                    (KSPLIT - 1) * kGroup * TM * TN <= kSmemStaged,
+                "tile shape");
+
+  // the thread's group, and its row and column in the MT x NT grid
+  __device__ static int group() { return threadIdx.x / kGroup; }
+  __device__ static bool leader() { return threadIdx.x < kGroup; }
+  __device__ static int ty() {
+    const int t = threadIdx.x % kGroup;
+    return (t / 32 / WX) * LY + (t & 31) / LX;
+  }
+  __device__ static int tx() {
+    const int t = threadIdx.x % kGroup;
+    return (t / 32 % WX) * LX + (t & 31) % LX;
+  }
+  // the tile row of accumulator row i, and the tile column of column j
+  __device__ static int row(int i) {
+    return kVecA ? (i / 4) * 4 * MT + ty() * 4 + i % 4 : i * MT + ty();
+  }
+  __device__ static int col(int j) {
+    return kVecB ? (j / 4) * 4 * NT + tx() * 4 + j % 4 : j * NT + tx();
+  }
+
+  // acc += the group's share of a chunk; a_s and b_s hold one stage
+  __device__ static void chunk(float (&acc)[TM][TN], const float* a_s,
+                               const float* b_s) {
+    const int ty = Tile::ty(), tx = Tile::tx(), k0 = group() * KG;
+#pragma unroll
+    for (int kk = k0; kk < k0 + KG; kk += 4) {
+      float a[TM][4];
+      if constexpr (A_KMAJOR) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float* src = a_s + (kk + c) * kPA;
+          if constexpr (kVecA) {
+#pragma unroll
+            for (int g = 0; g < TM / 4; ++g) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  src + g * 4 * MT + ty * 4);
+              a[4 * g][c] = v.x; a[4 * g + 1][c] = v.y;
+              a[4 * g + 2][c] = v.z; a[4 * g + 3][c] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < TM; ++i) a[i][c] = src[i * MT + ty];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              a_s + (i * MT + ty) * kPA + kk);
+          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+        }
+      }
+      // every accumulator adds its four products in k order
+      if constexpr (B_KMAJOR) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float* src = b_s + (kk + c) * kPB;
+          float b[TN];
+          if constexpr (kVecB) {
+#pragma unroll
+            for (int g = 0; g < TN / 4; ++g) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  src + g * 4 * NT + tx * 4);
+              b[4 * g] = v.x; b[4 * g + 1] = v.y;
+              b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < TN; ++j) b[j] = src[j * NT + tx];
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(a[i][c], b[j], acc[i][j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              b_s + (j * NT + tx) * kPB + kk);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            acc[i][j] = fmaf(a[i][0], v.x, acc[i][j]);
+            acc[i][j] = fmaf(a[i][1], v.y, acc[i][j]);
+            acc[i][j] = fmaf(a[i][2], v.z, acc[i][j]);
+            acc[i][j] = fmaf(a[i][3], v.w, acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ static void stage_chunk(float* buf, const float* A, int lda,
+                                     int m0, int M, const float* B, int ldb,
+                                     int n0, int N, int k0, int K, bool vec) {
+    if constexpr (A_KMAJOR)
+      stage(buf, kPA, BK, BM, A, lda, k0, K, m0, M, vec, threadIdx.x,
+            kThreads);
+    else
+      stage(buf, kPA, BM, BK, A, lda, m0, M, k0, K, vec, threadIdx.x,
+            kThreads);
+    if constexpr (B_KMAJOR)
+      stage(buf + kA, kPB, BK, BN, B, ldb, k0, K, n0, N, vec, threadIdx.x,
+            kThreads);
+    else
+      stage(buf + kA, kPB, BN, BK, B, ldb, n0, N, k0, K, vec, threadIdx.x,
+            kThreads);
+  }
+
+  // acc = the product (in the leader group; smem: kSmemStaged floats).
+  // One barrier a chunk: chunk c + STAGES - 1 overwrites the buffer of
+  // chunk c - 1, which every thread has finished at that barrier.
+  __device__ static void run(float (&acc)[TM][TN], const float* A, int lda,
+                             int m0, int M, const float* B, int ldb, int n0,
+                             int N, int K, bool vec, float* smem) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    const int nk = (K + BK - 1) / BK;
+#pragma unroll
+    for (int c = 0; c < STAGES - 1; ++c) {
+      if (c < nk)
+        stage_chunk(smem + c * (kA + kB), A, lda, m0, M, B, ldb, n0, N,
+                    c * BK, K, vec);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nk; ++c) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int nx = c + STAGES - 1;
+      if (nx < nk)
+        stage_chunk(smem + nx % STAGES * (kA + kB), A, lda, m0, M, B, ldb,
+                    n0, N, nx * BK, K, vec);
+      cp_async_commit();
+      const float* buf = smem + c % STAGES * (kA + kB);
+      chunk(acc, buf, buf + kA);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (KSPLIT > 1) {  // the groups' sums, added in group order
+      const int t = threadIdx.x % kGroup;
+      if (!leader())
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            smem[(((group() - 1) * TM + i) * TN + j) * kGroup + t] =
+                acc[i][j];
+      __syncthreads();
+      if (leader())
+        for (int g = 1; g < KSPLIT; ++g)
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] += smem[(((g - 1) * TM + i) * TN + j) * kGroup + t];
+      __syncthreads();  // the caller may reuse the buffers
+    }
+  }
+};
+
+// The products, all over the B*Q edge rows or the d rows of a weight:
+// B3's two at 100 edges, so small tiles, to put more blocks on the card
+using EdgeTile = Tile<16, 16, 128, 2, 1, false, true, 4>;    // c @ Wpx
+using EdgeTileT = Tile<16, 16, 128, 2, 1, false, false, 4>;  // Wpy @ px^T
+// B2's (640 edges at the training shape): 4x4 or 8x4 outputs a thread, as
+// smaller register tiles are bound by their shared-memory loads
+using PxTile = Tile<32, 64, 64, 4, 4, false, true, 4>;    // c @ Wpx, ghx @ Wpy
+using PxyTile = Tile<32, 64, 64, 4, 4, false, false, 4>;  // px @ Wpy^T
+using WTile = Tile<64, 64, 32, 8, 4, true, true, 2>;      // ghx^T px, c^T dpx
+using CTile = Tile<32, 64, 32, 4, 4, false, false, 2>;    // dpx @ Wpx^T
+
+// C[z] (M, N), row pitch ldc, = A[z] B[z] with the operands of T, batched
+// over blockIdx.z by element strides; block (0, 0, 0) first zeroes
+// `zero[0:n_zero]` (B2's counters, consumed by a later launch).
+template <class T>
+__global__ void __launch_bounds__(T::kThreads)
+gemm(const float* __restrict__ A, int lda, size_t a_batch,
+     const float* __restrict__ B, int ldb, size_t b_batch,
+     float* __restrict__ C, int ldc, size_t c_batch, int M, int N, int K,
+     int vec, int* __restrict__ zero, int n_zero) {
+  extern __shared__ __align__(16) float smem_f[];
+  griddep_start();
+  griddep_wait();
+  if (zero != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    for (int i = threadIdx.x; i < n_zero; i += blockDim.x) zero[i] = 0;
+  const size_t z = blockIdx.z;
+  A += z * a_batch;
+  B += z * b_batch;
+  C += z * c_batch;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  float acc[T::TM][T::TN];
+  T::run(acc, A, lda, m0, M, B, ldb, n0, N, K, vec, smem_f);
+  if (!T::leader()) return;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const int m = m0 + T::row(i), n = n0 + T::col(j);
+      if (m < M && n < N) C[(size_t)m * ldc + n] = acc[i][j];
+    }
+}
+
+// ---------------------------------------------------------------- B3 --
+
+// (value desc, index asc): a strict total order, the reference's
+// first-index tie rule
+__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Bitonic sort of the warp's 32 * KPL keys into (value desc, index asc)
+// order; key e = lane * KPL + i sits in the lane's register i.
+template <int KPL>
+__device__ __forceinline__ void warp_sort(float (&v)[KPL], int (&id)[KPL]) {
+  const int lane = threadIdx.x & 31;
+  constexpr int kN = 32 * KPL;
+#pragma unroll
+  for (int size = 2; size <= kN; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      if (stride >= KPL) {  // partner in lane ^ (stride / KPL)
+        const int ls = stride / KPL;
+        const bool lower = (lane & ls) == 0;
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          const float ov = __shfl_xor_sync(kFull, v[i], ls);
+          const int oi = __shfl_xor_sync(kFull, id[i], ls);
+          const bool desc = ((lane * KPL + i) & size) == 0;
+          // a descending run keeps the earlier key at its lower position
+          if ((lower == desc) != before(v[i], id[i], ov, oi)) {
+            v[i] = ov;
+            id[i] = oi;
+          }
+        }
+      } else {  // partner in the same lane
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          if (i & stride) continue;
+          const int j = i | stride;
+          const bool desc = ((lane * KPL + i) & size) == 0;
+          if (before(v[j], id[j], v[i], id[i]) == desc) {
+            const float tv = v[i];
+            v[i] = v[j];
+            v[j] = tv;
+            const int ti = id[i];
+            id[i] = id[j];
+            id[j] = ti;
+          }
+        }
+      }
+    }
+  }
+}
+
+constexpr int kDecodeKC = 256;  // d staged per pass
+
+template <int QP>
+struct DecodePlan {
+  static constexpr int LQ = QP / 4;         // lanes along the edges
+  static constexpr int LR = 32 / LQ;        // row groups in a warp
+  static constexpr int TR = 8;              // rows per thread
+  static constexpr int R = LR * TR;         // rows per block (1024 / QP)
+  static constexpr int KW = kDecodeKC / kWarps;  // d per warp per pass
+  static constexpr int PH = kDecodeKC + 4;  // pitch of the h rows
+  static constexpr int KPL = QP / 32;       // keys per lane in selection
+  static constexpr int kSmem = R * PH + kDecodeKC * QP;  // floats
+  static_assert(kWarps * R * QP <= kDecodeKC * QP, "partials fit");
+};
+
+// B3 main kernel: R request rows of instance blockIdx.y per block.
+template <int QP>
 __global__ void __launch_bounds__(kThreads)
 decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
             const float* __restrict__ mask, int* __restrict__ top_idx,
             float* __restrict__ top_val, int Z, int Q, int d, int K,
-            int normalize, float scale, float clip) {
-  extern __shared__ float smem[];
-  float* h_s = smem;                 // kRows * d
-  float* m_s = h_s + kRows * d;      // kChunk * kQMax
-  const int b = blockIdx.y, z0 = blockIdx.x * kRows;
-  const int rows = min(kRows, Z - z0);
-  load_rows(h + ((size_t)b * Z + z0) * d, rows, d, h_s);
-  __syncthreads();
-  float acc[kRowsPerWarp][kQPerLane];
-  rows_times_edges(h_s, pxy + (size_t)b * d * Q, m_s, d, Q, acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* mask_b = mask + (size_t)b * Q;
+            int normalize, float scale, float clip, int vec_h, int vec_p) {
+  using P = DecodePlan<QP>;
+  extern __shared__ __align__(16) float smem_f[];
+  griddep_start();
+  griddep_wait();
+  float* h_s = smem_f;                 // R x PH
+  float* p_s = smem_f + P::R * P::PH;  // kDecodeKC x QP; then the partials
+  const int b = blockIdx.y, z0 = blockIdx.x * P::R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane / P::LQ, e0 = (lane % P::LQ) * 4;
+  const float* h_b = h + (size_t)b * Z * d;
+  const float* p_b = pxy + (size_t)b * d * Q;
+  float acc[P::TR][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    if (r >= rows) break;  // warp-uniform
-    // normalize: select on C*tanh(u), masked -1e9 (eq-17 log-probs out);
-    // otherwise select in u-space, masked -inf, C*tanh on the winners only.
-    float sel[kQPerLane];
-    bool live[kQPerLane];
+  for (int r = 0; r < P::TR; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  // Each warp stages and reads only its own slice of the chunk (its h
+  // columns and pxy rows), in kParts pieces that it waits for one at a
+  // time, so it computes on the first while the others arrive.
+  constexpr int kSub = 8, kParts = P::KW / kSub;
+  static_assert(kParts <= 4, "cp_async_wait_upto");
+  for (int k0 = 0; k0 < d; k0 += kDecodeKC) {
+    const int kw = warp * P::KW;
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int kl = kw + part * kSub;
+      stage(h_s + kl, P::PH, P::R, kSub, h_b, d, z0, Z, k0 + kl, d, vec_h,
+            lane, 32);
+      stage(p_s + kl * QP, QP, kSub, QP, p_b, Q, k0 + kl, d, 0, Q, vec_p,
+            lane, 32);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      cp_async_wait_upto(kParts - 1 - part);
+      __syncwarp();
+      const int kb = kw + part * kSub;
+#pragma unroll
+      for (int kk = 0; kk < kSub; kk += 4) {
+        float4 hv[P::TR];
+#pragma unroll
+        for (int r = 0; r < P::TR; ++r)
+          hv[r] = *reinterpret_cast<const float4*>(
+              h_s + (r * P::LR + rg) * P::PH + kb + kk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 pv = *reinterpret_cast<const float4*>(
+              p_s + (kb + kk + c) * QP + e0);
+#pragma unroll
+          for (int r = 0; r < P::TR; ++r) {
+            const float a = c == 0 ? hv[r].x
+                          : c == 1 ? hv[r].y
+                          : c == 2 ? hv[r].z : hv[r].w;
+            acc[r][0] = fmaf(a, pv.x, acc[r][0]);
+            acc[r][1] = fmaf(a, pv.y, acc[r][1]);
+            acc[r][2] = fmaf(a, pv.z, acc[r][2]);
+            acc[r][3] = fmaf(a, pv.w, acc[r][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the slice is read before the next chunk overwrites it
+  }
+  __syncthreads();  // the partials below overwrite other warps' slices
+  // the warps' partial sums over their slices of d, added in warp order
+  float* red = p_s;  // kWarps x R x QP
+#pragma unroll
+  for (int r = 0; r < P::TR; ++r)
+    *reinterpret_cast<float4*>(red + (warp * P::R + r * P::LR + rg) * QP + e0) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  for (int o = threadIdx.x; o < P::R * QP; o += kThreads) {
+    float s = red[o];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * P::R * QP + o];
+    red[o] = s;  // u of (row o / QP, edge o % QP), unscaled
+  }
+  __syncthreads();
+  const float* mask_b = mask + (size_t)b * Q;
+  for (int r = warp; r < P::R; r += kWarps) {
+    const int z = z0 + r;
+    if (z >= Z) break;  // warp-uniform
+    float v[P::KPL];
+    int id[P::KPL];
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) {
-      const int q = lane + 32 * i;
-      live[i] = q < Q;
-      sel[i] = -INFINITY;
-      if (live[i]) {
-        const float u = acc[rr][i] * scale;
+    for (int i = 0; i < P::KPL; ++i) {
+      const int q = lane * P::KPL + i;
+      id[i] = q;
+      v[i] = -INFINITY;  // padding edges sort after every real one
+      if (q < Q) {
+        const float u = red[r * QP + q] * scale;
         const bool keep = mask_b[q] > 0.5f;
-        sel[i] = normalize ? (keep ? clip * tanhf(u) : -1e9f)
-                           : (keep ? u : -INFINITY);
-        mx = fmaxf(mx, sel[i]);
+        v[i] = normalize ? (keep ? clip * tanhf(u) : -1e9f)
+                         : (keep ? u : -INFINITY);
+        mx = fmaxf(mx, v[i]);
       }
     }
     float lse = 0.f;
@@ -277,244 +717,395 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
       mx = warp_max(mx);
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < kQPerLane; ++i)
-        if (live[i]) s += expf(sel[i] - mx);
+      for (int i = 0; i < P::KPL; ++i)
+        if (lane * P::KPL + i < Q) s += expf(v[i] - mx);
       lse = logf(warp_sum(s)) + mx;
     }
-    const size_t row = (size_t)b * Z + z0 + r;
-    for (int j = 0; j < K; ++j) {
-      // lane-local best among the edges not yet taken, then a butterfly
-      // arg-max over the warp; (value desc, index asc) is a total order,
-      // so every lane ends with the same winner.
-      float bv = -INFINITY;
-      int bi = INT_MAX;
+    const size_t row = (size_t)b * Z + z;
+    if (K == 1) {
+      float bv = v[0];
+      int bi = id[0];
 #pragma unroll
-      for (int i = 0; i < kQPerLane; ++i) {
-        const int q = lane + 32 * i;
-        if (live[i] && (sel[i] > bv || (sel[i] == bv && q < bi))) {
-          bv = sel[i];
-          bi = q;
+      for (int i = 1; i < P::KPL; ++i)
+        if (before(v[i], id[i], bv, bi)) {
+          bv = v[i];
+          bi = id[i];
         }
-      }
       for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ov > bv || (ov == bv && oi < bi)) {
+        const float ov = __shfl_xor_sync(kFull, bv, off);
+        const int oi = __shfl_xor_sync(kFull, bi, off);
+        if (before(ov, oi, bv, bi)) {
           bv = ov;
           bi = oi;
         }
       }
-#pragma unroll
-      for (int i = 0; i < kQPerLane; ++i)
-        if (lane + 32 * i == bi) live[i] = false;
       if (lane == 0) {
-        top_idx[row * K + j] = bi;
-        top_val[row * K + j] = normalize ? bv - lse : clip * tanhf(bv);
+        top_idx[row] = bi;
+        top_val[row] = normalize ? bv - lse : clip * tanhf(bv);
+      }
+    } else {
+      warp_sort<P::KPL>(v, id);
+#pragma unroll
+      for (int i = 0; i < P::KPL; ++i) {
+        const int e = lane * P::KPL + i;
+        if (e < K) {
+          top_idx[row * K + e] = id[i];
+          top_val[row * K + e] = normalize ? v[i] - lse : clip * tanhf(v[i]);
+        }
       }
     }
   }
 }
 
-// B2 main pass: one block per 16 request rows of one instance (see the
-// header for what it computes and writes).
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------- B2 --
+
+constexpr int kBwdRows = 16;      // request rows per bwd_rows block
+constexpr int kPxyBudget = 8192;  // floats of pxy^T bwd_rows stages
+constexpr int kGhxCols = 64;      // columns of d per bwd_ghx block
+constexpr int kGhxAcc = 8;        // edges per bwd_ghx thread and pass
+constexpr int kGuChunk = 4096;    // floats of gu bwd_ghx stages at a time
+constexpr int kGhxZ = 64;         // rows of h bwd_ghx stages at a time
+constexpr int kWT = WTile::BM;    // weight-gradient and dc tile side
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// bwd_rows's shared floats: the h tile, g (then gu), out, the mask rows of
+// the block's instances (at most kBwdRows), sum_q g, and pxy^T rows
+inline int rows_smem(int d, int Q) {
+  return kBwdRows * round_up(d, 4) + 3 * kBwdRows * Q + kBwdRows +
+         kPxyBudget;
+}
+
+// B2's request rows: kBwdRows of the flattened B*Z rows per block, across
+// instance boundaries. Per row, for its instance's Q edges only: u = h .
+// pxy^T[b, q] (four lanes a pair, each a quarter of d), gu = keep ? (g -
+// exp(out) sum_q g) C scale (1 - tanh(u scale)^2) : 0, and dh = gu @
+// pxy^T[b]. The pxy^T rows of the block's instances are staged when they
+// fit kPxyBudget, else read in place.
+__global__ void __launch_bounds__(kThreads, 4)
 bwd_rows(const float* __restrict__ g, const float* __restrict__ out,
-         const float* __restrict__ h, const float* __restrict__ wpy,
-         const float* __restrict__ pxT, const float* __restrict__ mask,
-         float* __restrict__ py, float* __restrict__ gu,
-         float* __restrict__ dpy, float* __restrict__ dh, int Z, int Q, int d,
-         float scale, float clip) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                     // kRows * d: h tile, then dpy tile
-  float* py_s = a_s + kRows * d;         // kRows * d
-  float* m_s = py_s + kRows * d;         // kChunk * kQMax
-  float* gu_s = m_s + kChunk * kQMax;    // kRows * kQMax
-  const int b = blockIdx.y, z0 = blockIdx.x * kRows;
-  const int rows = min(kRows, Z - z0);
-  const size_t row0 = (size_t)b * Z + z0;
-  load_rows(h + row0 * d, rows, d, a_s);
+         const float* __restrict__ h, const float* __restrict__ pxyT,
+         const float* __restrict__ mask, float* __restrict__ gu,
+         float* __restrict__ dh, int rows, int Z, int Q, int d, float scale,
+         float clip, int vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int ph = round_up(d, 4);
+  float* h_s = smem_f;                  // kBwdRows x ph
+  float* g_s = h_s + kBwdRows * ph;     // kBwdRows x Q: g, then gu
+  float* o_s = g_s + kBwdRows * Q;      // kBwdRows x Q: out
+  float* m_s = o_s + kBwdRows * Q;      // nb x Q: the instances' masks
+  float* gsum_s = m_s + kBwdRows * Q;   // kBwdRows
+  float* p_s = gsum_s + kBwdRows;       // pxy^T rows, pitch ph
+  const int r0 = blockIdx.x * kBwdRows, nrow = min(kBwdRows, rows - r0);
+  const int b0 = r0 / Z, nb = (r0 + nrow - 1) / Z - b0 + 1;
+  const bool fit = nb * Q * ph <= kPxyBudget;
+  stage(h_s, ph, kBwdRows, ph, h, d, r0, rows, 0, d, vec, threadIdx.x,
+        kThreads);
+  stage(g_s, 0, 1, kBwdRows * Q, g + (size_t)r0 * Q, 0, 0, 1, 0, nrow * Q,
+        false, threadIdx.x, kThreads);
+  stage(o_s, 0, 1, kBwdRows * Q, out + (size_t)r0 * Q, 0, 0, 1, 0, nrow * Q,
+        false, threadIdx.x, kThreads);
+  stage(m_s, 0, 1, nb * Q, mask + (size_t)b0 * Q, 0, 0, 1, 0, nb * Q, false,
+        threadIdx.x, kThreads);
+  griddep_start();
+  griddep_wait();  // the inputs above are the call's own; pxy^T is not
+  if (fit)
+    stage(p_s, ph, nb * Q, ph, pxyT + (size_t)b0 * Q * d, d, 0, nb * Q, 0, d,
+          vec, threadIdx.x, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  // py = h tile @ Wpy, thread j owning column j of every row (as in B1)
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float w = wpy[(size_t)k * d + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a_s[r * d + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      py_s[r * d + j] = acc[r];
-      if (r < rows) py[(row0 + r) * d + j] = acc[r];
-    }
+  if (threadIdx.x < nrow) {
+    float s = 0.f;
+    for (int q = 0; q < Q; ++q) s += g_s[threadIdx.x * Q + q];
+    gsum_s[threadIdx.x] = s;
   }
   __syncthreads();
-  float acc[kRowsPerWarp][kQPerLane];
-  rows_times_edges(py_s, pxT + (size_t)b * d * Q, m_s, d, Q, acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* mask_b = mask + (size_t)b * Q;
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    float gv[kQPerLane], ov[kQPerLane];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) {
-      const int q = lane + 32 * i;
-      const bool live = r < rows && q < Q;
-      gv[i] = live ? g[(row0 + r) * Q + q] : 0.f;
-      ov[i] = live ? out[(row0 + r) * Q + q] : 0.f;
-      s += gv[i];
+  // u and gu; a pass takes kThreads / 4 (row, edge) pairs, warp-uniformly
+  const int sub = threadIdx.x & 3;
+  for (int p0 = 0; p0 < nrow * Q; p0 += kThreads / 4) {
+    const int p = p0 + threadIdx.x / 4;
+    const bool act = p < nrow * Q;
+    const int r = act ? p / Q : 0, q = p - r * Q, b = (r0 + r) / Z;
+    const float* hr = h_s + r * ph;
+    float u = 0.f;
+    if (act) {
+      if (fit && vec) {
+        const float* pr = p_s + ((b - b0) * Q + q) * ph;
+        for (int k = 4 * sub; k < d; k += 16) {
+          const float4 a = *reinterpret_cast<const float4*>(hr + k);
+          const float4 w = *reinterpret_cast<const float4*>(pr + k);
+          u = fmaf(a.x, w.x, u);
+          u = fmaf(a.y, w.y, u);
+          u = fmaf(a.z, w.z, u);
+          u = fmaf(a.w, w.w, u);
+        }
+      } else {
+        const float* pr = fit ? p_s + ((b - b0) * Q + q) * ph
+                              : pxyT + ((size_t)b * Q + q) * d;
+        for (int k = sub; k < d; k += 4) u = fmaf(hr[k], pr[k], u);
+      }
     }
-    s = warp_sum(s);
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) {
-      const int q = lane + 32 * i;
-      float v = 0.f;  // masked edges, padding lanes and rows past Z
-      if (r < rows && q < Q && mask_b[q] > 0.5f) {
-        const float th = tanhf(acc[rr][i] * scale);
-        const float gi = gv[i] - expf(ov[i]) * s;
+    u += __shfl_xor_sync(kFull, u, 1);
+    u += __shfl_xor_sync(kFull, u, 2);
+    if (act && sub == 0) {
+      float v = 0.f;  // masked edges saw a constant: no gradient
+      if (m_s[(b - b0) * Q + q] > 0.5f) {
+        const float th = tanhf(u * scale);
+        const float gi = g_s[p] - expf(o_s[p]) * gsum_s[r];
         v = gi * (clip * scale) * (1.f - th * th);
       }
-      gu_s[r * kQMax + q] = v;
-      if (r < rows && q < Q) gu[(row0 + r) * Q + q] = v;
+      g_s[p] = v;  // only this thread reads g_s[p]
+      gu[(size_t)r0 * Q + p] = v;
     }
   }
   __syncthreads();
-  // dpy = gu tile @ px, with px[q, j] = pxT[j, q]
-  const float* pxT_b = pxT + (size_t)b * d * Q;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc2[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc2[r] = 0.f;
-    for (int q = 0; q < Q; ++q) {
-      const float p = pxT_b[(size_t)j * Q + q];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        acc2[r] = fmaf(gu_s[r * kQMax + q], p, acc2[r]);
+  if (fit && vec) {  // dh = gu @ pxy^T[b], four columns a thread
+    const int d4 = d / 4;
+    for (int t = threadIdx.x; t < nrow * d4; t += kThreads) {
+      const int r = t / d4, k = 4 * (t - r * d4);
+      const float* pb = p_s + ((r0 + r) / Z - b0) * Q * ph + k;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < Q; ++q) {
+        const float gq = g_s[r * Q + q];
+        const float4 w = *reinterpret_cast<const float4*>(pb + q * ph);
+        acc.x = fmaf(gq, w.x, acc.x);
+        acc.y = fmaf(gq, w.y, acc.y);
+        acc.z = fmaf(gq, w.z, acc.z);
+        acc.w = fmaf(gq, w.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(dh + (size_t)(r0 + r) * d + k) = acc;
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      a_s[r * d + j] = acc2[r];
-      if (r < rows) dpy[(row0 + r) * d + j] = acc2[r];
+  } else {
+    const float* pt = fit ? p_s : pxyT + (size_t)b0 * Q * d;
+    const int pp = fit ? ph : d;
+    for (int t = threadIdx.x; t < nrow * d; t += kThreads) {
+      const int r = t / d, k = t - r * d;
+      const float* pb = pt + (size_t)((r0 + r) / Z - b0) * Q * pp + k;
+      float acc = 0.f;
+      for (int q = 0; q < Q; ++q)
+        acc = fmaf(g_s[r * Q + q], pb[(size_t)q * pp], acc);
+      dh[(size_t)(r0 + r) * d + k] = acc;
     }
-  }
-  __syncthreads();
-  // dh = dpy tile @ Wpy^T
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float* w_row = wpy + (size_t)i * d;
-    float acc2[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc2[r] = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float w = w_row[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc2[r] = fmaf(a_s[r * d + j], w, acc2[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < rows) dh[(row0 + r) * d + i] = acc2[r];
   }
 }
 
-// B2: dpx[b, q] = sum_z gu[b, z, q] py[b, z] in z order, then
-// dc[b, q] = dpx[b, q] @ Wpx^T; one block per (q, b).
+// B2: ghx[b, q] = sum_z gu[b, z, q] h[b, z] in z order, for instance
+// blockIdx.x and the kGhxCols columns of blockIdx.y. The block stages its
+// slab of h and the instance's gu, kGhxZ rows at a time, in one copy each;
+// four groups of threads take edges q = group, group + 4, ... (kGhxAcc a
+// pass).
 __global__ void __launch_bounds__(kThreads)
-bwd_edges(const float* __restrict__ gu, const float* __restrict__ py,
-          const float* __restrict__ wpx, float* __restrict__ dpx,
-          float* __restrict__ dc, int Z, int Q, int d) {
-  extern __shared__ float smem[];
-  float* dpx_s = smem;  // d
-  const int q = blockIdx.x, b = blockIdx.y;
-  const float* gu_b = gu + (size_t)b * Z * Q + q;
-  const float* py_b = py + (size_t)b * Z * d;
-  const size_t row = (size_t)b * Q + q;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc = 0.f;
-    for (int z = 0; z < Z; ++z)
-      acc = fmaf(gu_b[(size_t)z * Q], py_b[(size_t)z * d + j], acc);
-    dpx_s[j] = acc;
-    dpx[row * d + j] = acc;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < d; i += kWarps) {
-    const float* w_row = wpx + (size_t)i * d;
-    float acc = 0.f;
-    for (int k = lane; k < d; k += 32) acc = fmaf(w_row[k], dpx_s[k], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) dc[row * d + i] = acc;
+bwd_ghx(const float* __restrict__ gu, const float* __restrict__ h,
+        float* __restrict__ ghx, int Z, int Q, int d, int vec) {
+  __shared__ __align__(16) float h_s[kGhxZ * kGhxCols];
+  __shared__ float g_s[kGuChunk];
+  griddep_start();
+  griddep_wait();
+  constexpr int kGroups = kThreads / kGhxCols;
+  const int b = blockIdx.x, grp = threadIdx.x / kGhxCols;
+  const int col = threadIdx.x % kGhxCols, c0 = blockIdx.y * kGhxCols;
+  const int zc = max(1, min(kGhxZ, kGuChunk / Q));
+  const float* gub = gu + (size_t)b * Z * Q;
+  const float* hb = h + (size_t)b * Z * d;
+  for (int qb = 0; qb < Q; qb += kGroups * kGhxAcc) {
+    float acc[kGhxAcc];
+#pragma unroll
+    for (int i = 0; i < kGhxAcc; ++i) acc[i] = 0.f;
+    for (int z0 = 0; z0 < Z; z0 += zc) {
+      const int zn = min(zc, Z - z0);
+      stage(h_s, kGhxCols, zn, kGhxCols, hb, d, z0, Z, c0, d, vec,
+            threadIdx.x, kThreads);
+      stage(g_s, 0, 1, zn * Q, gub + (size_t)z0 * Q, 0, 0, 1, 0, zn * Q,
+            false, threadIdx.x, kThreads);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int z = 0; z < zn; ++z) {
+        const float hv = h_s[z * kGhxCols + col];
+#pragma unroll
+        for (int i = 0; i < kGhxAcc; ++i) {
+          const int q = qb + grp + kGroups * i;
+          if (q < Q) acc[i] = fmaf(g_s[z * Q + q], hv, acc[i]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < kGhxAcc; ++i) {
+      const int q = qb + grp + kGroups * i;
+      if (c0 + col < d && q < Q)
+        ghx[((size_t)b * Q + q) * d + c0 + col] = acc[i];
+    }
   }
 }
 
-constexpr int kWRows = 16;    // output rows (k) of a weight-gradient tile
-constexpr int kNChunk = 64;   // input rows staged per step
+// B2's last launch, three kinds of tiles by blockIdx.x: kWT x kWT tiles of
+// dWpy = ghx^T px partials (tiles x split blocks) and of dWpx = c^T dpx
+// partials (tiles x split), then CTile's of dc = dpx @ Wpx^T (half the
+// rows, as each sums over all d). Partial p of a weight covers edge rows
+// [p * per, (p + 1) * per); the last of a tile's blocks to finish adds the
+// partials in order p = 0, 1, ... (counters zeroed by the first launch).
+static_assert(WTile::kThreads == CTile::kThreads, "one block size");
 
-// B2 weight gradient, partial p = blockIdx.z:
-//   partial[p, k, j] = sum_{n in chunk p} a[n, k] bm[n, j]
-// over rows [p * per, (p + 1) * per) of the (N, d) inputs, in row order.
-// A block owns 16 rows k and 256 columns j of the (d, d) output.
-__global__ void __launch_bounds__(kThreads)
-weight_grad_partial(const float* __restrict__ a, const float* __restrict__ bm,
-                    float* __restrict__ partial, int N, int d, int per) {
-  __shared__ float a_s[kNChunk * kWRows];
-  const int k0 = blockIdx.x * kWRows;
-  const int j = blockIdx.y * kThreads + threadIdx.x;
-  const int p = blockIdx.z;
-  const int n_begin = p * per, n_end = min(N, n_begin + per);
-  float acc[kWRows];
+__global__ void __launch_bounds__(WTile::kThreads)
+bwd_weights(const float* __restrict__ ghx, const float* __restrict__ px,
+            const float* __restrict__ c, const float* __restrict__ dpx,
+            const float* __restrict__ wpx, float* __restrict__ partial,
+            int* __restrict__ counters, float* __restrict__ dwpy,
+            float* __restrict__ dwpx, float* __restrict__ dc, int edges,
+            int d, int split, int vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  __shared__ int last;
+  griddep_start();
+  griddep_wait();
+  const int td = (d + kWT - 1) / kWT, tiles = td * td;
+  int blk = blockIdx.x;
+  if (blk < 2 * tiles * split) {
+    const int w = blk / (tiles * split);  // 0: dWpy, 1: dWpx
+    blk -= w * tiles * split;
+    const float* a = w == 0 ? ghx : c;
+    const float* bm = w == 0 ? px : dpx;
+    float* dw = w == 0 ? dwpy : dwpx;
+    float* part = partial + (size_t)w * split * d * d;
+    const int tile = blk % tiles, p = blk / tiles;
+    const int m0 = tile / td * kWT, n0 = tile % td * kWT;
+    const int per = (edges + split - 1) / split;
+    const int k0 = p * per, k1 = min(edges, k0 + per);
+    float acc[WTile::TM][WTile::TN];
+    WTile::run(acc, a + (size_t)k0 * d, d, m0, d, bm + (size_t)k0 * d, d, n0,
+               d, k1 - k0, vec, smem_f);
+    float* dst = split == 1 ? dw : part + (size_t)p * d * d;
+    if (WTile::leader())
 #pragma unroll
-  for (int r = 0; r < kWRows; ++r) acc[r] = 0.f;
-  for (int n0 = n_begin; n0 < n_end; n0 += kNChunk) {
-    const int nc = min(kNChunk, n_end - n0);
-    for (int t = threadIdx.x; t < kNChunk * kWRows; t += blockDim.x) {
-      const int nn = t / kWRows, r = t % kWRows;
-      a_s[t] = (nn < nc && k0 + r < d) ? a[(size_t)(n0 + nn) * d + k0 + r] : 0.f;
-    }
+      for (int i = 0; i < WTile::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < WTile::TN; ++j) {
+          const int m = m0 + WTile::row(i), n = n0 + WTile::col(j);
+          if (m < d && n < d) dst[(size_t)m * d + n] = acc[i][j];
+        }
+    if (split == 1) return;
+    __threadfence();
     __syncthreads();
-    if (j < d) {
-      for (int nn = 0; nn < nc; ++nn) {
-        const float bv = bm[(size_t)(n0 + nn) * d + j];
+    if (threadIdx.x == 0)
+      last = atomicAdd(counters + w * tiles + tile, 1) == split - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (vec) {  // kPer float4 a thread; a partial's loads in flight together
+      constexpr int kPer = kWT * kWT / 4 / WTile::kThreads;
+      float4 acc4[kPer];
+      int at[kPer];
 #pragma unroll
-        for (int r = 0; r < kWRows; ++r)
-          acc[r] = fmaf(a_s[nn * kWRows + r], bv, acc[r]);
+      for (int u = 0; u < kPer; ++u) {
+        const int t = threadIdx.x + u * WTile::kThreads;
+        const int m = m0 + t / (kWT / 4), n = n0 + 4 * (t % (kWT / 4));
+        at[u] = m < d && n < d ? m * d + n : -1;
+        acc4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int q = 0; q < split; ++q) {
+        const float* pq = part + (size_t)q * d * d;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u)
+          if (at[u] >= 0) {
+            const float4 v =
+                __ldcg(reinterpret_cast<const float4*>(pq + at[u]));
+            acc4[u].x += v.x;
+            acc4[u].y += v.y;
+            acc4[u].z += v.z;
+            acc4[u].w += v.w;
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if (at[u] >= 0) *reinterpret_cast<float4*>(dw + at[u]) = acc4[u];
+    } else {
+      for (int t = threadIdx.x; t < kWT * kWT; t += WTile::kThreads) {
+        const int m = m0 + t / kWT, n = n0 + t % kWT;
+        if (m < d && n < d) {
+          float s = 0.f;
+          for (int q = 0; q < split; ++q)
+            s += __ldcg(part + ((size_t)q * d + m) * d + n);
+          dw[(size_t)m * d + n] = s;
+        }
       }
     }
-    __syncthreads();
+    return;
   }
-  if (j < d) {
+  blk -= 2 * tiles * split;
+  const int tn = (d + CTile::BN - 1) / CTile::BN;
+  const int m0 = blk / tn * CTile::BM, n0 = blk % tn * CTile::BN;
+  float acc[CTile::TM][CTile::TN];
+  CTile::run(acc, dpx, d, m0, edges, wpx, d, n0, d, d, vec, smem_f);
+  if (!CTile::leader()) return;
 #pragma unroll
-    for (int r = 0; r < kWRows; ++r)
-      if (k0 + r < d) partial[((size_t)p * d + k0 + r) * d + j] = acc[r];
-  }
+  for (int i = 0; i < CTile::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < CTile::TN; ++j) {
+      const int m = m0 + CTile::row(i), n = n0 + CTile::col(j);
+      if (m < edges && n < d) dc[(size_t)m * d + n] = acc[i][j];
+    }
 }
 
-// out[i] = sum of the `split` partials at i, added in order p = 0, 1, ...
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ partial, float* __restrict__ out,
-             int split, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < split; ++p) s += partial[(size_t)p * n + i];
-  out[i] = s;
+// ------------------------------------------------------------ launches --
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   (int)bytes)
+             : cudaSuccess;
 }
 
-// out (d, d) = a^T bm over N rows, through `split` partials.
-cudaError_t weight_grad(const float* a, const float* bm, float* partial,
-                        float* out, int N, int d, int split, cudaStream_t s) {
-  const int per = (N + split - 1) / split;
-  const dim3 grid((d + kWRows - 1) / kWRows, (d + kThreads - 1) / kThreads,
-                  split);
-  weight_grad_partial<<<grid, kThreads, 0, s>>>(a, bm, partial, N, d, per);
-  cudaError_t err = cudaGetLastError();
+// kernel<<<grid, block, smem, s>>>(args...), as a programmatic dependent
+// of the stream's previous kernel when `dependent`
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, dim3 block,
+                   size_t smem, cudaStream_t s, bool dependent,
+                   Args&&... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+template <class T>
+cudaError_t launch_gemm(const float* A, int lda, size_t a_batch,
+                        const float* B, int ldb, size_t b_batch, float* C,
+                        int ldc, size_t c_batch, int M, int N, int K,
+                        int batch, int vec, int* zero, int n_zero,
+                        cudaStream_t s, bool dependent) {
+  const size_t smem = T::kSmemStaged * sizeof(float);
+  cudaError_t err = set_smem((const void*)gemm<T>, smem);
   if (err != cudaSuccess) return err;
-  const size_t n = (size_t)d * d;
-  sum_partials<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      partial, out, split, n);
-  return cudaGetLastError();
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, batch);
+  return launch(gemm<T>, grid, T::kThreads, smem, s, dependent, A, lda,
+                a_batch, B, ldb, b_batch, C, ldc, c_batch, M, N, K, vec, zero,
+                n_zero);
+}
+
+template <int QP>
+cudaError_t launch_decode(const float* h, const float* pxy, const float* mask,
+                          int* top_idx, float* top_val, int B, int Q, int Z,
+                          int d, int K, int normalize, float scale,
+                          float clip, cudaStream_t s) {
+  using P = DecodePlan<QP>;
+  const size_t smem = P::kSmem * sizeof(float);
+  cudaError_t err = set_smem((const void*)decode_rows<QP>, smem);
+  if (err != cudaSuccess) return err;
+  return launch(decode_rows<QP>, dim3((Z + P::R - 1) / P::R, B), kThreads,
+                smem, s, true, h, pxy, mask, top_idx, top_val, Z, Q, d, K,
+                normalize, scale, clip, int(d % 4 == 0), int(Q % 4 == 0));
 }
 
 }  // namespace
@@ -522,7 +1113,7 @@ cudaError_t weight_grad(const float* a, const float* bm, float* partial,
 extern "C" {
 
 // Every entry point returns the first CUDA error of its launches (0 when
-// both were accepted). A refused launch never runs and a later synchronize
+// all were accepted). A refused launch never runs and a later synchronize
 // does not report it, so each launch is checked here.
 
 int corais_policy_score(const float* c, const float* h, const float* wpx,
@@ -530,8 +1121,8 @@ int corais_policy_score(const float* c, const float* h, const float* wpx,
                         float* out, int B, int Q, int Z, int d, float scale,
                         float clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  edge_prologue<false><<<dim3(Q, B), kThreads, 2 * d * sizeof(float), s>>>(
-      c, wpx, nullptr, pxT, Q, d);
+  edge_prologue<<<dim3(Q, B), kThreads, d * sizeof(float), s>>>(c, wpx, pxT,
+                                                                Q, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = (2 * kRows * d + kChunk * kQMax) * sizeof(float);
@@ -543,59 +1134,77 @@ int corais_policy_score(const float* c, const float* h, const float* wpx,
   return cudaGetLastError();
 }
 
+// B3. Scratch the wrapper owns: px (B, Q, d) and pxy (B, d, Q).
 int corais_policy_score_decode(const float* c, const float* h,
                                const float* wpx, const float* wpy,
-                               const float* mask, float* pxy, int* top_idx,
-                               float* top_val, int B, int Q, int Z, int d,
-                               int K, int normalize, float scale, float clip,
-                               void* stream) {
+                               const float* mask, float* px, float* pxy,
+                               int* top_idx, float* top_val, int B, int Q,
+                               int Z, int d, int K, int normalize,
+                               float scale, float clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  edge_prologue<true><<<dim3(Q, B), kThreads, 2 * d * sizeof(float), s>>>(
-      c, wpx, wpy, pxy, Q, d);
-  cudaError_t err = cudaGetLastError();
+  const int vec = d % 4 == 0;
+  cudaError_t err = launch_gemm<EdgeTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,
+                                          d, d, 1, vec, nullptr, 0, s, false);
   if (err != cudaSuccess) return err;
-  const int smem = (kRows * d + kChunk * kQMax) * sizeof(float);
-  err = cudaFuncSetAttribute(decode_rows,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = launch_gemm<EdgeTileT>(wpy, d, 0, px, d, (size_t)Q * d, pxy, Q,
+                               (size_t)d * Q, d, Q, d, B, vec, nullptr, 0, s,
+                               true);
   if (err != cudaSuccess) return err;
-  decode_rows<<<dim3((Z + kRows - 1) / kRows, B), kThreads, smem, s>>>(
-      h, pxy, mask, top_idx, top_val, Z, Q, d, K, normalize, scale, clip);
-  return cudaGetLastError();
+  if (Q <= 32)
+    return launch_decode<32>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
+                             normalize, scale, clip, s);
+  if (Q <= 64)
+    return launch_decode<64>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
+                             normalize, scale, clip, s);
+  return launch_decode<128>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
+                            normalize, scale, clip, s);
 }
 
-// B2. Scratch the wrapper owns: pxT (B, d, Q), py and dpy (B, Z, d),
-// gu (B, Z, Q), dpx (B, Q, d) and partial (max(split_x, split_y), d, d).
-// split_x / split_y: partial sums of dWpx (over B*Q rows) and dWpy (over
-// B*Z rows); the one partial buffer serves both, in stream order.
+// B2. Scratch the wrapper owns: px, pxy^T, ghx and dpx (B, Q, d), gu
+// (B, Z, Q), partial (2 * split, d, d) and counters (2 * ceil(d / 32)^2
+// int32). split: partials of each weight gradient over the B*Q edge rows,
+// at most that many rows.
 int corais_policy_score_bwd(const float* g, const float* out, const float* c,
                             const float* h, const float* wpx,
-                            const float* wpy, const float* mask, float* pxT,
-                            float* py, float* gu, float* dpy, float* dpx,
-                            float* partial, float* dc, float* dh,
-                            float* dwpx, float* dwpy, int B, int Q, int Z,
-                            int d, int split_x, int split_y, float scale,
-                            float clip, void* stream) {
+                            const float* wpy, const float* mask, float* px,
+                            float* pxyT, float* gu, float* ghx, float* dpx,
+                            float* partial, int* counters, float* dc,
+                            float* dh, float* dwpx, float* dwpy, int B, int Q,
+                            int Z, int d, int split, float scale, float clip,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  edge_prologue<false><<<dim3(Q, B), kThreads, 2 * d * sizeof(float), s>>>(
-      c, wpx, nullptr, pxT, Q, d);
-  cudaError_t err = cudaGetLastError();
+  const int vec = d % 4 == 0, rows = B * Z, edges = B * Q;
+  const int td = (d + kWT - 1) / kWT, tiles = td * td;
+  cudaError_t err = launch_gemm<PxTile>(c, d, 0, wpx, d, 0, px, d, 0, edges,
+                                        d, d, 1, vec, counters, 2 * tiles, s,
+                                        false);
   if (err != cudaSuccess) return err;
-  const int smem =
-      (2 * kRows * d + kChunk * kQMax + kRows * kQMax) * sizeof(float);
-  err = cudaFuncSetAttribute(bwd_rows,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = launch_gemm<PxyTile>(px, d, 0, wpy, d, 0, pxyT, d, 0, edges, d, d, 1,
+                             vec, nullptr, 0, s, true);
   if (err != cudaSuccess) return err;
-  bwd_rows<<<dim3((Z + kRows - 1) / kRows, B), kThreads, smem, s>>>(
-      g, out, h, wpy, pxT, mask, py, gu, dpy, dh, Z, Q, d, scale, clip);
-  err = cudaGetLastError();
+  size_t smem = rows_smem(d, Q) * sizeof(float);
+  err = set_smem((const void*)bwd_rows, smem);
   if (err != cudaSuccess) return err;
-  bwd_edges<<<dim3(Q, B), kThreads, d * sizeof(float), s>>>(gu, py, wpx, dpx,
-                                                            dc, Z, Q, d);
-  err = cudaGetLastError();
+  err = launch(bwd_rows, (rows + kBwdRows - 1) / kBwdRows, kThreads, smem, s,
+               true, g, out, h, pxyT, mask, gu, dh, rows, Z, Q, d, scale,
+               clip, vec);
   if (err != cudaSuccess) return err;
-  err = weight_grad(c, dpx, partial, dwpx, B * Q, d, split_x, s);
+  err = launch(bwd_ghx, dim3(B, (d + kGhxCols - 1) / kGhxCols), kThreads, 0,
+               s, true, gu, h, ghx, Z, Q, d, vec);
   if (err != cudaSuccess) return err;
-  return weight_grad(h, dpy, partial, dwpy, B * Z, d, split_y, s);
+  err = launch_gemm<PxTile>(ghx, d, 0, wpy, d, 0, dpx, d, 0, edges, d, d, 1,
+                            vec, nullptr, 0, s, true);
+  if (err != cudaSuccess) return err;
+  smem = (WTile::kSmemStaged > CTile::kSmemStaged ? WTile::kSmemStaged
+                                                  : CTile::kSmemStaged) *
+         sizeof(float);
+  err = set_smem((const void*)bwd_weights, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = 2 * tiles * split + (edges + CTile::BM - 1) /
+                     CTile::BM * ((d + CTile::BN - 1) / CTile::BN);
+  return launch(bwd_weights, blocks, WTile::kThreads, smem, s, true, ghx, px,
+                c, dpx, wpx, partial, counters, dwpy, dwpx, dc, edges, d,
+                split, vec);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -29,15 +29,19 @@ import torch
 from repro_torch.kernels.build import (LAUNCHES, build, load, raise_on,
                                        reset_launch_counts)
 
-#: Kernel limits: Q edges (four per lane of a warp), d model width.
+#: Kernel limits: Q edges (B3 pads them to 32, 64 or 128 and sorts them in
+#: one warp), d model width.
 MAX_EDGES = 128
 MAX_WIDTH = 512
+#: Side of B2's weight-gradient tiles (``kWT`` in the source): one integer
+#: counter per tile and weight.
+WEIGHT_TILE = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "corais_policy_score": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
-    "corais_policy_score_decode": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
-    "corais_policy_score_bwd": [_P] * 17 + [_I] * 6 + [_F, _F, _P],
+    "corais_policy_score_decode": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    "corais_policy_score_bwd": [_P] * 18 + [_I] * 5 + [_F, _F, _P],
 }
 
 
@@ -105,12 +109,13 @@ def policy_score_decode_cuda(c, h, w_px, w_py, maskf, *,
     lib = _lib()
     top_idx = torch.empty((b, z, k), dtype=torch.int32, device=c.device)
     top_val = torch.empty((b, z, k), dtype=torch.float32, device=c.device)
+    px = torch.empty((b, q, d), dtype=torch.float32, device=c.device)
     pxy = torch.empty((b, d, q), dtype=torch.float32, device=c.device)
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
         err = lib.corais_policy_score_decode(
             c.data_ptr(), h.data_ptr(), w_px.data_ptr(), w_py.data_ptr(),
-            maskf.data_ptr(), pxy.data_ptr(), top_idx.data_ptr(),
+            maskf.data_ptr(), px.data_ptr(), pxy.data_ptr(), top_idx.data_ptr(),
             top_val.data_ptr(), b, q, z, d, int(k), int(bool(normalize)),
             1.0 / math.sqrt(d), float(tanh_clip), stream)
     raise_on(err, lib, "policy_score_decode")
@@ -119,9 +124,10 @@ def policy_score_decode_cuda(c, h, w_px, w_py, maskf, *,
 
 
 def _row_split(n: int) -> int:
-    """Partial sums for a B2 weight gradient over ``n`` rows: at least 128
-    rows each, at most 32 partials (enough blocks to fill the card at the
-    training shape, B*Z = 6400 rows)."""
+    """Partials of each B2 weight gradient over its ``n`` = B*Q edge rows:
+    one per max(128, n / 32) rows, so at most 32 (5 at the training shape's
+    640), each of ceil(n / split) rows but the last, and none empty; the
+    two weights' partial tiles and the dc tiles fill the card together."""
     per = max(128, -(-n // 32))
     return -(-n // per)
 
@@ -131,8 +137,8 @@ def policy_score_bwd_cuda(g, out, c, h, w_px, w_py, maskf, *,
     """B2: the backward of B1. g, out: (B, Z, Q) cotangent and saved
     log-probs; other inputs as :func:`policy_score_cuda`. Returns
     ``(dc (B, Q, d), dh (B, Z, d), dw_px (d, d), dw_py (d, d))``, the weight
-    gradients summed over B in a fixed order (no atomics: two calls give the
-    same bits)."""
+    gradients summed over B in a fixed order (no float atomics: two calls
+    give the same bits)."""
     b, q, z, d = _check_inputs(c, h, w_px, w_py, maskf)
     _check("g", g, (b, z, q), c.device)
     _check("out", out, (b, z, q), c.device)
@@ -142,16 +148,19 @@ def policy_score_bwd_cuda(g, out, c, h, w_px, w_py, maskf, *,
         return torch.empty(shape, dtype=torch.float32, device=c.device)
 
     dc, dh, dw_px, dw_py = empty(b, q, d), empty(b, z, d), empty(d, d), empty(d, d)
-    split_x, split_y = _row_split(b * q), _row_split(b * z)
-    scratch = (empty(b, d, q), empty(b, z, d), empty(b, z, q), empty(b, z, d),
-               empty(b, q, d), empty(max(split_x, split_y), d, d))
+    split = _row_split(b * q)
+    tiles = (-(-d // WEIGHT_TILE)) ** 2
+    # px, pxy^T, gu, ghx, dpx, both weights' partials, the tile counters
+    scratch = (empty(b, q, d), empty(b, q, d), empty(b, z, q), empty(b, q, d),
+               empty(b, q, d), empty(2 * split, d, d),
+               torch.empty(2 * tiles, dtype=torch.int32, device=c.device))
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
         err = lib.corais_policy_score_bwd(
             g.data_ptr(), out.data_ptr(), c.data_ptr(), h.data_ptr(),
             w_px.data_ptr(), w_py.data_ptr(), maskf.data_ptr(),
             *(t.data_ptr() for t in scratch), dc.data_ptr(), dh.data_ptr(),
-            dw_px.data_ptr(), dw_py.data_ptr(), b, q, z, d, split_x, split_y,
+            dw_px.data_ptr(), dw_py.data_ptr(), b, q, z, d, split,
             1.0 / math.sqrt(d), float(tanh_clip), stream)
     raise_on(err, lib, "policy_score_bwd")
     LAUNCHES["policy_score_bwd"] += 1

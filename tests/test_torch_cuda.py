@@ -121,6 +121,88 @@ def test_cuda_fast_path_matches_cpu_fast_path(cuda_device):
     assert policy_score.LAUNCHES["policy_score_decode"] == 3
 
 
+def _exact_inputs(device, b, q, z, d, seed=0):
+    """Small multiples of 2^-6 and 2^-7, so that every score is exact in f32
+    whatever the summation order; edge 1 duplicates edge 0 and edge 3 edge
+    2 (where they exist): rows hold exact ties."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-3, 4, size=(b, q, d)) / 64.0
+    h = rng.integers(-3, 4, size=(b, z, d)) / 64.0
+    wx = rng.integers(-2, 3, size=(d, d)) / 128.0
+    wy = rng.integers(-2, 3, size=(d, d)) / 128.0
+    for src, dst in ((0, 1), (2, 3)):
+        if dst < q:
+            c[:, dst] = c[:, src]
+    mask = np.ones((b, q), bool)
+    mask[:, 4::3] = False
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (c, h, wx, wy)] + [torch.from_numpy(mask).to(device)]
+
+
+def _gapped_rows(vals, mask, k, gap=1e-4):
+    """Rows whose first min(k, valid) sorted scores are each more than gap
+    above the next valid one; vals (B, Z, Q) sorted descending."""
+    n_valid = mask.sum(-1)
+    gaps = vals[..., :-1] - vals[..., 1:]
+    idx = torch.arange(gaps.shape[-1], device=vals.device)
+    limit = torch.minimum(torch.full_like(n_valid, k), n_valid - 1)
+    gaps = torch.where(idx[None, None, :] < limit[:, None, None], gaps,
+                       torch.inf)
+    if gaps.shape[-1] == 0:  # one edge: nothing to tell apart
+        return torch.ones(vals.shape[:-1], dtype=torch.bool,
+                          device=vals.device)
+    return gaps.amin(-1) > gap
+
+
+@pytest.mark.parametrize("b,q,q_valid,z,d", [
+    (2, 1, 1, 37, 32),      # one edge: QP 32
+    (3, 5, 3, 1, 64),       # Z = 1
+    (2, 128, 100, 37, 128),  # the widest Q: 4 keys per lane in the sort
+    (1, 100, 80, 1000, 256),  # the serving shape, Q padded to 128
+    (2, 50, 40, 67, 512),   # QP 64, two 256-deep chunks of d
+    (2, 7, 5, 23, 30),      # d not a multiple of 4: 4-byte staging
+])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_decode_kernel_matches_plain_version(cuda_device, b, q, q_valid, z,
+                                             d, normalize):
+    """B3 at K = 1, 3 and Q (the sampled path's sort): indices equal the
+    plain version's on rows whose scores are more than 1e-4 apart, values
+    within 2e-5, and two calls give the same bits."""
+    c, h, wx, wy, mask = _inputs(cuda_device, b, q, q_valid, z, d, seed=q)
+    maskf = mask.to(torch.float32)
+    _, sorted_vals = ref.policy_score_decode_torch(c, h, wx, wy, mask, 10.0,
+                                                   q, normalize)
+    for k in sorted({1, min(3, q), q}):
+        got = policy_score.policy_score_decode_cuda(c, h, wx, wy, maskf, k=k,
+                                                    normalize=normalize)
+        again = policy_score.policy_score_decode_cuda(
+            c, h, wx, wy, maskf, k=k, normalize=normalize)
+        wi, wv = ref.policy_score_decode_torch(c, h, wx, wy, mask, 10.0, k,
+                                               normalize)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        rows = _gapped_rows(sorted_vals, mask, k)
+        assert float(rows.float().mean()) > 0.5
+        assert torch.equal(got[0][rows], wi[rows]), k
+        torch.testing.assert_close(got[1], wv, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("q", [5, 100, 128])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_decode_kernel_breaks_exact_ties_like_plain_version(cuda_device, q,
+                                                            normalize):
+    """Exact scores with duplicated edge columns: every row's indices equal
+    the plain version's, at K = 1, 3 and Q, ties to the lower edge."""
+    c, h, wx, wy, mask = _exact_inputs(cuda_device, 2, q, 45, 64)
+    maskf = mask.to(torch.float32)
+    for k in (1, 3, q):
+        ti, tv = policy_score.policy_score_decode_cuda(
+            c, h, wx, wy, maskf, k=k, normalize=normalize)
+        wi, wv = ref.policy_score_decode_torch(c, h, wx, wy, mask, 10.0, k,
+                                               normalize)
+        assert torch.equal(ti, wi), k
+        torch.testing.assert_close(tv, wv, atol=ATOL, rtol=0)
+
+
 def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
@@ -130,6 +212,8 @@ def _rel_err(got, want):
     (2, 128, 100, 20, 64),  # every lane holds four edges
     (64, 5, 4, 50, 128),    # B*Z = 3200 rows: split weight-gradient sums
     (1, 7, 7, 5, 512),      # the widest d
+    (128, 5, 5, 50, 256),   # the training shape (RLConfig)
+    (3, 6, 4, 29, 30),      # d not a multiple of 4: 4-byte staging
 ])
 def test_backward_kernel_matches_plain_version(cuda_device, b, q, q_valid, z,
                                                d):
