@@ -15,9 +15,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    37); the fused decode (B3) at K = 1, 8 and Q, normalized and not, the
    same bits across two calls, and on exact-arithmetic inputs with
    duplicated edges (``TIE_CASES``), whose indices must equal the plain
-   version's on every row; plus the no-(Z, Q) memory guarantee of the
-   fused decode; the backward (B2) also at the training shape B=128, Q=5,
-   Z=50;
+   version's on every row; at each bucket with B = 1, B1's values at
+   B3's normalized top-K indices equal B3's bit for bit, and B1's row
+   arg-max is B3's K = 1 index; plus the
+   no-(Z, Q) memory guarantee of the fused decode; the backward (B2) also
+   at the training shape B=128, Q=5, Z=50;
 4. drive the serving decision path at full width (``PolicyConfig()``, about
    4M parameters, random weights from a seed) through ``DecisionFastPath``
    at all four buckets: greedy fused decode, then greedy materialized and
@@ -81,11 +83,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
     cache): B4 and B6 launch 32 times per admission, B5 32 times per
     decode step; the same profile; a 2300-token request through the
     kernel and the plain path (1e-3 in f32, 0.1 in bf16);
-13. print the device time per launch of B3 (K = 1 and the sampled path's
-    K = Q = 100) and B2 (``launch_split``, a torch.profiler trace); then
+13. print the device time per launch of B1 (the serving and training
+    shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
+    (``launch_split``, a torch.profiler trace); then
     time each kernel, its plain version and, for B4 and B5, PyTorch's
     ``scaled_dot_product_attention`` (CUDA events; B1 and B3 at the serving
-    shape 100x1000, B3 also at K = Q = 100 normalized under ``sampled``, B2
+    shape 100x1000, B1 also at the training shape under ``train_shape``,
+    B3 also at K = Q = 100 normalized under ``sampled``, B2
     at the training shape, B4 at qwen3-4b's and
     hymba-1.5b's 2048-token prefills, B5 at the 4-lane qwen3-4b edge's
     cache after serving and at hymba's rolled 4-lane cache, B6's gated
@@ -381,6 +385,32 @@ def compare_kernels(ops, ref, cases, errs):
                                       "rows_checked": int(rows.sum()),
                                       "rows": b * z})
         report.append(row)
+    torch.cuda.synchronize()
+    return report
+
+
+def compare_score_decode_bits(policy_score, cases):
+    """B1 against B3 at shapes where both take one plan (the buckets at
+    B = 1): B1's row arg-max is B3's K = 1 normalized index on every row,
+    and B1's values at B3's normalized top-K indices (K = 1, 8, Q) are
+    B3's values, bit for bit. Returns a report per case."""
+    report = []
+    for name, b, q, z, c, h, wx, wy, mask in cases:
+        maskf = mask.to(torch.float32)
+        scores = policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+        for k in sorted({1, min(8, q), q}):
+            ti, tv = policy_score.policy_score_decode_cuda(
+                c, h, wx, wy, maskf, k=k, normalize=True)
+            where = f"{(name, b, q, z, k)}"
+            if k == 1:
+                bad = int((scores.argmax(-1) != ti[..., 0].long()).sum())
+                check(bad == 0, f"B1's arg-max differs from B3's index on "
+                      f"{bad} rows at {where}")
+            bad = int((scores.gather(-1, ti.long()) != tv).sum())
+            check(bad == 0, f"B1's values differ from B3's normalized "
+                  f"values in {bad} places at {where}")
+        report.append({"inputs": name, "B": b, "Q": q, "Z": z,
+                       "k": sorted({1, min(8, q), q}), "bit_equal": True})
     torch.cuda.synchronize()
     return report
 
@@ -743,18 +773,22 @@ def launch_split(fn, n=20):
     predecessor runs and waits for it, and that wait is the predecessor's
     time. The trace may miss a few launches of the window, so us is the
     mean over the launches it holds times the launches per call,
-    rounded."""
+    rounded; a trace with no device events at all is taken again, up to
+    three times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if str(e.device_type).endswith("CUDA")),
-                     key=lambda e: e.time_range.start)
+    for _ in range(3):  # a trace now and then holds no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if str(e.device_type).endswith("CUDA")),
+                         key=lambda e: e.time_range.start)
+        if kernels:
+            break
     stats, prev_end = {}, -math.inf
     for e in kernels:
         own = e.time_range.end - max(e.time_range.start, prev_end)
@@ -809,19 +843,23 @@ def _head_counts(c, h):
 
 
 def policy_head_split(ops, policy_score, enc, enc_train):
-    """Device us per launch of B3 on the real encoder outputs at 100x1000
-    (K = 1 as greedy serving, and K = Q normalized as the sampled path) and
-    of B2 at the training shape (``launch_split``)."""
+    """Device us per launch of B1 and B3 on the real encoder outputs at
+    100x1000 (B3 at K = 1 as greedy serving, and K = Q normalized as the
+    sampled path), and of B1 and B2 at the training shape
+    (``launch_split``)."""
     c, h, wx, wy, mask = enc[3:]
     maskf = mask.to(torch.float32)
     q = c.shape[1]
-    split = {}
+    split = {"policy_score": launch_split(
+        lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf))}
     for k, normalize in ((1, False), (q, True)):
         split[f"policy_score_decode K={k}" + " normalized" * normalize] = \
             launch_split(lambda: policy_score.policy_score_decode_cuda(
                 c, h, wx, wy, maskf, k=k, normalize=normalize))
     c, h, wx, wy, mask = enc_train[3:]
     maskf = mask.to(torch.float32)
+    split["policy_score train_shape"] = launch_split(
+        lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf))
     out = ops.policy_score(c, h, wx, wy, mask)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(12)
                     ).cuda()
@@ -829,6 +867,12 @@ def policy_head_split(ops, policy_score, enc, enc_train):
         lambda: policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy,
                                                    maskf))
     return split
+
+
+def _b1_unfolded_ms(b, q, z, d, in_bytes):
+    """B1's bound by its first design's work (py = h Wpy recomputed)."""
+    return bound(2 * b * (q * d * d + z * d * d + z * q * d),
+                 in_bytes + 4 * b * z * q)[0]
 
 
 SHAPE_ROW_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ms_runs",
@@ -839,24 +883,24 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     """B1 and B3 at the serving shape (100x1000, one instance; B1 also at
     the training shape, B3 also at K = Q = 100 normalized, the sampled
     path's call, under ``sampled``), B2 at the training shape (B=128, Q=5,
-    Z=50), each beside its plain version and its bound. B3's operations are
-    the reference's fold (px, pxy = Wpy px^T, h pxy); B2's are its kernel's
-    fold (px, pxy^T, u, dh, ghx, dpx, dc and the two weight gradients: six
-    B*Q x d x d products and three B*Z x Q x d ones), with the unfolded
-    count it was bounded by before (py, u and px recomputed, six products)
-    as ``bound_ms_unfolded``. ``launches``: {kernel: {path: count}} from
-    the main-path runs."""
+    Z=50), each beside its plain version and its bound. B1's and B3's
+    operations are the reference decode's fold, which both kernels take
+    (px, pxy = Wpy px^T, h pxy); B2's are its kernel's fold (px, pxy^T, u,
+    dh, ghx, dpx, dc and the two weight gradients: six B*Q x d x d
+    products and three B*Z x Q x d ones). B1 and B2 keep the unfolded
+    count they were bounded by before (py = h Wpy recomputed) as
+    ``bound_ms_unfolded``. ``launches``: {kernel: {path: count}} from the
+    main-path runs."""
     c, h, wx, wy, mask = enc[3:]
     b, q, z, d, in_bytes = _head_counts(c, h)
     k = 1
-    b1_flops = 2 * b * (q * d * d + z * d * d + z * q * d)
     b3_flops = 2 * b * (q * d * d + d * d * q + z * d * q)
     shape = f"B={b} Q={q} Z={z} d={d}"
     rows = [
         _row("policy_score", 51,
              lambda: ops.policy_score(c, h, wx, wy, mask),
              lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-             b1_flops, in_bytes + 4 * b * z * q, launches["policy_score"],
+             b3_flops, in_bytes + 4 * b * z * q, launches["policy_score"],
              errs["policy_score"], shape),
         _row("policy_score_decode", 180,
              lambda: ops.policy_score_decode(c, h, wx, wy, mask, k=k,
@@ -875,6 +919,7 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
                    b3_flops, in_bytes + 8 * b * z * q, {}, None,
                    shape + f" K={q} normalized")
     rows[1]["sampled"] = {k_: sampled[k_] for k_ in SHAPE_ROW_KEYS}
+    rows[0]["bound_ms_unfolded"] = _b1_unfolded_ms(b, q, z, d, in_bytes)
 
     # the training shape: B1 forward, then B2 on its output
     c, h, wx, wy, mask = enc_train[3:]
@@ -887,9 +932,11 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     b1_train = _row("policy_score", 51,
                     lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf),
                     lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-                    2 * b * (q * d * d + z * d * d + z * q * d),
+                    2 * b * (q * d * d + d * d * q + z * d * q),
                     in_bytes + 4 * b * z * q, {}, None, shape)
     rows[0]["train_shape"] = {k_: b1_train[k_] for k_ in SHAPE_ROW_KEYS}
+    rows[0]["train_shape"]["bound_ms_unfolded"] = _b1_unfolded_ms(
+        b, q, z, d, in_bytes)
     b2_flops = 2 * b * (6 * q * d * d + 3 * z * q * d)
     b2_bytes = in_bytes + 8 * b * z * q + 4 * (b * q * d + b * z * d + 2 * d * d)
     rows.append(_row(
@@ -1669,15 +1716,19 @@ def main() -> int:
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0,
             "mamba_scan": 0.0, "mamba_scan_gated": 0.0}
-    random = random_cases(fpm.DEFAULT_BUCKETS) + edge_cases()
+    buckets = random_cases(fpm.DEFAULT_BUCKETS)
+    random = buckets + edge_cases()
     cases = compare_kernels(ops, ref, random, errs)
+    bits = compare_score_decode_bits(policy_score,
+                                     [x for x in buckets if x[1] == 1])
     ties = compare_decode_ties(ops, ref)
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
                            errs)
     mem = memory_check(ops, ref)
     print(f"compare: max_abs_err {json.dumps(errs)} over {len(cases)} "
           f"forward and {len(bwd)} backward shapes, {len(ties)} exact-tie "
-          f"decodes; memory {json.dumps(mem)}", flush=True)
+          f"decodes, B1 = B3 bits at {len(bits)} shapes; memory "
+          f"{json.dumps(mem)}", flush=True)
 
     # phase 4: the serving decision path at full width
     summary, enc = drive_main_path(pol, obj, fpm, tinst, policy_score,
@@ -1779,7 +1830,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "build_s": build_s, "main_path": summary,
         "gradient_parity": parity, "training": training,
-        "compare": cases, "compare_decode_ties": ties,
+        "compare": cases, "compare_score_decode_bits": bits,
+        "compare_decode_ties": ties,
         "compare_backward": bwd, "memory": mem,
         "policy_head_split": head_split,
         "compare_attention": attn_cases, "lm_serving": lm_serving,

@@ -15,15 +15,14 @@
 // calls give the same bits.
 //
 // What bounds them. At the serving shape (B=1, Q=100, Z=1000, d=256) B3
-// does 77 MFLOP on 1.7 MB, 1.2 us at the card's f32 peak; its three
-// dependent launches take longer than that however they are laid out, so
-// each is spread over the card and kept short. At the training shape
-// (B=128, Q=5, Z=50, d=256) B2 computes the reference's backward with the
-// reference decode's fold (below): 0.55 GFLOP, 8 us at the f32 peak, where
-// the unfolded products take 2.8 GFLOP; its six launches are bound by
-// latency more than by operations. PERF.md section 6 has their times on
-// the card. B1 keeps its first design (edge_prologue + score_rows);
-// redesigning it is later work.
+// does 77 MFLOP on 1.7 MB, 1.2 us at the card's f32 peak, and B1 the same
+// products plus a 400 KB (Z, Q) store; their three dependent launches take
+// longer than that however they are laid out, so each is spread over the
+// card and kept short. At the training shape (B=128, Q=5, Z=50, d=256) B1
+// and B2 compute with the reference decode's fold (below): B1 0.18 GFLOP
+// and B2 0.55, where the unfolded products take 0.94 and 2.8; their
+// launches are bound by latency more than by operations. PERF.md section 6
+// has their times on the card.
 //
 // One register-blocked tile routine (Tile) computes every weight product:
 // a block owns a BM x BN output tile, each thread TM x TN of it, and walks
@@ -36,22 +35,39 @@
 // before runs and waits (griddepcontrol.wait) for its results, which
 // hides most of the gap between two short launches.
 //
-// B3, three launches on one stream:
+// B3 and B1, three launches on one stream:
 //   1. gemm<EdgeTile>:  px = c @ Wpx over all B*Q edge rows;
 //   2. gemm<EdgeTileT>: pxy[b] = Wpy @ px[b]^T (d, Q), the reference's fold,
 //      so that only the Z x d x Q product touches the request axis;
-//   3. decode_rows<QP>, QP = Q padded to 32, 64 or 128: a block owns
-//      1024/QP request rows of one instance (8 at Q > 64: 125 blocks at
-//      Z=1000); its 8 warps split the d axis, each staging its own slice
+//   3. a row kernel of plan QP, Q padded to 32, 64 or 128 (rows_u): a block
+//      owns 1024/QP request rows of one instance (8 at Q > 64: 125 blocks
+//      at Z=1000); its 8 warps split the d axis, each staging its own slice
 //      of the h rows and of pxy (256-deep chunks) in four pieces it waits
 //      for one at a time, each lane holding 8 rows x 4 edges; the warps'
-//      partial sums are added in warp order. Then one warp per row
-//      selects: K=1 is one arg-max (lowest index on ties); K>1 is a bitonic
-//      sort of the QP (value desc, index asc) keys in the warp's registers.
-//      normalize selects on C*tanh(u), masked -1e9, and returns log-probs
-//      (the row's log-sum-exp); else it selects in u-space, masked -inf,
-//      and applies C*tanh to the winners. Only (Z, K) indices and values
-//      are stored, never the (Z, Q) scores.
+//      partial sums are added in warp order. Then one warp per row, edge q
+//      = lane * QP/32 + i in the lane's register i (row_keys): normalized,
+//      the keys are C*tanh(u), masked -1e9, and the row's log-sum-exp is
+//      taken; else they are u, masked -inf.
+//      B3 (decode_rows<QP>) selects: K=1 is one arg-max (lowest index on
+//      ties); K>1 is a bitonic sort of the QP (value desc, index asc) keys
+//      in the warp's registers; un-normalized, C*tanh is applied to the
+//      winners. Only (Z, K) indices and values are stored, never the
+//      (Z, Q) scores.
+//      B1 (score_rows<QP>) stores every key minus the log-sum-exp, the
+//      (Z, Q) log-probs, through the row's shared-memory slot so that the
+//      stores are coalesced.
+//   B1 and B3 share every launch up to the selection, so at a shape where
+//   both take this plan B1's values equal B3's normalized values bit for
+//   bit (the same u, the same sums in the same order; the products and
+//   subtractions after u are __fmul_rn and __fsub_rn, never contracted).
+// B1 at Q <= kFlatQ (8; the training shape's Q is 5) takes a small-Q plan,
+// where QP = 32 would leave 27 of 32 edge slots padding and B3's edge-side
+// tiles, batched over 128 instances of 5 edges, run 2,048 blocks for pxy.
+// Three launches too: gemm<PxTile> px and gemm<PxyTile> pxy^T = px @
+// Wpy^T (B2's first two), then score_flat over kFlatRows of the flattened
+// B*Z request rows per block, across instance boundaries (B2's row
+// tiling), each row reading its own instance's Q edges; its epilogue is
+// row_keys, lane q holding edge q.
 // B2, six launches (the first design took seven), folded as B3 is: with
 // pxy^T = px @ Wpy^T, u = h pxy^T[b]^T, dh = gu @ pxy^T[b], and with ghx =
 // gu^T h per instance, dpx = ghx @ Wpy and dWpy = ghx^T px, so no product
@@ -81,11 +97,6 @@ namespace {
 
 constexpr int kThreads = 256;                    // 8 warps per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;                        // request rows per block
-constexpr int kRowsPerWarp = kRows / kWarps;     // 2
-constexpr int kQMax = 128;                       // edges per instance
-constexpr int kQPerLane = kQMax / 32;            // 4
-constexpr int kChunk = 32;                       // depth of one staged tile
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -98,132 +109,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-// ---------------------------------------------------------------- B1 --
-
-// B1's edge-side prologue, one block per (q, b): pxT[b, :, q] = c[b, q] @
-// Wpx, through shared memory.
-__global__ void __launch_bounds__(kThreads)
-edge_prologue(const float* __restrict__ c, const float* __restrict__ wpx,
-              float* __restrict__ out, int Q, int d) {
-  extern __shared__ float smem[];
-  float* c_s = smem;        // d
-  const int q = blockIdx.x, b = blockIdx.y;
-  const float* c_row = c + ((size_t)b * Q + q) * d;
-  for (int k = threadIdx.x; k < d; k += blockDim.x) c_s[k] = c_row[k];
-  __syncthreads();
-  float* out_b = out + (size_t)b * d * Q;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(c_s[k], wpx[(size_t)k * d + j], acc);
-    out_b[(size_t)j * Q + q] = acc;
-  }
-}
-
-// Copy `rows` rows of a (., d) matrix into shared memory, zero-filling the
-// tile up to kRows rows.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src,
-                                          int rows, int d, float* dst) {
-  for (int i = threadIdx.x; i < kRows * d; i += blockDim.x)
-    dst[i] = (i / d) < rows ? src[i] : 0.f;
-}
-
-// acc[rr][i] = sum_k a_s[row, k] * m[k, q] for the warp's two rows
-// (row = warp * 2 + rr) and the lane's edges (q = lane + 32 i). `m` is the
-// (d, Q) edge matrix in device memory; it is staged through m_s in
-// kChunk-deep tiles that all warps of the block share.
-__device__ __forceinline__ void rows_times_edges(
-    const float* a_s, const float* __restrict__ m, float* m_s, int d, int Q,
-    float acc[kRowsPerWarp][kQPerLane]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr)
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) acc[rr][i] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    const int kc = min(kChunk, d - k0);
-    for (int t = threadIdx.x; t < kChunk * kQMax; t += blockDim.x) {
-      const int kk = t / kQMax, q = t % kQMax;
-      m_s[t] = (kk < kc && q < Q) ? m[(size_t)(k0 + kk) * Q + q] : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      float mv[kQPerLane];
-#pragma unroll
-      for (int i = 0; i < kQPerLane; ++i) mv[i] = m_s[kk * kQMax + lane + 32 * i];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float a = a_s[(warp * kRowsPerWarp + rr) * d + k0 + kk];
-#pragma unroll
-        for (int i = 0; i < kQPerLane; ++i) acc[rr][i] = fmaf(a, mv[i], acc[rr][i]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// B1 main kernel: (16, Q) log-prob tile per block.
-__global__ void __launch_bounds__(kThreads)
-score_rows(const float* __restrict__ h, const float* __restrict__ wpy,
-           const float* __restrict__ pxT, const float* __restrict__ mask,
-           float* __restrict__ out, int Z, int Q, int d, float scale,
-           float clip) {
-  extern __shared__ float smem[];
-  float* h_s = smem;                 // kRows * d
-  float* py_s = h_s + kRows * d;     // kRows * d
-  float* m_s = py_s + kRows * d;     // kChunk * kQMax
-  const int b = blockIdx.y, z0 = blockIdx.x * kRows;
-  const int rows = min(kRows, Z - z0);
-  load_rows(h + ((size_t)b * Z + z0) * d, rows, d, h_s);
-  __syncthreads();
-  // py = h tile @ Wpy: thread j owns column j of all kRows rows, so each
-  // Wpy element is read once per block (coalesced) and used kRows times.
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float w = wpy[(size_t)k * d + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h_s[r * d + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) py_s[r * d + j] = acc[r];
-  }
-  __syncthreads();
-  float acc[kRowsPerWarp][kQPerLane];
-  rows_times_edges(py_s, pxT + (size_t)b * d * Q, m_s, d, Q, acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* mask_b = mask + (size_t)b * Q;
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    if (r >= rows) break;  // warp-uniform
-    float v[kQPerLane];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) {
-      const int q = lane + 32 * i;
-      v[i] = -INFINITY;
-      if (q < Q) {
-        v[i] = mask_b[q] > 0.5f ? clip * tanhf(acc[rr][i] * scale) : -1e9f;
-        mx = fmaxf(mx, v[i]);
-      }
-    }
-    mx = warp_max(mx);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i)
-      if (lane + 32 * i < Q) s += expf(v[i] - mx);
-    const float lse = logf(warp_sum(s)) + mx;
-    float* out_row = out + ((size_t)b * Z + z0 + r) * Q;
-#pragma unroll
-    for (int i = 0; i < kQPerLane; ++i) {
-      const int q = lane + 32 * i;
-      if (q < Q) out_row[q] = v[i] - lse;
-    }
-  }
 }
 
 // ------------------------------------------------- staging and the tile --
@@ -251,9 +136,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Programmatic dependent launch: B2's and B3's kernels after the first of
-// a call are launched so that they may start while their predecessor on
-// the stream runs (launch() below). Each lets its own dependents start at
+// Programmatic dependent launch: the kernels of a call after its first
+// are launched so that they may start while their predecessor on the
+// stream runs (launch() below). Each lets its own dependents start at
 // once, and waits in griddep_wait() until its predecessor has finished
 // and its writes are visible before it touches what that kernel wrote. A
 // kernel launched the ordinary way returns from griddep_wait() at once.
@@ -592,35 +477,38 @@ __device__ __forceinline__ void warp_sort(float (&v)[KPL], int (&id)[KPL]) {
   }
 }
 
-constexpr int kDecodeKC = 256;  // d staged per pass
+constexpr int kRowKC = 256;  // d staged per pass
 
+// The row kernels' plan (B3's decode_rows and B1's score_rows) at QP, the
+// edges padded to 32, 64 or 128.
 template <int QP>
-struct DecodePlan {
+struct RowPlan {
   static constexpr int LQ = QP / 4;         // lanes along the edges
   static constexpr int LR = 32 / LQ;        // row groups in a warp
   static constexpr int TR = 8;              // rows per thread
   static constexpr int R = LR * TR;         // rows per block (1024 / QP)
-  static constexpr int KW = kDecodeKC / kWarps;  // d per warp per pass
-  static constexpr int PH = kDecodeKC + 4;  // pitch of the h rows
-  static constexpr int KPL = QP / 32;       // keys per lane in selection
-  static constexpr int kSmem = R * PH + kDecodeKC * QP;  // floats
-  static_assert(kWarps * R * QP <= kDecodeKC * QP, "partials fit");
+  static constexpr int KW = kRowKC / kWarps;  // d per warp per pass
+  static constexpr int PH = kRowKC + 4;     // pitch of the h rows
+  static constexpr int KPL = QP / 32;       // keys per lane in a row's warp
+  static constexpr int kSmem = R * PH + kRowKC * QP;  // floats
+  static_assert(kWarps * R * QP <= kRowKC * QP, "partials fit");
 };
 
-// B3 main kernel: R request rows of instance blockIdx.y per block.
+// u = h[b, z0 + r] . pxy[b][:, q] for the block's R request rows of
+// instance b, unscaled, left in shared memory at the returned pointer as
+// u[r * QP + q] (padding edges and rows past Z read 0; smem: kSmem floats).
+// Each warp stages and reads only its own slice of every 256-deep chunk of
+// d (its h columns and pxy rows), in kParts pieces that it waits for one
+// at a time, so it computes on the first while the others arrive; the
+// warps' partial sums are then added in warp order.
 template <int QP>
-__global__ void __launch_bounds__(kThreads)
-decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
-            const float* __restrict__ mask, int* __restrict__ top_idx,
-            float* __restrict__ top_val, int Z, int Q, int d, int K,
-            int normalize, float scale, float clip, int vec_h, int vec_p) {
-  using P = DecodePlan<QP>;
-  extern __shared__ __align__(16) float smem_f[];
-  griddep_start();
-  griddep_wait();
+__device__ __forceinline__ float* rows_u(const float* __restrict__ h,
+                                         const float* __restrict__ pxy,
+                                         int b, int z0, int Z, int Q, int d,
+                                         int vec_h, int vec_p, float* smem_f) {
+  using P = RowPlan<QP>;
   float* h_s = smem_f;                 // R x PH
-  float* p_s = smem_f + P::R * P::PH;  // kDecodeKC x QP; then the partials
-  const int b = blockIdx.y, z0 = blockIdx.x * P::R;
+  float* p_s = smem_f + P::R * P::PH;  // kRowKC x QP; then the partials
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = lane / P::LQ, e0 = (lane % P::LQ) * 4;
   const float* h_b = h + (size_t)b * Z * d;
@@ -630,12 +518,9 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
   for (int r = 0; r < P::TR; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  // Each warp stages and reads only its own slice of the chunk (its h
-  // columns and pxy rows), in kParts pieces that it waits for one at a
-  // time, so it computes on the first while the others arrive.
   constexpr int kSub = 8, kParts = P::KW / kSub;
   static_assert(kParts <= 4, "cp_async_wait_upto");
-  for (int k0 = 0; k0 < d; k0 += kDecodeKC) {
+  for (int k0 = 0; k0 < d; k0 += kRowKC) {
     const int kw = warp * P::KW;
 #pragma unroll
     for (int part = 0; part < kParts; ++part) {
@@ -678,7 +563,6 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
     __syncwarp();  // the slice is read before the next chunk overwrites it
   }
   __syncthreads();  // the partials below overwrite other warps' slices
-  // the warps' partial sums over their slices of d, added in warp order
   float* red = p_s;  // kWarps x R x QP
 #pragma unroll
   for (int r = 0; r < P::TR; ++r)
@@ -689,38 +573,67 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
     float s = red[o];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) s += red[w * P::R * QP + o];
-    red[o] = s;  // u of (row o / QP, edge o % QP), unscaled
+    red[o] = s;
   }
   __syncthreads();
+  return red;
+}
+
+// One row's keys, for the warp that owns it: v[i] of edge q = lane * KPL +
+// i, padding edges -inf. normalize: C tanh(u scale), masked -1e9, and the
+// row's log-sum-exp is returned; else u scale, masked -inf, and 0.
+template <int KPL>
+__device__ __forceinline__ float row_keys(const float* u_row,
+                                          const float* __restrict__ mask_b,
+                                          int Q, bool normalize, float scale,
+                                          float clip, float (&v)[KPL]) {
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int q = lane * KPL + i;
+    v[i] = -INFINITY;  // padding edges sort after every real one
+    if (q < Q) {
+      const float u = __fmul_rn(u_row[q], scale);
+      const bool keep = mask_b[q] > 0.5f;
+      v[i] = normalize ? (keep ? __fmul_rn(clip, tanhf(u)) : -1e9f)
+                       : (keep ? u : -INFINITY);
+      mx = fmaxf(mx, v[i]);
+    }
+  }
+  if (!normalize) return 0.f;
+  mx = warp_max(mx);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < KPL; ++i)
+    if (lane * KPL + i < Q) s = __fadd_rn(s, expf(__fsub_rn(v[i], mx)));
+  return __fadd_rn(logf(warp_sum(s)), mx);
+}
+
+// B3 main kernel: R request rows of instance blockIdx.y per block.
+template <int QP>
+__global__ void __launch_bounds__(kThreads)
+decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
+            const float* __restrict__ mask, int* __restrict__ top_idx,
+            float* __restrict__ top_val, int Z, int Q, int d, int K,
+            int normalize, float scale, float clip, int vec_h, int vec_p) {
+  using P = RowPlan<QP>;
+  extern __shared__ __align__(16) float smem_f[];
+  griddep_start();
+  griddep_wait();
+  const int b = blockIdx.y, z0 = blockIdx.x * P::R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* u = rows_u<QP>(h, pxy, b, z0, Z, Q, d, vec_h, vec_p, smem_f);
   const float* mask_b = mask + (size_t)b * Q;
   for (int r = warp; r < P::R; r += kWarps) {
     const int z = z0 + r;
     if (z >= Z) break;  // warp-uniform
     float v[P::KPL];
     int id[P::KPL];
-    float mx = -INFINITY;
+    const float lse = row_keys<P::KPL>(u + r * QP, mask_b, Q, normalize,
+                                       scale, clip, v);
 #pragma unroll
-    for (int i = 0; i < P::KPL; ++i) {
-      const int q = lane * P::KPL + i;
-      id[i] = q;
-      v[i] = -INFINITY;  // padding edges sort after every real one
-      if (q < Q) {
-        const float u = red[r * QP + q] * scale;
-        const bool keep = mask_b[q] > 0.5f;
-        v[i] = normalize ? (keep ? clip * tanhf(u) : -1e9f)
-                         : (keep ? u : -INFINITY);
-        mx = fmaxf(mx, v[i]);
-      }
-    }
-    float lse = 0.f;
-    if (normalize) {
-      mx = warp_max(mx);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < P::KPL; ++i)
-        if (lane * P::KPL + i < Q) s += expf(v[i] - mx);
-      lse = logf(warp_sum(s)) + mx;
-    }
+    for (int i = 0; i < P::KPL; ++i) id[i] = lane * P::KPL + i;
     const size_t row = (size_t)b * Z + z;
     if (K == 1) {
       float bv = v[0];
@@ -741,7 +654,7 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
       }
       if (lane == 0) {
         top_idx[row] = bi;
-        top_val[row] = normalize ? bv - lse : clip * tanhf(bv);
+        top_val[row] = normalize ? __fsub_rn(bv, lse) : clip * tanhf(bv);
       }
     } else {
       warp_sort<P::KPL>(v, id);
@@ -750,26 +663,140 @@ decode_rows(const float* __restrict__ h, const float* __restrict__ pxy,
         const int e = lane * P::KPL + i;
         if (e < K) {
           top_idx[row * K + e] = id[i];
-          top_val[row * K + e] = normalize ? v[i] - lse : clip * tanhf(v[i]);
+          top_val[row * K + e] =
+              normalize ? __fsub_rn(v[i], lse) : clip * tanhf(v[i]);
         }
       }
     }
   }
 }
 
+// B1 main kernel: R request rows of instance blockIdx.y per block; each
+// row's Q log-probs go out through its own slot of u.
+template <int QP>
+__global__ void __launch_bounds__(kThreads)
+score_rows(const float* __restrict__ h, const float* __restrict__ pxy,
+           const float* __restrict__ mask, float* __restrict__ out, int Z,
+           int Q, int d, float scale, float clip, int vec_h, int vec_p) {
+  using P = RowPlan<QP>;
+  extern __shared__ __align__(16) float smem_f[];
+  griddep_start();
+  griddep_wait();
+  const int b = blockIdx.y, z0 = blockIdx.x * P::R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* u = rows_u<QP>(h, pxy, b, z0, Z, Q, d, vec_h, vec_p, smem_f);
+  const float* mask_b = mask + (size_t)b * Q;
+  for (int r = warp; r < P::R; r += kWarps) {
+    const int z = z0 + r;
+    if (z >= Z) break;  // warp-uniform
+    float v[P::KPL];
+    float* u_row = u + r * QP;  // read and written by this warp only
+    const float lse = row_keys<P::KPL>(u_row, mask_b, Q, true, scale, clip,
+                                       v);
+#pragma unroll
+    for (int i = 0; i < P::KPL; ++i) u_row[lane * P::KPL + i] =
+        __fsub_rn(v[i], lse);
+    __syncwarp();
+    float* out_row = out + ((size_t)b * Z + z) * Q;
+    for (int q = lane; q < Q; q += 32) out_row[q] = u_row[q];
+  }
+}
+
+// ------------------------------ flattened request rows (B1 at small Q, B2) --
+
+constexpr int kFlatRows = 16;     // request rows per score_flat block
+constexpr int kFlatQ = 8;         // B1 takes the flat plan at Q <= kFlatQ
+constexpr int kPxyBudget = 8192;  // floats of pxy^T a flat-row block stages
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// u = h[row] . pxy^T[b, q] for one (row, edge) pair, by the four lanes sub
+// = 0..3 of an aligned group, each a quarter of d, summed as (sub 0 + 1) +
+// (2 + 3) and returned to all four. hr: the row, staged; pr: the pxy^T
+// row, staged (vec4: lane sub reads k = 4 sub + 16 j .. + 3) or in place
+// (lane sub reads k = sub + 4 j). Every lane of the warp calls it; lanes
+// of a pair that is not real (!act) add 0.
+__device__ __forceinline__ float pair_u(const float* hr, const float* pr,
+                                        int d, bool vec4, bool act, int sub) {
+  float u = 0.f;
+  if (act) {
+    if (vec4) {
+      for (int k = 4 * sub; k < d; k += 16) {
+        const float4 a = *reinterpret_cast<const float4*>(hr + k);
+        const float4 w = *reinterpret_cast<const float4*>(pr + k);
+        u = fmaf(a.x, w.x, u);
+        u = fmaf(a.y, w.y, u);
+        u = fmaf(a.z, w.z, u);
+        u = fmaf(a.w, w.w, u);
+      }
+    } else {
+      for (int k = sub; k < d; k += 4) u = fmaf(hr[k], pr[k], u);
+    }
+  }
+  u += __shfl_xor_sync(kFull, u, 1);
+  u += __shfl_xor_sync(kFull, u, 2);
+  return u;
+}
+
+// B1's small-Q plan, its third launch: kFlatRows of the flattened B*Z
+// request rows per block, across instance boundaries. Per row, for its
+// instance's Q edges only, u by pair_u (a pass takes kThreads / 4 pairs);
+// then one warp per row, lane q holding edge q, takes the row's keys and
+// log-sum-exp (row_keys) and stores the Q log-probs. The pxy^T rows of the
+// block's instances are staged when they fit kPxyBudget, else read in
+// place.
+__global__ void __launch_bounds__(kThreads)
+score_flat(const float* __restrict__ h, const float* __restrict__ pxyT,
+           const float* __restrict__ mask, float* __restrict__ out, int rows,
+           int Z, int Q, int d, float scale, float clip, int vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int ph = round_up(d, 4);
+  float* h_s = smem_f;                    // kFlatRows x ph
+  float* u_s = h_s + kFlatRows * ph;      // kFlatRows x Q
+  float* p_s = u_s + kFlatRows * kFlatQ;  // pxy^T rows, pitch ph
+  const int r0 = blockIdx.x * kFlatRows, nrow = min(kFlatRows, rows - r0);
+  const int b0 = r0 / Z, nb = (r0 + nrow - 1) / Z - b0 + 1;
+  const bool fit = nb * Q * ph <= kPxyBudget;
+  stage(h_s, ph, kFlatRows, ph, h, d, r0, rows, 0, d, vec, threadIdx.x,
+        kThreads);
+  griddep_start();
+  griddep_wait();  // h is the call's own; pxy^T is not
+  if (fit)
+    stage(p_s, ph, nb * Q, ph, pxyT + (size_t)b0 * Q * d, d, 0, nb * Q, 0, d,
+          vec, threadIdx.x, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int sub = threadIdx.x & 3;
+  for (int p0 = 0; p0 < nrow * Q; p0 += kThreads / 4) {
+    const int p = p0 + threadIdx.x / 4;
+    const bool act = p < nrow * Q;
+    const int r = act ? p / Q : 0, q = p - r * Q, b = (r0 + r) / Z;
+    const float* pr = fit ? p_s + ((b - b0) * Q + q) * ph
+                          : pxyT + ((size_t)b * Q + q) * d;
+    const float u = pair_u(h_s + r * ph, pr, d, fit && vec, act, sub);
+    if (act && sub == 0) u_s[p] = u;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < nrow; r += kWarps) {
+    float v[1];
+    const float lse = row_keys<1>(u_s + r * Q, mask + (size_t)(r0 + r) / Z * Q,
+                                  Q, true, scale, clip, v);
+    if (lane < Q) out[(size_t)(r0 + r) * Q + lane] = __fsub_rn(v[0], lse);
+  }
+}
+
 // ---------------------------------------------------------------- B2 --
 
 constexpr int kBwdRows = 16;      // request rows per bwd_rows block
-constexpr int kPxyBudget = 8192;  // floats of pxy^T bwd_rows stages
 constexpr int kGhxCols = 64;      // columns of d per bwd_ghx block
 constexpr int kGhxAcc = 8;        // edges per bwd_ghx thread and pass
 constexpr int kGuChunk = 4096;    // floats of gu bwd_ghx stages at a time
 constexpr int kGhxZ = 64;         // rows of h bwd_ghx stages at a time
 constexpr int kWT = WTile::BM;    // weight-gradient and dc tile side
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
 
 // bwd_rows's shared floats: the h tile, g (then gu), out, the mask rows of
 // the block's instances (at most kBwdRows), sum_q g, and pxy^T rows
@@ -780,7 +807,7 @@ inline int rows_smem(int d, int Q) {
 
 // B2's request rows: kBwdRows of the flattened B*Z rows per block, across
 // instance boundaries. Per row, for its instance's Q edges only: u = h .
-// pxy^T[b, q] (four lanes a pair, each a quarter of d), gu = keep ? (g -
+// pxy^T[b, q] (pair_u), gu = keep ? (g -
 // exp(out) sum_q g) C scale (1 - tanh(u scale)^2) : 0, and dh = gu @
 // pxy^T[b]. The pxy^T rows of the block's instances are staged when they
 // fit kPxyBudget, else read in place.
@@ -829,27 +856,9 @@ bwd_rows(const float* __restrict__ g, const float* __restrict__ out,
     const int p = p0 + threadIdx.x / 4;
     const bool act = p < nrow * Q;
     const int r = act ? p / Q : 0, q = p - r * Q, b = (r0 + r) / Z;
-    const float* hr = h_s + r * ph;
-    float u = 0.f;
-    if (act) {
-      if (fit && vec) {
-        const float* pr = p_s + ((b - b0) * Q + q) * ph;
-        for (int k = 4 * sub; k < d; k += 16) {
-          const float4 a = *reinterpret_cast<const float4*>(hr + k);
-          const float4 w = *reinterpret_cast<const float4*>(pr + k);
-          u = fmaf(a.x, w.x, u);
-          u = fmaf(a.y, w.y, u);
-          u = fmaf(a.z, w.z, u);
-          u = fmaf(a.w, w.w, u);
-        }
-      } else {
-        const float* pr = fit ? p_s + ((b - b0) * Q + q) * ph
-                              : pxyT + ((size_t)b * Q + q) * d;
-        for (int k = sub; k < d; k += 4) u = fmaf(hr[k], pr[k], u);
-      }
-    }
-    u += __shfl_xor_sync(kFull, u, 1);
-    u += __shfl_xor_sync(kFull, u, 2);
+    const float* pr = fit ? p_s + ((b - b0) * Q + q) * ph
+                          : pxyT + ((size_t)b * Q + q) * d;
+    const float u = pair_u(h_s + r * ph, pr, d, fit && vec, act, sub);
     if (act && sub == 0) {
       float v = 0.f;  // masked edges saw a constant: no gradient
       if (m_s[(b - b0) * Q + q] > 0.5f) {
@@ -1094,18 +1103,31 @@ cudaError_t launch_gemm(const float* A, int lda, size_t a_batch,
                 n_zero);
 }
 
-template <int QP>
-cudaError_t launch_decode(const float* h, const float* pxy, const float* mask,
-                          int* top_idx, float* top_val, int B, int Q, int Z,
-                          int d, int K, int normalize, float scale,
-                          float clip, cudaStream_t s) {
-  using P = DecodePlan<QP>;
-  const size_t smem = P::kSmem * sizeof(float);
-  cudaError_t err = set_smem((const void*)decode_rows<QP>, smem);
+// B1's and B3's edge side, launches 1 and 2: px = c @ Wpx over the B*Q
+// edge rows, then pxy[b] = Wpy @ px[b]^T, (d, Q) per instance
+cudaError_t edge_products(const float* c, const float* wpx, const float* wpy,
+                          float* px, float* pxy, int B, int Q, int d,
+                          cudaStream_t s) {
+  const int vec = d % 4 == 0;
+  cudaError_t err = launch_gemm<EdgeTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,
+                                          d, d, 1, vec, nullptr, 0, s, false);
   if (err != cudaSuccess) return err;
-  return launch(decode_rows<QP>, dim3((Z + P::R - 1) / P::R, B), kThreads,
-                smem, s, true, h, pxy, mask, top_idx, top_val, Z, Q, d, K,
-                normalize, scale, clip, int(d % 4 == 0), int(Q % 4 == 0));
+  return launch_gemm<EdgeTileT>(wpy, d, 0, px, d, (size_t)Q * d, pxy, Q,
+                                (size_t)d * Q, d, Q, d, B, vec, nullptr, 0, s,
+                                true);
+}
+
+// launch 3: row kernel `kernel` (plan QP) over the B instances' Z rows, a
+// programmatic dependent of the edge side
+template <int QP, typename... Params, typename... Args>
+cudaError_t launch_rows(void (*kernel)(Params...), int B, int Z,
+                        cudaStream_t s, Args&&... args) {
+  using P = RowPlan<QP>;
+  const size_t smem = P::kSmem * sizeof(float);
+  cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3((Z + P::R - 1) / P::R, B), kThreads, smem, s,
+                true, std::forward<Args>(args)...);
 }
 
 }  // namespace
@@ -1116,25 +1138,41 @@ extern "C" {
 // all were accepted). A refused launch never runs and a later synchronize
 // does not report it, so each launch is checked here.
 
+// B1 and B3. Scratch the wrapper owns: px (B, Q, d) and pxy (B, d, Q); B1's
+// small-Q plan writes pxy^T (B, Q, d) there.
 int corais_policy_score(const float* c, const float* h, const float* wpx,
-                        const float* wpy, const float* mask, float* pxT,
-                        float* out, int B, int Q, int Z, int d, float scale,
-                        float clip, void* stream) {
+                        const float* wpy, const float* mask, float* px,
+                        float* pxy, float* out, int B, int Q, int Z, int d,
+                        float scale, float clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  edge_prologue<<<dim3(Q, B), kThreads, d * sizeof(float), s>>>(c, wpx, pxT,
-                                                                Q, d);
-  cudaError_t err = cudaGetLastError();
+  const int vh = d % 4 == 0, vp = Q % 4 == 0;
+  if (Q <= kFlatQ) {  // the small-Q plan: B2's edge side, flat rows
+    cudaError_t err = launch_gemm<PxTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,
+                                          d, d, 1, vh, nullptr, 0, s, false);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm<PxyTile>(px, d, 0, wpy, d, 0, pxy, d, 0, B * Q, d, d, 1,
+                               vh, nullptr, 0, s, true);
+    if (err != cudaSuccess) return err;
+    const size_t smem = (kFlatRows * round_up(d, 4) + kFlatRows * kFlatQ +
+                         kPxyBudget) * sizeof(float);
+    err = set_smem((const void*)score_flat, smem);
+    if (err != cudaSuccess) return err;
+    return launch(score_flat, (B * Z + kFlatRows - 1) / kFlatRows, kThreads,
+                  smem, s, true, h, pxy, mask, out, B * Z, Z, Q, d, scale,
+                  clip, vh);
+  }
+  const cudaError_t err = edge_products(c, wpx, wpy, px, pxy, B, Q, d, s);
   if (err != cudaSuccess) return err;
-  const int smem = (2 * kRows * d + kChunk * kQMax) * sizeof(float);
-  err = cudaFuncSetAttribute(score_rows,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  score_rows<<<dim3((Z + kRows - 1) / kRows, B), kThreads, smem, s>>>(
-      h, wpy, pxT, mask, out, Z, Q, d, scale, clip);
-  return cudaGetLastError();
+  if (Q <= 32)  // Q > kFlatQ
+    return launch_rows<32>(score_rows<32>, B, Z, s, h, pxy, mask, out, Z, Q,
+                           d, scale, clip, vh, vp);
+  if (Q <= 64)
+    return launch_rows<64>(score_rows<64>, B, Z, s, h, pxy, mask, out, Z, Q,
+                           d, scale, clip, vh, vp);
+  return launch_rows<128>(score_rows<128>, B, Z, s, h, pxy, mask, out, Z, Q,
+                          d, scale, clip, vh, vp);
 }
 
-// B3. Scratch the wrapper owns: px (B, Q, d) and pxy (B, d, Q).
 int corais_policy_score_decode(const float* c, const float* h,
                                const float* wpx, const float* wpy,
                                const float* mask, float* px, float* pxy,
@@ -1142,22 +1180,20 @@ int corais_policy_score_decode(const float* c, const float* h,
                                int Z, int d, int K, int normalize,
                                float scale, float clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = d % 4 == 0;
-  cudaError_t err = launch_gemm<EdgeTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,
-                                          d, d, 1, vec, nullptr, 0, s, false);
+  const cudaError_t err = edge_products(c, wpx, wpy, px, pxy, B, Q, d, s);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<EdgeTileT>(wpy, d, 0, px, d, (size_t)Q * d, pxy, Q,
-                               (size_t)d * Q, d, Q, d, B, vec, nullptr, 0, s,
-                               true);
-  if (err != cudaSuccess) return err;
+  const int vh = d % 4 == 0, vp = Q % 4 == 0;
   if (Q <= 32)
-    return launch_decode<32>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
-                             normalize, scale, clip, s);
+    return launch_rows<32>(decode_rows<32>, B, Z, s, h, pxy, mask, top_idx,
+                           top_val, Z, Q, d, K, normalize, scale, clip, vh,
+                           vp);
   if (Q <= 64)
-    return launch_decode<64>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
-                             normalize, scale, clip, s);
-  return launch_decode<128>(h, pxy, mask, top_idx, top_val, B, Q, Z, d, K,
-                            normalize, scale, clip, s);
+    return launch_rows<64>(decode_rows<64>, B, Z, s, h, pxy, mask, top_idx,
+                           top_val, Z, Q, d, K, normalize, scale, clip, vh,
+                           vp);
+  return launch_rows<128>(decode_rows<128>, B, Z, s, h, pxy, mask, top_idx,
+                          top_val, Z, Q, d, K, normalize, scale, clip, vh,
+                          vp);
 }
 
 // B2. Scratch the wrapper owns: px, pxy^T, ghx and dpx (B, Q, d), gu

@@ -39,7 +39,7 @@ WEIGHT_TILE = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "corais_policy_score": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
+    "corais_policy_score": [_P] * 8 + [_I] * 4 + [_F, _F, _P],
     "corais_policy_score_decode": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     "corais_policy_score_bwd": [_P] * 18 + [_I] * 5 + [_F, _F, _P],
 }
@@ -81,17 +81,22 @@ def _check_inputs(c, h, w_px, w_py, maskf):
 
 def policy_score_cuda(c, h, w_px, w_py, maskf, *, tanh_clip: float = 10.0):
     """B1: log a_qz (eq 17) as (B, Z, Q) f32. c: (B, Q, d); h: (B, Z, d);
-    w_px, w_py: (d, d); maskf: (B, Q) f32, > 0.5 = real edge."""
+    w_px, w_py: (d, d); maskf: (B, Q) f32, > 0.5 = real edge. Above
+    ``kFlatQ`` edges (8) its launches are B3's up to the selection, so its
+    values equal B3's normalized values bit for bit; at fewer it takes its
+    small-Q plan (the source's header note)."""
     b, q, z, d = _check_inputs(c, h, w_px, w_py, maskf)
     lib = _lib()
     out = torch.empty((b, z, q), dtype=torch.float32, device=c.device)
-    px_t = torch.empty((b, d, q), dtype=torch.float32, device=c.device)
+    px = torch.empty((b, q, d), dtype=torch.float32, device=c.device)
+    # pxy (B, d, Q); the small-Q plan writes pxy^T (B, Q, d) there
+    pxy = torch.empty((b, d, q), dtype=torch.float32, device=c.device)
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
         err = lib.corais_policy_score(
             c.data_ptr(), h.data_ptr(), w_px.data_ptr(), w_py.data_ptr(),
-            maskf.data_ptr(), px_t.data_ptr(), out.data_ptr(), b, q, z, d,
-            1.0 / math.sqrt(d), float(tanh_clip), stream)
+            maskf.data_ptr(), px.data_ptr(), pxy.data_ptr(), out.data_ptr(),
+            b, q, z, d, 1.0 / math.sqrt(d), float(tanh_clip), stream)
     raise_on(err, lib, "policy_score")
     LAUNCHES["policy_score"] += 1
     return out

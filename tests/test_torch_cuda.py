@@ -203,6 +203,61 @@ def test_decode_kernel_breaks_exact_ties_like_plain_version(cuda_device, q,
         torch.testing.assert_close(tv, wv, atol=ATOL, rtol=0)
 
 
+def _partial_mask(b, q, device, seed):
+    """A random set of valid edges per instance: at B = 1 a third masked;
+    else one instance with a single edge, one full, the rest 1..Q."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, q + 1, size=b)
+    counts[:2] = (1, q) if b > 1 else (q - q // 3,)
+    mask = np.zeros((b, q), bool)
+    for i, n in enumerate(counts):
+        mask[i, rng.permutation(q)[:n]] = True
+    return torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("b,q,z,d", [
+    (1, 100, 1000, 256),  # the serving shape (QP 128)
+    (128, 5, 50, 256),    # the training shape: the small-Q plan
+    (3, 1, 37, 64),       # one edge
+    (16, 8, 1, 256),      # Q = kFlatQ, Z = 1: pxy^T rows read in place
+    (2, 9, 45, 64),       # Q = kFlatQ + 1: QP 32
+    (2, 37, 45, 128),     # QP 64, Q not a multiple of 4
+    (2, 128, 20, 512),    # the widest Q and d: two 256-deep chunks
+    (3, 7, 23, 30),       # d not a multiple of 4: 4-byte staging (small Q)
+    (2, 20, 23, 30),      # the same for QP 32
+])
+def test_score_kernel_matches_plain_version(cuda_device, b, q, z, d):
+    """B1, both plans, against its plain version within 2e-5 on partial
+    masks, the same bits across two calls."""
+    c, h, wx, wy, _ = _inputs(cuda_device, b, q, q, z, d, seed=q + d)
+    mask = _partial_mask(b, q, cuda_device, seed=z)
+    maskf = mask.to(torch.float32)
+    got = policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+    again = policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+    assert torch.equal(got, again)
+    want = ref.policy_score_torch(c, h, wx, wy, mask)
+    assert got.shape == (b, z, q) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("q,z", [(10, 100), (25, 250), (50, 500), (100, 1000)])
+def test_score_kernel_equals_normalized_decode_bits(cuda_device, q, z):
+    """At each serving bucket (B = 1, d = 256), where B1 and B3 take one
+    plan: B1's row arg-max is B3's K = 1 normalized index on every row,
+    and B1's values at B3's top-K indices (K = 1, 8, Q) are B3's
+    normalized values, bit for bit."""
+    c, h, wx, wy, _ = _inputs(cuda_device, 1, q, q, z, 256, seed=z)
+    maskf = torch.ones(1, q, device=cuda_device)  # a third masked
+    maskf[0, np.random.default_rng(q).permutation(q)[:q // 3]] = 0.0
+    scores = policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+    for k in sorted({1, 8, q}):
+        ti, tv = policy_score.policy_score_decode_cuda(c, h, wx, wy, maskf,
+                                                       k=k, normalize=True)
+        if k == 1:
+            assert torch.equal(scores.argmax(-1), ti[..., 0].long())
+        assert torch.equal(scores.gather(-1, ti.long()), tv), k
+
+
 def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 

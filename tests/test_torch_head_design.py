@@ -1,5 +1,5 @@
-"""B3's and B2's designs (``kernels/csrc/policy_score.cu``) written out in
-torch, on the CPU, against the JAX reference.
+"""B1's, B3's and B2's designs (``kernels/csrc/policy_score.cu``) written
+out in torch, on the CPU, against the JAX reference.
 
 The CUDA kernels run only on a card. Here their decompositions are spelled
 out step by step as the kernels take them, and held against
@@ -15,10 +15,18 @@ versions (``repro_torch.kernels.ref``):
   to 32, 64 or 128 (padding valued -inf, indexed past Q); selection by one
   arg-max at K = 1 and by the kernel's bitonic network over (value desc,
   index asc) keys at K > 1.
+* B1, the materialized head: above kFlatQ edges, B3's launches up to the
+  selection (the same px, pxy and u), then each row's log-softmax over its
+  keys, so its values at B3's normalized top-K indices are B3's values
+  exactly; at kFlatQ edges or fewer (the training shape's Q = 5), its
+  small-Q plan: px and pxy^T = px @ Wpy^T over the B*Q edge rows (B2's
+  tiles), and u per row over its own instance's edges in four lanes'
+  quarters of d (``pair_u``), then the same log-softmax.
 * B2, the head's backward, folded as the reference folds its decode: px
   and pxy^T = px @ Wpy^T over the B*Q edge rows; u = h . pxy^T[b, q] and
   dh = gu @ pxy^T[b] per row over tiles of 16 flattened request rows
-  across instance boundaries; ghx = gu^T h per instance (z in order);
+  across instance boundaries (``pair_u``); ghx = gu^T h per instance (z
+  in order);
   dpx = ghx @ Wpy; the weight gradients dWpy = ghx^T px and dWpx = c^T dpx
   over the B*Q edge rows in the wrapper's row split, partials added in
   order; dc = dpx @ Wpx^T. No (Z, d) x (d, d) product is left.
@@ -33,8 +41,10 @@ gradients within BWD_TOL of each output's largest entry (chip_smoke.py's:
 dc and dh sum over d and Q in another order, the weight gradients over
 the B*Q rows in partials).
 """
+import importlib.util
 import math
 import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -54,6 +64,10 @@ GAP = 1e-5
 BWD_TOL = {"dc": 2e-5, "dh": 2e-5, "dw_px": 1e-4, "dw_py": 1e-4}
 CLIP = 10.0
 SOURCE = (build.CSRC / "policy_score.cu").read_text()
+_spec = importlib.util.spec_from_file_location(
+    "b1_plans", Path(__file__).resolve().parents[1] / "tools" / "b1_plans.py")
+b1_plans = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(b1_plans)
 
 
 def _const(pattern):
@@ -61,9 +75,11 @@ def _const(pattern):
 
 
 # the plan the source states
-DECODE_KC = _const(r"constexpr int kDecodeKC = (\d+);")
+ROW_KC = _const(r"constexpr int kRowKC = (\d+);")
 WARPS = _const(r"constexpr int kThreads = (\d+);") // 32
 BWD_ROWS = _const(r"constexpr int kBwdRows = (\d+);")
+FLAT_ROWS = _const(r"constexpr int kFlatRows = (\d+);")
+FLAT_Q = _const(r"constexpr int kFlatQ = (\d+);")
 
 
 def _tile(name):
@@ -119,40 +135,60 @@ def bitonic_desc(v, idx):
     return v, idx
 
 
-def design_decode(c, h, wx, wy, maskf, k, normalize):
-    """B3 as the kernel computes it; c (B, Q, d), h (B, Z, d), maskf (B, Q)
-    f32. Returns (top_idx int32, top_val), (B, Z, K)."""
+def design_rows_u(c, h, wx, wy):
+    """u * scale, (B, Z, QP), as B3's (and B1's above FLAT_Q) three
+    launches compute it: px = c @ Wpx over the flattened B*Q edge rows and
+    pxy[b] = Wpy @ px[b]^T in BK-deep chunks (the tile routine's order);
+    u = h @ pxy as the 8 warps' partial sums over their slices of each
+    256-deep chunk of d, added in warp order (``rows_u``); padding edges
+    read zeros."""
     b, q, d = c.shape
     z = h.shape[1]
-    scale = 1.0 / math.sqrt(d)
     px = tile_product(c.reshape(-1, d), wx, EDGE).reshape(b, q, d)
     qp = padded_edges(q)
-    pxy = torch.zeros(b, d, qp)  # padding edges read zeros
+    pxy = torch.zeros(b, d, qp)
     for i in range(b):
         pxy[i, :, :q] = tile_product(wy, px[i].T, EDGE_T)
-    kw = DECODE_KC // WARPS
+    kw = ROW_KC // WARPS
     parts = []
     for w in range(WARPS):  # each warp's slice of every chunk of d
         part = torch.zeros(b, z, qp)
-        for k0 in range(0, d, DECODE_KC):
+        for k0 in range(0, d, ROW_KC):
             ks = slice(k0 + w * kw, min(k0 + (w + 1) * kw, d))
             part = part + h[..., ks] @ pxy[:, ks]
         parts.append(part)
     u = parts[0]
     for part in parts[1:]:  # in warp order
         u = u + part
-    u = u * scale
-    edge = torch.arange(qp)
-    live = (edge < q).expand(b, z, qp)
-    keep = torch.zeros(b, qp, dtype=torch.bool)
+    return u * (1.0 / math.sqrt(d))
+
+
+def design_keys(u, maskf, normalize):
+    """``row_keys`` over the last axis of u (B, Z, P), P >= Q edges
+    (padding valued -inf): (v, the row's log-sum-exp or None)."""
+    b, z, p = u.shape
+    q = maskf.shape[-1]
+    keep = torch.zeros(b, p, dtype=torch.bool)
     keep[:, :q] = maskf > 0.5
-    keep = keep[:, None, :].expand(b, z, qp)
+    keep = keep[:, None, :].expand(b, z, p)
     if normalize:
         v = torch.where(keep, CLIP * torch.tanh(u), torch.tensor(-1e9))
     else:
         v = torch.where(keep, u, torch.tensor(-math.inf))
-    v = torch.where(live, v, torch.tensor(-math.inf))
-    idx = edge.expand(b, z, qp)
+    v = torch.where((torch.arange(p) < q).expand(b, z, p), v,
+                    torch.tensor(-math.inf))
+    if not normalize:
+        return v, None
+    mx = v.max(-1, keepdim=True).values
+    return v, torch.log(torch.exp(v - mx).sum(-1, keepdim=True)) + mx
+
+
+def design_decode(c, h, wx, wy, maskf, k, normalize):
+    """B3 as the kernel computes it; c (B, Q, d), h (B, Z, d), maskf (B, Q)
+    f32. Returns (top_idx int32, top_val), (B, Z, K)."""
+    v, lse = design_keys(design_rows_u(c, h, wx, wy), maskf, normalize)
+    qp = v.shape[-1]
+    idx = torch.arange(qp).expand(v.shape)
     if k == 1:  # one arg-max, the first index attaining it
         top = v.max(-1, keepdim=True).values
         sel_i = torch.where(v == top, idx, qp).min(-1, keepdim=True).values
@@ -160,13 +196,39 @@ def design_decode(c, h, wx, wy, maskf, k, normalize):
     else:
         sv, si = bitonic_desc(v, idx)
         sel_v, sel_i = sv[..., :k], si[..., :k]
-    if normalize:
-        mx = v.max(-1, keepdim=True).values
-        lse = torch.log(torch.exp(v - mx).sum(-1, keepdim=True)) + mx
-        sel_v = sel_v - lse
-    else:
-        sel_v = CLIP * torch.tanh(sel_v)
+    sel_v = sel_v - lse if normalize else CLIP * torch.tanh(sel_v)
     return sel_i.to(torch.int32), sel_v
+
+
+def pair_u(hr, pt):
+    """hr . pt[:, q] as ``pair_u`` sums it: four lanes, each a quarter of d
+    (lane s takes k = 4 s + 16 j .. + 3 when d % 4 == 0, else k = s + 4 j),
+    added as (lane 0 + 1) + (lane 2 + 3). hr (n, d), pt (n, Q, d) -> (n,
+    Q)."""
+    k = torch.arange(hr.shape[-1])
+    lane = (k // 4) % 4 if hr.shape[-1] % 4 == 0 else k % 4
+    part = [torch.einsum("nd,nqd->nq", hr[:, lane == s], pt[:, :, lane == s])
+            for s in range(4)]
+    return (part[0] + part[1]) + (part[2] + part[3])
+
+
+def design_score(c, h, wx, wy, maskf):
+    """B1 as the kernel computes it: (B, Z, Q) log-probs. Above FLAT_Q
+    edges B3's u and keys; else the small-Q plan (B2's edge-side tiles and
+    flattened rows, u per row over its own instance's Q edges). Then each
+    row's keys minus its log-sum-exp."""
+    b, q, d = c.shape
+    z = h.shape[1]
+    if q > FLAT_Q:
+        u = design_rows_u(c, h, wx, wy)
+    else:
+        px = tile_product(c.reshape(-1, d), wx, PX)
+        pxyT = tile_product(px, wy.T, PXY).reshape(b, q, d)
+        inst = torch.arange(b * z) // z  # each row's own instance; rows
+        u = pair_u(h.reshape(-1, d), pxyT[inst])  # are independent
+        u = u.reshape(b, z, q) * (1.0 / math.sqrt(d))
+    v, lse = design_keys(u, maskf, True)
+    return (v - lse)[..., :q]
 
 
 def design_bwd(g, out, c, h, wx, wy, maskf):
@@ -186,7 +248,7 @@ def design_bwd(g, out, c, h, wx, wy, maskf):
         rows = torch.arange(r0, min(r0 + BWD_ROWS, b * z))
         inst = rows // z                  # each row's own instance
         pt = pxyT_b[inst]                 # (n, Q, d): its Q edges only
-        u = torch.einsum("nd,nqd->nq", hf[rows], pt)
+        u = pair_u(hf[rows], pt)
         th = torch.tanh(u * scale)
         gi = gf[rows] - torch.exp(of[rows]) * gf[rows].sum(-1, keepdim=True)
         v = torch.where(maskf[inst] > 0.5,
@@ -336,6 +398,69 @@ def test_bitonic_network_sorts_like_a_stable_sort():
         assert torch.equal(si, want_i) and torch.equal(sv, want_v)
 
 
+def _score_references(c, h, wx, wy, mask):
+    """B1's reference values: Pallas interpret, the reference head per
+    instance and the port's plain version."""
+    return [np.asarray(j_policy_score(c, h, wx, wy, mask, interpret=True)),
+            np.asarray(jax.vmap(lambda ci, hi, mi: jref.policy_score_ref(
+                ci, hi, wx, wy, mi))(c, h, mask)),
+            ref.policy_score_torch(*_t(c, h, wx, wy, mask)).numpy()]
+
+
+# CASES, Q = 9 (QP 32 just above the small-Q plan) and Q = 50 (QP 64)
+SCORE_CASES = CASES + [(2, 9, 37, 32), (2, 50, 37, 32)]
+
+
+@pytest.mark.parametrize("b,q,z,d", SCORE_CASES)
+def test_score_design_matches_reference(b, q, z, d):
+    """B1's design (both plans) against Pallas interpret, the reference
+    head and the port's plain version, within ATOL."""
+    c, h, wx, wy, mask = _inputs(b, q, z, d, seed=3 * q + d)
+    tc, th, twx, twy, tm = _t(c, h, wx, wy, mask)
+    got = design_score(tc, th, twx, twy, tm.to(torch.float32)).numpy()
+    for want in _score_references(c, h, wx, wy, mask):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,q,z,d", [(128, 5, 50, 256), (16, 1, 1, 256)])
+def test_score_design_small_q_plan(b, q, z, d):
+    """The small-Q plan at the training shape (B=128, Q=5, Z=50, d=256;
+    400 blocks of 16 flattened rows, two instances a block) and at Q = 1,
+    Z = 1 (16 instances a block), against Pallas interpret, the reference
+    head and the plain version."""
+    assert q <= FLAT_Q
+    c, h, wx, wy, mask = _inputs(b, q, z, d, seed=13)
+    tc, th, twx, twy, tm = _t(c, h, wx, wy, mask)
+    got = design_score(tc, th, twx, twy, tm.to(torch.float32)).numpy()
+    for want in _score_references(c, h, wx, wy, mask):
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,q,z,d", [x for x in SCORE_CASES if x[1] > FLAT_Q])
+def test_score_design_equals_decode_design_values(b, q, z, d):
+    """Above FLAT_Q edges B1 and B3 share u and the keys: B1's values at
+    B3's normalized top-K indices (K = 1, 3, Q) are B3's values, exactly,
+    and B1's row arg-max is B3's K = 1 index."""
+    c, h, wx, wy, mask = _t(*_inputs(b, q, z, d, seed=q + 2 * d))
+    maskf = mask.to(torch.float32)
+    scores = design_score(c, h, wx, wy, maskf)
+    for k in (1, 3, q):
+        ti, tv = design_decode(c, h, wx, wy, maskf, k, True)
+        assert torch.equal(scores.gather(-1, ti.long()), tv), k
+        if k == 1:
+            assert torch.equal(scores.argmax(-1), ti[..., 0].long())
+
+
+@pytest.mark.parametrize("name", sorted(b1_plans.PLANS))
+def test_b1_plans_edits_apply_to_the_source(name):
+    """Each copy ``tools/b1_plans.py`` times finds its texts exactly once
+    in the source (``source`` has none), so an edit of those lines fails
+    here and not on the card."""
+    text = b1_plans.patched(SOURCE, name, b1_plans.PLANS[name])
+    assert (text == SOURCE) == (name == "source")
+
+
 @pytest.mark.parametrize("b,q,z,d", CASES)
 def test_backward_design_matches_reference_vjp(b, q, z, d):
     """The folded design's four gradients against jax.vjp of the Pallas
@@ -397,10 +522,22 @@ def test_row_split_keeps_every_partial_nonempty(n):
 def test_design_constants_match_the_source():
     """The constants the design reads from the source, and the wrapper's
     mirror of the weight-gradient tile."""
-    assert (DECODE_KC, WARPS, BWD_ROWS) == (256, 8, 16)
+    assert (ROW_KC, WARPS, BWD_ROWS) == (256, 8, 16)
     assert EDGE == EDGE_T and PX == PXY and all(
         bk % (4 * ks) == 0 for bk, ks in (EDGE, PX, WT, CT))
-    assert DECODE_KC % (WARPS * 8) == 0  # each warp's slice in 8-deep pieces
+    assert ROW_KC % (WARPS * 8) == 0  # each warp's slice in 8-deep pieces
+    # B1's small-Q plan: lane q holds edge q; the u tile keeps the staged
+    # pxy^T rows 16-byte aligned; the plan and its tiles as design_score
+    # takes them
+    assert (FLAT_ROWS, FLAT_Q) == (16, 8) and FLAT_Q <= 32
+    assert FLAT_ROWS * FLAT_Q % 4 == 0
+    assert "if (Q <= kFlatQ) {" in SOURCE
+    for call in ("launch_gemm<PxTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,",
+                 "launch_gemm<PxyTile>(px, d, 0, wpy, d, 0, pxy, d, 0, B * Q,",
+                 "launch_gemm<EdgeTile>(c, d, 0, wpx, d, 0, px, d, 0, B * Q,",
+                 "launch_gemm<EdgeTileT>(wpy, d, 0, px, d, (size_t)Q * d, pxy, "
+                 "Q,"):
+        assert SOURCE.count(call) == 1, call
     assert "constexpr int kWT = WTile::BM;" in SOURCE
     assert _const(r"using WTile = Tile<(\d+),") == kps.WEIGHT_TILE
     assert kps.MAX_EDGES == 128 == padded_edges(kps.MAX_EDGES)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-launch device time of kernels B3 and B2 (``csrc/policy_score.cu``)
+"""Per-launch device time of kernels B1, B3 and B2 (``csrc/policy_score.cu``)
 beside their plain versions, for one tree of the port.
 
     python3 tools/policy_head_split.py [--tree DIR] [--label NAME]
@@ -9,22 +9,27 @@ Needs one CUDA card and ``nvcc``. Imports ``repro_torch`` from
 another commit is measured with the same script, on the same card, in the
 same call: run it for the parent and the change in turns (parent, change,
 change, parent). Each tree builds its kernels into its own ``build/``.
-Three cases, each with random inputs from a seed:
+The cases, each with random inputs from a seed:
 
-* ``b3_k1``: B3 at the serving shape (B=1, Q=100, Z=1000, d=256), K=1,
-  ``normalize=False`` (greedy decisions);
+* ``b1_serve``: B1 at the serving shape (B=1, Q=100, Z=1000, d=256);
+* ``b1_train``: B1 at the training shape (B=128, Q=5, Z=50, d=256);
+* ``b3_k1``: B3 at the serving shape, K=1, ``normalize=False`` (greedy
+  decisions);
 * ``b3_sampled``: the same with K=Q=100 and ``normalize=True`` (the
   best-of-64 sampled decisions);
-* ``b2_train``: B2 at the training shape (B=128, Q=5, Z=50, d=256).
+* ``b2_train``: B2 at the training shape;
+* ``b1_serve_ops`` and ``b3_k1_ops``: ``b1_serve`` and ``b3_k1`` called
+  as the main paths call them, through ``kernels.ops`` with a bool mask.
 
 For each: ``split``, the device us per call of every kernel it launches
 (``chip_smoke.launch_split``, a torch.profiler trace); ``ms`` and
 ``plain_ms``, CUDA events behind a sleep kernel (``chip_smoke.time_ms``) in
 the order plain, kernel, kernel, plain; and the kernel's largest error
-against its plain version on the same inputs (B3: index mismatches on
-rows whose top-K+1 gap exceeds 1e-4, and the value error; B2: each
-output's error relative to its largest entry). Prints one JSON object as
-its last line and writes it to ``chiprun_out/policy_head_split_NAME.json``.
+against its plain version on the same inputs (B1: the value error and
+whether two calls give the same bits; B3: index mismatches on rows whose
+top-K+1 gap exceeds 1e-4, and the value error; B2: each output's error
+relative to its largest entry). Prints one JSON object as its last line
+and writes it to ``chiprun_out/policy_head_split_NAME.json``.
 """
 from __future__ import annotations
 
@@ -42,11 +47,31 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def b3_case(policy_score, ref, args, k, normalize):
+def b1_case(policy_score, ops, ref, args, through_ops=False):
     c, h, wx, wy, mask = args
     maskf = mask.to(torch.float32)
 
     def kern():
+        if through_ops:
+            return ops.policy_score(c, h, wx, wy, mask)
+        return policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+
+    def plain():
+        return ref.policy_score_torch(c, h, wx, wy, mask)
+    got, again = kern(), kern()
+    err = {"same_bits": torch.equal(got, again),
+           "max_abs_err": float((got - plain()).abs().max())}
+    return kern, plain, err
+
+
+def b3_case(policy_score, ops, ref, args, k, normalize, through_ops=False):
+    c, h, wx, wy, mask = args
+    maskf = mask.to(torch.float32)
+
+    def kern():
+        if through_ops:
+            return ops.policy_score_decode(c, h, wx, wy, mask, k=k,
+                                           normalize=normalize)
         return policy_score.policy_score_decode_cuda(
             c, h, wx, wy, maskf, k=k, normalize=normalize)
 
@@ -101,8 +126,8 @@ def ptxas_by_kernel(report):
     return out
 
 
-KERNELS = ("edge_prologue", "score_rows", "decode_rows", "bwd_rows",
-           "bwd_ghx", "bwd_weights", "gemm")
+KERNELS = ("score_rows", "decode_rows", "bwd_rows", "bwd_ghx",
+           "bwd_weights", "gemm")
 
 
 def main() -> int:
@@ -115,14 +140,20 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
-    from repro_torch.kernels import build, policy_score, ref
+    from repro_torch.kernels import build, ops, policy_score, ref
     report = build.build().get("policy_score.cu", "")
     gen = torch.Generator().manual_seed(1)
     serving = cs._inputs(gen, 1, 100, 1000, valid=[80])
+    train = cs.train_shape_case()[4:]
+    mods = (policy_score, ops, ref)
     cases = {
-        "b3_k1": b3_case(policy_score, ref, serving, 1, False),
-        "b3_sampled": b3_case(policy_score, ref, serving, 100, True),
-        "b2_train": b2_case(policy_score, ref, cs.train_shape_case()[4:]),
+        "b1_serve": b1_case(*mods, serving),
+        "b1_train": b1_case(*mods, train),
+        "b3_k1": b3_case(*mods, serving, 1, False),
+        "b3_sampled": b3_case(*mods, serving, 100, True),
+        "b2_train": b2_case(policy_score, ref, train),
+        "b1_serve_ops": b1_case(*mods, serving, through_ops=True),
+        "b3_k1_ops": b3_case(*mods, serving, 1, False, through_ops=True),
     }
     torch.cuda.synchronize()
     result = {"card": cs.card_line(), "tree": args.tree, "label": args.label,
