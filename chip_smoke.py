@@ -19,7 +19,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    B3's normalized top-K indices equal B3's bit for bit, and B1's row
    arg-max is B3's K = 1 index; plus the
    no-(Z, Q) memory guarantee of the fused decode; the backward (B2) also
-   at the training shape B=128, Q=5, Z=50;
+   at the training shape B=128, Q=5, Z=50; B1 and B3 also at the rollout
+   engine's shapes, B = 256, Q = 100, Z = the scale run's round width
+   (phase 6b) and B = 64, Q = 5, Z = 32, each the same bits on two calls;
 4. drive the serving decision path at full width (``PolicyConfig()``, about
    4M parameters, random weights from a seed) through ``DecisionFastPath``
    at all four buckets: greedy fused decode, then greedy materialized and
@@ -34,6 +36,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``TRAIN_STEPS`` steps; B1 and B2 must launch every step, every metric be
    finite with ``cost_best <= cost_mean``, and the parameters move; B2 is
    checked again on the encoder outputs of a training batch;
+6a. the batched rollout engine on the card against the same engine on the
+   CPU (``engine_parity``): Q = 5, B = 64, 12 rounds of 0.25 s, ``local``
+   and ``greedy``, on uniform_iid, hotspot_skew, chaos-rolling-failure
+   (its faults, a breaker, slo_threshold admission, retry backoff) and
+   cloud-cache-churn (the cloud node and service caches): counts and
+   per-edge completions equal, floats within 1e-4, ``summarize`` the same;
+6b. the rollout engine's scale run (``drive_rollout``): ``PolicyConfig()``
+   (random weights from a seed) schedules 256 instances of a 100-edge
+   cluster (uniform_iid at 4 requests/s per edge, about 100 arrivals a
+   round) for 12 rounds and drains, through ``"policy-fused"`` (B3) and
+   then ``"policy"`` (B1): each round's decisions equal the plain
+   ``"torch"`` backend's above the gap, the head's kernel launches once
+   per round for the whole batch (and no plain head is reached), every
+   request is accounted for; rollout wall ms, ms per round,
+   request-rounds/s, peak device memory, and a profile of its last two
+   rounds (device busy, idle share, launches per round, the head's device
+   ms against the lane recursion, the features and ``commit``);
 7. hold the attention kernels B4 (flash attention) and B5 (decode
    attention) against their plain versions at qwen3-4b, olmo-1b and
    hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
@@ -96,7 +115,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
-    main path above).
+    main path above, the rollout's included).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
 summary. Details of every comparison go to ``chiprun_out/chip_smoke.json``.
@@ -181,6 +200,29 @@ EDGE_CASES = ((2, 1, 37, (1, 1)), (3, 5, 1, (5, 1, 3)), (1, 5, 50, (4,)),
               (2, 128, 37, (128, 90)))
 # B3 on exact-arithmetic inputs with duplicated edges (B, Q, Z)
 TIE_CASES = ((2, 5, 45), (1, 100, 1000), (2, 128, 37))
+# the rollout engine's scale run: the paper's largest cluster (Q = 100),
+# the largest batch of benchmarks/rollout_throughput.py (B = 256),
+# uniform_iid at the default scenario's 4 requests/s per edge, 12 rounds
+# of 0.25 s, the slot table as wide as the busiest round
+ROLLOUT_EDGES = 100
+ROLLOUT_BATCH = 256
+ROLLOUT_RATE_PER_EDGE = 4.0
+ROLLOUT_ROUNDS = 12
+ROLLOUT_DT = 0.25
+ROLLOUT_PROFILE_ROUNDS = 2
+ROLLOUT_TIMED_RUNS = 3   # the host's clock varies: the median of three
+# B1 and B3 also at the parity runs' shape (B, Q, Z)
+ROLLOUT_SMALL_SHAPE = (64, 5, 32)
+# the engine on the card against the engine on the CPU: Q = 5 edges (plus
+# the cloud node in cloud-cache-churn), B = 64 instances, 12 rounds;
+# chaos-rolling-failure with its faults, a breaker, admission and backoff
+PARITY_SCENARIOS = ("uniform_iid", "hotspot_skew", "chaos-rolling-failure",
+                    "cloud-cache-churn")
+PARITY_EDGES = 5
+PARITY_BATCH = 64
+PARITY_RESILIENCE = dict(admission="slo_threshold", breaker=True,
+                         retry_backoff_rounds=1.0)
+PARITY_TOL = 1e-4      # floats, card against CPU (ROADMAP "How parity is held")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -563,12 +605,14 @@ KERNEL_KINDS = (("B6", ("scan_chunked",)),
                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def _device_summary(prof, n, wall_ms):
+def _device_summary(prof, n, wall_ms, skip=()):
     """Device busy ms, idle share, kernels, device ms by kind
     (KERNEL_KINDS) and the heaviest kernels per unit of work (a decision or
-    a step) from a torch.profiler trace of ``n``."""
+    a step) from a torch.profiler trace of ``n``. ``skip``: names of
+    ``record_function`` ranges, whose spans the trace also lists on the
+    device."""
     kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+               if str(e.device_type).endswith("CUDA") and e.key not in skip]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -725,6 +769,337 @@ def drive_training(pol, tr, tinst, policy_score, profiler_steps=3):
     return summary, enc
 
 
+# -- phases 6a-6b: the batched rollout engine -----------------------------
+
+
+def rollout_arrivals(wl, edges=ROLLOUT_EDGES, batch=ROLLOUT_BATCH,
+                     rounds=ROLLOUT_ROUNDS):
+    """The scale run's arrivals (host numpy): uniform_iid at
+    ROLLOUT_RATE_PER_EDGE requests/s per edge, one seed per instance, the
+    width the busiest round's. Returns (arrivals, seconds to make them)."""
+    t0 = time.perf_counter()
+    arr = wl.materialize_round_batch(
+        wl.scenario("uniform_iid", rate=ROLLOUT_RATE_PER_EDGE * edges), edges,
+        rounds, ROLLOUT_DT, batch, base_seed=0)
+    return arr, time.perf_counter() - t0
+
+
+def compare_rollout_shapes(ops, ref, width, errs, batch=ROLLOUT_BATCH,
+                           edges=ROLLOUT_EDGES):
+    """B1 and B3 against their plain versions at the rollout's shapes: the
+    scale run's (B = 256, Q = 100, Z = its round width) and the parity
+    runs' (ROLLOUT_SMALL_SHAPE); B3 at K = 1, 8 and Q, normalized and not
+    (compare_kernels), and each kernel the same bits on two calls.
+    Returns the report and the cases' inputs."""
+    gen = torch.Generator().manual_seed(13)
+    cases = []
+    for b, q, z in ((batch, edges, width), ROLLOUT_SMALL_SHAPE):
+        valid = [q] * (b - 2) + [1, max(1, q - q // 3)]
+        cases.append(("rollout", b, q, z, *_inputs(gen, b, q, z,
+                                                   valid=valid)))
+    report = compare_kernels(ops, ref, cases, errs)
+    for _, b, q, z, c, h, wx, wy, mask in cases:
+        check(torch.equal(ops.policy_score(c, h, wx, wy, mask),
+                          ops.policy_score(c, h, wx, wy, mask)),
+              f"policy_score differs between two calls at {(b, q, z)}")
+    torch.cuda.synchronize()
+    return report, cases
+
+
+def _host_tree(tree):
+    return {k: v.cpu() for k, v in tree.items()}
+
+
+def _parity_errors(got, want, where):
+    """Counts equal, floats within PARITY_TOL; returns the largest float
+    error."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{where}: {k} has {g.dtype} {tuple(g.shape)}, the CPU "
+              f"{w.dtype} {tuple(w.shape)}")
+        if w.is_floating_point():
+            err = float((g - w).abs().max()) if w.numel() else 0.0
+            check(err <= PARITY_TOL, f"{where}: {k} differs by {err} > "
+                  f"{PARITY_TOL} from the CPU")
+            worst = max(worst, err)
+        else:
+            check(torch.equal(g, w), f"{where}: {k} differs from the CPU")
+    return worst
+
+
+def engine_parity(engine, wl, faults, resilience, device="cuda"):
+    """The engine on the card against the engine on the CPU, same
+    arrivals, at Q = 5 and B = 64 for 12 rounds, with ``local`` and
+    ``greedy`` on PARITY_SCENARIOS: counts and per-edge completions equal,
+    floats within PARITY_TOL, ``summarize`` the same dict (floats within
+    PARITY_TOL)."""
+    report = {}
+    for name in PARITY_SCENARIOS:
+        cloud, cache = wl.scenario_cloud_spec(name)
+        arr = wl.materialize_round_batch(
+            wl.scenario(name), PARITY_EDGES, ROLLOUT_ROUNDS, ROLLOUT_DT,
+            PARITY_BATCH, base_seed=0)
+        spec = wl.scenario_fault_spec(name)
+        res = None
+        if spec is not None:
+            arr = faults.attach_fault_batch(arr, spec, PARITY_EDGES,
+                                            seeds=range(PARITY_BATCH))
+            res = resilience.ResilienceConfig(**PARITY_RESILIENCE)
+        cfg = engine.EngineConfig(
+            num_edges=PARITY_EDGES, num_rounds=ROLLOUT_ROUNDS,
+            round_interval=ROLLOUT_DT, max_per_round=arr["mask"].shape[-1],
+            resilience=res, cloud=cloud, cache=cache)
+        for backend in ("local", "greedy"):
+            run = engine.make_rollout(cfg, engine.ASSIGN_FNS[backend],
+                                      batch=True)
+            out, ms = {}, {}
+            for dev in (device, "cpu"):
+                state = engine.init_batch(cfg, range(PARITY_BATCH),
+                                          device=dev)
+                t0 = time.perf_counter()
+                final, infos = run(state, arr)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                ms[str(dev)] = (time.perf_counter() - t0) * 1e3
+                out[str(dev)] = (_host_tree(final), _host_tree(infos))
+            where = f"engine parity {name}/{backend}"
+            (card_f, card_i), (cpu_f, cpu_i) = out[str(device)], out["cpu"]
+            err = max(_parity_errors(card_f, cpu_f, where),
+                      _parity_errors(card_i, cpu_i, where))
+            s_card, s_cpu = engine.summarize(card_f), engine.summarize(cpu_f)
+            for k, w in s_cpu.items():
+                same = (abs(s_card[k] - w) <= PARITY_TOL
+                        if isinstance(w, float) else s_card[k] == w)
+                check(same, f"{where}: summarize {k} {s_card[k]} on the card, "
+                      f"{w} on the CPU")
+            check(s_cpu["completed"] > 0, f"{where}: nothing completed")
+            report[f"{name}/{backend}"] = {
+                "width": cfg.max_per_round, "max_float_err": err,
+                "card_ms": ms[str(device)], "cpu_ms": ms["cpu"],
+                **{k: s_cpu[k] for k in (
+                    "submitted", "completed", "shed_requests",
+                    "retried_requests", "cache_hits", "cache_misses",
+                    "cloud_completed", "mean_response")}}
+    return report
+
+
+# the policy head's kernels in a trace (policy_score.cu's kernels live in
+# an anonymous namespace; PyTorch's carry at:: in their names)
+HEAD_KERNELS = ("gemm", "decode_rows", "score_rows", "score_flat")
+ROLLOUT_RANGES = ("rollout.advance", "rollout.instance", "rollout.policy",
+                  "rollout.commit")
+
+
+def _is_head_kernel(name):
+    return "at::" not in name and any(
+        f"(anonymous namespace)::{k}" in name for k in HEAD_KERNELS)
+
+
+@contextlib.contextmanager
+def _rollout_ranges(engine):
+    """Name the engine's pieces in a torch.profiler trace: its lane
+    recursion (``advance``), the round's features and instance
+    (``round_instance``) and ``commit``; the policy's range is opened by
+    the caller's assign fn."""
+    from torch.profiler import record_function
+    saved = {n: getattr(engine, n) for n in ("advance", "round_instance",
+                                             "commit")}
+    labels = {"advance": "rollout.advance", "round_instance":
+              "rollout.instance", "commit": "rollout.commit"}
+
+    def wrap(name, fn):
+        def ranged(*args, **kwargs):
+            with record_function(labels[name]):
+                return fn(*args, **kwargs)
+        return ranged
+
+    try:
+        for n, fn in saved.items():
+            setattr(engine, n, wrap(n, fn))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(engine, n, fn)
+
+
+def profile_rollout(engine, cfg, fn, state, arr, rounds=ROLLOUT_PROFILE_ROUNDS):
+    """A torch.profiler trace of the last ``rounds`` rounds of the batched
+    rollout (the heaviest: the queues are longest), from the state the
+    rollout reached before them, no drain: device busy ms and idle share
+    per round, kernel launches per round, the head kernels' device ms (B3
+    or B1) against the rest, and the device ms of each named piece
+    (ROLLOUT_RANGES)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(generator, inst):
+        with record_function("rollout.policy"):
+            return fn(generator, inst)
+
+    start = arr["size"].shape[1] - rounds
+    if start > 0:
+        state, _ = engine.make_rollout(cfg, fn, batch=True, drain_to=None)(
+            state, {k: v[:, :start] for k, v in arr.items()})
+    tail = {k: v[:, start:] for k, v in arr.items()}
+    run = engine.make_rollout(cfg, ranged, batch=True, drain_to=None)
+    with _rollout_ranges(engine):
+        run(state, tail)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(state, tail)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    out = _device_summary(prof, rounds, wall_ms, skip=ROLLOUT_RANGES)
+
+    def dev_us(e, total=False):
+        names = (("device_time_total", "cuda_time_total") if total else
+                 ("self_device_time_total", "self_cuda_time_total"))
+        return next((getattr(e, n) for n in names if hasattr(e, n)), 0.0)
+
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.key not in ROLLOUT_RANGES]
+    head_ms = sum(dev_us(e) for e in kernels if _is_head_kernel(e.key))
+    out["head_device_ms"] = head_ms / 1e3 / rounds
+    out["rest_device_ms"] = out["device_busy_ms"] - out["head_device_ms"]
+    out["head_launches_per_round"] = sum(
+        e.count for e in kernels if _is_head_kernel(e.key)) / rounds
+    # each piece's kernels: the device time of the ops its host-side range
+    # launched (FunctionEvent.device_time_total counts the children)
+    pieces = dict.fromkeys(ROLLOUT_RANGES, 0.0)
+    for e in prof.events():
+        if e.name in pieces and str(e.device_type).endswith("CPU"):
+            pieces[e.name] += dev_us(e, total=True) / 1e3 / rounds
+    pieces["other"] = out["device_busy_ms"] - sum(pieces.values())
+    out["device_ms_by_piece"] = pieces
+    return out
+
+
+def drive_rollout(pol, engine, policy_score, ref, arr, *, device="cuda",
+                  policy_cfg=None, edges=ROLLOUT_EDGES,
+                  rounds=ROLLOUT_ROUNDS):
+    """The slice's full-width path: ``PolicyConfig()`` (random weights from
+    a seed) schedules B instances of a Q-edge cluster for ``rounds``
+    rounds and drains, through ``"policy-fused"`` (B3) and then
+    ``"policy"`` (B1), greedy. For each backend:
+
+    1. a checked rollout: every round, the same instance is also decided
+       by the plain ``"torch"`` backend on the card, and the decisions
+       must be equal on every request whose top-2 gap exceeds GAP;
+    2. the main path: the launch counters set to 0, the rollout (the plain
+       heads patched to raise), the counters read: the head's kernel must
+       have launched once per round for the whole batch and no other
+       kernel of the port; every request accounted for, makespans and
+       responses finite; then the same rollout again, ROLLOUT_TIMED_RUNS
+       in all: wall ms (the median), ms per round, request-rounds/s and
+       peak device memory;
+    3. a torch.profiler trace of ROLLOUT_PROFILE_ROUNDS rounds.
+
+    Returns {backend: report} and {backend: launch counts}."""
+    from unittest import mock
+    policy = pol.CoRaiSPolicy(policy_cfg or pol.PolicyConfig(),
+                              generator=torch.Generator().manual_seed(0),
+                              device=device)
+    batch, width = arr["mask"].shape[0], arr["mask"].shape[-1]
+    cfg = engine.EngineConfig(num_edges=edges, num_rounds=rounds,
+                              round_interval=ROLLOUT_DT, max_per_round=width)
+    state = engine.init_batch(cfg, range(batch), device=device)
+    arr = {k: torch.as_tensor(v).to(device) for k, v in arr.items()}
+    requests = int(arr["mask"].sum())
+    reports, counts = {}, {}
+    for backend, kernel in (("policy-fused", "policy_score_decode"),
+                            ("policy", "policy_score")):
+        fn = engine.resolve_assign_fn(backend, policy=policy)
+        stats = {"gapped": 0, "requests": 0, "lane_steps": []}
+        lane = engine._lane_recursion
+
+        def steps_seen(st, keys, order, t_new, steps, cfg_):
+            stats["lane_steps"].append(steps)
+            return lane(st, keys, order, t_new, steps, cfg_)
+
+        def checked(generator, inst):
+            got = fn(generator, inst)
+            with torch.inference_mode():
+                c, h = pol.corais_encode(policy, inst, per_instance=True)
+                ti, tv = pol.corais_score_decode(
+                    policy, c, h, inst["edge_mask"], k=2, normalize=False,
+                    backend="torch")
+            gapped = ((tv[..., 0] - tv[..., 1]) > GAP) & inst["req_mask"]
+            bad = int(((got != ti[..., 0]) & gapped).sum())
+            check(bad == 0, f"{backend} rollout: {bad} decisions differ from "
+                  f"the plain backend above the gap")
+            stats["gapped"] += int(gapped.sum())
+            stats["requests"] += int(inst["req_mask"].sum())
+            return got
+
+        with mock.patch.object(engine, "_lane_recursion", steps_seen):
+            engine.make_rollout(cfg, checked, batch=True)(state, arr)
+        check(stats["gapped"] > 0, f"{backend} rollout: no request above "
+              f"the gap")
+
+        run = engine.make_rollout(cfg, fn, batch=True)
+        guard = [_refuse(ref, n, "the plain") for n in (
+            "policy_score_torch", "policy_score_decode_torch")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        walls = []
+        with contextlib.ExitStack() as stack:
+            for g in guard:
+                stack.enter_context(g)
+            for rep in range(ROLLOUT_TIMED_RUNS):
+                if rep == 0:
+                    policy_score.reset_launch_counts()
+                t0 = time.perf_counter()
+                final, infos = run(state, arr)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if rep == 0:
+                    launched = dict(policy_score.LAUNCHES)
+        wall_s = float(np.median(walls))
+        peak = torch.cuda.max_memory_allocated()
+        check(launched[kernel] == rounds and sum(launched.values()) == rounds,
+              f"{backend} rollout launched {launched} in {rounds} rounds; "
+              f"{kernel} must launch once per round for the whole batch")
+        m = engine.summarize(final)
+        accounted = (m["completed"] + m["stranded_requests"]
+                     + m["shed_requests"] + m["dropped_requests"])
+        check(accounted == m["submitted"] == requests,
+              f"{backend} rollout: {accounted} accounted, {m['submitted']} "
+              f"submitted, {requests} arrived")
+        check(bool(torch.isfinite(infos["makespan"]).all())
+              and all(math.isfinite(m[k]) for k in (
+                  "makespan", "mean_response", "p95_response",
+                  "max_response")),
+              f"{backend} rollout: non-finite makespan or responses")
+        profile = profile_rollout(engine, cfg, fn, state, arr)
+        counts[backend] = launched
+        reports[backend] = {
+            "config": {"B": batch, "Q": edges, "rounds": rounds,
+                       "round_interval": ROLLOUT_DT, "width": width,
+                       "slots": cfg.num_slots, "d_model": policy.cfg.d_model},
+            "launches": launched,
+            "rollout_wall_ms": wall_s * 1e3,
+            "rollout_wall_ms_runs": [w * 1e3 for w in walls],
+            "ms_per_round": wall_s * 1e3 / rounds,
+            "request_rounds_per_s": m["submitted"] * rounds / wall_s,
+            "submitted": m["submitted"], "completed": m["completed"],
+            "mean_response": m["mean_response"],
+            "p95_response": m["p95_response"], "makespan": m["makespan"],
+            "transferred_frac": m["transferred_frac"],
+            "checked_requests": stats["requests"],
+            "gapped_requests": stats["gapped"],
+            "lane_steps_per_advance": stats["lane_steps"],
+            "peak_memory_bytes": peak,
+            "peak_memory_over_state_bytes": peak - base_mem,
+            "profile": profile,
+        }
+    return reports, counts
+
+
 # -- phase 13: timing ------------------------------------------------------
 
 
@@ -879,7 +1254,8 @@ SHAPE_ROW_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ms_runs",
                   "plain_ms_runs")
 
 
-def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
+def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
+            rollout_case=None):
     """B1 and B3 at the serving shape (100x1000, one instance; B1 also at
     the training shape, B3 also at K = Q = 100 normalized, the sampled
     path's call, under ``sampled``), B2 at the training shape (B=128, Q=5,
@@ -889,8 +1265,10 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
     dh, ghx, dpx, dc and the two weight gradients: six B*Q x d x d
     products and three B*Z x Q x d ones). B1 and B2 keep the unfolded
     count they were bounded by before (py = h Wpy recomputed) as
-    ``bound_ms_unfolded``. ``launches``: {kernel: {path: count}} from the
-    main-path runs."""
+    ``bound_ms_unfolded``. ``rollout_case``: B1 and B3 (K = 1,
+    normalized, as ``"policy-fused"`` calls it) also at the rollout's
+    shape, under ``rollout_shape``. ``launches``: {kernel: {path: count}}
+    from the main-path runs."""
     c, h, wx, wy, mask = enc[3:]
     b, q, z, d, in_bytes = _head_counts(c, h)
     k = 1
@@ -919,6 +1297,25 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs):
                    b3_flops, in_bytes + 8 * b * z * q, {}, None,
                    shape + f" K={q} normalized")
     rows[1]["sampled"] = {k_: sampled[k_] for k_ in SHAPE_ROW_KEYS}
+    if rollout_case is not None:
+        # B1 and B3 as the rollout engine calls them: one launch a round
+        # for B = 256 instances of Q = 100 edges
+        c, h, wx, wy, mask = rollout_case[4:]
+        b, q, z, d, in_bytes = _head_counts(c, h)
+        flops = 2 * b * (q * d * d + d * d * q + z * d * q)
+        shape = f"B={b} Q={q} Z={z} d={d}"
+        for i, (kern, plain, out_bytes, tag) in enumerate((
+                (lambda: ops.policy_score(c, h, wx, wy, mask),
+                 lambda: ref.policy_score_torch(c, h, wx, wy, mask),
+                 4 * b * z * q, ""),
+                (lambda: ops.policy_score_decode(c, h, wx, wy, mask, k=1,
+                                                 normalize=True),
+                 lambda: ref.policy_score_decode_torch(c, h, wx, wy, mask,
+                                                       10.0, 1, True),
+                 8 * b * z, " K=1 normalized"))):
+            row = _row(rows[i]["name"], 0, kern, plain, flops,
+                       in_bytes + out_bytes, {}, None, shape + tag)
+            rows[i]["rollout_shape"] = {k_: row[k_] for k_ in SHAPE_ROW_KEYS}
     rows[0]["bound_ms_unfolded"] = _b1_unfolded_ms(b, q, z, d, in_bytes)
 
     # the training shape: B1 forward, then B2 on its output
@@ -1178,21 +1575,24 @@ def compare_scan(ops, ref, errs):
     return report, first, first_gated
 
 
+def _refuse(module, name, what):
+    """A patch that makes ``module.name`` raise: a main path must not reach
+    it."""
+    from unittest import mock
+
+    def fn(*args, **kwargs):
+        raise RuntimeError(f"the main path reached {what} {name}")
+    return mock.patch.object(module, name, fn)
+
+
 def _plain_guard(ref, ops):
     """Patches that make the plain versions of B4-B6 raise, B6's gated
     entry's too, and B6's bare entry: the main path on the card must reach
     only the kernels, and the SSM block only B6's gated entry."""
-    from unittest import mock
-
-    def refuse(module, name, what):
-        def fn(*args, **kwargs):
-            raise RuntimeError(f"the main path reached {what} {name}")
-        return mock.patch.object(module, name, fn)
-
-    return [refuse(ref, n, "the plain") for n in (
+    return [_refuse(ref, n, "the plain") for n in (
         "flash_attention_torch", "decode_attention_torch",
         "mamba_scan_torch", "mamba_scan_gated_torch")] + [
-        refuse(ops, "mamba_scan", "B6's bare entry")]
+        _refuse(ops, "mamba_scan", "B6's bare entry")]
 
 
 def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
@@ -1692,7 +2092,11 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models import lm
     from repro_torch.nn import param_count
+    from repro_torch import resilience
+    from repro_torch import workloads as wl
+    from repro_torch.resilience import faults
     from repro_torch.serving import batching
+    from repro_torch.serving import engine
     from repro_torch.serving import fastpath as fpm
 
     # phase 1: the card
@@ -1725,8 +2129,15 @@ def main() -> int:
     bwd = compare_backward(policy_score, ref, random + [train_shape_case()],
                            errs)
     mem = memory_check(ops, ref)
+    # B1 and B3 at the rollout's shapes: the scale run's round width first
+    rollout_arr, arrivals_s = rollout_arrivals(wl)
+    width = int(rollout_arr["mask"].shape[-1])
+    rollout_cases, rollout_inputs = compare_rollout_shapes(ops, ref, width,
+                                                           errs)
+    cases += rollout_cases
     print(f"compare: max_abs_err {json.dumps(errs)} over {len(cases)} "
-          f"forward and {len(bwd)} backward shapes, {len(ties)} exact-tie "
+          f"forward and {len(bwd)} backward shapes ({len(rollout_cases)} at "
+          f"the rollout's, Z = {width}), {len(ties)} exact-tie "
           f"decodes, B1 = B3 bits at {len(bits)} shapes; memory "
           f"{json.dumps(mem)}", flush=True)
 
@@ -1765,6 +2176,25 @@ def main() -> int:
 
     record("serving", summary["launches"])
     record("training", training["launches"])
+
+    # phase 6a: the rollout engine on the card against the CPU at Q = 5
+    t0 = time.perf_counter()
+    eng_parity = engine_parity(engine, wl, faults, resilience)
+    eng_parity_s = time.perf_counter() - t0
+    print(f"engine parity ({eng_parity_s:.1f} s): {json.dumps(eng_parity)}",
+          flush=True)
+
+    # phase 6b: the scale run, B3 and then B1 once per round for 256
+    # instances of a 100-edge cluster at full policy width
+    t0 = time.perf_counter()
+    rollout, rollout_counts = drive_rollout(pol, engine, policy_score, ref,
+                                            rollout_arr)
+    rollout_s = time.perf_counter() - t0
+    for backend, r in rollout.items():
+        print(f"rollout {backend}: {json.dumps(r)}", flush=True)
+        record("rollout", rollout_counts[backend])
+    del rollout_arr
+    torch.cuda.empty_cache()
 
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
     cfg = get_config(LM_ARCH)
@@ -1820,7 +2250,8 @@ def main() -> int:
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
     print(f"policy head launch split: {json.dumps(head_split)}", flush=True)
-    kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs)
+    kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
+                      rollout_inputs[0])
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
@@ -1837,6 +2268,9 @@ def main() -> int:
         "compare_attention": attn_cases, "lm_serving": lm_serving,
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
+        "engine_parity": eng_parity, "rollout": rollout,
+        "rollout_arrivals_s": arrivals_s, "engine_parity_s": eng_parity_s,
+        "rollout_s": rollout_s,
         "kernels": kernels}, indent=1))
 
     print(json.dumps({"decision_ms": summary["decision_ms"],
@@ -1862,6 +2296,14 @@ def main() -> int:
                           "max_memory_allocated_bytes":
                               r["serving"]["max_memory_allocated_bytes"]}
                           for arch, r in ssm_lm.items()},
+                      "rollout": {backend: {
+                          k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
+                                            "request_rounds_per_s",
+                                            "peak_memory_bytes")}
+                          | {k: r["profile"][k] for k in (
+                              "device_busy_ms", "idle_share",
+                              "kernels_per_unit", "head_device_ms")}
+                          for backend, r in rollout.items()},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

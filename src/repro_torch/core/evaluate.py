@@ -1,7 +1,6 @@
 """Evaluation harness: gaps vs. the reference solver (paper §V, eq 22) on
-static instances; counterpart of the static half of
-``repro/core/evaluate.py``. Rollout evaluation on the batched engine is not
-ported yet."""
+static instances, plus temporal rollout evaluation on the batched engine;
+counterpart of ``repro/core/evaluate.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +14,8 @@ from repro_torch.core.heuristics import solve_ils, solve_local, solve_random
 from repro_torch.core.inference import DecisionSpec, make_decision_fn
 from repro_torch.core.objective import makespan_np
 from repro_torch.core.policy import CoRaiSPolicy
+from repro_torch.serving import engine as engine_lib
+from repro_torch.workloads.batch import materialize_round_batch
 
 
 @dataclasses.dataclass
@@ -97,3 +98,78 @@ def standard_method_suite(
         for n in sample_ns:
             methods[f"CoRaiS({n})"] = _policy_method(policy, "sample", n, seed=n)
     return methods
+
+
+# ---------------------------------------------------------------------------
+# Temporal evaluation: backends compared on whole engine rollouts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RolloutResult:
+    """Aggregate of one backend over a batch of engine rollouts."""
+
+    name: str
+    completed: int
+    submitted: int
+    mean_response: float
+    p95_response: float
+    makespan: float
+    wall_s: float          # the whole batch's rollout, warm-up excluded
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+
+def evaluate_rollouts(
+    assign_fns: dict,
+    cfg: engine_lib.EngineConfig,
+    workload,
+    *,
+    batch: int = 8,
+    base_seed: int = 0,
+    seed: int = 0,
+    device=None,
+) -> dict[str, RolloutResult]:
+    """Run every scheduling backend over the same ``batch`` scenario
+    episodes (paired clusters and arrival streams) on the batched engine;
+    the temporal counterpart of :func:`evaluate_methods`.
+
+    ``assign_fns`` values may be AssignFns (e.g. from
+    ``engine.make_policy_assign``) or registered engine backend names.
+    Each backend runs once untimed (kernel builds, first-call costs), then
+    once timed to a device synchronisation; sampled dispatch draws from a
+    generator seeded with ``seed`` on the state's device."""
+    arrivals = materialize_round_batch(
+        workload, cfg.num_edges, cfg.num_rounds, cfg.round_interval, batch,
+        base_seed=base_seed)
+    state0 = engine_lib.init_batch(cfg, range(base_seed, base_seed + batch),
+                                   device=device)
+    dev = state0["t"].device
+    results = {}
+    for name, fn in assign_fns.items():
+        if isinstance(fn, str):
+            fn = engine_lib.resolve_assign_fn(fn)
+        run = engine_lib.make_rollout(cfg, fn, batch=True)
+        run(state0, arrivals, torch.Generator(device=dev).manual_seed(seed))
+        _sync(dev)
+        t0 = time.perf_counter()
+        final, _ = run(state0, arrivals,
+                       torch.Generator(device=dev).manual_seed(seed))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        m = engine_lib.summarize(final)
+        results[name] = RolloutResult(
+            name=name,
+            completed=m["completed"],
+            submitted=m["submitted"],
+            mean_response=m["mean_response"],
+            p95_response=m["p95_response"],
+            makespan=m["makespan"],
+            wall_s=wall,
+            metrics=m,
+        )
+    return results
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

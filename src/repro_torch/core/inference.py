@@ -12,9 +12,12 @@ sampling), configured by one frozen :class:`DecisionSpec`:
         argmax/top-k inside the scoring kernel, so on the card the decision
         never writes (Z, Q) to device memory.
 
-Entry points: :func:`policy_decide` (one decision) and
-:func:`make_decision_fn` (a decision function bound to a policy and spec,
-used by the serving fast path). Both run eagerly.
+Entry points: :func:`policy_decide` (one decision, any leading batch
+shape), :func:`make_decision_fn` (a decision function bound to a policy and
+spec, used by the serving fast path) and :func:`make_assign_factory`, the
+rollout engine's scheduler factory behind ``ASSIGN_FNS["policy"]``
+(:func:`make_policy_assign`) and ``["policy-fused"]``
+(:func:`make_policy_assign_fused`). All run eagerly.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from repro_torch.kernels.ref import stable_topk
 DECODE_MODES = ("greedy", "sample")
 
 __all__ = ["DECODE_MODES", "DecisionSpec", "policy_decide",
-           "make_decision_fn"]
+           "make_policy_assign", "make_policy_assign_fused",
+           "make_assign_factory", "make_decision_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +77,18 @@ class DecisionSpec:
 
 @torch.inference_mode()
 def policy_decide(policy: CoRaiSPolicy, inst, spec: Optional[DecisionSpec] = None,
-                  *, generator: Optional[torch.Generator] = None):
+                  *, generator: Optional[torch.Generator] = None,
+                  per_instance: bool = False):
     """One full scheduling decision on an instance dict of tensors: (..., Z)
     int32 execution edge per request. ``mode="sample"`` draws
     ``spec.num_samples`` complete decisions from ``generator`` over the
     per-request top-``num_candidates`` candidates and keeps the cheapest
     (eq 19), greedy included. With ``admission=True`` the decision is an
-    ``(assign, admit)`` pair."""
+    ``(assign, admit)`` pair. ``per_instance=True`` decides each instance
+    of the leading axes on its own statistics (:func:`corais_encode`)."""
     spec = spec or DecisionSpec()
-    c_emb, h_emb = corais_encode(policy, inst, training=False)
+    c_emb, h_emb = corais_encode(policy, inst, training=False,
+                                 per_instance=per_instance)
     emask = inst["edge_mask"]
     if spec.mode == "greedy":
         if spec.fused_decode:
@@ -111,6 +118,53 @@ def policy_decide(policy: CoRaiSPolicy, inst, spec: Optional[DecisionSpec] = Non
         return assign
     admit = corais_admit(policy, c_emb, h_emb, emask) > 0
     return assign, admit & inst["req_mask"]
+
+
+def make_assign_factory(defaults: DecisionSpec):
+    """Build a rollout-engine scheduler factory around a default
+    :class:`DecisionSpec`: the one registration point behind both policy
+    entries of ``serving.engine.ASSIGN_FNS`` (``"policy"`` and
+    ``"policy-fused"`` are this factory with different defaults).
+
+    ``factory(policy, spec=None)`` returns ``fn(generator, inst)``, which
+    decides a whole batch of round instances (leading axis B) with one
+    :func:`policy_decide`, so the head's kernel launches once per round for
+    all B instances, each decided on its own statistics as under the
+    reference's ``vmap``. It gives the (B, A) int32 assignment, or ``(assign,
+    admit)`` when ``spec.admission`` is set. ``generator`` is ignored by
+    greedy decoding; sampled decoding draws from it (one device
+    ``torch.Generator`` per rollout)."""
+
+    def factory(policy: CoRaiSPolicy, spec: Optional[DecisionSpec] = None):
+        resolved = defaults if spec is None else spec
+        if not isinstance(resolved, DecisionSpec):
+            raise TypeError(f"spec must be a DecisionSpec, got "
+                            f"{type(resolved).__name__}")
+
+        def fn(generator: Optional[torch.Generator], inst):
+            return policy_decide(policy, inst, resolved, generator=generator,
+                                 per_instance=True)
+
+        return fn
+
+    # engine.resolve_assign_fn builds entries tagged this way with a policy
+    # rather than calling them every round
+    factory._assign_factory = True
+    factory._decision_defaults = defaults
+    return factory
+
+
+#: The CoRaiS policy as an engine scheduler factory (``ASSIGN_FNS["policy"]``):
+#: the materialized head (B1) and its argmax.
+make_policy_assign = make_assign_factory(DecisionSpec())
+
+#: Same factory with the fused in-kernel decode on by default
+#: (``ASSIGN_FNS["policy-fused"]``, B3).
+make_policy_assign_fused = make_assign_factory(
+    DecisionSpec(fused_decode=True))
+
+make_policy_assign.__name__ = "make_policy_assign"
+make_policy_assign_fused.__name__ = "make_policy_assign_fused"
 
 
 def make_decision_fn(policy: CoRaiSPolicy, spec: Optional[DecisionSpec] = None):

@@ -140,23 +140,24 @@ class EncoderLayer(nn.Module):
             "l2": Linear(cfg.ff_hidden, d, generator=generator)})
         self.norm2 = _norm(cfg)
 
-    def forward(self, x, mask, *, training: bool = False):
+    def forward(self, x, mask, *, training: bool = False,
+                per_instance: bool = False):
         if "mha" in self.align:
             attn_mask = mask[..., None, None, :] & mask[..., None, :, None]
             a = self.align["mha"](x, mask=attn_mask)
         else:
             mlp = self.align["mlp"]
             a = mlp["l2"](torch.relu(mlp["l1"](x)))
-        h = _apply_norm(self.norm1, x + a, mask, training)
+        h = _apply_norm(self.norm1, x + a, mask, training, per_instance)
         f = self.fc["l2"](torch.relu(self.fc["l1"](h)))
-        x = _apply_norm(self.norm2, h + f, mask, training)
+        x = _apply_norm(self.norm2, h + f, mask, training, per_instance)
         return x * mask[..., None]
 
 
-def _apply_norm(norm, x, mask, training):
+def _apply_norm(norm, x, mask, training, per_instance=False):
     if isinstance(norm, LayerNorm):
         return norm(x)
-    return norm(x, mask, training=training)
+    return norm(x, mask, training=training, per_instance=per_instance)
 
 
 class CoRaiSPolicy(nn.Module):
@@ -200,11 +201,14 @@ def _masked_max(x, mask):
     return x.masked_fill(~mask[..., None], -torch.inf).amax(dim=-2)
 
 
-def corais_encode(policy: CoRaiSPolicy, inst, *, training: bool = False):
+def corais_encode(policy: CoRaiSPolicy, inst, *, training: bool = False,
+                  per_instance: bool = False):
     """Encoders + context decoder (eqs 12-15) on an instance dict of
     tensors (any leading batch shape). Returns (c_emb (..., Q, d), h_emb
     (..., Z, d)). ``training=True`` normalizes with batch statistics and
-    updates the BatchNorm buffers in place."""
+    updates the BatchNorm buffers in place. ``per_instance=True`` keeps the
+    instances of the leading axes apart where an untrained BatchNorm falls
+    back to batch statistics, as under the reference's ``vmap``."""
     cfg = policy.cfg
     emask = inst["edge_mask"]
     rmask = inst["req_mask"]
@@ -220,9 +224,9 @@ def corais_encode(policy: CoRaiSPolicy, inst, *, training: bool = False):
     f = policy.edge_proj(ef)
     h = policy.req_proj(rf)
     for layer in policy.edge_layers:
-        f = layer(f, emask, training=training)
+        f = layer(f, emask, training=training, per_instance=per_instance)
     for layer in policy.req_layers:
-        h = layer(h, rmask, training=training)
+        h = layer(h, rmask, training=training, per_instance=per_instance)
 
     f_hat = _masked_max(f, emask)  # (..., d)
     h_hat = _masked_max(h, rmask)

@@ -7,8 +7,9 @@ the computation-time estimation function ``phi(x)`` and the replica count
 the live queues of Fig. 5. ``LMEdgeBackend`` fits one :class:`PhiEstimator`
 per edge from measured prefill latencies, and :func:`snapshot_instance`
 freezes the live system into a scheduling instance for the solvers and
-the policy. The array twin ``slot_workload_features`` (jnp, used by the
-batched engine) waits for ROADMAP A8. ``tests/test_torch_lm_serving.py``
+the policy. :func:`slot_workload_features` is the torch port of the
+reference's array twin, batched over any leading shape, which the rollout
+engine calls every round. ``tests/test_torch_lm_serving.py``
 holds this copy against the original bit for bit, apart from the one
 place where :class:`PhiEstimator` differs on purpose (a history whose
 least-squares slope is not positive).
@@ -19,6 +20,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -148,6 +150,43 @@ class EdgeServiceState:
             default=0.0,
         )
         return c_le, c_in, t_in
+
+
+def slot_workload_features(phi_est, replicas, w, ct, slot_size, slot_src,
+                           slot_edge, slot_ready, slot_start, t):
+    """Array twin of :meth:`EdgeServiceState.workload`: (c_le, c_in, t_in)
+    per eqs (1)-(3) for every edge, straight from a rollout engine's slot
+    table at time ``t``.
+
+    A committed slot (``slot_edge >= 0``) whose data has not arrived
+    (``ready > t``) is in Q^in; one whose data arrived but whose execution
+    has not started (``ready <= t < start``) is in Q^le. Started and
+    finished slots contribute nothing, as in the oracle's queues.
+
+    Shapes, with any leading batch shape ``...``: phi_est (..., Q, 2),
+    replicas (..., Q), w (..., Q, Q), ct and t (...), slot_* (..., Z).
+    Returns (..., Q, 3) float32. The per-edge sums are ``scatter_add_``
+    (atomics on the card, so their last bits may vary from run to run) and
+    t_in a ``scatter_reduce_`` max on a zero base.
+    """
+    num_edges = w.shape[-1]
+    committed = slot_edge >= 0
+    e = torch.clamp(slot_edge, 0, num_edges - 1).long()
+    t = t[..., None]
+    in_transfer = committed & (slot_ready > t)
+    waiting = committed & (slot_ready <= t) & (slot_start > t)
+    comp = (torch.gather(phi_est[..., 0], -1, e) * slot_size
+            + torch.gather(phi_est[..., 1], -1, e))        # phi(f_z)
+    zeros = torch.zeros(e.shape[:-1] + (num_edges,), dtype=torch.float32,
+                        device=e.device)
+    c_le = zeros.scatter_add(-1, e, torch.where(waiting, comp, 0.0)) / replicas
+    c_in = (zeros.scatter_add(-1, e, torch.where(in_transfer, comp, 0.0))
+            / replicas)
+    dist = torch.gather(w.flatten(-2), -1, slot_src.long() * num_edges + e)
+    trans = ct[..., None] * slot_size * dist  # eq (2) terms
+    t_in = zeros.scatter_reduce(-1, e, torch.where(in_transfer, trans, 0.0),
+                                "amax")
+    return torch.stack([c_le, c_in, t_in], dim=-1).to(torch.float32)
 
 
 def snapshot_instance(

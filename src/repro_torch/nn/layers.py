@@ -89,7 +89,10 @@ class BatchNorm(nn.Module):
     ``mean``/``var``/``count`` buffers in place (the reference returns the
     new state instead). Otherwise the running statistics are used once
     ``count > 0``; an untrained layer falls back to the masked batch
-    statistics (``repro/core/policy.py:211-234``)."""
+    statistics (``repro/core/policy.py:211-234``). ``per_instance=True``
+    takes that fallback's statistics per instance, over the node axis
+    (-2) only, as the reference computes them under ``vmap`` (its rollout
+    engine); it is an evaluation-only option."""
 
     momentum = 0.9
     eps = 1e-5
@@ -103,15 +106,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("count", torch.zeros(()))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, *,
-                training: bool = False) -> torch.Tensor:
-        axes = tuple(range(x.ndim - 1))
+                training: bool = False,
+                per_instance: bool = False) -> torch.Tensor:
         if mask is None:
             m = torch.ones_like(x[..., :1])
         else:
             m = mask[..., None].to(x.dtype)
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (x * m).sum(axes) / cnt
-        var = (torch.square(x - mean) * m).sum(axes) / cnt
+        if per_instance:
+            if training:
+                raise ValueError("per-instance statistics are an evaluation "
+                                 "fallback; training pools the batch")
+            cnt = torch.clamp(m.sum(-2, keepdim=True), min=1.0)
+            mean = (x * m).sum(-2, keepdim=True) / cnt
+            var = (torch.square(x - mean) * m).sum(-2, keepdim=True) / cnt
+        else:
+            axes = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(axes) / cnt
+            var = (torch.square(x - mean) * m).sum(axes) / cnt
         if training:
             with torch.no_grad():
                 mom = self.momentum

@@ -37,7 +37,12 @@ from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
                                             mamba_scan_gated_cuda)
 from repro_torch.models import lm
 from repro_torch.serving.batching import LMEdgeBackend
+from repro_torch.serving import engine
 from repro_torch.serving.fastpath import DecisionFastPath
+from repro_torch.resilience import faults
+from repro_torch.resilience.policies import ResilienceConfig
+from repro_torch.workloads import (materialize_round_batch, scenario,
+                                   scenario_fault_spec)
 
 pytestmark = pytest.mark.cuda
 
@@ -766,3 +771,84 @@ def test_ssm_lm_on_the_card_matches_the_cpu(cuda_device, arch):
         torch.testing.assert_close(cache_g["layers"][key].cpu(),
                                    cache_c["layers"][key], atol=1e-5,
                                    rtol=1e-5)
+
+
+# -- the rollout engine ------------------------------------------------------
+
+
+def _engine_case(name, b=6, rounds=8, resilience=None):
+    arr = materialize_round_batch(scenario(name), 5, rounds, 0.25, b,
+                                  base_seed=0)
+    spec = scenario_fault_spec(name)
+    if spec is not None:
+        arr = faults.attach_fault_batch(arr, spec, 5, seeds=range(b))
+    cfg = engine.EngineConfig(num_edges=5, num_rounds=rounds,
+                              max_per_round=arr["mask"].shape[-1],
+                              resilience=resilience)
+    return cfg, arr
+
+
+@pytest.mark.parametrize("name,backend", [("uniform_iid", "greedy"),
+                                          ("chaos-rolling-failure", "local")])
+def test_engine_rollout_on_the_card_equals_the_cpu(cuda_device, name,
+                                                   backend):
+    """The same arrivals through the engine on the card and on the CPU:
+    counts and per-edge completions equal, floats within 1e-4."""
+    res = (ResilienceConfig(admission="slo_threshold", breaker=True,
+                            retry_backoff_rounds=1.0)
+           if name.startswith("chaos") else None)
+    cfg, arr = _engine_case(name, resilience=res)
+    run = engine.make_rollout(cfg, engine.ASSIGN_FNS[backend], batch=True)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        final, infos = run(engine.init_batch(cfg, range(6), device=dev), arr)
+        out[str(dev)] = ({k: v.cpu() for k, v in final.items()},
+                         {k: v.cpu() for k, v in infos.items()})
+    (gf, gi), (cf, ci) = out[str(cuda_device)], out["cpu"]
+    for got, want in ((gf, cf), (gi, ci)):
+        for k, w in want.items():
+            if w.is_floating_point():
+                torch.testing.assert_close(got[k], w, atol=1e-4, rtol=0)
+            else:
+                assert torch.equal(got[k], w), k
+    gs, cs = engine.summarize(gf), engine.summarize(cf)
+    for k, w in cs.items():
+        assert gs[k] == (pytest.approx(w, abs=1e-4) if isinstance(w, float)
+                         else w), k
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("policy-fused", "policy_score_decode"), ("policy", "policy_score")])
+def test_policy_rollout_launches_its_kernel_once_per_round(cuda_device,
+                                                           backend, kernel):
+    """A policy rollout on the card: the head's kernel (B3 fused, B1
+    materialized) launches once per round for the whole batch, and each
+    round's decisions equal the plain backend's where the top-2 gap
+    exceeds 1e-4."""
+    cfg, arr = _engine_case("hotspot_skew")
+    policy = CoRaiSPolicy(PolicyConfig(**SMALL), device=cuda_device)
+    fn = engine.resolve_assign_fn(backend, policy=policy)
+    checked = []
+
+    def assign(generator, inst):
+        got = fn(generator, inst)
+        with torch.inference_mode():
+            c, h = corais_encode(policy, inst, per_instance=True)
+            ti, tv = corais_score_decode(policy, c, h, inst["edge_mask"],
+                                         k=2, normalize=False,
+                                         backend="torch")
+        gapped = ((tv[..., 0] - tv[..., 1]) > 1e-4) & inst["req_mask"]
+        assert torch.equal(got[gapped], ti[..., 0][gapped])
+        checked.append(int(gapped.sum()))
+        return got
+
+    run = engine.make_rollout(cfg, assign, batch=True)
+    state = engine.init_batch(cfg, range(6), device=cuda_device)
+    policy_score.reset_launch_counts()
+    final, _ = run(state, arr)
+    torch.cuda.synchronize()
+    assert policy_score.LAUNCHES[kernel] == cfg.num_rounds
+    assert sum(policy_score.LAUNCHES.values()) == cfg.num_rounds
+    assert sum(checked) > 0
+    m = engine.summarize(final)
+    assert m["completed"] == m["submitted"] == int(arr["mask"].sum())

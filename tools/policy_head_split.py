@@ -19,7 +19,11 @@ The cases, each with random inputs from a seed:
   best-of-64 sampled decisions);
 * ``b2_train``: B2 at the training shape;
 * ``b1_serve_ops`` and ``b3_k1_ops``: ``b1_serve`` and ``b3_k1`` called
-  as the main paths call them, through ``kernels.ops`` with a bool mask.
+  as the main paths call them, through ``kernels.ops`` with a bool mask;
+* ``b1_rollout`` and ``b3_rollout``: B1 and B3 (K=1, normalized) as the
+  rollout engine's policy backends call them through ``ops``, once a
+  round for 256 instances of 100 edges and the scale run's 130 requests
+  (``chip_smoke.py`` phase 6b).
 
 For each: ``split``, the device us per call of every kernel it launches
 (``chip_smoke.launch_split``, a torch.profiler trace); ``ms`` and
@@ -145,6 +149,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     serving = cs._inputs(gen, 1, 100, 1000, valid=[80])
     train = cs.train_shape_case()[4:]
+    rollout = cs._inputs(gen, 256, 100, 130, valid=[100] * 256)
     mods = (policy_score, ops, ref)
     cases = {
         "b1_serve": b1_case(*mods, serving),
@@ -154,6 +159,8 @@ def main() -> int:
         "b2_train": b2_case(policy_score, ref, train),
         "b1_serve_ops": b1_case(*mods, serving, through_ops=True),
         "b3_k1_ops": b3_case(*mods, serving, 1, False, through_ops=True),
+        "b1_rollout": b1_case(*mods, rollout, through_ops=True),
+        "b3_rollout": b3_case(*mods, rollout, 1, True, through_ops=True),
     }
     torch.cuda.synchronize()
     result = {"card": cs.card_line(), "tree": args.tree, "label": args.label,
