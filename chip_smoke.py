@@ -53,6 +53,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    request-rounds/s, peak device memory, and a profile of its last two
    rounds (device busy, idle share, launches per round, the head's device
    ms against the lane recursion, the features and ``commit``);
+6c. temporal REINFORCE on engine rollouts (``temporal_train``) at full
+   policy width, B1 forward and B2 backward once per round of every update:
+   (a) the host loop at ``TemporalRLConfig()``'s defaults (``PolicyConfig()``,
+   Q = 5, 12 rounds of 0.25 s, 16 slots a round, B = 16, uniform_iid);
+   (b) the same on device episodes, two epochs of 8 updates; (c) the
+   resilient trainer's config (chaos-rolling-failure, the admit head,
+   64 slots a round, SLO 3 s with penalty 10, dispatch frozen, B = 8) on
+   device episodes; (d) three updates on 16 of 6b's 256 instances (Q =
+   100) with 6b's arrivals. On each path B1 and B2 launch 12 times per
+   update and nothing else of the head, no plain head is reached, every
+   metric is finite, requests complete and the parameters move (on (c)
+   only the admit head's). Also: B1 (and B3) and B2 against their plain
+   versions at (16, 5, 16), (8, 5, 64) and (16, 100, 6b's width), the
+   same bits on two calls; one update of (a) through the kernels against
+   plain autograd with the same injected actions (phase 5's tolerances);
+   the device samplers' laws on the card (Poisson count moments against
+   the law and the host sampler, the sizes' KS test, the exact clip
+   contract, MMPP's transient round means, scripted fault rows equal to
+   the host's, fail/recover rates); host against device episode time; a
+   torch.profiler trace of two updates (device busy, idle share, launches
+   per update, B1's and B2's device ms); and a save -> resume on the card
+   (epoch path, K = 3, checkpoints every 2) bit-identical to the
+   uninterrupted run;
 7. hold the attention kernels B4 (flash attention) and B5 (decode
    attention) against their plain versions at qwen3-4b, olmo-1b and
    hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
@@ -115,7 +138,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
-    main path above, the rollout's included).
+    main path above, the rollout's and temporal training's included; B1
+    and B2 also timed at the temporal shapes, under ``temporal_shapes``).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
 summary. Details of every comparison go to ``chiprun_out/chip_smoke.json``.
@@ -223,6 +247,22 @@ PARITY_BATCH = 64
 PARITY_RESILIENCE = dict(admission="slo_threshold", breaker=True,
                          retry_backoff_rounds=1.0)
 PARITY_TOL = 1e-4      # floats, card against CPU (ROADMAP "How parity is held")
+# phase 6c, temporal training: path (a) host-loop updates (the first a
+# warm-up), path (b) two epochs of TEMPORAL_EPOCH_LEN updates on device
+# episodes, path (c) the resilient config's epochs, path (d) updates on 16
+# of 6b's 256 instances; B1 and B2 also at the trainer's (B, Q, Z) shapes
+TEMPORAL_HOST_UPDATES = 6
+TEMPORAL_EPOCH_LEN = 8
+TEMPORAL_CHAOS_EPOCH_LEN = 4
+TEMPORAL_EPOCHS = 2
+TEMPORAL_SCALE_BATCH = 16
+TEMPORAL_SCALE_UPDATES = 3
+TEMPORAL_PROFILE_UPDATES = 2
+TEMPORAL_SHAPES = ((16, 5, 16), (8, 5, 64))
+# the device samplers' laws on the card: batch, and the band in standard
+# errors of the samples' own spread
+SAMPLER_BATCH = 4096
+SAMPLER_SE = 5.0
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1100,6 +1140,475 @@ def drive_rollout(pol, engine, policy_score, ref, arr, *, device="cuda",
     return reports, counts
 
 
+# -- phase 6c: temporal training on engine rollouts --------------------------
+
+
+def temporal_cases(width):
+    """B1 and B2 at the temporal trainer's shapes (TEMPORAL_SHAPES, the
+    scale path's Z the 6b round width), random inputs and partial masks."""
+    gen = torch.Generator().manual_seed(17)
+    cases = []
+    for b, q, z in TEMPORAL_SHAPES + ((TEMPORAL_SCALE_BATCH, ROLLOUT_EDGES,
+                                       width),):
+        valid = [q] * (b - 2) + [1, max(1, q - q // 3)]
+        cases.append(("temporal", b, q, z, *_inputs(gen, b, q, z,
+                                                    valid=valid)))
+    return cases
+
+
+def compare_temporal_shapes(ops, ref, policy_score, cases, errs):
+    """B1 (and B3, compare_kernels) and B2 against their plain versions at
+    the temporal shapes, each the same bits on two calls."""
+    fwd = compare_kernels(ops, ref, cases, errs)
+    for _, b, q, z, c, h, wx, wy, mask in cases:
+        check(torch.equal(ops.policy_score(c, h, wx, wy, mask),
+                          ops.policy_score(c, h, wx, wy, mask)),
+              f"policy_score differs between two calls at {(b, q, z)}")
+    return {"forward": fwd,
+            "backward": compare_backward(policy_score, ref, cases, errs)}
+
+
+def _chaos_config(tr, pol, engine):
+    """Path (c): the resilient trainer's config (benchmarks/common.py:
+    150-166) on device episodes, TEMPORAL_CHAOS_EPOCH_LEN updates an
+    epoch."""
+    return tr.TemporalRLConfig(
+        policy=pol.PolicyConfig(admit_head=True, admit_bias=1.0),
+        engine=engine.EngineConfig(max_per_round=64),
+        scenario="chaos-rolling-failure", batch_size=8, lr=1e-3,
+        admission=True, slo=3.0, slo_penalty=10.0, freeze_dispatch=True,
+        device_episodes=True, epoch_len=TEMPORAL_CHAOS_EPOCH_LEN)
+
+
+def _plain_head_guard(ref):
+    """Patches that make the policy head's plain versions raise."""
+    return [_refuse(ref, n, "the plain") for n in (
+        "policy_score_torch", "policy_score_bwd_torch",
+        "policy_score_decode_torch")]
+
+
+TEMPORAL_METRICS = ("loss", "grad_norm", "cost_mean", "cost_best", "entropy",
+                    "completed", "shed")
+
+
+def _temporal_checks(label, hist, launched, updates, rounds, moved,
+                     admit_only=False):
+    """Phase 6c's checks on one path's run: B1 and B2 launched once per
+    round of every update and nothing else of the head, every metric
+    finite, requests completed, the parameters moved (only the admit head
+    where dispatch is frozen)."""
+    want = updates * rounds
+    check(launched["policy_score"] == want
+          and launched["policy_score_bwd"] == want
+          and sum(launched.values()) == 2 * want,
+          f"temporal {label}: launched {launched} in {updates} updates of "
+          f"{rounds} rounds; B1 and B2 must launch once per round")
+    check(len(hist) == updates, f"temporal {label}: {len(hist)} history rows "
+          f"for {updates} updates")
+    for row in hist:
+        check(all(math.isfinite(v) for v in row.values()),
+              f"temporal {label}: non-finite metrics at batch "
+              f"{row['batch']}: {row}")
+        check(row["completed"] > 0, f"temporal {label}: nothing completed "
+              f"at batch {row['batch']}")
+    names = [k for k in moved if moved[k]]
+    check(bool(names), f"temporal {label}: no parameter moved")
+    if admit_only:
+        check(all(k.startswith("admit/") for k in names)
+              and any(k.startswith("admit/") for k in moved),
+              f"temporal {label}: parameters outside the admit head moved: "
+              f"{[k for k in names if not k.startswith('admit/')]}")
+    return len(names)
+
+
+def drive_temporal(pol, tr, ref, policy_score, cfg, label, num_batches,
+                   device="cuda"):
+    """One temporal path through ``temporal_train`` at full policy width:
+    the launch counters set to 0 just before and read just after, the
+    plain heads patched to raise. Returns (report, launches, policy)."""
+    from repro_torch.nn import param_tree
+    policy = pol.CoRaiSPolicy(cfg.policy,
+                              generator=torch.Generator().manual_seed(cfg.seed),
+                              device=device)
+    before = {k: p.detach().clone() for k, p in param_tree(policy).items()}
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(ref):
+            stack.enter_context(guard)
+        policy_score.reset_launch_counts()
+        t0 = time.perf_counter()
+        policy, _, hist = tr.temporal_train(cfg, num_batches=num_batches,
+                                            policy=policy)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launched = dict(policy_score.LAUNCHES)
+    moved = {k: not torch.equal(p.detach(), before[k])
+             for k, p in param_tree(policy).items()}
+    n_moved = _temporal_checks(label, hist, launched, num_batches,
+                               cfg.engine.num_rounds, moved,
+                               admit_only=cfg.freeze_dispatch)
+    sec = [row["sec"] * 1e3 for row in hist]
+    steady = sec[1:] if len(sec) > 1 else sec
+    return {
+        "config": {"B": cfg.batch_size, "Q": cfg.engine.num_edges,
+                   "rounds": cfg.engine.num_rounds,
+                   "width": cfg.engine.max_per_round,
+                   "d_model": cfg.policy.d_model,
+                   "scenario": cfg.scenario,
+                   "device_episodes": cfg.device_episodes,
+                   "epoch_len": cfg.epoch_len,
+                   "freeze_dispatch": cfg.freeze_dispatch},
+        "updates": num_batches, "launches": launched,
+        "wall_s": wall_s, "updates_per_s": num_batches / wall_s,
+        "update_ms": {"p50": float(np.percentile(steady, 50)),
+                      "p95": float(np.percentile(steady, 95)),
+                      "first": sec[0], "n": len(steady)},
+        "params_moved": n_moved,
+        "first_last": {k: [hist[0][k], hist[-1][k]] for k in
+                       TEMPORAL_METRICS},
+        "rows": hist,
+    }, launched, policy
+
+
+def temporal_scale(pol, tr, engine, ref, policy_score, arr, device="cuda"):
+    """(d): TEMPORAL_SCALE_UPDATES updates (``make_temporal_train_step``)
+    on the first TEMPORAL_SCALE_BATCH instances of phase 6b's 100-edge
+    clusters and arrivals at full policy width."""
+    from repro_torch.nn import param_tree
+    from repro_torch.optim import adam_init
+    width = arr["mask"].shape[-1]
+    cfg = tr.TemporalRLConfig(engine=engine.EngineConfig(
+        num_edges=ROLLOUT_EDGES, num_rounds=ROLLOUT_ROUNDS,
+        round_interval=ROLLOUT_DT, max_per_round=width),
+        batch_size=TEMPORAL_SCALE_BATCH)
+    policy = pol.CoRaiSPolicy(cfg.policy,
+                              generator=torch.Generator().manual_seed(0),
+                              device=device)
+    before = {k: p.detach().clone() for k, p in param_tree(policy).items()}
+    step, adam_cfg = tr.make_temporal_train_step(cfg)
+    opt = adam_init(param_tree(policy), adam_cfg)
+    arrivals = {k: torch.as_tensor(v[:TEMPORAL_SCALE_BATCH]).to(device)
+                for k, v in arr.items()}
+    rows, walls = [], []
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(ref):
+            stack.enter_context(guard)
+        policy_score.reset_launch_counts()
+        for b in range(TEMPORAL_SCALE_UPDATES):
+            sim0 = engine.init_batch(cfg.engine, range(TEMPORAL_SCALE_BATCH),
+                                     device=device)
+            gen = torch.Generator(device=device).manual_seed(b)
+            t0 = time.perf_counter()
+            opt, metrics = step(policy, opt, sim0, arrivals, generator=gen)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rows.append({k: float(v) for k, v in metrics.items()}
+                        | {"batch": b})
+        launched = dict(policy_score.LAUNCHES)
+    moved = {k: not torch.equal(p.detach(), before[k])
+             for k, p in param_tree(policy).items()}
+    n_moved = _temporal_checks("scale", rows, launched,
+                               TEMPORAL_SCALE_UPDATES, ROLLOUT_ROUNDS, moved)
+    return {"config": {"B": TEMPORAL_SCALE_BATCH, "Q": ROLLOUT_EDGES,
+                       "rounds": ROLLOUT_ROUNDS, "width": width,
+                       "d_model": cfg.policy.d_model},
+            "updates": TEMPORAL_SCALE_UPDATES, "launches": launched,
+            "update_ms": {"p50": float(np.percentile(walls[1:], 50)),
+                          "p95": float(np.percentile(walls[1:], 95)),
+                          "first": walls[0], "runs": walls},
+            "updates_per_s": 1e3 / float(np.percentile(walls[1:], 50)),
+            "params_moved": n_moved, "rows": rows}, launched
+
+
+def temporal_gradient_parity(pol, tr, engine, wl, device="cuda"):
+    """One update of path (a) through the kernels ("cuda") and plain
+    autograd ("torch") on two copies of one policy: the same clusters,
+    host episode and injected actions; phase 5's tolerances."""
+    cfg = tr.TemporalRLConfig()
+    ecfg = cfg.engine
+    arrivals = tr._host_episode(cfg, None, wl.scenario(cfg.scenario), 0)
+    seeds = tr._cluster_seeds(cfg, 0)
+    actions = torch.randint(0, ecfg.num_edges, (ecfg.num_rounds,
+                                                cfg.batch_size,
+                                                ecfg.max_per_round),
+                            generator=torch.Generator().manual_seed(9)
+                            ).to(device)
+    out = {}
+    for backend in ("cuda", "torch"):
+        pcfg = pol.PolicyConfig(score_backend=backend)
+        policy = pol.CoRaiSPolicy(pcfg,
+                                  generator=torch.Generator().manual_seed(0),
+                                  device=device)
+        loss, aux, grads = tr.temporal_loss_and_grads(
+            policy, engine.init_batch(ecfg, seeds, device=device), arrivals,
+            dataclasses.replace(cfg, policy=pcfg), actions=actions)
+        out[backend] = (float(loss), {k: float(v) for k, v in aux.items()},
+                        grads)
+    (loss_k, aux_k, gk), (loss_p, aux_p, gp) = out["cuda"], out["torch"]
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    worst, worst_key = 0.0, None
+    for key, g in gp.items():
+        check(bool(torch.isfinite(gk[key]).all()),
+              f"temporal gradient of {key} not finite through the kernels")
+        excess = float(((gk[key] - g).abs() - 1e-4 * g.abs()).max())
+        if excess > worst:
+            worst, worst_key = excess, key
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_rel <= 1e-5, f"temporal loss through kernels {loss_k} != "
+          f"plain {loss_p}")
+    check(aux_k["completed"] == aux_p["completed"] > 0,
+          f"temporal episodes differ: {aux_k} against {aux_p}")
+    check(worst <= 1e-5 * gmax, f"temporal gradient of {worst_key} differs "
+          f"by {worst} > 1e-5 * {gmax} beyond rtol 1e-4")
+    for key in ("edge_proj/w", "req_proj/w", "ctx_mha/wq"):
+        check(float(gk[key].abs().max()) > 1e-3 * gmax,
+              f"no temporal gradient reached {key} through the kernels")
+    return {"loss_cuda": loss_k, "loss_torch": loss_p,
+            "loss_rel_err": loss_rel, "grad_max": gmax,
+            "grad_excess_over_rtol": worst, "grad_excess_leaf": worst_key,
+            "aux": aux_k}
+
+
+def _ks_two_sample(a, b):
+    a, b = np.sort(a), np.sort(b)
+    grid = np.concatenate([a, b])
+    return float(np.max(np.abs(np.searchsorted(a, grid, side="right") / a.size
+                               - np.searchsorted(b, grid, side="right")
+                               / b.size)))
+
+
+def _within_se(name, got, want, se):
+    check(abs(got - want) <= SAMPLER_SE * se, f"device sampler {name}: "
+          f"{got} against {want}, more than {SAMPLER_SE} standard errors "
+          f"({se})")
+    return {"device": got, "want": want, "se": se}
+
+
+def device_sampler_laws(wl, faults, device="cuda"):
+    """The device episode and fault samplers on the card, on large batches,
+    against the laws and the port's host samplers: count moments, the
+    sizes' two-sample KS test, the exact clip contract, MMPP's transient
+    means per round, the scripted fault rows and the fail/recover rates.
+    Bands: SAMPLER_SE standard errors of the samples' own spread; KS at
+    c = 1.95 (alpha ~ 1e-3), as tests/test_torch_device_episodes.py."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    b, r, dt = SAMPLER_BATCH, 8, ROLLOUT_DT
+    report = {}
+
+    def draw(workload, width, q=4, rounds=r, batch=b):
+        out = wl.materialize_round_batch_device(
+            workload, q, rounds, dt, batch, generator=gen,
+            max_per_round=width)
+        check(all(v.device.type == gen.device.type for v in out.values()),
+              "device sampler output left the generator's device")
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    # Poisson count moments against the law and the host sampler
+    d = draw(wl.PoissonArrivals(rate=30.0), 64)
+    counts = d["mask"].sum(-1).astype(np.float64)
+    per = counts.mean(1)
+    report["poisson_mean"] = _within_se("Poisson mean", float(per.mean()),
+                                        30.0 * dt,
+                                        float(per.std() / np.sqrt(b)))
+    h = wl.materialize_round_batch(wl.PoissonArrivals(rate=30.0), 4, r, dt,
+                                   256, base_seed=0, max_per_round=64)
+    hc = h["mask"].sum(-1).mean(1)
+    report["poisson_vs_host"] = _within_se(
+        "Poisson mean vs host", float(per.mean()), float(hc.mean()),
+        float(np.sqrt(per.var() / b + hc.var() / hc.size)))
+    check(abs(counts.var() / (30.0 * dt) - 1.0) < 0.05,
+          f"device sampler Poisson variance {counts.var()}")
+    # the sizes' law against the host sampler
+    report["sizes_ks"] = {}
+    for spec in (wl.SizeSpec("pareto", (1.5, 0.05)),
+                 wl.SizeSpec("lognormal", (-1.5, 0.8)),
+                 wl.SizeSpec("uniform", (0.2, 0.9))):
+        dev = draw(wl.PoissonArrivals(rate=40.0, sizes=spec), 64,
+                   batch=512)
+        x = dev["size"][dev["mask"]].astype(np.float64)
+        y = spec.sample(np.random.default_rng(7), 50_000)
+        stat = _ks_two_sample(x, y)
+        band = 1.95 * np.sqrt((x.size + y.size) / (x.size * y.size))
+        check(stat < band, f"device sampler sizes {spec}: KS {stat} >= "
+              f"{band}")
+        report["sizes_ks"][spec.dist] = {"stat": stat, "band": band,
+                                         "n": int(x.size)}
+    # the clip contract, exactly
+    c = draw(wl.PoissonArrivals(rate=120.0), 8, rounds=6, batch=512)
+    kept = c["mask"].sum(-1)
+    total = kept + c["dropped"]
+    starts = np.cumsum(total, -1) - total
+    check(bool((c["dropped"] > 0).any())
+          and np.array_equal(c["mask"], np.arange(8) < kept[..., None])
+          and np.array_equal(c["rid"], np.where(
+              c["mask"], starts[..., None] + np.arange(8), 0)),
+          "device sampler: the clip contract (mask prefix, rids, dropped) "
+          "does not hold")
+    report["clip_rounds"] = int((c["dropped"] > 0).sum())
+    # MMPP: per-round transient means of the chain started in state 0
+    mm = wl.scenario("mmpp_bursty")
+    m = draw(mm, 64, rounds=12)["mask"].sum(-1).astype(np.float64)
+    leave = 1.0 / np.asarray(mm.mean_sojourn)
+    k = leave.sum()
+    t0 = np.arange(12) * dt
+    mass = leave[0] / k * (dt - (np.exp(-k * t0) - np.exp(-k * (t0 + dt)))
+                           / k)
+    want = mm.rates[0] * dt + (mm.rates[1] - mm.rates[0]) * mass
+    se = m.std(0) / np.sqrt(b)
+    check(bool(np.all(np.abs(m.mean(0) - want) <= SAMPLER_SE * se)),
+          f"device sampler MMPP round means {m.mean(0)} against {want}")
+    report["mmpp_round_means"] = {"device": m.mean(0).tolist(),
+                                  "want": want.tolist(), "se": se.tolist()}
+    # faults: scripted rows exactly, Markov rates against the law
+    spec = faults.FaultSpec(rolling=(2, 2), scripted_stragglers=(
+        (1, 3, 6, 4.0),), min_alive=2)
+    ev = faults.materialize_faults_device(spec, 5, 12, batch=64,
+                                          generator=gen)
+    host = faults.materialize_faults(spec, 5, 12, seed=0)
+    check(all(np.array_equal(ev["alive"][i].cpu().numpy(), host["alive"])
+              and np.array_equal(ev["speed"][i].cpu().numpy(),
+                                 host["speed"]) for i in range(64)),
+          "device fault rows differ from the host's scripted rows")
+    churn = faults.FaultSpec(fail_prob=0.15, recover_prob=0.3)
+    up = faults.materialize_faults_device(churn, 8, 24, batch=b,
+                                          generator=gen)["alive"].cpu().numpy()
+    prev, nxt = up[:, :-1], up[:, 1:]
+    n_up, n_down = prev.sum(), (~prev).sum()
+    fail, rec = (prev & ~nxt).sum() / n_up, (~prev & nxt).sum() / n_down
+    report["fail_rate"] = _within_se("fail rate", float(fail), 0.15,
+                                     float(np.sqrt(0.15 * 0.85 / n_up)))
+    report["recover_rate"] = _within_se("recover rate", float(rec), 0.3,
+                                        float(np.sqrt(0.3 * 0.7 / n_down)))
+    torch.cuda.synchronize()
+    return report
+
+
+def episode_materialization(tr, wl, faults, device="cuda", reps=5):
+    """Host (numpy samplers, then the copy to the card) against device
+    (the torch samplers on the card) episode time, ms per update's batch,
+    for path (a)'s and path (c)'s configs: the median of ``reps``."""
+    out = {}
+    for label, cfg, spec in (
+            ("uniform_iid B=16 A=16", tr.TemporalRLConfig(), None),
+            ("chaos-rolling-failure B=8 A=64",
+             tr.TemporalRLConfig(scenario="chaos-rolling-failure",
+                                 batch_size=8, engine=dataclasses.replace(
+                                     tr.EngineConfig(), max_per_round=64)),
+             wl.scenario_fault_spec("chaos-rolling-failure"))):
+        ecfg = cfg.engine
+        workload = wl.scenario(cfg.scenario)
+        host, dev = [], []
+        for b in range(reps + 1):
+            t0 = time.perf_counter()
+            arr = tr._host_episode(cfg, spec, workload, b)
+            arr = {k: torch.as_tensor(v).to(device) for k, v in arr.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=device).manual_seed(b)
+            arr = wl.materialize_round_batch_device(
+                workload, ecfg.num_edges, ecfg.num_rounds,
+                ecfg.round_interval, cfg.batch_size, generator=gen,
+                max_per_round=ecfg.max_per_round)
+            if spec is not None:
+                arr = faults.attach_fault_batch_device(arr, spec,
+                                                       ecfg.num_edges, gen)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if b:   # the first of each is a warm-up
+                host.append((t1 - t0) * 1e3)
+                dev.append((t2 - t1) * 1e3)
+        out[label] = {"host_ms": float(np.median(host)),
+                      "device_ms": float(np.median(dev)),
+                      "host_ms_runs": host, "device_ms_runs": dev}
+    return out
+
+
+def _head_call_ms(prof):
+    """Device ms of B1's and B2's calls in a trace: the port's head kernels
+    in launch order, grouped into calls (a B1 call's launches end with its
+    row kernel, a B2 call's with ``bwd_weights``), each call charged from
+    its first launch's start to its last launch's end. The wrappers launch
+    through ctypes, so no profiler range holds their kernels."""
+    kernels = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")
+                      and (_is_head_kernel(e.name)
+                           or "(anonymous namespace)::bwd_" in e.name)),
+                     key=lambda e: e.time_range.start)
+    total = {"B1": 0.0, "B2": 0.0}
+    calls = {"B1": 0, "B2": 0}
+    first = None
+    for e in kernels:
+        first = e.time_range.start if first is None else first
+        kind = ("B1" if any(f"::{k}" in e.name for k in ("score_rows",
+                                                        "score_flat"))
+                else "B2" if "::bwd_weights" in e.name else None)
+        if kind is not None:
+            total[kind] += (e.time_range.end - first) / 1e3
+            calls[kind] += 1
+            first = None
+    return total, calls
+
+
+def profile_temporal(tr, policy, n=TEMPORAL_PROFILE_UPDATES):
+    """A torch.profiler trace of ``n`` host-loop updates of path (a)'s
+    config, continuing from ``policy``: device busy ms, idle share and
+    launches per update, and B1's and B2's device ms and calls per update
+    (``_head_call_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = tr.TemporalRLConfig()
+    tr.temporal_train(cfg, num_batches=1, policy=policy,
+                      start_batch=TEMPORAL_HOST_UPDATES)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.temporal_train(cfg, num_batches=n, policy=policy,
+                          start_batch=TEMPORAL_HOST_UPDATES + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    out = _device_summary(prof, n, wall_ms)
+    ms, calls = _head_call_ms(prof)
+    out["b1_device_ms"], out["b2_device_ms"] = ms["B1"] / n, ms["B2"] / n
+    out["b1_calls"], out["b2_calls"] = calls["B1"] / n, calls["B2"] / n
+    return out
+
+
+def temporal_resume(pol, tr, checkpoint, device="cuda"):
+    """Save -> resume on the card is bit-identical to the uninterrupted run:
+    the epoch path (device episodes, K = 3), four batches straight against
+    two with ``every=2`` checkpoints and two more restored from them."""
+    import shutil
+    cfg = tr.TemporalRLConfig(device_episodes=True, epoch_len=3)
+    root = ROOT / "build" / "chip_smoke_temporal_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    p_full, o_full, h_full = tr.temporal_train(cfg, num_batches=4,
+                                               device=device)
+    tr.temporal_train(cfg, num_batches=2, device=device,
+                      checkpointer=checkpoint.Checkpointer(str(root),
+                                                           every=2))
+    p_res, o_res, h_res = tr.temporal_train(
+        cfg, num_batches=2, device=device,
+        checkpointer=checkpoint.Checkpointer(str(root), every=2))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    check([r["batch"] for r in h_res] == [2, 3],
+          f"resume replayed batches {[r['batch'] for r in h_res]}")
+    sd_full, sd_res = p_full.state_dict(), p_res.state_dict()
+    same = (all(torch.equal(sd_full[k], sd_res[k]) for k in sd_full)
+            and torch.equal(o_full["step"], o_res["step"])
+            and all(torch.equal(o_full[m][k], o_res[m][k])
+                    for m in ("m", "v") for k in o_full[m]))
+    check(same, "temporal resume is not bit-identical to the uninterrupted "
+          "run (parameters or optimizer state)")
+    tail = [r for r in h_full if r["batch"] >= 2]
+    check(all(a["loss"] == b["loss"] and a["cost_mean"] == b["cost_mean"]
+              for a, b in zip(tail, h_res)),
+          "temporal resume's history differs from the uninterrupted run's")
+    return {"batches": [r["batch"] for r in h_res], "bit_identical": True,
+            "loss": [r["loss"] for r in h_res], "wall_s": wall_s}
+
+
 # -- phase 13: timing ------------------------------------------------------
 
 
@@ -1255,7 +1764,7 @@ SHAPE_ROW_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ms_runs",
 
 
 def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
-            rollout_case=None):
+            rollout_case=None, temporal=()):
     """B1 and B3 at the serving shape (100x1000, one instance; B1 also at
     the training shape, B3 also at K = Q = 100 normalized, the sampled
     path's call, under ``sampled``), B2 at the training shape (B=128, Q=5,
@@ -1267,8 +1776,10 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
     count they were bounded by before (py = h Wpy recomputed) as
     ``bound_ms_unfolded``. ``rollout_case``: B1 and B3 (K = 1,
     normalized, as ``"policy-fused"`` calls it) also at the rollout's
-    shape, under ``rollout_shape``. ``launches``: {kernel: {path: count}}
-    from the main-path runs."""
+    shape, under ``rollout_shape``. ``temporal``: cases at the temporal
+    trainer's shapes, where B1 and B2 are timed too, under
+    ``temporal_shapes``. ``launches``: {kernel: {path: count}} from the
+    main-path runs."""
     c, h, wx, wy, mask = enc[3:]
     b, q, z, d, in_bytes = _head_counts(c, h)
     k = 1
@@ -1345,7 +1856,38 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
     rows[-1]["max_rel_err"] = errs["policy_score_bwd_rel"]
     rows[-1]["bound_ms_unfolded"] = bound(
         2 * b * (3 * q * d * d + 3 * z * d * d + 3 * z * q * d), b2_bytes)[0]
+    rows[0]["temporal_shapes"], rows[-1]["temporal_shapes"] = [], []
+    for _, b, q, z, c, h, wx, wy, mask in temporal:
+        b1, b2 = _head_pair_rows(ops, ref, policy_score, c, h, wx, wy, mask)
+        rows[0]["temporal_shapes"].append(b1)
+        rows[-1]["temporal_shapes"].append(b2)
     return rows
+
+
+def _head_pair_rows(ops, ref, policy_score, c, h, wx, wy, mask):
+    """B1 and then B2 on B1's output at one shape, each timed beside its
+    plain version and bounded by its fold's operations (timings)."""
+    b, q, z, d, in_bytes = _head_counts(c, h)
+    maskf = mask.to(torch.float32)
+    shape = f"B={b} Q={q} Z={z} d={d}"
+    b1 = _row("policy_score", 51,
+              lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf),
+              lambda: ref.policy_score_torch(c, h, wx, wy, mask),
+              2 * b * (q * d * d + d * d * q + z * d * q),
+              in_bytes + 4 * b * z * q, {}, None, shape)
+    out = ops.policy_score(c, h, wx, wy, mask)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(12)
+                    ).cuda()
+    b2_bytes = in_bytes + 8 * b * z * q + 4 * (b * q * d + b * z * d
+                                               + 2 * d * d)
+    b2 = _row("policy_score_bwd", 65,
+              lambda: policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy,
+                                                         maskf),
+              lambda: ref.policy_score_bwd_torch(g, out, c, h, wx, wy, maskf),
+              2 * b * (6 * q * d * d + 3 * z * q * d), b2_bytes, {}, None,
+              shape)
+    return ({k: b1[k] for k in SHAPE_ROW_KEYS},
+            {k: b2[k] for k in SHAPE_ROW_KEYS})
 
 
 # -- phases 7-12: the LM edge servers (kernels B4, B5 and B6) --------------
@@ -2082,6 +2624,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core import heuristics, state
     from repro_torch.core import instances as tinst
@@ -2193,7 +2736,48 @@ def main() -> int:
     for backend, r in rollout.items():
         print(f"rollout {backend}: {json.dumps(r)}", flush=True)
         record("rollout", rollout_counts[backend])
-    del rollout_arr
+
+    # phase 6c: temporal REINFORCE on engine rollouts at full policy width,
+    # B1 forward and B2 backward once per round of every update
+    t0 = time.perf_counter()
+    temporal_inputs = temporal_cases(width)
+    temporal = {"compare": compare_temporal_shapes(ops, ref, policy_score,
+                                                   temporal_inputs, errs)}
+    temporal["samplers"] = device_sampler_laws(wl, faults)
+    temporal["materialization"] = episode_materialization(tr, wl, faults)
+    temporal["gradient_parity"] = temporal_gradient_parity(pol, tr, engine,
+                                                           wl)
+    checks = ("samplers", "materialization", "gradient_parity")
+    print(f"temporal checks: {json.dumps({k: temporal[k] for k in checks})}",
+          flush=True)
+    temporal_counts = {}
+    for label, cfg, n in (
+            ("host", tr.TemporalRLConfig(), TEMPORAL_HOST_UPDATES),
+            ("epoch", tr.TemporalRLConfig(device_episodes=True,
+                                          epoch_len=TEMPORAL_EPOCH_LEN),
+             TEMPORAL_EPOCHS * TEMPORAL_EPOCH_LEN),
+            ("chaos", _chaos_config(tr, pol, engine),
+             TEMPORAL_EPOCHS * TEMPORAL_CHAOS_EPOCH_LEN)):
+        temporal[label], counts, trained = drive_temporal(
+            pol, tr, ref, policy_score, cfg, label, n)
+        if label == "host":
+            host_policy = trained
+        for k, v in counts.items():
+            temporal_counts[k] = temporal_counts.get(k, 0) + v
+        print(f"temporal {label}: {json.dumps(temporal[label])}", flush=True)
+    temporal["scale"], counts = temporal_scale(pol, tr, engine, ref,
+                                               policy_score, rollout_arr)
+    for k, v in counts.items():
+        temporal_counts[k] = temporal_counts.get(k, 0) + v
+    print(f"temporal scale: {json.dumps(temporal['scale'])}", flush=True)
+    record("temporal_training", temporal_counts)
+    temporal["profile"] = profile_temporal(tr, host_policy)
+    temporal["resume"] = temporal_resume(pol, tr, checkpoint)
+    temporal_s = time.perf_counter() - t0
+    print(f"temporal ({temporal_s:.1f} s): profile "
+          f"{json.dumps(temporal['profile'])}, resume "
+          f"{json.dumps(temporal['resume'])}", flush=True)
+    del rollout_arr, host_policy
     torch.cuda.empty_cache()
 
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
@@ -2251,7 +2835,7 @@ def main() -> int:
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
     print(f"policy head launch split: {json.dumps(head_split)}", flush=True)
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
-                      rollout_inputs[0])
+                      rollout_inputs[0], temporal_inputs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
@@ -2269,6 +2853,7 @@ def main() -> int:
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "engine_parity": eng_parity, "rollout": rollout,
+        "temporal": temporal, "temporal_s": temporal_s,
         "rollout_arrivals_s": arrivals_s, "engine_parity_s": eng_parity_s,
         "rollout_s": rollout_s,
         "kernels": kernels}, indent=1))
@@ -2304,6 +2889,17 @@ def main() -> int:
                               "device_busy_ms", "idle_share",
                               "kernels_per_unit", "head_device_ms")}
                           for backend, r in rollout.items()},
+                      "temporal": {label: {
+                          "update_ms": temporal[label]["update_ms"],
+                          "updates_per_s": temporal[label]["updates_per_s"]}
+                          for label in ("host", "epoch", "chaos", "scale")}
+                      | {"profile": {k: temporal["profile"][k] for k in (
+                          "wall_ms", "device_busy_ms", "idle_share",
+                          "kernels_per_unit", "b1_device_ms",
+                          "b2_device_ms", "b1_calls", "b2_calls")},
+                         "materialization": {
+                             k: {m: v[m] for m in ("host_ms", "device_ms")}
+                             for k, v in temporal["materialization"].items()}},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

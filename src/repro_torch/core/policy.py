@@ -198,7 +198,12 @@ class CoRaiSPolicy(nn.Module):
 
 
 def _masked_max(x, mask):
-    return x.masked_fill(~mask[..., None], -torch.inf).amax(dim=-2)
+    """Max over the valid rows of axis -2; 0 where no row is valid. The
+    reference's is -inf there, which the forward never reads (every key of
+    the context attention is masked then), but whose gradient is -inf * 0 =
+    NaN in the context attention's query and key weights (ROADMAP C6)."""
+    m = x.masked_fill(~mask[..., None], -torch.inf).amax(dim=-2)
+    return torch.where(mask.any(-1, keepdim=True), m, 0.0)
 
 
 def corais_encode(policy: CoRaiSPolicy, inst, *, training: bool = False,

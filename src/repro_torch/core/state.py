@@ -152,6 +152,19 @@ class EdgeServiceState:
         return c_le, c_in, t_in
 
 
+def _edge_sums(e, vals, num_edges):
+    """Per-edge sums of ``vals`` (..., Z) by edge index ``e`` (..., Z) as
+    (..., Q): an accumulating ``index_put_`` over the flattened leading
+    axes, deterministic on the card."""
+    lead = e.shape[:-1]
+    m = int(np.prod(lead)) if lead else 1
+    rows = torch.arange(m, device=e.device)[:, None].expand(m, e.shape[-1])
+    out = torch.zeros((m, num_edges), dtype=torch.float32, device=e.device)
+    out.index_put_((rows, e.reshape(m, -1)), vals.reshape(m, -1).float(),
+                   accumulate=True)
+    return out.reshape(*lead, num_edges)
+
+
 def slot_workload_features(phi_est, replicas, w, ct, slot_size, slot_src,
                            slot_edge, slot_ready, slot_start, t):
     """Array twin of :meth:`EdgeServiceState.workload`: (c_le, c_in, t_in)
@@ -165,9 +178,11 @@ def slot_workload_features(phi_est, replicas, w, ct, slot_size, slot_src,
 
     Shapes, with any leading batch shape ``...``: phi_est (..., Q, 2),
     replicas (..., Q), w (..., Q, Q), ct and t (...), slot_* (..., Z).
-    Returns (..., Q, 3) float32. The per-edge sums are ``scatter_add_``
-    (atomics on the card, so their last bits may vary from run to run) and
-    t_in a ``scatter_reduce_`` max on a zero base.
+    Returns (..., Q, 3) float32. The per-edge sums are accumulating
+    ``index_put_``s: in slot order on the CPU (the reference's order), over
+    sorted indices on the card, so two runs give the same bits there too
+    (``scatter_add_``'s atomics would not); t_in is a ``scatter_reduce_``
+    max on a zero base.
     """
     num_edges = w.shape[-1]
     committed = slot_edge >= 0
@@ -179,8 +194,8 @@ def slot_workload_features(phi_est, replicas, w, ct, slot_size, slot_src,
             + torch.gather(phi_est[..., 1], -1, e))        # phi(f_z)
     zeros = torch.zeros(e.shape[:-1] + (num_edges,), dtype=torch.float32,
                         device=e.device)
-    c_le = zeros.scatter_add(-1, e, torch.where(waiting, comp, 0.0)) / replicas
-    c_in = (zeros.scatter_add(-1, e, torch.where(in_transfer, comp, 0.0))
+    c_le = _edge_sums(e, torch.where(waiting, comp, 0.0), num_edges) / replicas
+    c_in = (_edge_sums(e, torch.where(in_transfer, comp, 0.0), num_edges)
             / replicas)
     dist = torch.gather(w.flatten(-2), -1, slot_src.long() * num_edges + e)
     trans = ct[..., None] * slot_size * dist  # eq (2) terms

@@ -1,5 +1,7 @@
-"""S-sample batch REINFORCE for CoRaiS (paper §IV-B, eqs 20-21) in PyTorch;
-counterpart of the static half of ``repro/core/train.py``.
+"""REINFORCE training for CoRaiS in PyTorch; counterpart of
+``repro/core/train.py``: S-sample batch REINFORCE on static instances
+(paper §IV-B, eqs 20-21), and temporal REINFORCE on batched engine
+rollouts (below :class:`TemporalRLConfig`).
 
 One forward pass per instance yields the full factorized distribution;
 S assignments are sampled from it, the shared-baseline advantage
@@ -17,7 +19,6 @@ encoder's ``training=True`` pass updates the BatchNorm buffers (the
 reference returns the new state in ``aux["state"]``). So :func:`rl_loss`
 runs the encoder exactly once, and a caller that evaluates it twice on one
 policy (finite differences) snapshots and restores the buffers itself.
-The temporal trainer (engine rollouts) is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,17 +29,27 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch import resolve_device
-from repro_torch.checkpoint.checkpointer import train_tree
+from repro_torch.checkpoint.checkpointer import load_train_state, train_tree
 from repro_torch.core import instances as inst_lib
 from repro_torch.core.decode import (assignment_log_prob, greedy_decode,
                                      sample_assignments)
 from repro_torch.core.objective import makespan
-from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig,
+from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig, corais_admit,
                                      corais_encode, corais_score)
 from repro_torch.nn.module import param_tree
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
                                clip_by_global_norm)
+from repro_torch.resilience import faults as faults_lib
+from repro_torch.resilience.policies import nearest_alive
+from repro_torch.serving import engine as engine_lib
+from repro_torch.serving.engine import EngineConfig
+from repro_torch.workloads import scenarios as scenarios_lib
+from repro_torch.workloads.batch import (compile_device_plan,
+                                         materialize_round_batch,
+                                         materialize_round_batch_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,17 +107,22 @@ def rl_loss(policy: CoRaiSPolicy, batch: dict, cfg: RLConfig, *,
     return loss, aux
 
 
-def loss_and_grads(policy: CoRaiSPolicy, batch: dict, cfg: RLConfig, **kw):
+def _grads(policy, loss, aux):
     """(loss, aux, {"/"-path: gradient}), loss and aux detached; a
     parameter the loss does not reach (the admission head) gets a zero
     gradient, as under jax.grad."""
     params = param_tree(policy)
-    loss, aux = rl_loss(policy, batch, cfg, **kw)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)})
+
+
+def loss_and_grads(policy: CoRaiSPolicy, batch: dict, cfg: RLConfig, **kw):
+    """:func:`rl_loss` and its gradients as (loss, aux, {"/"-path:
+    gradient}), detached."""
+    return _grads(policy, *rl_loss(policy, batch, cfg, **kw))
 
 
 def make_train_step(cfg: RLConfig, adam_cfg: Optional[AdamConfig] = None):
@@ -195,4 +211,483 @@ def train(
             callback(metrics)
         if checkpointer is not None and checkpointer.should_save(b):
             checkpointer.save(b, train_tree(policy, opt_state))
+    return policy, opt_state, history
+
+
+# ---------------------------------------------------------------------------
+# Temporal REINFORCE on batched engine rollouts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalRLConfig:
+    """REINFORCE over whole serving rollouts instead of i.i.d. static
+    snapshots: the policy schedules every round of a scenario-conditioned
+    episode inside :mod:`repro_torch.serving.engine`, and the rollout
+    return (mean response time over the episode's completed requests)
+    replaces the single-round makespan as the learning signal (the
+    reference's fields, with their meaning)."""
+
+    policy: PolicyConfig = PolicyConfig()
+    engine: EngineConfig = EngineConfig()
+    scenario: str = "uniform_iid"   # workloads scenario registry name
+    batch_size: int = 16            # parallel rollouts (batched instances)
+    c1: float = 1.0
+    c2: float = 0.5
+    lr: float = 1e-5
+    grad_clip: float = 1.0
+    num_batches: int = 1000
+    seed: int = 0
+    log_every: int = 10
+    # Resilience training (the chaos-scenario path). Episodes are fault-
+    # injected from the scenario's registered FaultSpec (or ``fault_spec``
+    # here, which wins); ``admission=True`` samples the policy's admit head
+    # per request and trains it jointly with dispatch. With ``slo > 0`` the
+    # episode cost adds ``slo_penalty * slo_violation_frac``, where sheds,
+    # drops and stranded requests all count as violations.
+    fault_spec: Optional[faults_lib.FaultSpec] = None
+    admission: bool = False
+    slo: float = 0.0
+    slo_penalty: float = 0.0
+    # Deadline-aware training: with ``deadline_penalty > 0`` the episode
+    # cost adds ``deadline_penalty * deadline_miss_frac`` (committed
+    # finite-deadline requests that finished late or never).
+    deadline_penalty: float = 0.0
+    # Train only the admission head; every other gradient is zeroed.
+    freeze_dispatch: bool = False
+    # Device episodes: ``device_episodes=True`` draws arrivals (and fault
+    # rows) on the card (workloads.materialize_round_batch_device), and
+    # ``epoch_len`` K > 1 runs K updates per epoch step with the metrics
+    # drained once per epoch. Either routes through the epoch trainer.
+    device_episodes: bool = False
+    epoch_len: int = 1
+
+
+def _episode(policy, sim_state, arrivals, cfg: TemporalRLConfig, generator,
+             actions, admits):
+    """Roll a batch of episodes through the engine with the policy deciding
+    every round. Returns (final drained state, per-round log p(actions)
+    (R, B), per-round entropies (R, B)); the log-probs and entropies carry
+    the graph of the encoder, the head and the admit head, nothing else."""
+    ecfg = cfg.engine
+    fault_mode = "alive" in arrivals
+    sim = sim_state
+    logps, ents = [], []
+    for r in range(arrivals["size"].shape[1]):
+        arr = {k: v[:, r] for k, v in arrivals.items()}
+        with torch.no_grad():
+            sim = engine_lib.advance(sim, sim["t"] + ecfg.round_interval,
+                                     ecfg)
+            ready_offset = None
+            if fault_mode:
+                # the engine's two-step admission failover (step_round):
+                # arrivals re-admitted by the second step sort after native
+                # ones
+                arr["src"] = nearest_alive(
+                    sim["w"], sim["alive"] > 0,
+                    torch.clamp(arr["src"].to(torch.int32), 0,
+                                ecfg.num_edges - 1))
+                sim = engine_lib.apply_faults(sim, arr, ecfg)
+                alive = sim["alive"] > 0
+                readmitted = ~torch.gather(alive, 1, arr["src"].long())
+                ready_offset = engine_lib.RETRY_EPS * readmitted
+                arr["src"] = nearest_alive(sim["w"], alive, arr["src"])
+            inst = engine_lib.round_instance(sim, arr, ecfg)
+        # evaluation-mode norms on the whole batch: an untrained BatchNorm
+        # pools its fallback statistics over all B instances, and the
+        # gradient flows through them (the reference encodes the batched
+        # instance, not under vmap)
+        c_emb, h_emb = corais_encode(policy, inst, training=False)
+        log_probs = corais_score(policy, c_emb, h_emb, inst["edge_mask"])
+        act = (sample_assignments(generator, log_probs, 1)[0]
+               if actions is None else actions[r].long())
+        rmask = inst["req_mask"]
+        ent = (-(torch.exp(log_probs) * log_probs).sum(-1) * rmask).sum(-1)
+        if cfg.admission:
+            logits = corais_admit(policy, c_emb, h_emb, inst["edge_mask"])
+            if admits is None:
+                u = torch.rand(logits.shape, generator=generator,
+                               device=logits.device)
+                admit = u < torch.sigmoid(logits.detach())
+            else:
+                admit = admits[r].bool()
+            logp_admit = torch.where(
+                rmask, torch.where(admit, F.logsigmoid(logits),
+                                   F.logsigmoid(-logits)), 0.0).sum(-1)
+            # a shed request's dispatch never executes: drop it from the
+            # dispatch log-prob to cut gradient variance (still unbiased)
+            logp = (assignment_log_prob(log_probs, act, rmask & admit)
+                    + logp_admit)
+        else:
+            admit = torch.ones_like(rmask)
+            logp = assignment_log_prob(log_probs, act, rmask)
+        with torch.no_grad():
+            sim = engine_lib.commit(sim, arr, act, ecfg, admit=admit,
+                                    ready_offset=ready_offset)
+        logps.append(logp)
+        ents.append(ent)
+    with torch.no_grad():
+        sim = engine_lib.advance(sim, engine_lib.DRAIN_HORIZON, ecfg)
+    return sim, torch.stack(logps), torch.stack(ents)
+
+
+def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
+                     cfg: TemporalRLConfig, *,
+                     generator: Optional[torch.Generator] = None,
+                     actions: Optional[torch.Tensor] = None,
+                     admits: Optional[torch.Tensor] = None):
+    """Surrogate loss over a batch of rollouts; returns (loss, aux).
+    ``sim_state`` is a (B,)-batched engine state, ``arrivals`` (B, R, A)
+    padded round batches (numpy or tensors; moved to the state's device).
+
+    Every round the policy's factorized distribution is sampled from
+    ``generator`` (on the state's device), or ``actions`` (R, B, A) and,
+    with ``cfg.admission``, ``admits`` (R, B, A) inject the draws, as
+    ``rl_loss``'s ``samples=`` does. The episode return is the mean
+    response time over completed requests (plus the SLO and deadline
+    penalties the config asks for), with the batch-mean baseline.
+
+    The round is the reference's loss body, not ``step_round``: no
+    breaker, probe cap, admission heuristic or dispatch clamp; only the
+    two-step source failover and ``commit`` with the policy's own admit.
+    The engine's updates run without gradient; the graph holds the
+    encoder, the head (``corais_score``: B1 forward, B2 backward on the
+    card) and the admit head."""
+    arrivals = engine_lib._to_device(arrivals, sim_state["t"].device)
+    sim, logps, ents = _episode(policy, sim_state, arrivals, cfg, generator,
+                                actions, admits)
+
+    committed = sim["slot_edge"] >= 0                        # (B, Z)
+    # a fault trajectory can strand slots on a dead-at-horizon edge with
+    # finish == INF; mean response is over realized completions only
+    done = committed & (sim["slot_finish"] < engine_lib.INF / 2)
+    resp = torch.where(done, sim["slot_finish"] - sim["slot_submit"], 0.0)
+    n_done = torch.clamp(done.sum(-1), min=1)
+    cost = resp.sum(-1) / n_done                             # (B,)
+    aux = {}
+    if cfg.slo > 0:
+        violations = ((done & (resp > cfg.slo)).sum(-1)
+                      + (committed & ~done).sum(-1)
+                      + sim["shed"] + sim["dropped"])
+        total = torch.clamp(committed.sum(-1) + sim["shed"] + sim["dropped"],
+                            min=1)
+        viol_frac = violations.to(torch.float32) / total
+        cost = cost + cfg.slo_penalty * viol_frac
+        aux["slo_violation_frac"] = viol_frac.mean()
+    if cfg.deadline_penalty > 0:
+        finite = committed & (sim["slot_deadline"] < engine_lib.INF / 2)
+        missed = finite & (~done
+                           | (sim["slot_finish"] > sim["slot_deadline"]))
+        miss_frac = (missed.sum(-1).to(torch.float32)
+                     / torch.clamp(finite.sum(-1), min=1))
+        cost = cost + cfg.deadline_penalty * miss_frac
+        aux["deadline_miss_frac"] = miss_frac.mean()
+    adv = cost - cost.mean()
+
+    reinforce = logps.sum(0) * adv.detach()                  # (B,)
+    ent_sum = ents.sum(0)                                    # (B,)
+    loss = torch.mean(cfg.c1 * reinforce) - cfg.c2 * torch.mean(ent_sum)
+    aux.update({
+        "cost_mean": cost.mean(),
+        "cost_best": cost.min(),
+        "entropy": ent_sum.detach().mean(),
+        "completed": done.sum(-1).to(torch.float32).mean(),
+        "shed": sim["shed"].to(torch.float32).mean(),
+    })
+    return loss, aux
+
+
+def temporal_loss_and_grads(policy: CoRaiSPolicy, sim_state: dict,
+                            arrivals: dict, cfg: TemporalRLConfig, **kw):
+    """:func:`temporal_rl_loss` and its gradients as (loss, aux,
+    {"/"-path: gradient}), detached."""
+    return _grads(policy, *temporal_rl_loss(policy, sim_state, arrivals, cfg,
+                                            **kw))
+
+
+def _temporal_update(policy: CoRaiSPolicy, opt_state: dict, sim_state: dict,
+                     arrivals: dict, cfg: TemporalRLConfig,
+                     adam_cfg: AdamConfig, **kw):
+    """One REINFORCE update (loss -> grads -> clip -> Adam), the policy's
+    parameters updated in place. Shared by the per-batch step and the
+    epoch step. Returns (opt_state, metrics), metrics device scalars."""
+    loss, aux, grads = temporal_loss_and_grads(policy, sim_state, arrivals,
+                                               cfg, **kw)
+    if cfg.freeze_dispatch:
+        if not (cfg.admission and any(k.startswith("admit/") for k in grads)):
+            raise ValueError(
+                "freeze_dispatch requires admission=True and a policy "
+                "with admit_head=True (nothing would train otherwise)")
+        grads = {k: g if k.startswith("admit/") else torch.zeros_like(g)
+                 for k, g in grads.items()}
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    opt_state = adam_update(param_tree(policy), grads, opt_state, adam_cfg)
+    return opt_state, {"loss": loss, "grad_norm": gnorm, **aux}
+
+
+def make_temporal_train_step(cfg: TemporalRLConfig,
+                             adam_cfg: Optional[AdamConfig] = None):
+    """Returns (step, adam_cfg). ``step(policy, opt_state, sim_state,
+    arrivals, *, generator=None, actions=None, admits=None) -> (opt_state,
+    metrics)``: one update, eagerly, the policy updated in place."""
+    adam_cfg = adam_cfg or AdamConfig(lr=cfg.lr)
+
+    def step(policy, opt_state, sim_state, arrivals, **kw):
+        return _temporal_update(policy, opt_state, sim_state, arrivals, cfg,
+                                adam_cfg, **kw)
+
+    return step, adam_cfg
+
+
+def resolve_temporal_config(cfg: TemporalRLConfig):
+    """Thread the scenario's registered CloudSpec/CacheSpec into the engine
+    config and resolve the effective fault spec (``cfg.fault_spec`` wins
+    over the registry; a spec with no faults drops to None). Idempotent."""
+    ecfg = cfg.engine
+    cloud_spec, cache_spec = scenarios_lib.scenario_cloud_spec(cfg.scenario)
+    if cloud_spec is not None and ecfg.cloud is None:
+        ecfg = dataclasses.replace(ecfg, cloud=cloud_spec, cache=cache_spec)
+        cfg = dataclasses.replace(cfg, engine=ecfg)
+    fspec = cfg.fault_spec
+    if fspec is None:
+        fspec = scenarios_lib.scenario_fault_spec(cfg.scenario)
+    if fspec is not None and not fspec.has_faults:
+        fspec = None
+    return cfg, fspec
+
+
+def _generator(device, seed) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_temporal_epoch_step(cfg: TemporalRLConfig,
+                             adam_cfg: Optional[AdamConfig] = None, *,
+                             mesh=None):
+    """Epoch step: K sequential REINFORCE updates per call, with episodes
+    (arrivals and fault rows) drawn on the state's device by the device
+    samplers, so the host only supplies cluster states and seeds.
+
+    The returned ``step(policy, opt_state, sim0, seeds)`` takes a (K, B,
+    ...) stack of initial engine states and (K, 3) integer seeds (the
+    arrival, action and fault generators of each update, as
+    :func:`_episode_seeds` gives them), and returns ``(opt_state,
+    metrics)`` with every metric stacked (K,) on the device: nothing is
+    read back until the caller drains them.
+
+    The reference runs the K updates as one ``lax.scan``. A K-update CUDA
+    graph is not possible yet: the engine's lane recursion reads its step
+    count on the host every round (``serving/engine.py::advance``), so the
+    updates run eagerly. ``mesh=`` (the sharded epoch trainer) is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded epoch trainer (mesh=) is not ported; ROADMAP A10")
+    adam_cfg = adam_cfg or AdamConfig(lr=cfg.lr)
+    cfg, fspec = resolve_temporal_config(cfg)
+    ecfg = cfg.engine
+    wl = scenarios_lib.scenario(cfg.scenario)
+    # fail fast on scenarios with no device sampling law
+    compile_device_plan(wl, ecfg.num_edges, ecfg.num_rounds,
+                        ecfg.round_interval)
+
+    def step(policy, opt_state, sim0, seeds):
+        mets = []
+        for k, (s_arr, s_act, s_flt) in enumerate(np.asarray(seeds)):
+            sim = {name: v[k] for name, v in sim0.items()}
+            device = sim["t"].device
+            arrivals = materialize_round_batch_device(
+                wl, ecfg.num_edges, ecfg.num_rounds, ecfg.round_interval,
+                cfg.batch_size, generator=_generator(device, s_arr),
+                max_per_round=ecfg.max_per_round)
+            if fspec is not None:
+                arrivals = faults_lib.attach_fault_batch_device(
+                    arrivals, fspec, ecfg.num_edges,
+                    _generator(device, s_flt))
+            opt_state, metrics = _temporal_update(
+                policy, opt_state, sim, arrivals, cfg, adam_cfg,
+                generator=_generator(device, s_act))
+            mets.append(metrics)
+        return opt_state, {k: torch.stack([m[k] for m in mets])
+                           for k in mets[0]}
+
+    return step, adam_cfg
+
+
+#: rng-stream salts deriving per-batch episode randomness from
+#: (cfg.seed, batch index), order-free, so a checkpoint resume at any batch
+#: replays exactly the stream an uninterrupted run would consume. The first
+#: three are the reference's (clusters and host episodes equal its own, bit
+#: for bit); the device generators' seeds take the port's own salt.
+_CLUSTER_SALT = 0xC1
+_ARRIVAL_SALT = 0xA7
+_FAULT_SEED_SALT = 0xFA
+_GENERATOR_SALT = 0x6E
+
+
+def _cluster_seeds(cfg: TemporalRLConfig, b: int) -> np.ndarray:
+    return np.random.default_rng((cfg.seed, _CLUSTER_SALT, b)).integers(
+        0, 2**31 - 1, size=cfg.batch_size)
+
+
+def _episode_seeds(cfg: TemporalRLConfig, b: int) -> np.ndarray:
+    """(3,) seeds of batch ``b``'s device generators: arrivals, actions,
+    faults."""
+    return np.random.default_rng((cfg.seed, _GENERATOR_SALT, b)).integers(
+        0, 2**62, size=3)
+
+
+def _host_episode(cfg: TemporalRLConfig, fspec, wl, b: int) -> dict:
+    """Batch ``b``'s arrivals (and fault rows) from the numpy samplers,
+    seeded as the reference seeds them."""
+    ecfg = cfg.engine
+    # overflow="clip": a burst beyond max_per_round drops its tail in
+    # *training* episodes (a bounded admission queue), never in evals
+    arrivals = materialize_round_batch(
+        wl, ecfg.num_edges, ecfg.num_rounds, ecfg.round_interval,
+        cfg.batch_size,
+        base_seed=int(np.random.default_rng(
+            (cfg.seed, _ARRIVAL_SALT, b)).integers(0, 2**31 - 1)),
+        max_per_round=ecfg.max_per_round, overflow="clip")
+    if fspec is not None:
+        arrivals = faults_lib.attach_fault_batch(
+            arrivals, fspec, ecfg.num_edges,
+            seeds=np.random.default_rng(
+                (cfg.seed, _FAULT_SEED_SALT, b)).integers(
+                    0, 2**31 - 1, size=cfg.batch_size))
+    return arrivals
+
+
+def temporal_train(
+    cfg: TemporalRLConfig,
+    num_batches: Optional[int] = None,
+    policy: Optional[CoRaiSPolicy] = None,
+    opt_state: Optional[dict] = None,
+    callback: Optional[Callable] = None,
+    *,
+    mesh=None,
+    checkpointer=None,
+    start_batch: int = 0,
+    adam_cfg: Optional[AdamConfig] = None,
+    device=None,
+):
+    """Train CoRaiS on temporal rollouts of a registered workload scenario.
+
+    Every batch samples ``batch_size`` fresh clusters and arrival episodes,
+    rolls all of them forward together on the device, and applies one
+    REINFORCE update on the episode returns. Returns (policy, opt_state,
+    history); each history row holds the reference's keys (the update's
+    metrics, ``batch`` and ``sec``). Runs on CUDA unless ``device`` says
+    otherwise (a given policy brings its own device).
+
+    Two paths share one update rule (:func:`_temporal_update`):
+
+    * host loop (``device_episodes=False``, ``epoch_len<=1``): one update
+      per batch on episodes from the numpy samplers, which equal the
+      reference's bit for bit; metrics stay on the device and drain every
+      ``log_every`` batches;
+    * epoch (``device_episodes=True`` or ``epoch_len>1``):
+      :func:`make_temporal_epoch_step`, K updates per call with episodes
+      drawn on the device; ``callback`` then fires once per drained epoch
+      (with that epoch's last row), not per batch.
+
+    Clusters, episodes and action draws derive from ``(cfg.seed, batch
+    index)`` rather than a consumed stream, so resuming from a
+    ``checkpointer`` snapshot at any batch replays exactly what the
+    uninterrupted run would have drawn: save -> resume is bit-identical.
+    With ``checkpointer`` set and no ``policy`` given, the policy and
+    optimizer state restore from its latest snapshot (saved under step =
+    number of completed batches). ``mesh=`` (data parallelism) is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel temporal training (mesh=) is not ported; "
+            "ROADMAP A10")
+    cfg, fspec = resolve_temporal_config(cfg)
+    num_batches = num_batches if num_batches is not None else cfg.num_batches
+    ecfg = cfg.engine
+    wl = scenarios_lib.scenario(cfg.scenario)
+    adam_cfg = adam_cfg or AdamConfig(lr=cfg.lr)
+    if policy is None:
+        policy = CoRaiSPolicy(cfg.policy,
+                              generator=torch.Generator().manual_seed(cfg.seed),
+                              device=resolve_device(device))
+        restored = (checkpointer.restore_latest() if checkpointer is not None
+                    else None)
+        if restored is not None:
+            opt_state = load_train_state(policy, restored["tree"])
+            start_batch = int(restored["step"])
+    device = policy.device
+    if opt_state is None:
+        opt_state = adam_init(param_tree(policy), adam_cfg)
+
+    use_epoch = cfg.device_episodes or cfg.epoch_len > 1
+    end = start_batch + num_batches
+    history: list = []
+    pending: list = []  # (batch ids, sec per batch, device metrics)
+
+    def drain():
+        rows = []
+        for bs, sec, mets in pending:
+            host = {k: v.detach().cpu().numpy() for k, v in mets.items()}
+            for i, b_i in enumerate(bs):
+                row = {k: float(v[i]) if v.ndim else float(v)
+                       for k, v in host.items()}
+                row["batch"], row["sec"] = b_i, sec
+                history.append(row)
+                rows.append(row)
+        pending.clear()
+        return rows
+
+    def save(step_idx):
+        if checkpointer is not None and checkpointer.should_save(step_idx):
+            checkpointer.save(step_idx, train_tree(policy, opt_state))
+
+    if not use_epoch:
+        step_fn, _ = make_temporal_train_step(cfg, adam_cfg)
+        for b in range(start_batch, end):
+            sim0 = engine_lib.init_batch(ecfg, _cluster_seeds(cfg, b),
+                                         device=device)
+            arrivals = engine_lib._to_device(
+                _host_episode(cfg, fspec, wl, b), device)
+            t0 = time.perf_counter()
+            opt_state, metrics = step_fn(
+                policy, opt_state, sim0, arrivals,
+                generator=_generator(device, _episode_seeds(cfg, b)[1]))
+            pending.append(([b], time.perf_counter() - t0, metrics))
+            # metrics stay on the device between drains
+            if b % cfg.log_every == 0 or b == end - 1:
+                rows = drain()
+                if callback is not None and rows and b % cfg.log_every == 0:
+                    callback(rows[-1])
+            save(b + 1)
+        drain()
+        return policy, opt_state, history
+
+    step_fn, _ = make_temporal_epoch_step(cfg, adam_cfg)
+    epoch_len = max(1, cfg.epoch_len)
+    b = start_batch
+    while b < end:
+        k_len = min(epoch_len, end - b)
+        if checkpointer is not None:
+            # land chunk boundaries exactly on checkpoint steps so a resume
+            # replays the same chunking (bit-identical histories)
+            k_len = min(k_len, checkpointer.every - b % checkpointer.every)
+        bs = list(range(b, b + k_len))
+        sim0 = engine_lib.init_batch(
+            ecfg, np.concatenate([_cluster_seeds(cfg, bi) for bi in bs]),
+            device=device)
+        sim0 = {k: v.reshape(k_len, cfg.batch_size, *v.shape[1:])
+                for k, v in sim0.items()}
+        seeds = np.stack([_episode_seeds(cfg, bi) for bi in bs])
+        t0 = time.perf_counter()
+        opt_state, mets = step_fn(policy, opt_state, sim0, seeds)
+        pending.append((bs, (time.perf_counter() - t0) / k_len, mets))
+        b += k_len
+        n_pending = sum(len(p[0]) for p in pending)
+        if callback is not None or n_pending >= cfg.log_every or b >= end:
+            rows = drain()
+            if callback is not None and rows:
+                callback(rows[-1])  # per-epoch logging
+        save(b)
+    drain()
     return policy, opt_state, history

@@ -8,8 +8,10 @@ churn, straggler slowdowns, per-request runtime jitter), and
 tensors that :func:`attach_faults` / :func:`attach_fault_batch` fold into
 a padded arrival batch for the port's engine. The same (spec, num_edges,
 num_rounds, seed) names the same fault trajectory in both packages. The
-device-resident twins and the event-driven oracle's schedulers are not
-ported yet.
+device twins (:func:`materialize_faults_device`,
+:func:`attach_fault_batch_device`) draw the same laws with torch on a
+generator's device, for training episodes that never leave the card. The
+event-driven oracle's schedulers are not ported yet.
 
 Event-tensor layout (R rounds, Q edges), mirroring ``workloads/batch.py``:
 
@@ -31,6 +33,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.serving.rounds import MIN_JITTER
 
@@ -194,3 +197,103 @@ def attach_fault_batch(arrivals: dict, spec: FaultSpec, num_edges: int,
                if spec.jitter_sigma else None)
         merged.append(attach_faults(one, ev, jit))
     return {k: np.stack([m[k] for m in merged]) for k in merged[0]}
+
+
+# -- device-resident fault materialization (torch generators) -----------------
+
+def _scripted_overrides(spec: FaultSpec, num_edges: int,
+                        num_rounds: int) -> tuple:
+    """Static (host numpy) parts of a fault trajectory: scripted/rolling
+    outage masks and scripted straggler overrides, identical to the
+    override pass in :func:`materialize_faults`."""
+    alive_ok = np.ones((num_rounds, num_edges), bool)
+    scripted = list(spec.scripted_failures)
+    if spec.rolling is not None:
+        start, dur = spec.rolling
+        scripted += [(q, start + q * dur, start + (q + 1) * dur)
+                     for q in range(num_edges)]
+    for q, lo, hi in scripted:
+        alive_ok[max(lo, 0):hi, q % num_edges] = False
+    speed_mask = np.zeros((num_rounds, num_edges), bool)
+    speed_val = np.ones((num_rounds, num_edges), np.float32)
+    for q, lo, hi, factor in spec.scripted_stragglers:
+        speed_mask[max(lo, 0):hi, q % num_edges] = True
+        speed_val[max(lo, 0):hi, q % num_edges] = factor
+    return alive_ok, speed_mask, speed_val
+
+
+def materialize_faults_device(spec: FaultSpec, num_edges: int,
+                              num_rounds: int, *, batch: int,
+                              generator: torch.Generator) -> dict:
+    """Device twin of :func:`materialize_faults` for ``batch`` independent
+    trajectories at once, on ``generator``'s device: the same fault laws
+    (Markov fail/recover with the min_alive refusal in edge order,
+    straggler churn, scripted/rolling overrides, the min_alive floor).
+    Returns ``{"alive": (B, R, Q) bool, "speed": (B, R, Q) float32}``.
+    Distributionally equivalent to the host path, not draw for draw.
+
+    The Markov step stays sequential in edge order, as on the host: each
+    edge's failure sees the up-count that the earlier edges left. Only the
+    batch is vectorised."""
+    device = generator.device
+    Q, R, B = num_edges, num_rounds, batch
+    alive_ok, spd_mask, spd_val = (
+        torch.as_tensor(x, device=device)
+        for x in _scripted_overrides(spec, Q, R))
+    # u_fail, u_rec, u_str, u_strrec for every round in one draw
+    u = torch.rand((4, B, R, Q), generator=generator, device=device)
+    up = torch.ones((B, Q), dtype=torch.bool, device=device)
+    straggling = torch.zeros((B, Q), dtype=torch.bool, device=device)
+    alive, speed = [], []
+    for r in range(R):
+        if spec.fail_prob:
+            for q in range(Q):
+                upq = up[:, q]
+                can_fail = (upq & (u[0, :, r, q] < spec.fail_prob)
+                            & (up.sum(-1) > spec.min_alive))
+                rec = ~upq & (u[1, :, r, q] < spec.recover_prob)
+                up = up.clone()
+                up[:, q] = torch.where(can_fail, False,
+                                       torch.where(rec, True, upq))
+        if spec.straggle_prob:
+            straggling = torch.where(
+                straggling, u[3, :, r] >= spec.straggle_recover_prob,
+                u[2, :, r] < spec.straggle_prob)
+        row = up & alive_ok[r]
+        # min_alive floor: revive the lowest-indexed dead edges
+        short = spec.min_alive - row.sum(-1, keepdim=True)
+        dead_rank = torch.cumsum(~row, -1)    # 1-based rank among dead
+        row = row | (~row & (dead_rank <= short))
+        speed_row = torch.where(straggling, spec.straggle_factor, 1.0)
+        speed_row = torch.where(spd_mask[r], spd_val[r], speed_row)
+        alive.append(row)
+        speed.append(speed_row.to(torch.float32))
+    return {"alive": torch.stack(alive, 1), "speed": torch.stack(speed, 1)}
+
+
+def attach_fault_batch_device(arrivals: dict, spec: FaultSpec,
+                              num_edges: int,
+                              generator: torch.Generator) -> dict:
+    """Device twin of :func:`attach_fault_batch`: one independent fault
+    trajectory per batch element, drawn on ``generator``'s device, plus
+    per-slot runtime jitter drawn directly per slot (floored at
+    ``MIN_JITTER``; padding gets 1). Retries reuse the engine's stored
+    ``slot_jitter``, so a per-slot draw realizes the same law as the host's
+    rid-keyed table without materializing it. ``arrivals`` is the (B, R, A)
+    batch of :func:`repro_torch.workloads.batch.materialize_round_batch_device`
+    (or the host sampler's arrays); the result is tensors on the
+    generator's device."""
+    device = generator.device
+    out = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                              else v).to(device)
+           for k, v in arrivals.items()}
+    mask = out["mask"]
+    batch, num_rounds = mask.shape[0], mask.shape[1]
+    out.update(materialize_faults_device(spec, num_edges, num_rounds,
+                                         batch=batch, generator=generator))
+    if spec.jitter_sigma:
+        n = torch.randn(mask.shape, generator=generator, device=device)
+        j = torch.exp(spec.jitter_sigma * n)
+        out["jitter"] = torch.where(mask, torch.clamp(j, min=MIN_JITTER),
+                                    1.0).to(torch.float32)
+    return out

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import instances as tinst
 from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig,
                                      corais_encode, corais_score_decode)
+from repro_torch.core import train as ttrain
 from repro_torch.core.train import RLConfig, loss_and_grads, to_device
 from repro_torch.configs import get_reduced_config
 from repro_torch.kernels import (build, decode_attention, ops, policy_score,
@@ -41,7 +42,8 @@ from repro_torch.serving import engine
 from repro_torch.serving.fastpath import DecisionFastPath
 from repro_torch.resilience import faults
 from repro_torch.resilience.policies import ResilienceConfig
-from repro_torch.workloads import (materialize_round_batch, scenario,
+from repro_torch.workloads import (PoissonArrivals, materialize_round_batch,
+                                   materialize_round_batch_device, scenario,
                                    scenario_fault_spec)
 
 pytestmark = pytest.mark.cuda
@@ -852,3 +854,96 @@ def test_policy_rollout_launches_its_kernel_once_per_round(cuda_device,
     assert sum(checked) > 0
     m = engine.summarize(final)
     assert m["completed"] == m["submitted"] == int(arr["mask"].sum())
+
+
+# -- temporal training (B1 forward and B2 backward once per round) ----------
+
+
+@pytest.mark.parametrize("b,q,z", [(16, 5, 16), (8, 5, 64), (16, 100, 130)])
+def test_head_kernels_at_the_temporal_shapes(cuda_device, b, q, z):
+    """B1 and B2 at the temporal trainer's shapes (its defaults, the chaos
+    path's 64-wide rounds, 16 instances of a 100-edge cluster), d = 256,
+    against their plain versions; the same bits on two calls."""
+    c, h, wx, wy, mask = _inputs(cuda_device, b, q, max(1, q - 2), z, 256,
+                                 seed=b + z)
+    maskf = mask.to(torch.float32)
+    out = policy_score.policy_score_cuda(c, h, wx, wy, maskf)
+    assert torch.equal(out, policy_score.policy_score_cuda(c, h, wx, wy,
+                                                           maskf))
+    torch.testing.assert_close(out, ref.policy_score_torch(c, h, wx, wy,
+                                                           mask),
+                               atol=ATOL, rtol=0)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)
+                    ).to(cuda_device)
+    got = policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy, maskf)
+    again = policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy, maskf)
+    want = ref.policy_score_bwd_torch(g, out, c, h, wx, wy, maskf)
+    for name, x, y, w, tol in zip(("dc", "dh", "dw_px", "dw_py"), got, again,
+                                  want, (2e-5, 2e-5, 1e-4, 1e-4)):
+        assert torch.equal(x, y), f"{name} differs between two calls"
+        assert _rel_err(x, w) <= tol, (name, _rel_err(x, w))
+
+
+def test_temporal_update_through_cuda_matches_torch_head(cuda_device):
+    """One temporal loss and its gradients through the kernels ("cuda")
+    and through plain autograd ("torch"), two copies of one policy, the
+    same clusters, arrivals and injected actions: B1 and B2 launch once
+    per round, and loss and gradients agree."""
+    cfg = ttrain.TemporalRLConfig(
+        policy=PolicyConfig(**SMALL),
+        engine=engine.EngineConfig(num_edges=5, num_rounds=6),
+        batch_size=8)
+    arrivals = ttrain._host_episode(cfg, None, scenario(cfg.scenario), 0)
+    seeds = ttrain._cluster_seeds(cfg, 0)
+    actions = torch.randint(0, 5, (6, 8, 16), generator=torch.Generator(
+        ).manual_seed(1)).to(cuda_device)
+    results = {}
+    for backend in ("cuda", "torch"):
+        pcfg = PolicyConfig(**SMALL, score_backend=backend)
+        policy = CoRaiSPolicy(pcfg, generator=torch.Generator().manual_seed(0),
+                              device=cuda_device)
+        policy_score.reset_launch_counts()
+        loss, aux, grads = ttrain.temporal_loss_and_grads(
+            policy, engine.init_batch(cfg.engine, seeds, device=cuda_device),
+            arrivals, dataclasses.replace(cfg, policy=pcfg), actions=actions)
+        results[backend] = (loss, aux, grads, dict(policy_score.LAUNCHES))
+    (loss_k, aux_k, grads_k, launches), (loss_p, aux_p, grads_p, _) = (
+        results["cuda"], results["torch"])
+    assert launches["policy_score"] == 6 and launches["policy_score_bwd"] == 6
+    assert launches["policy_score_decode"] == 0
+    assert abs(float(loss_k - loss_p)) <= 1e-5 * abs(float(loss_p))
+    assert float(aux_k["completed"]) == float(aux_p["completed"]) > 0
+    gmax = max(float(g.abs().max()) for g in grads_p.values())
+    for key, gp in grads_p.items():
+        torch.testing.assert_close(grads_k[key], gp, rtol=1e-4,
+                                   atol=1e-5 * gmax, msg=key)
+
+
+def test_device_samplers_on_a_cuda_generator(cuda_device):
+    """The device episode and fault samplers on the card: tensors on the
+    generator's device, the Poisson count moments, the exact clip contract
+    and the scripted fault rows equal to the host's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    d = materialize_round_batch_device(PoissonArrivals(rate=30.0), 4, 8,
+                                       0.25, 512, generator=gen,
+                                       max_per_round=64)
+    assert all(v.device.type == "cuda" for v in d.values())
+    counts = d["mask"].sum(-1).double().cpu().numpy()
+    assert counts.mean() == pytest.approx(7.5, rel=0.05)
+    assert counts.var() == pytest.approx(7.5, rel=0.15)
+    c = materialize_round_batch_device(PoissonArrivals(rate=120.0), 4, 6,
+                                       0.25, 64, generator=gen,
+                                       max_per_round=8)
+    kept = c["mask"].sum(-1)
+    total = kept + c["dropped"]
+    assert bool((c["dropped"] > 0).any())
+    starts = torch.cumsum(total, -1) - total
+    want = torch.where(c["mask"], starts[..., None] + torch.arange(
+        8, device=cuda_device), 0)
+    assert torch.equal(c["rid"], want.to(torch.int32))
+    spec = faults.FaultSpec(rolling=(2, 2), jitter_sigma=0.3, min_alive=2)
+    out = faults.attach_fault_batch_device(c, spec, 4, gen)
+    host = faults.materialize_faults(spec, 4, 6, seed=0)
+    for b in range(64):
+        assert np.array_equal(out["alive"][b].cpu().numpy(), host["alive"])
+    assert bool((out["jitter"][c["mask"]] >= faults.MIN_JITTER).all())
