@@ -76,6 +76,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per update, B1's and B2's device ms); and a save -> resume on the card
    (epoch path, K = 3, checkpoints every 2) bit-identical to the
    uninterrupted run;
+6d. the serving host side, the paper's Fig. 2 loop (``drive_serving_host``):
+   ``launch.train corais`` at ``RLConfig()``'s full width for 4 batches
+   with checkpoints every 2, then again on the same directory, resuming
+   at the batch after the last checkpoint: B1 and B2 once per batch, the
+   manifest holding every leaf of ``train_tree``, the resumed parameters
+   bit-identical to the same batches run in memory; ``launch.serve
+   --scheduler corais`` on that checkpoint over a 100-edge cluster (2,000
+   requests in 5 s, edge 0 failing at 2 s, edge 1 a straggler at 8x):
+   every request completes and B1 launches once per non-empty round; the
+   same flow in process through B1, through B3 (``fused_decode=True``,
+   K = 1) and ``"corais-sample"`` (B3 at K = Q), each round's padded
+   snapshot recorded: greedy decisions equal the plain head's above the
+   gap and a sampled decision costs no more than its greedy candidate;
+   decision mean, p95 and max, rounds, simulator wall per arrival round
+   and a round's split between ``snapshot_instance``, staging and the
+   decision; chaos-rolling-failure's fault rows at Q = 100 pushed by
+   ``schedule_into_sim`` with nothing lost; and the port's engine on the
+   card against the port's simulator as its oracle (``ORACLE_CASES``:
+   finish times and features within 1e-4, completions per round exact);
 7. hold the attention kernels B4 (flash attention) and B5 (decode
    attention) against their plain versions at qwen3-4b, olmo-1b and
    hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
@@ -138,7 +157,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
-    main path above, the rollout's and temporal training's included; B1
+    main path above, the rollout's, temporal training's and the serving
+    host side's included; B1
     and B2 also timed at the temporal shapes, under ``temporal_shapes``).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
@@ -153,6 +173,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -263,6 +284,38 @@ TEMPORAL_SHAPES = ((16, 5, 16), (8, 5, 64))
 # errors of the samples' own spread
 SAMPLER_BATCH = 4096
 SAMPLER_SE = 5.0
+# phase 6d, the serving host side (the paper's Fig. 2 loop): ``train
+# corais`` at RLConfig()'s full width for SERVE_TRAIN_BATCHES batches with
+# checkpoints every SERVE_CKPT_EVERY, run twice on one directory (the
+# second resumes); then ``serve --scheduler corais`` over the paper's
+# largest cluster at phase 6b's rate (4 requests/s per edge: SERVE_REQUESTS
+# over SERVE_WINDOW s, ~100 briefs in each of 20 arrival rounds of 0.25 s)
+# with edge 0 failing at 2 s and edge 1 a straggler at 8x. SERVE_UNTIL is
+# the simulated horizon H: a CPU run of this flow and seed (the port's
+# simulator; PolicyConfig() untrained, and greedy) completed every request
+# by 108.4 s and 63.1 s of simulated time.
+SERVE_EDGES = 100
+SERVE_REQUESTS = 2000
+SERVE_WINDOW = 5.0
+SERVE_DT = 0.25
+SERVE_UNTIL = 240.0
+SERVE_FAIL = (0, 2.0)
+SERVE_STRAGGLE = (1, 8.0)
+SERVE_TRAIN_BATCHES = 4
+SERVE_CKPT_EVERY = 2
+SERVE_FAULT_SCENARIO = "chaos-rolling-failure"
+# the port's engine on the card against the port's simulator as its oracle
+# (phi pinned, no execution noise), the scripted hash assignment:
+# tests/test_engine.py's four trace scenarios, one chaos scenario and
+# cloud-cache-churn (4 edges + the cloud, 16 rounds, seed 3, as
+# tests/test_cloud.py), finish times within 1e-4 (+1e-5 relative),
+# completion buckets exact, workload features within 1e-4
+ORACLE_CASES = (("uniform_iid", 5, 12, 0), ("flash_crowd_10x", 5, 12, 0),
+                ("mmpp_bursty", 5, 12, 0), ("heavy_tail_pareto", 5, 12, 0),
+                ("chaos-rolling-failure", 5, 12, 0),
+                ("cloud-cache-churn", 4, 16, 3))
+ORACLE_DRAIN = 120.0   # simulated s: every case drains by then (checked)
+ORACLE_TOL = 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1609,6 +1662,490 @@ def temporal_resume(pol, tr, checkpoint, device="cuda"):
             "loss": [r["loss"] for r in h_res], "wall_s": wall_s}
 
 
+# -- phase 6d: the serving host side ------------------------------------------
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cli_device(device):
+    return [] if torch.device(device).type == "cuda" else ["--device",
+                                                           str(device)]
+
+
+def _launch_check(label, launched, kernel, want):
+    check(launched[kernel] == want and sum(launched.values()) == want,
+          f"{label} launched {launched}; {kernel} must launch {want} times "
+          f"and nothing else of the port")
+
+
+def _tree_equal(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def serve_train(tr, checkpoint, launch_train, policy_score, ref, root,
+                device="cuda"):
+    """``train corais`` at RLConfig()'s full width, SERVE_TRAIN_BATCHES
+    batches with checkpoints every SERVE_CKPT_EVERY, twice on one
+    directory: the second run resumes from the first's last checkpoint at
+    the batch after it (the reference's ``step + 1``). B1 and B2 launch
+    once per batch and no plain head is reached; the manifest lists every
+    leaf of ``train_tree``; the resumed run's parameters, norm buffers and
+    Adam state equal, bit for bit, the same batches run in memory."""
+    import io
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["corais", "--batches", str(SERVE_TRAIN_BATCHES), "--ckpt-every",
+            str(SERVE_CKPT_EVERY), "--ckpt", str(root)] + _cli_device(device)
+    runs, counts, logs = [], {}, []
+    for _ in range(2):
+        with contextlib.ExitStack() as stack:
+            for guard in _plain_head_guard(ref):
+                stack.enter_context(guard)
+            out = stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            policy_score.reset_launch_counts()
+            t0 = time.perf_counter()
+            policy, opt, hist = launch_train.main(argv)
+            _sync(device)
+            wall_s = time.perf_counter() - t0
+            launched = dict(policy_score.LAUNCHES)
+        logs.append(out.getvalue())
+        n = len(hist)
+        check(n == SERVE_TRAIN_BATCHES, f"train corais ran {n} batches")
+        check(launched["policy_score"] == n
+              and launched["policy_score_bwd"] == n
+              and sum(launched.values()) == 2 * n,
+              f"train corais launched {launched} in {n} batches; B1 and B2 "
+              f"must launch once per batch")
+        for row in hist:
+            check(all(math.isfinite(row[k]) for k in
+                      ("loss", "grad_norm", "cost_mean", "cost_best",
+                       "entropy")), f"train corais: non-finite {row}")
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+        runs.append({"batches": [row["batch"] for row in hist],
+                     "wall_s": wall_s, "launches": launched,
+                     "step_ms": [row["sec"] * 1e3 for row in hist],
+                     "cost_mean": [row["cost_mean"] for row in hist]})
+    first_end = SERVE_TRAIN_BATCHES
+    want = list(range(first_end + 1, 2 * first_end + 1))
+    check(runs[1]["batches"] == want, f"the resumed run took batches "
+          f"{runs[1]['batches']}, not {want}")
+    ck = checkpoint.Checkpointer(str(root))
+    step = ck.latest_step()
+    with open(Path(ck._dir(step)) / "manifest.json") as f:
+        keys = {e["key"] for e in json.load(f)["leaves"]}
+    leaves = set(checkpoint.flatten_tree(checkpoint.train_tree(policy, opt)))
+    check(keys == leaves, f"the checkpoint's manifest misses "
+          f"{sorted(leaves - keys)[:5]} and adds {sorted(keys - leaves)[:5]}")
+    # the same batches in memory: 0..3, then 5..8
+    cfg = tr.RLConfig()
+    p_mem, o_mem, _ = tr.train(cfg, num_batches=first_end, device=device)
+    p_mem, o_mem, _ = tr.train(cfg, num_batches=first_end, policy=p_mem,
+                               opt_state=o_mem, start_batch=first_end + 1)
+    _sync(device)
+    same = (_tree_equal(dict(p_mem.state_dict()), dict(policy.state_dict()))
+            and torch.equal(o_mem["step"], opt["step"])
+            and all(_tree_equal(o_mem[m], opt[m]) for m in ("m", "v")))
+    check(same, "the resumed train corais is not bit-identical to the same "
+          "batches run in memory")
+    return {"runs": runs, "latest_step": step, "leaves": len(keys),
+            "bit_identical": True, "log_tail": logs[1][-400:]}, counts
+
+
+def _serve_sim(sim_mod, cc, edges=SERVE_EDGES):
+    """``launch/serve.py``'s flow at phase 6d's flags, on controller
+    ``cc``."""
+    sim = sim_mod.MultiEdgeSim(sim_mod.SimConfig(num_edges=edges, seed=0), cc)
+    rng = np.random.default_rng(0)
+    for _ in range(SERVE_REQUESTS):
+        sim.submit(int(rng.integers(0, edges)), float(rng.uniform(0.05, 1.0)),
+                   t=float(rng.uniform(0, SERVE_WINDOW)))
+    sim.fail_edge(SERVE_FAIL[0], t=SERVE_FAIL[1])
+    sim.set_straggler(SERVE_STRAGGLE[0], SERVE_STRAGGLE[1], t=0.0)
+    return sim
+
+
+def _decision_stats(m):
+    return {k: m[k] for k in ("decision_rounds", "decision_mean_s",
+                              "decision_p95_s", "decision_max_s")}
+
+
+def serve_cli(launch_serve, policy_score, ref, root, device="cuda"):
+    """``serve --scheduler corais`` on the trained checkpoint at phase 6d's
+    flags: every request completes (the command line's own check) and B1
+    launches once per non-empty round, no plain head reached."""
+    import io
+    argv = ["--scheduler", "corais", "--policy-ckpt", str(root), "--edges",
+            str(SERVE_EDGES), "--requests", str(SERVE_REQUESTS),
+            "--arrival-window", str(SERVE_WINDOW), "--fail-edge",
+            str(SERVE_FAIL[0]), "--fail-at", str(SERVE_FAIL[1]),
+            "--straggle", f"{SERVE_STRAGGLE[0]}:{SERVE_STRAGGLE[1]:g}",
+            "--until", str(SERVE_UNTIL)] + _cli_device(device)
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(ref):
+            stack.enter_context(guard)
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        policy_score.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = launch_serve.main(argv)
+        wall_s = time.perf_counter() - t0
+        launched = dict(policy_score.LAUNCHES)
+    check(m["completed"] == m["submitted"] == SERVE_REQUESTS,
+          f"serve completed {m['completed']} of {m['submitted']}")
+    _launch_check("serve --scheduler corais", launched, "policy_score",
+                  m["decision_rounds"])
+    return {"argv": argv, "wall_s": wall_s, "launches": launched,
+            **_decision_stats(m),
+            **{k: m[k] for k in ("completed", "submitted", "retried_requests",
+                                 "mean_response", "p95_response", "makespan",
+                                 "transferred_frac")}}, launched
+
+
+def _recorded_run(sim, cc, controller_mod, device):
+    """Run ``sim`` to SERVE_UNTIL with ``cc`` recording each round's padded
+    snapshot and decision, and timing ``snapshot_instance``, the staging
+    (to a synchronise) and the decision."""
+    from unittest import mock
+    rec = {"snapshots": [], "assign": [], "snapshot_s": [], "stage_s": []}
+    stage, decide = cc._stage, cc._policy_assign
+    snapshot = controller_mod.snapshot_instance
+
+    def timed_snapshot(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = snapshot(*args, **kwargs)
+        rec["snapshot_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_stage(inst):
+        t0 = time.perf_counter()
+        out = stage(inst)
+        _sync(device)
+        rec["stage_s"].append(time.perf_counter() - t0)
+        rec["snapshots"].append(inst)
+        return out
+
+    def recorded(inst):
+        out = decide(inst)
+        rec["assign"].append(out)
+        return out
+
+    cc._stage, cc._policy_assign = timed_stage, recorded
+    with mock.patch.object(controller_mod, "snapshot_instance",
+                           timed_snapshot):
+        t0 = time.perf_counter()
+        m = sim.run(until=SERVE_UNTIL)
+        rec["wall_s"] = time.perf_counter() - t0
+    return m, rec
+
+
+def _plain_greedy(pol, policy, inst, device):
+    """The plain ``"torch"`` head's greedy decision on a padded snapshot,
+    the rows whose top-2 gap exceeds GAP, and the staged instance."""
+    tinst = {k: torch.as_tensor(np.asarray(v)).to(device)
+             for k, v in inst.items()}
+    with torch.inference_mode():
+        c, h = pol.corais_encode(policy, tinst)
+        ti, tv = pol.corais_score_decode(policy, c, h, tinst["edge_mask"],
+                                         k=2, normalize=False,
+                                         backend="torch")
+    gapped = ((tv[:, 0] - tv[:, 1]) > GAP) & tinst["req_mask"]
+    return ti[:, 0].cpu().numpy(), gapped.cpu().numpy(), tinst
+
+
+def serve_in_process(pol, obj, sim_mod, controller_mod, policy_score, ref,
+                     policy, device="cuda"):
+    """The serve flow in process with the trained policy: ``"corais"``
+    materialized (B1), fused (B3 at K = 1) and ``"corais-sample"`` fused
+    (B3 at K = Q, ``topk_sampling_decode``), each launching its kernel
+    once per non-empty round and no plain head, every request completed.
+    On each round's recorded snapshot a greedy decision, and the sampled
+    decode's greedy candidate, equal the plain head's wherever the top-2
+    gap exceeds GAP, and a sampled decision costs no more than its greedy
+    candidate. Decision mean, p95 and max, rounds, simulator wall per arrival
+    round, and a round's split between ``snapshot_instance``, staging and
+    the decision."""
+    report, counts = {}, {}
+    arrival_rounds = SERVE_WINDOW / SERVE_DT
+    for label, scheduler, fused, kernel in (
+            ("corais", "corais", False, "policy_score"),
+            ("corais_fused", "corais", True, "policy_score_decode"),
+            ("corais_sample_fused", "corais-sample", True,
+             "policy_score_decode")):
+        cc = sim_mod.CentralController(scheduler=scheduler, policy=policy,
+                                       fused_decode=fused)
+        sim = _serve_sim(sim_mod, cc)
+        with contextlib.ExitStack() as stack:
+            for guard in _plain_head_guard(ref):
+                stack.enter_context(guard)
+            policy_score.reset_launch_counts()
+            m, rec = _recorded_run(sim, cc, controller_mod, device)
+            launched = dict(policy_score.LAUNCHES)
+        rounds = len(sim.decision_times)
+        check(m["completed"] == m["submitted"] == SERVE_REQUESTS
+              and m["stranded_requests"] == 0,
+              f"serving {label}: {m['completed']} of {m['submitted']} done")
+        _launch_check(f"serving {label}", launched, kernel, rounds)
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+        gapped_n = checked = compared = 0
+        for inst, got in zip(rec["snapshots"], rec["assign"]):
+            want, gapped, tinst = _plain_greedy(pol, policy, inst, device)
+            if scheduler == "corais":
+                bad = int((got[gapped] != want[gapped]).sum())
+                check(bad == 0, f"serving {label}: {bad} decisions differ "
+                      f"from the plain head above the gap")
+            else:
+                # the greedy candidate of the sampled decode: B3 at K = Q,
+                # the call the controller made, the same bits
+                with torch.inference_mode():
+                    c, h = pol.corais_encode(policy, tinst)
+                    ti, _ = pol.corais_score_decode(
+                        policy, c, h, tinst["edge_mask"],
+                        k=int(tinst["edge_mask"].shape[-1]))
+                cand = ti[:, 0].cpu().numpy()
+                bad = int((cand[gapped] != want[gapped]).sum())
+                check(bad == 0, f"serving {label}: {bad} greedy candidates "
+                      f"differ from the plain head above the gap")
+                cost = [float(obj.makespan(tinst, torch.as_tensor(a).to(
+                    device))) for a in (got, cand)]
+                check(cost[0] <= cost[1] * (1 + 1e-6), f"serving {label}: "
+                      f"a sampled decision costs {cost[0]}, its greedy "
+                      f"candidate {cost[1]}")
+                checked += 1
+                compared += cost[0] < cost[1]
+            gapped_n += int(gapped.sum())
+        check(gapped_n > 0, f"serving {label}: no request above the gap")
+        dec = np.asarray(sim.decision_times)
+        stage = np.asarray(rec["stage_s"])
+        report[label] = {
+            "scheduler": scheduler, "fused_decode": fused,
+            "launches": launched, "rounds_scheduled": rounds,
+            **_decision_stats(m),
+            "sim_wall_s": rec["wall_s"],
+            "sim_wall_ms_per_arrival_round":
+                rec["wall_s"] * 1e3 / arrival_rounds,
+            "round_split_ms": {
+                "snapshot_instance": float(np.mean(rec["snapshot_s"])) * 1e3,
+                "staging": float(stage.mean()) * 1e3,
+                "decision": float((dec - stage).mean()) * 1e3},
+            "width": [int(np.asarray(i["req_mask"]).shape[0])
+                      for i in rec["snapshots"][:3]],
+            "gapped_requests": gapped_n, "sampled_rounds_checked": checked,
+            "sampled_rounds_cheaper": compared,
+            **{k: m[k] for k in ("completed", "retried_requests",
+                                 "mean_response", "p95_response",
+                                 "makespan", "transferred_frac")}}
+    return report, counts
+
+
+def serve_faults(wl, faults, sim_mod, policy_score, ref, policy,
+                 device="cuda"):
+    """SERVE_FAULT_SCENARIO's fault rows at Q = SERVE_EDGES pushed by
+    ``schedule_into_sim`` under the policy controller (B1): nothing lost."""
+    rounds = ROLLOUT_ROUNDS
+    spec = wl.scenario_fault_spec(SERVE_FAULT_SCENARIO)
+    ev = faults.materialize_faults(spec, SERVE_EDGES, rounds, seed=0)
+    jit = faults.jitter_table(spec, 1 << 16) if spec.jitter_sigma else None
+    cc = sim_mod.CentralController(scheduler="corais", policy=policy)
+    sim = sim_mod.MultiEdgeSim(sim_mod.SimConfig(
+        num_edges=SERVE_EDGES, round_interval=SERVE_DT, seed=0), cc)
+    faults.schedule_into_sim(sim, ev, SERVE_DT, jit)
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(ref):
+            stack.enter_context(guard)
+        policy_score.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = sim.drive(wl.scenario(SERVE_FAULT_SCENARIO),
+                      until=rounds * SERVE_DT, run_until=SERVE_UNTIL, seed=0)
+        wall_s = time.perf_counter() - t0
+        launched = dict(policy_score.LAUNCHES)
+    check(m["completed"] == m["submitted"] > 0
+          and m["stranded_requests"] == 0,
+          f"serving under {SERVE_FAULT_SCENARIO}: {m['completed']} of "
+          f"{m['submitted']} done, {m['stranded_requests']} stranded")
+    _launch_check(f"serving under {SERVE_FAULT_SCENARIO}", launched,
+                  "policy_score", m["decision_rounds"])
+    failures = int((~ev["alive"]).any(0).sum())
+    return {"scenario": SERVE_FAULT_SCENARIO, "edges": SERVE_EDGES,
+            "edges_failed": failures, "wall_s": wall_s, "launches": launched,
+            **_decision_stats(m),
+            **{k: m[k] for k in ("completed", "submitted",
+                                 "stranded_requests", "retried_requests",
+                                 "mean_response", "makespan")}}, launched
+
+
+class _HashController:
+    """The oracle's twin of the scripted hash: request rid goes to node
+    (7 rid + 3) mod n; with ``sim`` set, fresh requests fail over to the
+    nearest alive edge and re-admitted orphans retry at their source (the
+    engine's fault-mode rules). Records each round's workload features."""
+
+    last_decision_time = 0.0
+
+    def __init__(self, n, snapshot_instance, nearest_alive_edge, sim=None):
+        self.n, self.sim = n, sim
+        self.snapshot, self.nearest = snapshot_instance, nearest_alive_edge
+        self.seen, self.features = set(), {}
+
+    def schedule(self, edges, pending, w, ct):
+        inst = self.snapshot([e.state for e in edges], pending, w, ct)
+        if self.sim is not None:
+            r_idx = int(round(self.sim.now / SERVE_DT)) - 1
+        else:
+            r_idx = int(np.ceil(min(r.submit_time for r in pending)
+                                / SERVE_DT)) - 1
+        self.features[r_idx] = inst["workload"].copy()
+        if self.sim is None:
+            return [(r, (r.rid * 7 + 3) % self.n) for r in pending]
+        alive = [e.alive for e in edges]
+        out = []
+        for r in pending:
+            if r.rid in self.seen:
+                out.append((r, r.source_edge))
+            else:
+                self.seen.add(r.rid)
+                out.append((r, self.nearest(self.sim.w, (r.rid * 7 + 3)
+                                            % self.n, alive)))
+        return out
+
+
+def engine_vs_oracle(engine, wl, faults, sim_mod, state, topology,
+                     device="cuda"):
+    """The port's engine on the card (scripted hash) against the port's
+    simulator with phi pinned and no noise on ORACLE_CASES: finish times,
+    completion buckets and workload features (rounds untouched by an alive
+    transition, under faults)."""
+    report = {}
+    for name, q, rounds, seed in ORACLE_CASES:
+        cloud, cache = wl.scenario_cloud_spec(name)
+        spec = wl.scenario_fault_spec(name)
+        n = q + (1 if cloud is not None else 0)
+        arr = wl.materialize_rounds(wl.scenario(name), q, rounds, SERVE_DT,
+                                    seed=seed, max_per_round=64)
+        ev = jit = None
+        if spec is not None:
+            ev = faults.materialize_faults(spec, q, rounds, seed=seed)
+            jit = (faults.jitter_table(spec, int(arr["rid"].max()) + 1,
+                                       seed=seed)
+                   if spec.jitter_sigma else None)
+            arr = faults.attach_faults(arr, ev, jit)
+        cfg = engine.EngineConfig(num_edges=q, num_rounds=rounds,
+                                  round_interval=SERVE_DT, max_per_round=64,
+                                  cloud=cloud, cache=cache)
+        t0 = time.perf_counter()
+        final, infos = engine.make_rollout(
+            cfg, lambda g, inst: (inst["req_rid"] * 7 + 3) % n)(
+            engine.init_state(cfg, seed=seed, device=device), arr)
+        _sync(device)
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        final = {k: v.cpu().numpy() for k, v in final.items()}
+        feats = infos["features"].cpu().numpy()
+        sim = sim_mod.MultiEdgeSim(sim_mod.SimConfig(
+            num_edges=q, round_interval=SERVE_DT, seed=seed, exec_noise=0.0,
+            phi_oracle=True, cloud=cloud, cache=cache), None)
+        sim.cc = _HashController(n, state.snapshot_instance,
+                                 topology.nearest_alive_edge,
+                                 sim if spec is not None else None)
+        if ev is not None:
+            faults.schedule_into_sim(sim, ev, SERVE_DT, jit)
+        m = sim.drive(wl.scenario(name), until=rounds * SERVE_DT,
+                      run_until=ORACLE_DRAIN, seed=seed)
+        rids = np.asarray(arr["rid"]).ravel()[np.asarray(arr["mask"]).ravel()]
+        committed = final["slot_edge"].ravel() >= 0
+        fin_e = final["slot_finish"].ravel()[committed]
+        done = {r.rid: r.finish_time for e in sim.edges for r in e.completed}
+        where = f"engine vs oracle {name}"
+        check(m["completed"] == m["submitted"] == len(rids) == len(fin_e) > 0,
+              f"{where}: {m['completed']} of {m['submitted']} done, "
+              f"{len(rids)} arrived, {len(fin_e)} committed")
+        fin_o = np.array([done[r] for r in rids])
+        err = np.abs(fin_e - fin_o)
+        check(bool((err <= ORACLE_TOL + 1e-5 * np.abs(fin_o)).all()),
+              f"{where}: finish times differ by up to {err.max()}")
+        bounds = (np.arange(rounds) + 1) * SERVE_DT + 1e-6
+        check(np.array_equal((fin_e[None] <= bounds[:, None]).sum(-1),
+                             (fin_o[None] <= bounds[:, None]).sum(-1)),
+              f"{where}: completions per round differ")
+        quiet = np.ones(rounds, bool)
+        if ev is not None:
+            prev = np.ones(q, bool)
+            for r in range(rounds):
+                quiet[r] = bool((ev["alive"][r] == prev).all())
+                prev = ev["alive"][r]
+        feat_err, compared = 0.0, 0
+        if cloud is None:
+            for r, want in sim.cc.features.items():
+                if quiet[r] and (r == 0 or quiet[r - 1]):
+                    e = np.abs(feats[r] - want)
+                    check(bool((e <= ORACLE_TOL + ORACLE_TOL
+                                * np.abs(want)).all()),
+                          f"{where}: round {r} features differ by {e.max()}")
+                    feat_err = max(feat_err, float(e.max()))
+                    compared += 1
+            check(compared > 0, f"{where}: no round's features compared")
+        report[name] = {"edges": q, "rounds": rounds, "seed": seed,
+                        "requests": len(rids),
+                        "max_finish_err": float(err.max()),
+                        "max_feature_err": feat_err,
+                        "feature_rounds": compared,
+                        "retried": int(final["retried"]),
+                        "engine_ms": engine_ms}
+    return report
+
+
+def drive_serving_host(card, m, device="cuda"):
+    """Phase 6d's five steps on the modules ``m`` (a namespace of the
+    port's modules): train and resume, serve from the command line, the
+    in-process decode variants, faults at full width, and the engine
+    against its oracle. Prints each step's line beside the card and
+    returns (report, launch counts over the steps' main paths)."""
+    root = ROOT / "build" / "chip_smoke_serving_ckpt"
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    report = {"card": card}
+    t0 = time.perf_counter()
+    report["train"], c = serve_train(m.tr, m.checkpoint, m.launch_train,
+                                     m.policy_score, m.ref, root, device)
+    add(c)
+    print(f"serving host train corais ({card}): "
+          f"{json.dumps({k: v for k, v in report['train'].items() if k != 'log_tail'})}",
+          flush=True)
+    report["serve_cli"], c = serve_cli(m.launch_serve, m.policy_score, m.ref,
+                                       root, device)
+    add(c)
+    print(f"serving host serve --scheduler corais ({card}): "
+          f"{json.dumps(report['serve_cli'])}", flush=True)
+    policy = m.pol.CoRaiSPolicy(m.pol.PolicyConfig(), device=device)
+    m.checkpoint.load_train_state(
+        policy, m.checkpoint.Checkpointer(str(root)).restore_latest()["tree"])
+    report["in_process"], c = serve_in_process(
+        m.pol, m.obj, m.serving, m.controller, m.policy_score, m.ref, policy,
+        device)
+    add(c)
+    for label, r in report["in_process"].items():
+        print(f"serving host {label} ({card}): {json.dumps(r)}", flush=True)
+    report["faults"], c = serve_faults(m.wl, m.faults, m.serving,
+                                       m.policy_score, m.ref, policy, device)
+    add(c)
+    print(f"serving host faults ({card}): {json.dumps(report['faults'])}",
+          flush=True)
+    report["engine_vs_oracle"] = engine_vs_oracle(
+        m.engine, m.wl, m.faults, m.serving, m.state, m.topology, device)
+    print(f"serving host engine vs oracle ({card}): "
+          f"{json.dumps(report['engine_vs_oracle'])}", flush=True)
+    report["wall_s"] = time.perf_counter() - t0
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return report, counts
+
+
 # -- phase 13: timing ------------------------------------------------------
 
 
@@ -2638,9 +3175,13 @@ def main() -> int:
     from repro_torch import resilience
     from repro_torch import workloads as wl
     from repro_torch.resilience import faults
-    from repro_torch.serving import batching
+    from repro_torch import serving
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serving import batching, controller
     from repro_torch.serving import engine
     from repro_torch.serving import fastpath as fpm
+    from repro_torch.serving import topology
 
     # phase 1: the card
     card = card_line()
@@ -2780,6 +3321,17 @@ def main() -> int:
     del rollout_arr, host_policy
     torch.cuda.empty_cache()
 
+    # phase 6d: the serving host side, the paper's Fig. 2 loop on a
+    # 100-edge cluster, trained and served through the command lines
+    serving_host, counts = drive_serving_host(card, types.SimpleNamespace(
+        tr=tr, pol=pol, obj=obj, checkpoint=checkpoint,
+        launch_train=launch_train, launch_serve=launch_serve,
+        serving=serving, controller=controller, state=state,
+        topology=topology, wl=wl, faults=faults, engine=engine,
+        policy_score=policy_score, ref=ref))
+    record("serving_host", counts)
+    torch.cuda.empty_cache()
+
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
     cfg = get_config(LM_ARCH)
     params = lm.init_params(cfg, generator=torch.Generator(
@@ -2854,6 +3406,7 @@ def main() -> int:
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
+        "serving_host": serving_host,
         "rollout_arrivals_s": arrivals_s, "engine_parity_s": eng_parity_s,
         "rollout_s": rollout_s,
         "kernels": kernels}, indent=1))
@@ -2889,6 +3442,17 @@ def main() -> int:
                               "device_busy_ms", "idle_share",
                               "kernels_per_unit", "head_device_ms")}
                           for backend, r in rollout.items()},
+                      "serving_host": {
+                          "serve_cli": _decision_stats(
+                              serving_host["serve_cli"]),
+                          **{label: {k: r[k] for k in (
+                              "decision_mean_s", "decision_p95_s",
+                              "decision_max_s", "rounds_scheduled",
+                              "sim_wall_ms_per_arrival_round",
+                              "round_split_ms")}
+                             for label, r in
+                             serving_host["in_process"].items()},
+                          "wall_s": serving_host["wall_s"]},
                       "temporal": {label: {
                           "update_ms": temporal[label]["update_ms"],
                           "updates_per_s": temporal[label]["updates_per_s"]}

@@ -7,13 +7,15 @@ A training checkpoint holds ``{"params", "state", "opt_state"}`` under the
 reference's paths, so a policy trained by the port loads into the
 reference with its ``restore_pytree``, and back into the port with
 :func:`load_train_state`. Writes go to ``<dir>.tmp`` and are renamed into
-place, so a reader never sees half a checkpoint.
+place, so a reader never sees half a checkpoint; :class:`Checkpointer`
+writes on a background thread, as the reference's does.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 from typing import Optional
 
 import numpy as np
@@ -83,14 +85,31 @@ def load_train_state(policy, flat: dict) -> Optional[dict]:
             "v": {k: t(a) for k, a in split_prefix(flat, "opt_state/v").items()}}
 
 
+def _host_copy(tree):
+    """The tree with every tensor copied to host numpy, so a save can go on
+    while the caller updates its tensors in place."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return np.array(tree)
+
+
 class Checkpointer:
     """Keep-K periodic checkpoints under ``root/step_XXXXXXXXXX`` with a
-    ``LATEST`` pointer file; saves are synchronous."""
+    ``LATEST`` pointer file. With ``async_save`` (the default, as in the
+    reference) ``save`` copies the tree to host numpy and writes it on a
+    background thread; a second ``save`` waits for the first, and
+    ``wait()`` joins before the checkpoint is read or the process exits."""
 
-    def __init__(self, root: str, every: int = 100, keep: int = 3):
+    def __init__(self, root: str, every: int = 100, keep: int = 3,
+                 async_save: bool = True):
         self.root = root
         self.every = max(every, 1)
         self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         os.makedirs(root, exist_ok=True)
 
     def should_save(self, step: int) -> bool:
@@ -100,12 +119,37 @@ class Checkpointer:
         return os.path.join(self.root, f"step_{step:010d}")
 
     def save(self, step: int, tree, extras: Optional[dict] = None) -> None:
-        save_pytree(tree, self._dir(step), extras)
-        tmp = os.path.join(self.root, "LATEST.tmp")
-        with open(tmp, "w") as f:
-            f.write(str(step))
-        os.replace(tmp, os.path.join(self.root, "LATEST"))
-        self._gc()
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def work():
+            save_pytree(host_tree, self._dir(step), extras)
+            tmp = os.path.join(self.root, "LATEST.tmp")
+            with open(tmp, "w") as f:
+                f.write(str(step))
+            os.replace(tmp, os.path.join(self.root, "LATEST"))
+            self._gc()
+
+        def background():
+            try:
+                work()
+            except BaseException as e:  # raised again by wait()
+                self._error = e
+
+        if self.async_save:
+            self._thread = threading.Thread(target=background, daemon=True)
+            self._thread.start()
+        else:
+            work()
+
+    def wait(self) -> None:
+        """Join the save in flight, if any; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
     def latest_step(self) -> Optional[int]:
         path = os.path.join(self.root, "LATEST")
@@ -116,7 +160,9 @@ class Checkpointer:
 
     def restore_latest(self) -> Optional[dict]:
         """{"step", "tree": {"/"-path: ndarray}, "extras"} of the latest
-        checkpoint, or None when there is none."""
+        checkpoint, or None when there is none. Waits for this
+        checkpointer's save in flight first."""
+        self.wait()
         step = self.latest_step()
         if step is None:
             return None

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.objective import makespan
+from repro_torch.core.objective import makespan, makespan_batch_samples
 
 
 def greedy_decode(log_probs) -> torch.Tensor:
@@ -25,6 +25,20 @@ def sample_assignments(generator: torch.Generator, log_probs,
     draws = torch.multinomial(probs.reshape(-1, q), num_samples,
                               replacement=True, generator=generator)
     return draws.T.reshape(num_samples, *log_probs.shape[:-1])
+
+
+def sampling_decode(generator: torch.Generator, inst, log_probs,
+                    num_samples: int):
+    """Best-of-n sampling decode over the dense (Z, Q) head of one
+    instance: sample n complete decisions, evaluate eq (19) for each, and
+    return (best_assignment (Z,) int32, best_makespan). The greedy decision
+    is always candidate 0 (costless, and it guards the tail of the
+    sampling distribution); ties go to the first minimum."""
+    samples = sample_assignments(generator, log_probs, num_samples)  # (S, Z)
+    samples = torch.cat([greedy_decode(log_probs)[None].long(), samples])
+    costs = makespan_batch_samples(inst, samples)
+    best = torch.argmin(costs)
+    return samples[best].to(torch.int32), costs[best]
 
 
 def assignment_log_prob(log_probs, assign, req_mask) -> torch.Tensor:

@@ -30,17 +30,21 @@ class MethodResult:
 def _policy_method(policy: CoRaiSPolicy, mode: str, n: int, seed: int,
                    backend: Optional[str] = None):
     """Returns fn(inst) -> (assign, solve_time) over numpy instances: the
-    shared decision path (core.inference) on the policy's device, timed
-    from host arrays to host assignment."""
+    shared decision path (core.inference) on the policy's device. The
+    instance is staged on the device before the clock starts, as the
+    reference stages it with ``jnp.asarray`` first, so ``solve_time`` runs
+    from the staged instance to the host assignment."""
     decide = make_decision_fn(policy, DecisionSpec(mode=mode, num_samples=n,
                                                    backend=backend))
     device = policy.device
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def run(inst):
-        t0 = time.perf_counter()
         tinst = {k: torch.as_tensor(np.asarray(v)).to(device)
                  for k, v in inst.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
         assign = decide(tinst, generator=gen).cpu().numpy()
         return assign, time.perf_counter() - t0
 

@@ -62,6 +62,11 @@ def makespan(inst, assign) -> torch.Tensor:
     return T.amax(dim=-1)
 
 
+def makespan_batch_samples(inst, assigns) -> torch.Tensor:
+    """inst: single instance (no batch axis); assigns: (S, Z). -> (S,)"""
+    return makespan(inst, assigns)
+
+
 # ---------------------------------------------------------------------------
 # numpy mirror (scalar, for solvers)
 # ---------------------------------------------------------------------------

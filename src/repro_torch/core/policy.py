@@ -323,6 +323,11 @@ def _lookup(registry: dict, kind: str, name: str) -> Callable:
                          f"{', '.join(sorted(registry))}") from None
 
 
+def register_score_backend(name: str, fn: Callable) -> None:
+    """Register a scoring implementation (see SCORE_BACKENDS signature)."""
+    SCORE_BACKENDS[name] = fn
+
+
 def list_score_backends() -> list[str]:
     return sorted(SCORE_BACKENDS)
 

@@ -11,8 +11,10 @@ the policy. :func:`slot_workload_features` is the torch port of the
 reference's array twin, batched over any leading shape, which the rollout
 engine calls every round. ``tests/test_torch_lm_serving.py``
 holds this copy against the original bit for bit, apart from the one
-place where :class:`PhiEstimator` differs on purpose (a history whose
-least-squares slope is not positive).
+place where :class:`PhiEstimator` differs on purpose by default (a
+history whose least-squares slope is not positive);
+``tests/test_torch_simulator.py`` holds ``PhiEstimator(flat_fit=False)``
+to the reference's rule bit for bit.
 """
 from __future__ import annotations
 
@@ -36,13 +38,15 @@ class PhiEstimator:
     ``np.polyfit(window, 1)`` (pinned by a test). Set ``frozen`` to pin the
     coefficients (oracle mode for engine-equivalence runs).
 
-    Where the window's least-squares slope is not positive, phi is the
-    least-squares fit with ``a >= 0``: ``a = 0`` and ``b`` the mean runtime.
-    The reference keeps its previous coefficients there, at first the prior
-    ``a = 1`` s per unit of size, and a dispatch over that prior sends the
-    edge nothing. Such a history is what an edge whose runtime does not
-    grow with the size measures: an LM prefill that the host's launches
-    bound (ROADMAP C).
+    Where the window's least-squares slope is not positive, phi is by
+    default the least-squares fit with ``a >= 0``: ``a = 0`` and ``b`` the
+    mean runtime. The reference keeps its previous coefficients there, at
+    first the prior ``a = 1`` s per unit of size, and a dispatch over that
+    prior sends the edge nothing. Such a history is what an edge whose
+    runtime does not grow with the size measures: an LM prefill that the
+    host's launches bound (ROADMAP C4). ``flat_fit=False`` keeps the
+    reference's rule, which the rollout engine's ``learn_phi`` refit also
+    follows; the simulator's edges (``serving/edge.py``) use it.
     """
 
     a: float = 1.0
@@ -50,6 +54,7 @@ class PhiEstimator:
     min_samples: int = 8
     window: int = 512
     frozen: bool = False
+    flat_fit: bool = True
     _xs: list = dataclasses.field(default_factory=list)
     _ys: list = dataclasses.field(default_factory=list)
     _sx: float = 0.0
@@ -92,8 +97,10 @@ class PhiEstimator:
         b = (self._sy - a * self._sx) / n
         if not (np.isfinite(a) and np.isfinite(b)):
             return
-        if a <= 0:  # flat or falling: the least-squares fit with a >= 0
-            a, b = 0.0, self._sy / n
+        if a <= 0:  # flat or falling
+            if not self.flat_fit:
+                return  # the reference's rule: keep the last coefficients
+            a, b = 0.0, self._sy / n  # the least-squares fit with a >= 0
         self.a, self.b = float(a), float(max(b, 0.0))
 
     def __call__(self, data_size) -> float:

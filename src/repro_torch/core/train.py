@@ -176,7 +176,7 @@ def train(
     own device). Instances come from the reference's numpy stream
     (``np.random.default_rng(cfg.seed + 7919 * start_batch)``); sampling
     draws from a device generator reseeded per batch. ``checkpointer``
-    only saves. To resume, restore its newest save with
+    only saves, and its last save has landed when ``train`` returns. To resume, restore its newest save with
     ``checkpointer.restore_latest()``, load it into a policy with
     ``load_train_state`` (which returns the optimizer state), and pass
     both back in with ``start_batch=checkpointer.latest_step() + 1``.
@@ -211,6 +211,8 @@ def train(
             callback(metrics)
         if checkpointer is not None and checkpointer.should_save(b):
             checkpointer.save(b, train_tree(policy, opt_state))
+    if checkpointer is not None:
+        checkpointer.wait()  # a caller may read the checkpoint on return
     return policy, opt_state, history
 
 
@@ -661,6 +663,8 @@ def temporal_train(
                     callback(rows[-1])
             save(b + 1)
         drain()
+        if checkpointer is not None:
+            checkpointer.wait()  # a caller may read the checkpoint on return
         return policy, opt_state, history
 
     step_fn, _ = make_temporal_epoch_step(cfg, adam_cfg)
@@ -690,4 +694,6 @@ def temporal_train(
                 callback(rows[-1])  # per-epoch logging
         save(b)
     drain()
+    if checkpointer is not None:
+        checkpointer.wait()
     return policy, opt_state, history

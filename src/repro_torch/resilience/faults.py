@@ -10,8 +10,9 @@ a padded arrival batch for the port's engine. The same (spec, num_edges,
 num_rounds, seed) names the same fault trajectory in both packages. The
 device twins (:func:`materialize_faults_device`,
 :func:`attach_fault_batch_device`) draw the same laws with torch on a
-generator's device, for training episodes that never leave the card. The
-event-driven oracle's schedulers are not ported yet.
+generator's device, for training episodes that never leave the card.
+:func:`schedule_into_sim` realizes the same rows as fail/recover/straggle
+events on the event-driven oracle (``serving/simulator.py``).
 
 Event-tensor layout (R rounds, Q edges), mirroring ``workloads/batch.py``:
 
@@ -35,7 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.serving.rounds import MIN_JITTER
+#: Oracle-side fault event offset past the round boundary: after the
+#: window's arrivals (t <= boundary), before the CC round at boundary+1e-9.
+FAULT_EPS = 5e-10
 
 #: rng-stream salt keeping fault draws disjoint from the workload stream
 #: (which uses (seed, 1_000_000_007)) and the cluster prior (seed).
@@ -148,6 +151,8 @@ def jitter_table(spec: FaultSpec, num_requests: int, *, seed: int = 0
                  ) -> np.ndarray:
     """Per-rid runtime jitter multipliers, lognormal(0, sigma), floored at
     the shared :data:`repro_torch.serving.rounds.MIN_JITTER` contract."""
+    from repro_torch.serving.rounds import MIN_JITTER
+
     if not spec.jitter_sigma:
         return np.ones(num_requests, np.float32)
     rng = np.random.default_rng((seed, _JITTER_SALT))
@@ -283,6 +288,8 @@ def attach_fault_batch_device(arrivals: dict, spec: FaultSpec,
     batch of :func:`repro_torch.workloads.batch.materialize_round_batch_device`
     (or the host sampler's arrays); the result is tensors on the
     generator's device."""
+    from repro_torch.serving.rounds import MIN_JITTER
+
     device = generator.device
     out = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
                               else v).to(device)
@@ -297,3 +304,63 @@ def attach_fault_batch_device(arrivals: dict, spec: FaultSpec,
         out["jitter"] = torch.where(mask, torch.clamp(j, min=MIN_JITTER),
                                     1.0).to(torch.float32)
     return out
+
+
+def fault_events_from_rows(events: dict, round_interval: float) -> tuple:
+    """Flatten materialized per-round event tensors into the absolute-time
+    :class:`repro_torch.workloads.trace.FaultEvent` timeline a v2 trace
+    records: one event per alive/speed *transition*, stamped at the round
+    boundary it takes effect (``(r+1)*dt + FAULT_EPS``)."""
+    from repro_torch.workloads.trace import FaultEvent
+
+    alive, speed = np.asarray(events["alive"]), np.asarray(events["speed"])
+    num_rounds, num_edges = alive.shape
+    prev_alive = np.ones(num_edges, bool)
+    prev_speed = np.ones(num_edges, np.float32)
+    out = []
+    for r in range(num_rounds):
+        t = (r + 1) * round_interval + FAULT_EPS
+        # within a round: recoveries, then speed changes, then failures —
+        # a fail event's orphan failover must see every same-round recovery
+        # already applied (the batched engine applies the row atomically)
+        for q in range(num_edges):
+            if not prev_alive[q] and alive[r, q]:
+                out.append(FaultEvent(t=t, kind="recover", edge=q))
+        for q in range(num_edges):
+            if speed[r, q] != prev_speed[q]:
+                out.append(FaultEvent(t=t, kind="straggle", edge=q,
+                                      factor=float(speed[r, q])))
+        for q in range(num_edges):
+            if prev_alive[q] and not alive[r, q]:
+                out.append(FaultEvent(t=t, kind="fail", edge=q))
+        prev_alive, prev_speed = alive[r], speed[r]
+    return tuple(out)
+
+
+def schedule_fault_events(sim, fault_events) -> None:
+    """Push a :class:`FaultEvent` timeline (e.g. from a v2 trace's
+    ``fault_events``) onto a ``MultiEdgeSim``."""
+    for ev in fault_events:
+        if ev.kind == "fail":
+            sim.fail_edge(ev.edge, ev.t)
+        elif ev.kind == "recover":
+            sim.recover_edge(ev.edge, ev.t)
+        else:
+            sim.set_straggler(ev.edge, float(ev.factor), ev.t)
+
+
+def schedule_into_sim(sim, events: dict, round_interval: float,
+                      jitter_by_rid: Optional[np.ndarray] = None) -> None:
+    """Realize a materialized fault trajectory on a ``MultiEdgeSim``: push
+    fail/recover/straggle events at ``(r+1)*dt + FAULT_EPS`` (row r takes
+    effect at the round-r scheduling instant, exactly as in the batched
+    engine) and pin per-request jitter to the shared rid table."""
+    schedule_fault_events(sim, fault_events_from_rows(events, round_interval))
+    if jitter_by_rid is not None:
+        table = np.asarray(jitter_by_rid, np.float32)
+
+        def fn(rid, _table=table):
+            return float(_table[min(int(rid), len(_table) - 1)])
+
+        for e in sim.edges:
+            e.jitter_fn = fn

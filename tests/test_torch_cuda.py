@@ -38,7 +38,8 @@ from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
                                             mamba_scan_gated_cuda)
 from repro_torch.models import lm
 from repro_torch.serving.batching import LMEdgeBackend
-from repro_torch.serving import engine
+from repro_torch.serving import (CentralController, MultiEdgeSim, SimConfig,
+                                 engine)
 from repro_torch.serving.fastpath import DecisionFastPath
 from repro_torch.resilience import faults
 from repro_torch.resilience.policies import ResilienceConfig
@@ -947,3 +948,60 @@ def test_device_samplers_on_a_cuda_generator(cuda_device):
     for b in range(64):
         assert np.array_equal(out["alive"][b].cpu().numpy(), host["alive"])
     assert bool((out["jitter"][c["mask"]] >= faults.MIN_JITTER).all())
+
+
+# -- the serving host side (the central controller on the card) ------------
+
+
+def _served(policy, fused):
+    """``tests/test_serving.py``'s 4-edge, 40-request flow under the policy
+    controller, recording each round's padded snapshot and decision."""
+    cc = CentralController(scheduler="corais", policy=policy, z_pad=32,
+                           fused_decode=fused)
+    rounds = []
+    decide = cc._policy_assign
+
+    def recording(inst):
+        out = decide(inst)
+        rounds.append((inst, out))
+        return out
+
+    cc._policy_assign = recording
+    sim = MultiEdgeSim(SimConfig(num_edges=4, seed=0), cc)
+    rng = np.random.default_rng(0)
+    for _ in range(40):
+        sim.submit(int(rng.integers(0, 4)), float(rng.uniform(0.1, 1.0)),
+                   t=float(rng.uniform(0, 2.0)))
+    policy_score.reset_launch_counts()
+    m = sim.run(until=240.0)
+    return m, rounds, dict(policy_score.LAUNCHES)
+
+
+@pytest.mark.parametrize("fused,kernel", [(False, "policy_score"),
+                                          (True, "policy_score_decode")])
+def test_controller_on_the_card_launches_its_kernel_once_per_round(
+        cuda_device, fused, kernel):
+    """The controller on CUDA: B1 (or B3 with ``fused_decode=True``) once
+    per non-empty round and nothing else of the port; its decisions equal
+    the CPU controller's where the top-2 gap exceeds 1e-4."""
+    cfg = PolicyConfig(**SMALL)
+    policy = CoRaiSPolicy(cfg, device=cuda_device)
+    cpu = CoRaiSPolicy(cfg, device="cpu")
+    m, rounds, launched = _served(policy, fused)
+    assert m["completed"] == 40
+    assert launched[kernel] == m["decision_rounds"] == len(rounds) > 0
+    assert sum(launched.values()) == len(rounds)
+    on_cpu = CentralController(scheduler="corais", policy=cpu, z_pad=32,
+                               fused_decode=fused)
+    checked = 0
+    for inst, got in rounds:
+        tinst = {k: torch.as_tensor(np.asarray(v)) for k, v in inst.items()}
+        with torch.no_grad():
+            c, h = corais_encode(cpu, tinst)
+            _, tv = corais_score_decode(cpu, c, h, tinst["edge_mask"], k=2,
+                                        normalize=False, backend="torch")
+        gapped = (((tv[:, 0] - tv[:, 1]) > 1e-4) & tinst["req_mask"]).numpy()
+        want = on_cpu._policy_assign(inst)
+        np.testing.assert_array_equal(got[gapped], want[gapped])
+        checked += int(gapped.sum())
+    assert checked > 0

@@ -392,6 +392,7 @@ def test_port_trained_checkpoint_loads_into_reference(tmp_path):
     policy, opt, _ = ttrain.train(cfg, device="cpu")
     ckpt = Checkpointer(str(tmp_path / "ckpt"))
     ckpt.save(2, train_tree(policy, opt))
+    ckpt.wait()  # the save runs on a background thread
     jcfg = jpol.PolicyConfig(**SMALL)
     params0, state0 = jpol.corais_init(jax.random.PRNGKey(0), jcfg)
     tree, _ = restore_pytree({"params": params0, "state": state0},
