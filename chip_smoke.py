@@ -95,6 +95,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``schedule_into_sim`` with nothing lost; and the port's engine on the
    card against the port's simulator as its oracle (``ORACLE_CASES``:
    finish times and features within 1e-4, completions per round exact);
+6e. the fleet and data parallelism (``drive_fleet_data_parallel``): a
+   world of one on NCCL through ``make_fleet_mesh()`` (the backend must be
+   ``nccl``); the fleet rollout (``make_fleet_rollout``) at 6b's shape
+   through B3 and then B1, each once per round for the batch with no
+   plain head reached, its all-reduced partials held to 6b's
+   single-device rollout (integers exact, floats within 1e-5 relative),
+   wall ms (median of 3) beside 6b's; the sharded epoch step
+   (``make_temporal_epoch_step(mesh=)``) at path (d)'s shape (Q = 100,
+   B = 16, 6b's width, K = 2, device episodes) against the meshless one
+   on the same seeds: B1 and B2 once per round of each update, parameters
+   within 1e-5, metrics within 1e-4, per-update ms p50 of both;
 7. hold the attention kernels B4 (flash attention) and B5 (decode
    attention) against their plain versions at qwen3-4b, olmo-1b and
    hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
@@ -157,8 +168,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
     ``{"kernels": [...]}`` line (six rows, each with its launches on every
-    main path above, the rollout's, temporal training's and the serving
-    host side's included; B1
+    main path above, the rollout's, temporal training's, the serving
+    host side's and phase 6e's (``fleet``, ``data_parallel``) included; B1
     and B2 also timed at the temporal shapes, under ``temporal_shapes``).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
@@ -316,6 +327,18 @@ ORACLE_CASES = (("uniform_iid", 5, 12, 0), ("flash_crowd_10x", 5, 12, 0),
                 ("cloud-cache-churn", 4, 16, 3))
 ORACLE_DRAIN = 120.0   # simulated s: every case drains by then (checked)
 ORACLE_TOL = 1e-4
+# phase 6e, the fleet and data parallelism on a world of one (NCCL): the
+# fleet rollout at 6b's shape through B3 and B1, held to 6b's single-device
+# rollout (counts and histograms exact, floats to FLEET_TOL relative); the
+# sharded epoch step at path (d)'s shape (Q = 100, B = 16, 6b's width),
+# DP_EPOCH_LEN updates a call, held to the meshless epoch step on the same
+# seeds (parameters to DP_PARAM_TOL, metrics to DP_METRIC_TOL), timed over
+# DP_TIMED_CALLS calls
+FLEET_TOL = 1e-5
+DP_EPOCH_LEN = 2
+DP_TIMED_CALLS = 3
+DP_PARAM_TOL = 1e-5
+DP_METRIC_TOL = 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1073,7 +1096,7 @@ def profile_rollout(engine, cfg, fn, state, arr, rounds=ROLLOUT_PROFILE_ROUNDS):
 
 def drive_rollout(pol, engine, policy_score, ref, arr, *, device="cuda",
                   policy_cfg=None, edges=ROLLOUT_EDGES,
-                  rounds=ROLLOUT_ROUNDS):
+                  rounds=ROLLOUT_ROUNDS, partials=None):
     """The slice's full-width path: ``PolicyConfig()`` (random weights from
     a seed) schedules B instances of a Q-edge cluster for ``rounds``
     rounds and drains, through ``"policy-fused"`` (B3) and then
@@ -1091,7 +1114,9 @@ def drive_rollout(pol, engine, policy_score, ref, arr, *, device="cuda",
        peak device memory;
     3. a torch.profiler trace of ROLLOUT_PROFILE_ROUNDS rounds.
 
-    Returns {backend: report} and {backend: launch counts}."""
+    Returns {backend: report} and {backend: launch counts}; with a dict
+    ``partials``, each backend's final state's ``summarize_partials`` goes
+    there (phase 6e holds the fleet rollout to them)."""
     from unittest import mock
     policy = pol.CoRaiSPolicy(policy_cfg or pol.PolicyConfig(),
                               generator=torch.Generator().manual_seed(0),
@@ -1158,6 +1183,8 @@ def drive_rollout(pol, engine, policy_score, ref, arr, *, device="cuda",
               f"{backend} rollout launched {launched} in {rounds} rounds; "
               f"{kernel} must launch once per round for the whole batch")
         m = engine.summarize(final)
+        if partials is not None:
+            partials[backend] = engine.summarize_partials(final)
         accounted = (m["completed"] + m["stranded_requests"]
                      + m["shed_requests"] + m["dropped_requests"])
         check(accounted == m["submitted"] == requests,
@@ -2144,6 +2171,250 @@ def drive_serving_host(card, m, device="cuda"):
     import shutil
     shutil.rmtree(root, ignore_errors=True)
     return report, counts
+
+
+# -- phase 6e: the fleet and data parallelism --------------------------------
+
+
+def _partials_err(got, want, where):
+    """Integer partials equal, float partials within FLEET_TOL relative;
+    returns the largest relative float error."""
+    worst = 0.0
+    check(set(got) == set(want), f"{where}: keys {sorted(got)} against "
+          f"{sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{where}: {k} is {g.dtype} {tuple(g.shape)}, single-device "
+              f"{w.dtype} {tuple(w.shape)}")
+        if w.is_floating_point():
+            err = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+            check(err <= FLEET_TOL, f"{where}: {k} {g.tolist()} differs from "
+                  f"the single-device {w.tolist()} by {err} relative")
+            worst = max(worst, err)
+        else:
+            check(torch.equal(g, w), f"{where}: {k} differs from the "
+                  f"single-device rollout")
+    return worst
+
+
+def fleet_rollout(m, mesh, arr, single, single_ms, device="cuda"):
+    """The fleet rollout at 6b's shape through ``"policy-fused"`` (B3) and
+    ``"policy"`` (B1) on ``mesh``: the launch counters set to 0 just before
+    the first run and read just after (the head's kernel once per round
+    for the whole batch, no plain head reached), the reduced partials held
+    to 6b's single-device ``single``, wall ms the median of
+    ROLLOUT_TIMED_RUNS beside 6b's. Returns (report, launch counts)."""
+    policy = m.pol.CoRaiSPolicy(m.pol.PolicyConfig(),
+                                generator=torch.Generator().manual_seed(0),
+                                device=device)
+    batch, width = arr["mask"].shape[0], arr["mask"].shape[-1]
+    cfg = m.engine.EngineConfig(num_edges=ROLLOUT_EDGES,
+                                num_rounds=ROLLOUT_ROUNDS,
+                                round_interval=ROLLOUT_DT, max_per_round=width)
+    state = m.engine.init_batch(cfg, range(batch), device=device)
+    arr = {k: torch.as_tensor(v).to(device) for k, v in arr.items()}
+    report, counts = {}, {}
+    for backend, kernel in (("policy-fused", "policy_score_decode"),
+                            ("policy", "policy_score")):
+        run = m.fleet.make_fleet_rollout(
+            cfg, m.engine.resolve_assign_fn(backend, policy=policy), mesh)
+        walls = []
+        with contextlib.ExitStack() as stack:
+            for guard in _plain_head_guard(m.ref):
+                stack.enter_context(guard)
+            for rep in range(ROLLOUT_TIMED_RUNS):
+                if rep == 0:
+                    m.policy_score.reset_launch_counts()
+                t0 = time.perf_counter()
+                partials = run(state, arr)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if rep == 0:
+                    launched = dict(m.policy_score.LAUNCHES)
+                    first = partials
+        check(launched.get(kernel) == ROLLOUT_ROUNDS
+              and sum(launched.values()) == ROLLOUT_ROUNDS,
+              f"fleet {backend} launched {launched} in {ROLLOUT_ROUNDS} "
+              f"rounds; {kernel} must launch once per round for the batch")
+        err = _partials_err(first, single[backend], f"fleet {backend}")
+        got = m.fleet.fleet_summary(first)
+        want = m.engine.partials_to_summary(single[backend])
+        check(set(got) == set(want), f"fleet {backend}: summary keys")
+        for k, w in want.items():
+            same = (abs(got[k] - w) <= FLEET_TOL * abs(w)
+                    if isinstance(w, float) else got[k] == w)
+            check(same, f"fleet {backend}: summary {k} {got[k]} against the "
+                  f"single-device {w}")
+        check(got["completed"] > 0, f"fleet {backend}: nothing completed")
+        counts[backend] = launched
+        report[backend] = {
+            "launches": launched, "max_float_rel_err": err,
+            "wall_ms": float(np.median(walls)), "wall_ms_runs": walls,
+            "single_device_wall_ms": single_ms[backend],
+            "completed": got["completed"], "submitted": got["submitted"],
+            "mean_response": got["mean_response"],
+            "p95_response": got["p95_response"]}
+    return report, counts
+
+
+def sharded_epoch_step(m, mesh, width, device="cuda"):
+    """The sharded epoch step at path (d)'s shape (Q = 100, B = 16, 6b's
+    width; ``PolicyConfig()``, uniform_iid on device episodes), K =
+    DP_EPOCH_LEN updates a call, against the meshless epoch step on the
+    same seeds and initial parameters: the launch counters set to 0 just
+    before the first sharded call and read just after (B1 and B2 once per
+    round of each update, no plain head reached); parameters within
+    DP_PARAM_TOL and metrics within DP_METRIC_TOL of the meshless step's;
+    then DP_TIMED_CALLS calls of each, alternating, per-update ms; then a
+    torch.profiler trace (the device's activity only: a trace of the host's
+    ops too takes a minute to read) of one update of each: device busy
+    ms, idle share, kernel launches and NCCL kernels.
+    Returns (report, launch counts)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.nn import param_tree
+    from repro_torch.optim import adam_init
+    cfg = m.tr.TemporalRLConfig(
+        engine=m.engine.EngineConfig(
+            num_edges=ROLLOUT_EDGES, num_rounds=ROLLOUT_ROUNDS,
+            round_interval=ROLLOUT_DT, max_per_round=width),
+        batch_size=TEMPORAL_SCALE_BATCH, device_episodes=True,
+        epoch_len=DP_EPOCH_LEN)
+    k_len, b = DP_EPOCH_LEN, TEMPORAL_SCALE_BATCH
+    sim0 = m.engine.init_batch(cfg.engine, np.concatenate(
+        [m.tr._cluster_seeds(cfg, i) for i in range(k_len)]), device=device)
+    sim0 = {k: v.reshape(k_len, b, *v.shape[1:]) for k, v in sim0.items()}
+    seeds = np.stack([m.tr._episode_seeds(cfg, i) for i in range(k_len)])
+    runs = {}
+    for label, kw in (("meshless", {}), ("sharded", {"mesh": mesh})):
+        policy = m.pol.CoRaiSPolicy(cfg.policy,
+                                    generator=torch.Generator().manual_seed(0),
+                                    device=device)
+        init = {k: p.detach().clone() for k, p in param_tree(policy).items()}
+        step, adam_cfg = m.tr.make_temporal_epoch_step(cfg, **kw)
+        runs[label] = [policy, step, adam_init(param_tree(policy), adam_cfg),
+                       None, []]
+    rounds = cfg.engine.num_rounds
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(m.ref):
+            stack.enter_context(guard)
+        for call in range(DP_TIMED_CALLS):
+            for label in ("meshless", "sharded"):
+                policy, step, opt, _, walls = runs[label]
+                if call == 0 and label == "sharded":
+                    m.policy_score.reset_launch_counts()
+                t0 = time.perf_counter()
+                opt, mets = step(policy, opt, sim0, seeds)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3 / k_len)
+                runs[label][2] = opt
+                if call == 0:
+                    runs[label][3] = (
+                        {k: p.detach().clone()
+                         for k, p in param_tree(policy).items()},
+                        {k: v.detach().cpu().numpy() for k, v in mets.items()})
+                    if label == "sharded":
+                        launched = dict(m.policy_score.LAUNCHES)
+    want = k_len * rounds
+    check(launched.get("policy_score") == want
+          and launched.get("policy_score_bwd") == want
+          and sum(launched.values()) == 2 * want,
+          f"sharded epoch step launched {launched} in {k_len} updates of "
+          f"{rounds} rounds; B1 and B2 must launch once per round")
+    (p_plain, m_plain), (p_mesh, m_mesh) = (runs["meshless"][3],
+                                            runs["sharded"][3])
+    param_err = max(float((p_mesh[k] - v).abs().max())
+                    for k, v in p_plain.items())
+    check(param_err <= DP_PARAM_TOL, f"sharded epoch step parameters differ "
+          f"from the meshless step's by {param_err}")
+    check(set(m_mesh) == set(m_plain), f"sharded epoch step metrics "
+          f"{sorted(m_mesh)} against {sorted(m_plain)}")
+    metric_err = 0.0
+    for k, v in m_plain.items():
+        check(np.isfinite(m_mesh[k]).all(), f"sharded epoch step: {k} "
+              f"not finite: {m_mesh[k]}")
+        err = float(np.max(np.abs(m_mesh[k] - v) / np.maximum(np.abs(v), 1)))
+        check(err <= DP_METRIC_TOL, f"sharded epoch step metric {k} "
+              f"{m_mesh[k]} against the meshless {v}")
+        metric_err = max(metric_err, err)
+    check(bool((m_mesh["completed"] > 0).all()), "sharded epoch step: "
+          "nothing completed")
+    moved = sum(not torch.equal(p_mesh[k], v) for k, v in init.items())
+    check(moved > 0, "sharded epoch step: no parameter moved")
+    ms = {label: runs[label][4] for label in runs}
+    profiles = {}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for guard in _plain_head_guard(m.ref):
+            stack.enter_context(guard)
+        for label in ("meshless", "sharded"):
+            policy, step, opt, _, _ = runs[label]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                runs[label][2], _ = step(
+                    policy, opt, {k: v[:1] for k, v in sim0.items()},
+                    seeds[:1])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            kernels = [e for e in prof.key_averages()
+                       if str(e.device_type).endswith("CUDA")]
+            busy_ms = sum(getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0.0)) for e in kernels) / 1e3
+            profiles[label] = {
+                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "idle_share": 1.0 - busy_ms / wall_ms,
+                "kernels_per_unit": sum(e.count for e in kernels),
+                "nccl_kernels_per_unit": sum(
+                    e.count for e in kernels if "nccl" in e.key.lower())}
+    profiles["profile_s"] = time.perf_counter() - t0
+    return {"config": {"B": b, "Q": ROLLOUT_EDGES, "rounds": rounds,
+                       "width": width, "K": k_len,
+                       "d_model": cfg.policy.d_model,
+                       "scenario": cfg.scenario},
+            "launches": launched, "max_param_err": param_err,
+            "max_metric_rel_err": metric_err, "params_moved": moved,
+            "update_ms": {label: {"p50": float(np.median(v)), "runs": v}
+                          for label, v in ms.items()},
+            "profile": profiles,
+            "metrics": {k: v.tolist() for k, v in m_mesh.items()}}, launched
+
+
+def drive_fleet_data_parallel(card, m, arr, single, single_ms,
+                              device="cuda"):
+    """Phase 6e: a world of one on NCCL through ``make_fleet_mesh()``, the
+    fleet rollout (``fleet_rollout``) and the sharded epoch step
+    (``sharded_epoch_step``). Returns (report, {path: launch counts})."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = m.launch_mesh.make_fleet_mesh()
+    group = mesh.get_group("fleet")
+    backend = str(dist.get_backend(group))
+    check(backend == "nccl", f"the fleet mesh runs {backend}, not nccl")
+    world = dist.get_world_size()
+    check(world == 1 and mesh.shape == (1,) and mesh.device_type == "cuda",
+          f"a world of {world}, mesh {mesh}; one card wants a world of one")
+    probe = torch.ones(3, device=device)
+    dist.all_reduce(probe, group=group)   # NCCL's communicator starts here
+    check(probe.tolist() == [1.0] * 3, f"all_reduce on one rank gave "
+          f"{probe.tolist()}")
+    report = {"card": card, "backend": backend, "world": world,
+              "mesh_s": time.perf_counter() - t0}
+    report["fleet"], fleet_counts = fleet_rollout(m, mesh, arr, single,
+                                                  single_ms, device)
+    for backend_name, r in report["fleet"].items():
+        print(f"fleet {backend_name} ({card}): {json.dumps(r)}", flush=True)
+    report["sharded_epoch"], dp_counts = sharded_epoch_step(
+        m, mesh, int(arr["mask"].shape[-1]), device)
+    shown = {k: v for k, v in report["sharded_epoch"].items()
+             if k != "metrics"}
+    print(f"sharded epoch step ({card}): {json.dumps(shown)}", flush=True)
+    dist.destroy_process_group()
+    report["wall_s"] = time.perf_counter() - t0
+    counts = {}
+    for c in fleet_counts.values():
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return report, {"fleet": counts, "data_parallel": dp_counts}
 
 
 # -- phase 13: timing ------------------------------------------------------
@@ -3176,10 +3447,11 @@ def main() -> int:
     from repro_torch import workloads as wl
     from repro_torch.resilience import faults
     from repro_torch import serving
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.serving import batching, controller
-    from repro_torch.serving import engine
+    from repro_torch.serving import engine, fleet
     from repro_torch.serving import fastpath as fpm
     from repro_torch.serving import topology
 
@@ -3271,8 +3543,10 @@ def main() -> int:
     # phase 6b: the scale run, B3 and then B1 once per round for 256
     # instances of a 100-edge cluster at full policy width
     t0 = time.perf_counter()
+    rollout_partials = {}
     rollout, rollout_counts = drive_rollout(pol, engine, policy_score, ref,
-                                            rollout_arr)
+                                            rollout_arr,
+                                            partials=rollout_partials)
     rollout_s = time.perf_counter() - t0
     for backend, r in rollout.items():
         print(f"rollout {backend}: {json.dumps(r)}", flush=True)
@@ -3318,7 +3592,7 @@ def main() -> int:
     print(f"temporal ({temporal_s:.1f} s): profile "
           f"{json.dumps(temporal['profile'])}, resume "
           f"{json.dumps(temporal['resume'])}", flush=True)
-    del rollout_arr, host_policy
+    del host_policy
     torch.cuda.empty_cache()
 
     # phase 6d: the serving host side, the paper's Fig. 2 loop on a
@@ -3330,6 +3604,20 @@ def main() -> int:
         topology=topology, wl=wl, faults=faults, engine=engine,
         policy_score=policy_score, ref=ref))
     record("serving_host", counts)
+    torch.cuda.empty_cache()
+
+    # phase 6e: the fleet and data parallelism on a world of one (NCCL):
+    # the fleet rollout through B3 and B1 against 6b, the sharded epoch
+    # step through B1 and B2 against the meshless one
+    fleet_dp, counts = drive_fleet_data_parallel(
+        card, types.SimpleNamespace(
+            pol=pol, tr=tr, engine=engine, fleet=fleet,
+            launch_mesh=launch_mesh, policy_score=policy_score, ref=ref),
+        rollout_arr, rollout_partials,
+        {b: r["rollout_wall_ms"] for b, r in rollout.items()})
+    for path, c in counts.items():
+        record(path, c)
+    del rollout_arr, rollout_partials
     torch.cuda.empty_cache()
 
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
@@ -3406,7 +3694,7 @@ def main() -> int:
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
-        "serving_host": serving_host,
+        "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
         "rollout_arrivals_s": arrivals_s, "engine_parity_s": eng_parity_s,
         "rollout_s": rollout_s,
         "kernels": kernels}, indent=1))
@@ -3453,6 +3741,12 @@ def main() -> int:
                              for label, r in
                              serving_host["in_process"].items()},
                           "wall_s": serving_host["wall_s"]},
+                      "fleet": {b: {k: r[k] for k in (
+                          "wall_ms", "single_device_wall_ms")}
+                          for b, r in fleet_dp["fleet"].items()},
+                      "sharded_update_ms": {
+                          label: r["p50"] for label, r in
+                          fleet_dp["sharded_epoch"]["update_ms"].items()},
                       "temporal": {label: {
                           "update_ms": temporal[label]["update_ms"],
                           "updates_per_s": temporal[label]["updates_per_s"]}

@@ -28,17 +28,19 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.checkpointer import load_train_state, train_tree
 from repro_torch.core import instances as inst_lib
-from repro_torch.core.decode import (assignment_log_prob, greedy_decode,
-                                     sample_assignments)
+from repro_torch.core.decode import (BlockDraws, assignment_log_prob,
+                                     greedy_decode, gumbel_argmax,
+                                     sample_assignments, uniform)
 from repro_torch.core.objective import makespan
 from repro_torch.core.policy import (CoRaiSPolicy, PolicyConfig, corais_admit,
                                      corais_encode, corais_score)
+from repro_torch.launch.mesh import mesh_axis
 from repro_torch.nn.module import param_tree
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
                                clip_by_global_norm)
@@ -46,6 +48,8 @@ from repro_torch.resilience import faults as faults_lib
 from repro_torch.resilience.policies import nearest_alive
 from repro_torch.serving import engine as engine_lib
 from repro_torch.serving.engine import EngineConfig
+from repro_torch.sharding.specs import (arrival_specs, engine_state_specs,
+                                        local_block)
 from repro_torch.workloads import scenarios as scenarios_lib
 from repro_torch.workloads.batch import (compile_device_plan,
                                          materialize_round_batch,
@@ -270,7 +274,14 @@ def _episode(policy, sim_state, arrivals, cfg: TemporalRLConfig, generator,
     """Roll a batch of episodes through the engine with the policy deciding
     every round. Returns (final drained state, per-round log p(actions)
     (R, B), per-round entropies (R, B)); the log-probs and entropies carry
-    the graph of the encoder, the head and the admit head, nothing else."""
+    the graph of the encoder, the head and the admit head, nothing else.
+
+    Every round draws the dispatch by the Gumbel-max rule
+    (:func:`repro_torch.core.decode.gumbel_argmax`) and the admits from
+    uniform noise. With ``generator`` a :class:`~repro_torch.core.decode
+    .BlockDraws` the batch is a block of a global batch: the noise is drawn
+    for the global batch and the block's rows kept, so an element's draws
+    do not depend on how the batch is sharded."""
     ecfg = cfg.engine
     fault_mode = "alive" in arrivals
     sim = sim_state
@@ -301,15 +312,14 @@ def _episode(policy, sim_state, arrivals, cfg: TemporalRLConfig, generator,
         # instance, not under vmap)
         c_emb, h_emb = corais_encode(policy, inst, training=False)
         log_probs = corais_score(policy, c_emb, h_emb, inst["edge_mask"])
-        act = (sample_assignments(generator, log_probs, 1)[0]
+        act = (gumbel_argmax(generator, log_probs)
                if actions is None else actions[r].long())
         rmask = inst["req_mask"]
         ent = (-(torch.exp(log_probs) * log_probs).sum(-1) * rmask).sum(-1)
         if cfg.admission:
             logits = corais_admit(policy, c_emb, h_emb, inst["edge_mask"])
             if admits is None:
-                u = torch.rand(logits.shape, generator=generator,
-                               device=logits.device)
+                u = uniform(generator, logits.shape, logits.device)
                 admit = u < torch.sigmoid(logits.detach())
             else:
                 admit = admits[r].bool()
@@ -337,7 +347,8 @@ def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
                      cfg: TemporalRLConfig, *,
                      generator: Optional[torch.Generator] = None,
                      actions: Optional[torch.Tensor] = None,
-                     admits: Optional[torch.Tensor] = None):
+                     admits: Optional[torch.Tensor] = None,
+                     group=None):
     """Surrogate loss over a batch of rollouts; returns (loss, aux).
     ``sim_state`` is a (B,)-batched engine state, ``arrivals`` (B, R, A)
     padded round batches (numpy or tensors; moved to the state's device).
@@ -354,8 +365,23 @@ def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
     two-step source failover and ``commit`` with the policy's own admit.
     The engine's updates run without gradient; the graph holds the
     encoder, the head (``corais_score``: B1 forward, B2 backward on the
-    card) and the admit head."""
+    card) and the admit head.
+
+    With ``group`` (a ``torch.distributed`` process group) the batch is
+    this rank's block of a global batch, the ranks' blocks in rank order,
+    and ``actions``/``admits`` are the block's. The draws are the global
+    batch's rows (a :class:`~repro_torch.core.decode.BlockDraws` over
+    ``generator``, :func:`_episode`), the REINFORCE baseline is the global
+    batch mean and the aux metrics are global means (``cost_best`` the
+    global min), from one SUM and one MIN all-reduce; the loss itself
+    stays this block's (the update averages the gradients)."""
     arrivals = engine_lib._to_device(arrivals, sim_state["t"].device)
+    if group is not None:
+        b, rank = sim_state["t"].shape[0], dist.get_rank(group)
+        if rank < 0:
+            raise ValueError("this rank is not a member of the group")
+        generator = BlockDraws(generator, rank * b,
+                               dist.get_world_size(group) * b)
     sim, logps, ents = _episode(policy, sim_state, arrivals, cfg, generator,
                                 actions, admits)
 
@@ -366,7 +392,11 @@ def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
     resp = torch.where(done, sim["slot_finish"] - sim["slot_submit"], 0.0)
     n_done = torch.clamp(done.sum(-1), min=1)
     cost = resp.sum(-1) / n_done                             # (B,)
-    aux = {}
+    ent_sum = ents.sum(0)                                    # (B,)
+    # per-element columns whose global means are the baseline and the aux
+    means = {"entropy": ent_sum.detach(),
+             "completed": done.sum(-1).to(torch.float32),
+             "shed": sim["shed"].to(torch.float32)}
     if cfg.slo > 0:
         violations = ((done & (resp > cfg.slo)).sum(-1)
                       + (committed & ~done).sum(-1)
@@ -375,7 +405,7 @@ def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
                             min=1)
         viol_frac = violations.to(torch.float32) / total
         cost = cost + cfg.slo_penalty * viol_frac
-        aux["slo_violation_frac"] = viol_frac.mean()
+        means["slo_violation_frac"] = viol_frac
     if cfg.deadline_penalty > 0:
         finite = committed & (sim["slot_deadline"] < engine_lib.INF / 2)
         missed = finite & (~done
@@ -383,20 +413,35 @@ def temporal_rl_loss(policy: CoRaiSPolicy, sim_state: dict, arrivals: dict,
         miss_frac = (missed.sum(-1).to(torch.float32)
                      / torch.clamp(finite.sum(-1), min=1))
         cost = cost + cfg.deadline_penalty * miss_frac
-        aux["deadline_miss_frac"] = miss_frac.mean()
-    adv = cost - cost.mean()
+        means["deadline_miss_frac"] = miss_frac
+    means["cost_mean"] = cost
+    aux = _global_means(means, cost.min(), group)
+    adv = cost - aux["cost_mean"]
 
     reinforce = logps.sum(0) * adv.detach()                  # (B,)
-    ent_sum = ents.sum(0)                                    # (B,)
     loss = torch.mean(cfg.c1 * reinforce) - cfg.c2 * torch.mean(ent_sum)
-    aux.update({
-        "cost_mean": cost.mean(),
-        "cost_best": cost.min(),
-        "entropy": ent_sum.detach().mean(),
-        "completed": done.sum(-1).to(torch.float32).mean(),
-        "shed": sim["shed"].to(torch.float32).mean(),
-    })
     return loss, aux
+
+
+def _global_means(columns: dict, best, group) -> dict:
+    """Means over the global batch of (B,) per-element columns, plus
+    ``cost_best`` (``best``, this block's min, reduced with MIN): the
+    column sums and the row count go through one SUM all-reduce over
+    ``group`` (nothing without one). Detached. The keys come out in the
+    reference's aux order."""
+    stacked = torch.stack([v.detach() for v in columns.values()], 1)
+    sums = torch.cat([stacked.sum(0), stacked.new_full((1,),
+                                                       stacked.shape[0])])
+    best = best.detach()
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+        dist.all_reduce(best, op=dist.ReduceOp.MIN, group=group)
+    mean = dict(zip(columns, sums[:-1] / sums[-1]))
+    order = ("slo_violation_frac", "deadline_miss_frac", "cost_mean")
+    out = {k: mean[k] for k in order if k in mean}
+    out["cost_best"] = best
+    out.update({k: mean[k] for k in ("entropy", "completed", "shed")})
+    return out
 
 
 def temporal_loss_and_grads(policy: CoRaiSPolicy, sim_state: dict,
@@ -407,14 +452,29 @@ def temporal_loss_and_grads(policy: CoRaiSPolicy, sim_state: dict,
                                             **kw))
 
 
+def _group_mean(loss, grads: dict, group):
+    """The loss and every gradient averaged over ``group``: one flat
+    buffer, one SUM all-reduce, divided by the group's size."""
+    keys = list(grads)
+    flat = torch.cat([loss.reshape(1)] + [grads[k].reshape(-1) for k in keys])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    parts = torch.split(flat, [1] + [grads[k].numel() for k in keys])
+    return parts[0].reshape(()), {k: p.reshape(grads[k].shape)
+                                  for k, p in zip(keys, parts[1:])}
+
+
 def _temporal_update(policy: CoRaiSPolicy, opt_state: dict, sim_state: dict,
                      arrivals: dict, cfg: TemporalRLConfig,
-                     adam_cfg: AdamConfig, **kw):
+                     adam_cfg: AdamConfig, *, group=None, **kw):
     """One REINFORCE update (loss -> grads -> clip -> Adam), the policy's
     parameters updated in place. Shared by the per-batch step and the
-    epoch step. Returns (opt_state, metrics), metrics device scalars."""
+    epoch step. With ``group`` (the data-parallel trainer) the batch is
+    this rank's block, and the loss and the gradients are averaged over
+    the group before the clip, so every rank takes the same clip and Adam
+    step. Returns (opt_state, metrics), metrics device scalars."""
     loss, aux, grads = temporal_loss_and_grads(policy, sim_state, arrivals,
-                                               cfg, **kw)
+                                               cfg, group=group, **kw)
     if cfg.freeze_dispatch:
         if not (cfg.admission and any(k.startswith("admit/") for k in grads)):
             raise ValueError(
@@ -422,6 +482,8 @@ def _temporal_update(policy: CoRaiSPolicy, opt_state: dict, sim_state: dict,
                 "with admit_head=True (nothing would train otherwise)")
         grads = {k: g if k.startswith("admit/") else torch.zeros_like(g)
                  for k, g in grads.items()}
+    if group is not None:
+        loss, grads = _group_mean(loss, grads, group)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     opt_state = adam_update(param_tree(policy), grads, opt_state, adam_cfg)
     return opt_state, {"loss": loss, "grad_norm": gnorm, **aux}
@@ -462,6 +524,17 @@ def _generator(device, seed) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _mesh_shards(mesh, cfg: TemporalRLConfig):
+    """(group, index, size) of ``mesh``'s ``"fleet"`` axis; raises when the
+    batch does not divide over it."""
+    group, index, shards = mesh_axis(mesh, "fleet")
+    if cfg.batch_size % shards:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} does not divide over the "
+            f"{shards}-device mesh")
+    return group, index, shards
+
+
 def make_temporal_epoch_step(cfg: TemporalRLConfig,
                              adam_cfg: Optional[AdamConfig] = None, *,
                              mesh=None):
@@ -479,11 +552,25 @@ def make_temporal_epoch_step(cfg: TemporalRLConfig,
     The reference runs the K updates as one ``lax.scan``. A K-update CUDA
     graph is not possible yet: the engine's lane recursion reads its step
     count on the host every round (``serving/engine.py::advance``), so the
-    updates run eagerly. ``mesh=`` (the sharded epoch trainer) is not
-    ported."""
+    updates run eagerly.
+
+    With ``mesh`` (a :func:`repro_torch.launch.mesh.make_fleet_mesh` mesh)
+    the batch is sharded over its ``"fleet"`` axis, data-parallel: every
+    rank calls ``step`` with the same arguments (the global ``sim0``, the
+    same seeds, a policy with the same parameters), draws each update's
+    arrivals, fault rows and action noise for the global batch and keeps
+    its contiguous block, and averages the gradients over the mesh before the
+    clip (:func:`_temporal_update`). An element's episode and draws are
+    then those of the unsharded step, so the result equals it up to float
+    reassociation in the reductions, and the parameters stay the same bits
+    on every rank. One caveat, the reference's too: an untrained BatchNorm
+    (``norm="batch"`` with count 0) takes its fallback statistics over the
+    rank's block, not the global batch; exact shard parity holds for
+    ``norm="layer"`` and for BatchNorm with running statistics. Raises
+    ``ValueError`` when ``cfg.batch_size`` does not divide over the axis."""
+    group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded epoch trainer (mesh=) is not ported; ROADMAP A10")
+        group, index, shards = _mesh_shards(mesh, cfg)
     adam_cfg = adam_cfg or AdamConfig(lr=cfg.lr)
     cfg, fspec = resolve_temporal_config(cfg)
     ecfg = cfg.engine
@@ -505,9 +592,17 @@ def make_temporal_epoch_step(cfg: TemporalRLConfig,
                 arrivals = faults_lib.attach_fault_batch_device(
                     arrivals, fspec, ecfg.num_edges,
                     _generator(device, s_flt))
+            if group is not None:
+                if device.type != mesh.device_type:
+                    raise ValueError(f"states on {device} but the mesh is "
+                                     f"{mesh.device_type!r}")
+                sim = local_block(sim, engine_state_specs(sim), index,
+                                  shards)
+                arrivals = local_block(arrivals, arrival_specs(arrivals),
+                                       index, shards)
             opt_state, metrics = _temporal_update(
                 policy, opt_state, sim, arrivals, cfg, adam_cfg,
-                generator=_generator(device, s_act))
+                group=group, generator=_generator(device, s_act))
             mets.append(metrics)
         return opt_state, {k: torch.stack([m[k] for m in mets])
                            for k in mets[0]}
@@ -587,10 +682,12 @@ def temporal_train(
       per batch on episodes from the numpy samplers, which equal the
       reference's bit for bit; metrics stay on the device and drain every
       ``log_every`` batches;
-    * epoch (``device_episodes=True`` or ``epoch_len>1``):
+    * epoch (``device_episodes=True``, ``epoch_len>1`` or ``mesh=``):
       :func:`make_temporal_epoch_step`, K updates per call with episodes
-      drawn on the device; ``callback`` then fires once per drained epoch
-      (with that epoch's last row), not per batch.
+      drawn on the device, the batch sharded data-parallel over
+      ``mesh``'s ``"fleet"`` axis when one is given; ``callback`` then
+      fires once per drained epoch (with that epoch's last row), not per
+      batch.
 
     Clusters, episodes and action draws derive from ``(cfg.seed, batch
     index)`` rather than a consumed stream, so resuming from a
@@ -598,13 +695,20 @@ def temporal_train(
     uninterrupted run would have drawn: save -> resume is bit-identical.
     With ``checkpointer`` set and no ``policy`` given, the policy and
     optimizer state restore from its latest snapshot (saved under step =
-    number of completed batches). ``mesh=`` (data parallelism) is not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel temporal training (mesh=) is not ported; "
-            "ROADMAP A10")
+    number of completed batches).
+
+    With ``mesh`` every rank of it runs ``temporal_train`` with the same
+    arguments and policy parameters; every rank gets the same history and
+    the same callback rows, only the mesh's first rank writes checkpoints
+    (the others wait for its last one before returning), and a resume
+    restores on every rank. ``cfg.batch_size`` must divide over the mesh
+    (``ValueError`` otherwise); see :func:`make_temporal_epoch_step` for
+    the BatchNorm caveat."""
     cfg, fspec = resolve_temporal_config(cfg)
+    writer, group = True, None
+    if mesh is not None:
+        group, index, _ = _mesh_shards(mesh, cfg)
+        writer = index == 0
     num_batches = num_batches if num_batches is not None else cfg.num_batches
     ecfg = cfg.engine
     wl = scenarios_lib.scenario(cfg.scenario)
@@ -622,7 +726,7 @@ def temporal_train(
     if opt_state is None:
         opt_state = adam_init(param_tree(policy), adam_cfg)
 
-    use_epoch = cfg.device_episodes or cfg.epoch_len > 1
+    use_epoch = cfg.device_episodes or cfg.epoch_len > 1 or mesh is not None
     end = start_batch + num_batches
     history: list = []
     pending: list = []  # (batch ids, sec per batch, device metrics)
@@ -641,7 +745,8 @@ def temporal_train(
         return rows
 
     def save(step_idx):
-        if checkpointer is not None and checkpointer.should_save(step_idx):
+        if (writer and checkpointer is not None
+                and checkpointer.should_save(step_idx)):
             checkpointer.save(step_idx, train_tree(policy, opt_state))
 
     if not use_epoch:
@@ -667,7 +772,7 @@ def temporal_train(
             checkpointer.wait()  # a caller may read the checkpoint on return
         return policy, opt_state, history
 
-    step_fn, _ = make_temporal_epoch_step(cfg, adam_cfg)
+    step_fn, _ = make_temporal_epoch_step(cfg, adam_cfg, mesh=mesh)
     epoch_len = max(1, cfg.epoch_len)
     b = start_batch
     while b < end:
@@ -696,4 +801,9 @@ def temporal_train(
     drain()
     if checkpointer is not None:
         checkpointer.wait()
+        if group is not None:
+            # the other ranks return once the writer's last save landed
+            flag = torch.zeros(1, device=device)
+            dist.all_reduce(flag, group=group)
+            flag.item()
     return policy, opt_state, history

@@ -10,7 +10,7 @@ k, v (B, S, KV, hd) for prefill; q (B, H, hd) and a (B, W, KV, hd) cache
 for decode.
 
 Not ported yet: logit soft-capping (no config sets it, and neither Pallas
-kernel has it) and ``sharded_decode_attention`` (ROADMAP A10).
+kernel has it) and ``sharded_decode_attention`` (ROADMAP A11).
 """
 from __future__ import annotations
 

@@ -488,10 +488,21 @@ def test_temporal_epoch_path_on_faulted_scenarios(name):
 
 def test_unsupported_options_raise(monkeypatch):
     _, tcfg = _cfgs("uniform_iid", device_episodes=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttrain.temporal_train(tcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttrain.make_temporal_epoch_step(tcfg, mesh=object())
+    # a batch that does not divide over the mesh (B = 4 over a fake world of
+    # three ranks) fails before any collective, naming both sizes
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist = torch.distributed
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=3)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(3), mesh_dim_names=("fleet",))
+        msg = "batch_size 4 does not divide over the 3-device mesh"
+        with pytest.raises(ValueError, match=msg):
+            ttrain.temporal_train(tcfg, mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match=msg):
+            ttrain.make_temporal_epoch_step(tcfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     # a workload with no device law fails when the epoch step is built
     monkeypatch.setattr(ttrain.scenarios_lib, "scenario", lambda name: (
         InhomogeneousPoisson(rate_fn=lambda t: 5.0, rate_max=5.0)))
