@@ -155,6 +155,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
     cache): B4 and B6 launch 32 times per admission, B5 32 times per
     decode step; the same profile; a 2300-token request through the
     kernel and the plain path (1e-3 in f32, 0.1 in bf16);
+12b. LM pretraining (``drive_lm_training``): (a) B4's log-sum-exp against
+    its plain version within 1e-5 of max |lse| and its output with the lse
+    store the same bits as without, and (b) ``FlashAttention``'s gradients
+    (B4 forward, the reference's pair-scan backward) against autograd
+    through the plain version (f32 1e-4, bf16 2^-6 of each gradient's
+    largest entry), at olmo-1b's training heads (8, 1024, 16, 16, 128) in
+    bf16 and f32, qwen3-4b's GQA heads and a ragged S = 65, causal and
+    windowed, every reading the same bits twice; (c) ``launch.train lm
+    --arch olmo-1b --scale full`` (16 layers, d = 2048, bf16, remat
+    "full", random weights from the seed) for 12 steps of 8 x 1024
+    tokens in process: losses and grad norms finite, the last three steps'
+    mean below step 0's, B4 exactly 32 times a step, B5 and B6 never, no
+    plain version of B4-B6 reached; step wall p50/p95 over steps 2-11,
+    tokens/s, peak memory and one profiled step (device ms by kind and by
+    piece: the pair-scan backward, the clip, Adam); (d) olmo-1b's widths
+    at 2 layers in f32, ``train_loss`` through the kernel path against the
+    plain path (loss 1e-5 relative, every gradient 1e-4 of its largest
+    entry); (e) the same widths at 2 layers in bf16: 6 steps, and 4 with a
+    checkpoint after step 3, dropped, restored bit for bit and resumed to
+    step 6 within 1e-3 of the uninterrupted losses (under the git-ignored
+    ``build/chip_smoke_lm_ckpt/``, removed after); (f) ``train lm --arch
+    falcon-mamba-7b`` on the card refused (B6 has no backward) before
+    anything is allocated;
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -163,7 +186,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     shape 100x1000, B1 also at the training shape under ``train_shape``,
     B3 also at K = Q = 100 normalized under ``sampled``, B2
     at the training shape, B4 at qwen3-4b's and
-    hymba-1.5b's 2048-token prefills, B5 at the 4-lane qwen3-4b edge's
+    hymba-1.5b's 2048-token prefills and, storing its lse, olmo-1b's
+    training shape (with the pair-scan backward beside SDPA's backward
+    there), B5 at the 4-lane qwen3-4b edge's
     cache after serving and at hymba's rolled 4-lane cache, B6's gated
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape) beside their bounds, and print the
@@ -721,12 +746,11 @@ KERNEL_KINDS = (("B6", ("scan_chunked",)),
                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def _device_summary(prof, n, wall_ms, skip=()):
-    """Device busy ms, idle share, kernels, device ms by kind
-    (KERNEL_KINDS) and the heaviest kernels per unit of work (a decision or
-    a step) from a torch.profiler trace of ``n``. ``skip``: names of
-    ``record_function`` ranges, whose spans the trace also lists on the
-    device."""
+def _device_summary(prof, n, wall_ms, skip=(), kinds=KERNEL_KINDS):
+    """Device busy ms, idle share, kernels, device ms by kind (``kinds``)
+    and the heaviest kernels per unit of work (a decision or a step) from a
+    torch.profiler trace of ``n``. ``skip``: names of ``record_function``
+    ranges, whose spans the trace also lists on the device."""
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA") and e.key not in skip]
 
@@ -735,11 +759,11 @@ def _device_summary(prof, n, wall_ms, skip=()):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     def kind(e):
-        return next((k for k, marks in KERNEL_KINDS
+        return next((k for k, marks in kinds
                      if any(m in e.key for m in marks)), "other")
 
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
-    by_kind = {k: 0.0 for k, _ in KERNEL_KINDS + (("other", ()),)}
+    by_kind = {k: 0.0 for k, _ in kinds + (("other", ()),)}
     for e in kernels:
         by_kind[kind(e)] += dev_us(e) / 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
@@ -3167,7 +3191,7 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
         head = lm.head_f32(params, cfg)
         kern = run(cfg, params, head)
         with mock.patch.object(ops, "flash_attention",
-                               lambda q, k, v, *, causal, window:
+                               lambda q, k, v, *, causal, window, chunk:
                                ref.flash_attention_torch(
                                    q, k, v, causal=causal, window=window)), \
                 mock.patch.object(ops, "decode_attention",
@@ -3223,6 +3247,379 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     return out
 
 
+# -- phase 12b: LM pretraining (B4 with its log-sum-exp, the flash backward) --
+
+TRAIN_LM_ARCH = "olmo-1b"
+TRAIN_LM_BATCH = 8
+TRAIN_LM_SEQ = 1024
+TRAIN_LM_STEPS = 12
+TRAIN_LM_TIMED = 2       # steps 2-11 are timed; 0-1 warm the allocator
+TRAIN_LM_LAYERS = 2      # (d) and (e): olmo-1b's widths at 2 layers
+TRAIN_LM_CKPT_AT = 3     # (e): a checkpoint after step 3, of 6
+TRAIN_LM_RESUME_TOL = 1e-3
+# (a) and (b): (B, S, H, KV, hd, dtype, causal, window, chunk): olmo-1b's
+# training heads in bf16 and f32 (chunk = its attn_chunk), qwen3-4b's GQA
+# heads, a ragged S causal and windowed (chunk 16: S pads to 80)
+TRAIN_ATTN_CASES = (
+    (8, 1024, 16, 16, 128, torch.bfloat16, True, None, 512),
+    (8, 1024, 16, 16, 128, torch.float32, True, None, 512),
+    (2, 1024, 32, 8, 128, torch.bfloat16, True, None, 512),
+    (2, 65, 32, 8, 128, torch.bfloat16, True, None, 16),
+    (2, 65, 32, 8, 128, torch.float32, True, 48, 16),
+)
+LSE_TOL = 1e-5           # of max |lse|: f32 sums in another order
+# the backward against autograd through the plain version, of each
+# gradient's largest |entry|: f32 sums in another order; in bf16 the
+# forward's bf16 output enters delta = rowsum(dO * O) and the gradients are
+# rounded to bf16
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+TRAIN_LOSS_TOL = 1e-5    # (d), relative
+TRAIN_GRAD_TOL = 1e-4    # (d), of each gradient's largest |entry|
+# device ms by kind in the training step's trace: B4's forward kernel, the
+# library GEMMs, PyTorch's element-wise and reduction kernels
+TRAIN_KERNEL_KINDS = (("B4", ("flash_fwd",)),
+                      ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                      ("elementwise", ("elementwise_kernel",)),
+                      ("reduce", ("reduce_kernel",)))
+# host ranges named in the profiled step: the pair-scan backward, the clip
+# and Adam
+TRAIN_RANGES = ("lm_train.attention_backward", "lm_train.clip",
+                "lm_train.adam")
+
+
+def _train_lm_argv(device, steps=None, *extra):
+    return ["lm", "--arch", TRAIN_LM_ARCH, "--scale", "full", "--batch-size",
+            str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ), "--steps",
+            str(steps or TRAIN_LM_STEPS), "--log-every", "1", "--device",
+            device, *extra]
+
+
+def compare_training_attention(ops, ref, fa, device="cuda"):
+    """(a) B4's lse against its plain version (LSE_TOL of max |lse|), the
+    output with the lse store the same bits as without it; (b) the
+    gradients of ``FlashAttention`` (B4 forward, the pair-scan backward)
+    against autograd through the plain version (ATTN_BWD_TOL of each
+    gradient's largest |entry|). Every reading the same bits on two
+    calls."""
+    gen = torch.Generator().manual_seed(41)
+    report = []
+    for b, s, h, kv, hd, dtype, causal, window, chunk in TRAIN_ATTN_CASES:
+        where = (b, s, h, kv, hd, str(dtype), causal, window)
+        q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
+            device, dtype) for n in (h, kv, kv, h))
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, with_lse=True)
+        out2, lse2 = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window, with_lse=True)
+        bare = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_lse_torch(q, k, causal=causal,
+                                             window=window)
+        lse_err = float((lse - want).abs().max())
+        check(lse.shape == (b, h, s) and bool(torch.isfinite(lse).all()),
+              f"lse malformed at {where}")
+        check(lse_err <= LSE_TOL * float(want.abs().max()),
+              f"lse err {lse_err} beyond {LSE_TOL} of max |lse| at {where}")
+        check(torch.equal(out, bare), f"B4's output changes with the lse "
+              f"store at {where}")
+        check(torch.equal(out, out2) and torch.equal(lse, lse2),
+              f"B4 with lse differs between two calls at {where}")
+        del want, out2, lse2, bare
+
+        def grads(fn):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            fn(*leaves).backward(dout)
+            return [x.grad for x in leaves]
+
+        def kernel(*x):
+            return ops.flash_attention(*x, causal=causal, window=window,
+                                       chunk=chunk)
+
+        got, again = grads(kernel), grads(kernel)
+        plain = grads(lambda *x: ref.flash_attention_torch(
+            *x, causal=causal, window=window))
+        bwd = {}
+        for name, g, a, p in zip(("dq", "dk", "dv"), got, again, plain):
+            err = float((g.float() - p.float()).abs().max())
+            rel = err / max(float(p.float().abs().max()), 1e-30)
+            bwd[name] = {"max_abs_err": err, "of_largest": rel}
+            check(g.dtype == dtype and bool(torch.isfinite(g).all()),
+                  f"{name} malformed at {where}")
+            check(rel <= ATTN_BWD_TOL[dtype], f"{name} err {err} ({rel} of "
+                  f"its largest entry) beyond {ATTN_BWD_TOL[dtype]} at "
+                  f"{where}")
+            check(torch.equal(g, a), f"{name} differs between two calls at "
+                  f"{where}")
+        report.append({"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
+                       "dtype": str(dtype), "causal": causal,
+                       "window": window, "chunk": chunk,
+                       "lse_max_abs_err": lse_err, "backward": bwd})
+        del q, k, v, dout, got, again, plain
+        torch.cuda.empty_cache()
+    return report
+
+
+@contextlib.contextmanager
+def _train_ranges(m):
+    """Name the training step's pieces in a torch.profiler trace: the
+    pair-scan backward (``models.attention.flash_bwd``, which
+    ``FlashAttention.backward`` looks up at each call), and the clip and
+    Adam that ``launch.steps`` binds when a step is built."""
+    from unittest import mock
+    from torch.profiler import record_function
+
+    def ranged(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for module, name, label in (
+                (m.attention, "flash_bwd", "lm_train.attention_backward"),
+                (m.steps, "clip_by_global_norm", "lm_train.clip"),
+                (m.steps, "adam_update", "lm_train.adam")):
+            stack.enter_context(mock.patch.object(
+                module, name, ranged(label, getattr(module, name))))
+        yield
+
+
+def profile_training(m, run, device="cuda"):
+    """One more step of ``run``'s model under torch.profiler: device busy
+    ms, idle share, kernels per step, device ms by kind
+    (TRAIN_KERNEL_KINDS) and by named piece (TRAIN_RANGES)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(run["cfg"], num_microbatches=1,
+                              optimizer="adam")
+    params, opt_state, pipe = run["params"], run["opt_state"], run["pipeline"]
+    with _train_ranges(m):
+        step = m.steps.build_train_step(cfg, knobs=m.steps.TrainKnobs(
+            lr=3e-4, grad_clip=1.0))
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in next(pipe).items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, opt_state, metrics = step(params, opt_state, batch)
+            float(metrics["loss_total"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    out = _device_summary(prof, 1, wall_ms, skip=TRAIN_RANGES,
+                          kinds=TRAIN_KERNEL_KINDS)
+    pieces = dict.fromkeys(TRAIN_RANGES, 0.0)
+    for e in prof.events():
+        if e.name in pieces and str(e.device_type).endswith("CPU"):
+            pieces[e.name] += next(
+                (getattr(e, n) for n in ("device_time_total",
+                                         "cuda_time_total")
+                 if hasattr(e, n)), 0.0) / 1e3
+    out["device_ms_by_piece"] = pieces
+    return out
+
+
+def _grads_of(m, params, batch, cfg):
+    leaves = m.named_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    total, _ = m.lm.train_loss(params, batch, cfg)
+    grads = torch.autograd.grad(total, list(leaves.values()),
+                                allow_unused=True)
+    return float(total.detach()), dict(zip(leaves, grads))
+
+
+def training_kernel_vs_plain(m, ref, device="cuda"):
+    """(d) olmo-1b's widths at TRAIN_LM_LAYERS layers in f32: one batch
+    through ``train_loss`` with B4 and the pair-scan backward, and through
+    the plain version under autograd, the same weights: the loss within
+    TRAIN_LOSS_TOL relative, every gradient within TRAIN_GRAD_TOL of its
+    largest |entry|."""
+    from unittest import mock
+    cfg = dataclasses.replace(m.get_config(TRAIN_LM_ARCH),
+                              num_layers=TRAIN_LM_LAYERS, dtype="float32")
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    pipe = m.SyntheticTokens(cfg.vocab_size, TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+                             seed=1)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in next(pipe).items()}
+    m.build.reset_launch_counts()
+    loss, grads = _grads_of(m, params, batch, cfg)
+    launched = m.build.LAUNCHES["flash_attention"]
+
+    def plain(q, k, v, *, causal=True, window=None, chunk=512):
+        return ref.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+
+    with mock.patch.object(m.ops, "flash_attention", plain):
+        plain_loss, plain_grads = _grads_of(m, params, batch, cfg)
+    check(m.build.LAUNCHES["flash_attention"] == launched
+          == 2 * TRAIN_LM_LAYERS, f"B4 launched {launched} times for "
+          f"{TRAIN_LM_LAYERS} layers under remat 'full', then "
+          f"{m.build.LAUNCHES['flash_attention'] - launched} on the plain "
+          "path")
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    check(loss_rel <= TRAIN_LOSS_TOL, f"loss {loss} against the plain "
+          f"path's {plain_loss}")
+    worst, worst_key = 0.0, None
+    for key, g in grads.items():
+        p = plain_grads[key]
+        check((g is None) == (p is None), f"{key}: gradient on one path only")
+        if g is None or not g.numel():
+            continue
+        rel = float((g - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_key = rel, key
+    check(worst <= TRAIN_GRAD_TOL, f"gradient of {worst_key} differs by "
+          f"{worst} of its largest entry from the plain path's")
+    return {"layers": TRAIN_LM_LAYERS, "dtype": "float32", "loss": loss,
+            "plain_loss": plain_loss, "loss_rel_err": loss_rel,
+            "worst_grad_rel_err": worst, "worst_grad_leaf": worst_key,
+            "b4_launches": launched}
+
+
+def _bits(a):
+    """The bytes of a host array (bf16 leaves are 2-byte void)."""
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def training_resume(m, root, device="cuda"):
+    """(e) olmo-1b's widths at TRAIN_LM_LAYERS layers (cut: depth; a
+    full-depth checkpoint is ~12 GB), bf16, through ``launch.train lm``: six
+    steps uninterrupted; four with a checkpoint after step
+    TRAIN_LM_CKPT_AT; every object dropped; the checkpoint restored (the
+    parameters and Adam's moments equal those saved, bit for bit; the
+    pipeline at the saved step); the rerun resumes there and runs to step
+    6: its losses within TRAIN_LM_RESUME_TOL relative of the uninterrupted
+    run's. Removes the directory."""
+    import shutil
+    from unittest import mock
+    real = m.launch_train.get_config
+    ckpt = root / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ("--ckpt", str(ckpt), "--ckpt-every", str(TRAIN_LM_CKPT_AT))
+    with mock.patch.object(m.launch_train, "get_config", lambda arch: (
+            dataclasses.replace(real(arch), num_layers=TRAIN_LM_LAYERS))):
+        whole = m.launch_train.main(_train_lm_argv(device, 6))
+        whole_losses = whole["losses"]
+        del whole
+        first = m.launch_train.main(_train_lm_argv(device, 4, *args))
+        saved = {k: m.checkpoint.convert.host_array(t) for k, t in
+                 m.checkpoint.lm_train_tree(first["params"],
+                                            first["opt_state"]).items()}
+        pipe_step = first["pipeline"].step
+        del first
+        torch.cuda.empty_cache()
+        restored = m.checkpoint.Checkpointer(str(ckpt)).restore_latest()
+        check(restored["step"] == TRAIN_LM_CKPT_AT
+              and restored["extras"]["pipeline"]["step"] == pipe_step
+              == TRAIN_LM_CKPT_AT + 1, "the checkpoint is not the step-3 "
+              f"one: {restored['step']}, {restored['extras']}")
+        check(set(restored["tree"]) == set(saved), "the checkpoint's leaves "
+              "are not the saved ones")
+        for key, arr in saved.items():
+            check(np.array_equal(_bits(restored["tree"][key]), _bits(arr)),
+                  f"restored {key} differs from the saved one")
+        del restored, saved
+        resumed = m.launch_train.main(_train_lm_argv(device, 2, *args))
+    check(resumed["start"] == TRAIN_LM_CKPT_AT, "the rerun did not resume "
+          f"at step {TRAIN_LM_CKPT_AT}")
+    want = whole_losses[TRAIN_LM_CKPT_AT + 1:]
+    got = resumed["losses"]
+    del resumed
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    check(len(got) == len(want) and max(rel) <= TRAIN_LM_RESUME_TOL,
+          f"resumed losses {got} against the uninterrupted {want}")
+    return {"layers": TRAIN_LM_LAYERS, "uninterrupted_losses": whole_losses,
+            "resumed_losses": got, "resumed_rel_err": rel,
+            "bit_identical": max(rel) == 0.0}
+
+
+def drive_lm_training(m, card, root=ROOT, device="cuda"):
+    """Phase 12b. (a) and (b): ``compare_training_attention``; (c) ``launch.
+    train lm`` at olmo-1b ``CONFIG`` (16 layers, d = 2048, bf16, remat
+    "full", random weights from the seed) for TRAIN_LM_STEPS steps of
+    8 x 1024 tokens in process, the launch counters set to 0 just before
+    and read just after: every loss and grad norm finite, the last three
+    steps' mean loss below step 0's, B4 exactly twice per layer per step
+    (forward and recompute), B5 and B6 never, no plain version of B4-B6
+    reached; the step wall p50 and p95 over steps 2-11, tokens/s, the peak
+    memory, one profiled step; (d) ``training_kernel_vs_plain``; (e)
+    ``training_resume``; (f) ``train lm --arch falcon-mamba-7b`` on the card
+    refused by B6's missing backward before anything is allocated.
+    Returns (summary, launches of (c))."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    out["attention"] = compare_training_attention(m.ops, m.ref, m.fa, device)
+    print(f"lm training attention: {json.dumps(out['attention'])}",
+          flush=True)
+
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops) + [
+            _refuse(m.ref, "flash_attention_lse_torch", "the plain")]:
+        guard.enter_context(patch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with guard:
+        m.build.reset_launch_counts()
+        run = m.launch_train.main(_train_lm_argv(device))
+        counts = dict(m.build.LAUNCHES)
+    cfg = run["cfg"]
+    losses, norms = run["losses"], run["grad_norms"]
+    check(len(losses) == TRAIN_LM_STEPS
+          and all(math.isfinite(x) for x in losses + norms),
+          f"non-finite losses or grad norms: {losses}, {norms}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"the loss did not "
+          f"fall: {losses}")
+    want = 2 * cfg.num_layers * TRAIN_LM_STEPS
+    check(counts["flash_attention"] == want, f"B4 launched "
+          f"{counts['flash_attention']} times in {TRAIN_LM_STEPS} steps, "
+          f"not {want}")
+    check(counts["decode_attention"] == 0 and counts["mamba_scan"] == 0,
+          f"B5 or B6 launched while training: {counts}")
+    timed = run["step_ms"][TRAIN_LM_TIMED:]
+    p50 = float(np.percentile(timed, 50))
+    out["full_width"] = {
+        "arch": TRAIN_LM_ARCH, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+        "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ,
+        "params": sum(t.numel() for t in m.named_leaves(
+            run["params"]).values()),
+        "losses": losses, "grad_norms": norms, "step_ms": run["step_ms"],
+        "step_p50_ms": p50,
+        "step_p95_ms": float(np.percentile(timed, 95)),
+        "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / p50 * 1e3,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "b4_launches_per_step": counts["flash_attention"] / TRAIN_LM_STEPS}
+    out["full_width"]["profile"] = profile_training(m, run, device)
+    print(f"lm training: {json.dumps(out['full_width'])}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    out["kernel_vs_plain"] = training_kernel_vs_plain(m, m.ref, device)
+    print(f"lm training kernel vs plain: "
+          f"{json.dumps(out['kernel_vs_plain'])}", flush=True)
+    torch.cuda.empty_cache()
+    out["resume"] = training_resume(m, root, device)
+    print(f"lm training resume: {json.dumps(out['resume'])}", flush=True)
+    torch.cuda.empty_cache()
+
+    before = torch.cuda.memory_allocated()
+    try:
+        m.launch_train.main(["lm", "--arch", "falcon-mamba-7b", "--scale",
+                             "reduced", "--device", "cuda", "--steps", "1"])
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = None
+    check(refused is not None and "B6's backward" in refused,
+          f"train lm falcon-mamba-7b on the card was not refused: {refused}")
+    check(torch.cuda.memory_allocated() == before, "the refusal allocated")
+    out["refusal"] = refused
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm training phase: {out['phase_s']:.1f} s", flush=True)
+    return out, counts
+
+
 def edge_cache(edge):
     """Layer 0's K and V, the slot positions and positions of ``edge``'s
     batch cache, copied so that they outlive the model."""
@@ -3249,11 +3646,13 @@ def _timed_err(kern, plain, where):
     return err
 
 
-def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches):
+def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None):
     """B4 at (b, s, h, kv, hd) bf16, causal with ``window``, held against
     its plain version on the inputs it is timed on, beside that version,
     SDPA and its bound: the (row, column) pairs the mask keeps on the bf16
-    tensor cores against q, k, v read and o written."""
+    tensor cores against q, k, v read and o written. With the wrapper
+    module ``fa`` the kernel is timed storing its log-sum-exp too, as
+    training launches it (the bound then counts the lse written)."""
     import torch.nn.functional as F
     q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda",
                                                          torch.bfloat16)
@@ -3266,23 +3665,65 @@ def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches):
         i = torch.arange(s, device="cuda")
         mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
     shape = (f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal"
-             + (f" window {window}" if window else ""))
+             + (f" window {window}" if window else "")
+             + (" with lse" if fa else ""))
 
     def kern():
+        if fa is not None:
+            return fa.flash_attention_cuda(q, k, v, causal=True,
+                                           window=window, with_lse=True)[0]
         return ops.flash_attention(q, k, v, causal=True, window=window)
 
     def plain():
         return ref.flash_attention_torch(q, k, v, causal=True, window=window)
 
     err = _timed_err(kern, plain, f"flash_attention at {shape}")
+    lse_bytes = 4 * b * h * s if fa is not None else 0
     return _row("flash_attention", 26, kern, plain, 4 * h * hd * pairs,
-                2 * (2 * b * s * h * hd + 2 * b * s * kv * hd), launches, err,
-                shape,
+                2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) + lse_bytes,
+                launches, err, shape,
                 source="flash_attention.cu", replaces="flash_attention.py",
                 library=lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                     enable_gqa=True),
                 peak=BF16_FLOPS, reps=10, inner=5)
+
+
+def _flash_backward_row(attention, fa, gen, b, s, h, kv, hd, chunk):
+    """The training attention's backward (the pair-scan ``flash_bwd`` over
+    ``chunk``-row blocks, plain PyTorch) at (b, s, h, kv, hd) bf16 causal,
+    beside PyTorch's ``scaled_dot_product_attention`` backward on the same
+    inputs, a yardstick only, and the bound of the same work: the five
+    products of the kept (row, column) pairs (s, dp, dv, dq, dk) on the
+    bf16 tensor cores against q, k, v, o, dO and lse read and dq, dk, dv
+    written."""
+    import torch.nn.functional as F
+    q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
+        "cuda", torch.bfloat16) for n in (h, kv, kv, h))
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+
+    def pair_scan():
+        return attention.flash_bwd(q, k, v, out, lse, dout, chunk=chunk)
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    pairs = b * s * (s + 1) // 2
+    bound_ms, bound_by = bound(
+        5 * 2 * h * hd * pairs,
+        2 * (3 * b * s * h * hd + 2 * b * s * kv * hd) + 4 * b * h * s
+        + 2 * (b * s * h * hd + 2 * b * s * kv * hd), peak=BF16_FLOPS)
+    return {"shape": f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal, "
+                     f"chunk {chunk}",
+            "ms": time_ms(pair_scan, reps=5, inner=3),
+            "sdpa_backward_ms": time_ms(sdpa, reps=5, inner=3),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _decode_row(ops, ref, da, gen, cache, h, window, launches):
@@ -3341,7 +3782,7 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches):
     return row
 
 
-def attention_timings(ops, ref, da, cache, launches, errs):
+def attention_timings(ops, ref, da, cache, launches, errs, fa, attention):
     """B4 and B5 at the main paths' shapes, each held against its plain
     version on the inputs it is timed on (that error is the row's
     ``max_abs_err``; ``compare_max_abs_err`` is compare_attention's), beside
@@ -3352,12 +3793,19 @@ def attention_timings(ops, ref, da, cache, launches, errs):
     4-lane qwen3-4b edge's batch cache after serving (``edge_cache``:
     W=4096, 8 KV heads, 32 query heads, its slot positions; random q), and
     at hymba's rolled 4-lane cache (HYMBA_CACHE). The hymba readings go
-    into each row under ``hymba_shape``."""
+    into each row under ``hymba_shape``; B4 storing its lse at olmo-1b's
+    training shape (8, 1024, 16, 16, 128) under ``training_shape``, and the
+    pair-scan backward there beside SDPA's under ``training_backward``."""
     gen = torch.Generator().manual_seed(31)
     b4 = _flash_row(ops, ref, gen, 1, 2048, 32, 8, 128, None,
                     launches["flash_attention"])
     hymba = _flash_row(ops, ref, gen, 1, 2048, 25, 5, 64, 2048, {})
     b4["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS}
+    shape = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, 16, 16, 128)
+    train = _flash_row(ops, ref, gen, *shape, None, {}, fa=fa)
+    b4["training_shape"] = {k: train[k] for k in SHAPE_KEYS}
+    b4["training_backward"] = _flash_backward_row(attention, fa, gen,
+                                                  *shape, 512)
     b4["compare_max_abs_err"] = errs["flash_attention"]
     b5 = _decode_row(ops, ref, da, gen, cache, 32, None,
                      launches["decode_attention"])
@@ -3440,15 +3888,19 @@ def main() -> int:
     from repro_torch.core import policy as pol
     from repro_torch.core import train as tr
     from repro_torch.kernels import build, ops, policy_score, ref
+    from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as lm_attention
     from repro_torch.models import lm
-    from repro_torch.nn import param_count
+    from repro_torch.nn import named_leaves, param_count
     from repro_torch import resilience
     from repro_torch import workloads as wl
     from repro_torch.resilience import faults
     from repro_torch import serving
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import steps as launch_steps
     from repro_torch.launch import train as launch_train
     from repro_torch.serving import batching, controller
     from repro_torch.serving import engine, fleet
@@ -3670,13 +4122,25 @@ def main() -> int:
     ssm_lm[LM_HYBRID_ARCH] = serve_lm("hybrid", LM_HYBRID_ARCH,
                                       LM_HYBRID_PROMPT)
 
+    # phase 12b: LM pretraining at full width (olmo-1b, bf16): B4 with its
+    # log-sum-exp in every layer's forward and recompute, the pair-scan
+    # backward, Adam; the kernel path against the plain one; a resume
+    lm_training, counts = drive_lm_training(types.SimpleNamespace(
+        ops=ops, ref=ref, fa=fa, build=build, lm=lm, steps=launch_steps,
+        attention=lm_attention, launch_train=launch_train,
+        checkpoint=checkpoint, get_config=get_config,
+        SyntheticTokens=SyntheticTokens, named_leaves=named_leaves), card)
+    record("lm_training", counts)
+    torch.cuda.empty_cache()
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
     print(f"policy head launch split: {json.dumps(head_split)}", flush=True)
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
                       rollout_inputs[0], temporal_inputs)
-    kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs)
+    kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs,
+                                 fa, lm_attention)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
 
@@ -3692,6 +4156,7 @@ def main() -> int:
         "compare_attention": attn_cases, "lm_serving": lm_serving,
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
+        "lm_training": lm_training,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -3722,6 +4187,17 @@ def main() -> int:
                           "max_memory_allocated_bytes":
                               r["serving"]["max_memory_allocated_bytes"]}
                           for arch, r in ssm_lm.items()},
+                      "lm_training": {
+                          k: lm_training["full_width"][k] for k in (
+                              "step_p50_ms", "step_p95_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes")}
+                      | {"profile": {k: lm_training["full_width"]["profile"][k]
+                                     for k in ("wall_ms", "device_busy_ms",
+                                               "idle_share",
+                                               "kernels_per_unit",
+                                               "device_ms_by_kind",
+                                               "device_ms_by_piece")},
+                         "phase_s": lm_training["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

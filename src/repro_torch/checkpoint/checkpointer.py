@@ -3,12 +3,14 @@
 A tree of nested dicts of tensors is stored as ``arrays.npz`` plus a
 ``manifest.json`` whose ``leaves`` give each leaf's "/"-joined path, its
 array name, dtype and shape (``repro/checkpoint/checkpointer.py:39-58``).
-A training checkpoint holds ``{"params", "state", "opt_state"}`` under the
-reference's paths, so a policy trained by the port loads into the
-reference with its ``restore_pytree``, and back into the port with
-:func:`load_train_state`. Writes go to ``<dir>.tmp`` and are renamed into
-place, so a reader never sees half a checkpoint; :class:`Checkpointer`
-writes on a background thread, as the reference's does.
+A bf16 leaf is stored as the reference stores it, its bits in numpy's
+``|V2`` with the manifest dtype ``bfloat16``. A training checkpoint holds
+``{"params", "state", "opt_state"}`` under the reference's paths, so a
+policy trained by the port loads into the reference with its
+``restore_pytree``, and back into the port with :func:`load_train_state`.
+Writes go to ``<dir>.tmp`` and are renamed into place, so a reader never
+sees half a checkpoint; :class:`Checkpointer` writes on a background
+thread, as the reference's does.
 """
 from __future__ import annotations
 
@@ -21,20 +23,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.convert import (load_reference_params,
+from repro_torch.checkpoint.convert import (BF16_BITS, host_array,
+                                            load_reference_params,
                                             read_reference_checkpoint,
                                             split_prefix)
+from repro_torch.nn.module import named_leaves as flatten_tree
 from repro_torch.nn.module import param_tree, state_tree
-
-
-def flatten_tree(tree, prefix: str = "") -> dict:
-    """{"/"-path: leaf} of a tree of nested dicts."""
-    if not isinstance(tree, dict):
-        return {prefix: tree}
-    out = {}
-    for key, sub in tree.items():
-        out.update(flatten_tree(sub, f"{prefix}/{key}" if prefix else str(key)))
-    return out
 
 
 def train_tree(policy, opt_state: Optional[dict] = None) -> dict:
@@ -54,10 +48,12 @@ def save_pytree(tree, directory: str, extras: Optional[dict] = None) -> None:
     for i, (key, leaf) in enumerate(flatten_tree(tree).items()):
         name = f"arr_{i}"
         if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach().cpu().numpy()
+            leaf = host_array(leaf)
         arrays[name] = np.asarray(leaf)
+        dtype = arrays[name].dtype
         manifest.append({"key": key, "name": name,
-                         "dtype": str(arrays[name].dtype),
+                         "dtype": ("bfloat16" if dtype == BF16_BITS
+                                   else str(dtype)),
                          "shape": list(arrays[name].shape)})
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -91,7 +87,7 @@ def _host_copy(tree):
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy().copy()
+        return host_array(tree)
     return np.array(tree)
 
 

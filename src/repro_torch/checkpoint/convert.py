@@ -8,22 +8,29 @@ reads it. The port's state-dict keys are those paths with ``.`` for ``/``
 and the same (in, out) layout, so leaves copy one for one. The LM's
 reference params stack the layers on a leading L axis
 (``repro/models/lm.py:67-68``); :func:`load_reference_lm_params` splits
-them onto the port's per-layer leaves.
+them onto the port's per-layer leaves. An LM training checkpoint
+(``{"params", "opt_state"}``, Adam's or Adafactor's state keyed as the
+params) is written in that stacked layout by :func:`lm_train_tree` and
+read back by :func:`load_lm_train_state`, so either package resumes the
+other's ``train lm`` run.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.nn.module import param_tree, state_tree
+from repro_torch.nn.module import named_leaves, param_tree, state_tree
 
 
 def read_reference_checkpoint(directory: str) -> dict[str, np.ndarray]:
-    """{"/"-path: ndarray} of every leaf of a reference checkpoint."""
+    """{"/"-path: ndarray} of every leaf of a reference checkpoint. A bf16
+    leaf comes back as numpy's 2-byte void (``|V2``), the bits that
+    ``np.savez`` stored; :func:`reference_tensor` reads it as bf16."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     out = {}
@@ -33,6 +40,9 @@ def read_reference_checkpoint(directory: str) -> dict[str, np.ndarray]:
             if list(arr.shape) != list(leaf["shape"]):
                 raise ValueError(f"checkpoint leaf {leaf['key']!r} has shape "
                                  f"{arr.shape}, manifest says {leaf['shape']}")
+            if arr.dtype == BF16_BITS and leaf["dtype"] != "bfloat16":
+                raise ValueError(f"checkpoint leaf {leaf['key']!r} holds "
+                                 f"2-byte void data of dtype {leaf['dtype']}")
             out[leaf["key"]] = arr
     return out
 
@@ -68,57 +78,106 @@ def load_reference_params(policy: nn.Module, params_flat: dict,
     _copy_leaves("state", state_tree(policy), state_flat)
 
 
+#: how ``np.savez`` stores a bf16 array (``ml_dtypes``' bfloat16 in memory)
+BF16_BITS = np.dtype("V2")
+
+
 def reference_tensor(arr) -> torch.Tensor:
     """A CPU tensor of a reference leaf. bf16 numpy arrays (dtype name
-    ``bfloat16``, from ``ml_dtypes``, which ``torch.tensor`` refuses) are
-    reinterpreted bit for bit through int16, without importing
-    ``ml_dtypes``."""
+    ``bfloat16``, from ``ml_dtypes``, which ``torch.tensor`` refuses, or
+    the ``|V2`` that a checkpoint file holds) are reinterpreted bit for
+    bit through int16, without importing ``ml_dtypes``."""
     arr = np.array(arr)  # a writable, contiguous copy
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or arr.dtype == BF16_BITS:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t`` as the reference's checkpoints store it:
+    bf16 as its bits in ``|V2``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS).copy()
+    return t.numpy().copy()
+
+
+# a layer's leaf in the port, ``<prefix>layers/<i>/<rest>``
+_LAYER_PATH = re.compile(r"^((?:.*/)?layers)/(\d+)/(.*)$")
+
+
+def _layer_groups(flat: dict) -> dict[str, tuple[bool, list]]:
+    """{reference path: (stacked, [values in layer order])} of {port
+    "/"-path: value}: the leaves ``<prefix>layers/<i>/<rest>`` of all i
+    form ``<prefix>layers/<rest>``, stacked on a leading L axis in the
+    reference; any other leaf is its own."""
+    groups = {}
+    for key, value in flat.items():
+        m = _LAYER_PATH.match(key)
+        if m:
+            by_layer = groups.setdefault(f"{m[1]}/{m[3]}", (True, {}))[1]
+            by_layer[int(m[2])] = value
+        else:
+            groups[key] = (False, {0: value})
+    return {k: (stacked, [by[i] for i in sorted(by)])
+            for k, (stacked, by) in groups.items()}
 
 
 def lm_param_groups(params: dict) -> dict[str, list[torch.Tensor]]:
     """{reference "/"-path: [port tensors]} of an LM's params: one tensor
     for a top-level leaf, one per layer (in order) for a ``layers/`` leaf."""
-    groups: dict[str, list[torch.Tensor]] = {}
+    groups = _layer_groups(named_leaves(params))
+    return {k: tensors for k, (_, tensors) in groups.items()}
 
-    def walk(tree, prefix):
-        if isinstance(tree, dict):
-            for key, sub in tree.items():
-                walk(sub, f"{prefix}/{key}" if prefix else str(key))
-        else:
-            groups.setdefault(prefix, []).append(tree)
 
-    for key, sub in params.items():
-        if key == "layers":
-            for layer in sub:
-                walk(layer, "layers")
-        else:
-            walk(sub, key)
-    return groups
+def stack_layers(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """{port "/"-path: tensor} -> {reference path: tensor}, each layer leaf
+    stacked in layer order (:func:`_layer_groups`)."""
+    return {k: torch.stack(ts) if stacked else ts[0]
+            for k, (stacked, ts) in _layer_groups(flat).items()}
+
+
+def unstack_into(targets: dict[str, torch.Tensor], flat: dict) -> None:
+    """Copy reference leaves ({reference path: array}, layers stacked, f32
+    or bf16) into the port's tensors ({port path: tensor}) in place, row i
+    of a stacked leaf into layer i's. Raises on a missing leaf, an extra
+    leaf, or a shape mismatch."""
+    groups = _layer_groups(targets)
+    missing = sorted(set(groups) - set(flat))
+    extra = sorted(set(flat) - set(groups))
+    if missing or extra:
+        raise KeyError(f"checkpoint leaves do not match the port's: missing "
+                       f"{missing}, unexpected {extra}")
+    for key, (stacked, tensors) in groups.items():
+        src = reference_tensor(flat[key])
+        want = ((len(tensors), *tensors[0].shape) if stacked
+                else tuple(tensors[0].shape))
+        if tuple(src.shape) != tuple(want):
+            raise ValueError(f"shape mismatch for leaf {key!r}: checkpoint "
+                             f"{tuple(src.shape)}, port {tuple(want)}")
+        with torch.no_grad():
+            for i, t in enumerate(tensors):
+                t.copy_(src[i] if stacked else src)
 
 
 def load_reference_lm_params(params: dict, flat: dict) -> None:
     """Copy a reference LM's leaves ({"/"-path: array}, layers stacked on a
     leading L axis, f32 or bf16) into the port's ``params`` in place.
     Raises on a missing leaf, an extra leaf, or a shape mismatch."""
-    groups = lm_param_groups(params)
-    missing = sorted(set(groups) - set(flat))
-    extra = sorted(set(flat) - set(groups))
-    if missing or extra:
-        raise KeyError(f"reference params do not match the LM: missing "
-                       f"{missing}, unexpected {extra}")
-    n_layers = len(params["layers"])
-    for key, tensors in groups.items():
-        src = reference_tensor(flat[key])
-        stacked = key.startswith("layers/")
-        want = ((n_layers, *tensors[0].shape) if stacked
-                else tuple(tensors[0].shape))
-        if tuple(src.shape) != tuple(want):
-            raise ValueError(f"shape mismatch for LM leaf {key!r}: "
-                             f"reference {tuple(src.shape)}, port {want}")
-        with torch.no_grad():
-            for i, t in enumerate(tensors):
-                t.copy_(src[i] if stacked else src)
+    unstack_into(named_leaves(params), flat)
+
+
+def lm_train_tree(params: dict, opt_state: dict) -> dict[str, torch.Tensor]:
+    """An LM training state as the reference's ``train lm`` checkpoints it:
+    {"params/...", "opt_state/..." path: tensor} with every layer leaf
+    stacked (:func:`stack_layers`); ``Checkpointer.save`` writes it."""
+    return stack_layers({**named_leaves(params, "params"),
+                         **named_leaves(opt_state, "opt_state")})
+
+
+def load_lm_train_state(params: dict, opt_state: dict, flat: dict) -> None:
+    """Copy an LM training checkpoint ({"/"-path: array}, written by
+    either package's ``train lm``) into ``params`` and ``opt_state`` in
+    place; ``opt_state`` is a fresh state of the optimizer that wrote it."""
+    unstack_into({**named_leaves(params, "params"),
+                  **named_leaves(opt_state, "opt_state")}, flat)

@@ -12,6 +12,11 @@
 // with a window), with masked scores at -1e30, f32 running max and sum,
 // f32 accumulators and the output in q's dtype. Layout (B, S, H, hd) for q
 // and o, (B, S, KV, hd) for k and v, all contiguous; G = H / KV.
+// Optionally it also writes each row's log-sum-exp of the scaled, masked
+// scores, lse[b, h, s] = m + log(max(l, 1e-30)) from the running max m and
+// sum l, (B, H, S) f32: the residual the training attention's backward
+// (the reference's pair-scan `_flash_bwd`, models/attention.py:166) takes.
+// A null lse pointer writes nothing; `o` is the same either way.
 // Unlike the Pallas kernel, which needs S % 128 == 0, it takes any S:
 // rows past S are not stored and columns past S are masked.
 //
@@ -95,8 +100,9 @@ size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int H, int KV,
-          int hd, int causal, int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int S, int H, int KV, int hd, int causal,
+          int window, float scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;  // odd row stride: row-parallel reads hit distinct banks
   float* qs = smem;
@@ -260,6 +266,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  if (lse != nullptr && tid < kBQ && q0 + tid < S)
+    lse[((long)b * H + h) * S + q0 + tid] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
   T* ob = o + (long)b * S * q_stride + (long)h * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -274,9 +283,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int hd, int causal, int window,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, int hd, int causal,
+               int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -285,8 +294,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, hd,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -386,8 +395,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H,
-             int KV, int causal, int window, float scale) {
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int S, int H, int KV, int causal,
+             int window, float scale) {
   using L = Tile<HD>;
   constexpr int kKSteps = HD / 16;  // k16 steps of Q K^T
   constexpr int kDTiles = HD / 8;   // n8 tiles of the output
@@ -555,6 +565,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
+    const int s = row0 + 8 * i;  // m[i] is the quad's; one thread stores
+    if (lse != nullptr && tq == 0 && s < S)
+      lse[((long)b * H + h) * S + s] = m[i] + logf(l[i]);
   }
 #pragma unroll
   for (int dt = 0; dt < kDTiles; ++dt)
@@ -579,9 +592,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int causal, int window, float scale,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, int causal, int window,
+              float scale, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (1 + 2 * kStages) * Tile<HD>::kElems;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -590,23 +603,23 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(H, (S + kBQ - 1) / kBQ, B);
   flash_fwd_tc<HD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV, causal,
-      window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, int hd, int causal, int window,
-                float scale, cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, int hd, int causal,
+                int window, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 48: return launch_tc<48>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 80: return launch_tc<80>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 96: return launch_tc<96>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 112: return launch_tc<112>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, B, S, H, KV, causal, window, scale, st);
+    case 16: return launch_tc<16>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 48: return launch_tc<48>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 80: return launch_tc<80>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 96: return launch_tc<96>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 112: return launch_tc<112>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -622,12 +635,12 @@ extern "C" {
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, all f32 or all
 // bf16 (is_bf16). f32: hd <= 128 a multiple of 4, k and v 16-byte aligned.
 // bf16: hd <= 128 a multiple of 16, q, k, v and o 16-byte aligned.
-// window <= 0 means no window. Returns the first CUDA error of the launch
-// (0 when it was accepted).
+// window <= 0 means no window. lse: (B, H, S) f32, or null for none.
+// Returns the first CUDA error of the launch (0 when it was accepted).
 int corais_flash_attention(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KV, int hd,
-                           int causal, int window, float scale, int is_bf16,
-                           void* stream) {
+                           void* o, void* lse, int B, int S, int H, int KV,
+                           int hd, int causal, int window, float scale,
+                           int is_bf16, void* stream) {
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || hd < 1 || hd > kMaxHd ||
       !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
@@ -635,11 +648,12 @@ int corais_flash_attention(const void* q, const void* k, const void* v,
   if (is_bf16) {
     if (hd % 16 != 0 || !aligned16(q) || !aligned16(o))
       return (int)cudaErrorInvalidValue;
-    return launch_bf16(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
-                       st);
+    return launch_bf16(q, k, v, o, static_cast<float*>(lse), B, S, H, KV,
+                       hd, causal, window, scale, st);
   }
   if (hd % 4 != 0) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, o, B, S, H, KV, hd, causal, window, scale, st);
+  return launch_f32(q, k, v, o, static_cast<float*>(lse), B, S, H, KV, hd,
+                    causal, window, scale, st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -5,7 +5,10 @@ Replaces the Pallas ``_kernel`` of ``repro/kernels/flash_attention.py:26``
 tiles skipped, KV head ``h // G``). Unlike the Pallas kernel it takes any
 sequence length. bf16 runs on the tensor cores (hd a multiple of 16), f32
 on the CUDA cores (hd a multiple of 4). The source's header note says what
-bounds it on the H100 and what its design does about that.
+bounds it on the H100 and what its design does about that. With
+``with_lse`` it also writes each row's log-sum-exp (B, H, S) f32, the
+residual of the training attention's backward; without it (serving) the
+kernel stores nothing more, and the output is the same bits either way.
 
 :func:`flash_attention_cuda` takes CUDA tensors only; its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_torch`, and
@@ -28,7 +31,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 BF16_HEAD_DIM_MULTIPLE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"corais_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P]}
+_SIGNATURES = {"corais_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _P]}
 
 
 def check_vector_loads(hd: int, dtype, **tensors) -> None:
@@ -51,11 +54,13 @@ def window_arg(window) -> int:
     return int(window)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
+                         with_lse: bool = False):
     """B4: q (B, S, H, hd); k, v (B, S, KV, hd), H a multiple of KV,
     hd <= 128 and a multiple of 16 (bf16) or 4 (f32), all f32 or all bf16,
     contiguous, k and v (and q in bf16) 16-byte aligned, on one card.
-    Returns (B, S, H, hd) in q's dtype."""
+    Returns (B, S, H, hd) in q's dtype, and with ``with_lse`` also the
+    rows' log-sum-exp (B, H, S) f32."""
     win = window_arg(window)
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError("q must be (B, S, H, hd) and k, v (B, S, KV, hd)")
@@ -81,12 +86,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
         check_vector_loads(hd, q.dtype, k=k, v=v)
     lib = load("flash_attention.cu", _SIGNATURES)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.corais_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-            kv, hd, int(bool(causal)), win, 1.0 / math.sqrt(hd),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, s, h, kv, hd,
+            int(bool(causal)), win, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
     raise_on(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out

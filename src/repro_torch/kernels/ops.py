@@ -13,7 +13,11 @@ kernels' layouts.
 
 :func:`policy_score` is differentiable through :class:`PolicyScore`, the
 counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
-on the card, their plain versions on the CPU.
+on the card, their plain versions on the CPU. :func:`flash_attention` is
+differentiable through :class:`FlashAttention`: B4 forward with its
+log-sum-exp, and the reference's pair-scan backward in plain PyTorch on
+either device. B5 and B6 have no backward: on a CUDA tensor that needs a
+gradient they raise, rather than return an output cut off from autograd.
 """
 from __future__ import annotations
 
@@ -100,12 +104,87 @@ def policy_score_decode(c_emb, h_emb, w_px, w_py, edge_mask, *,
             tv.reshape(*batch_shape, *tv.shape[-2:]))
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
+class FlashAttention(torch.autograd.Function):
+    """B4 with the reference's flash backward (``_flash`` and its
+    ``custom_vjp``, ``repro/models/attention.py:89-233``). The forward is
+    B4 on a CUDA tensor and its plain version on a CPU tensor; when a
+    gradient is wanted (``train``) it also computes the rows' log-sum-exp
+    and saves (q, k, v, out, lse), otherwise it saves nothing and B4
+    stores no lse, as serving needs. The backward is the pair-scan over
+    ``chunk``-sized blocks in plain PyTorch on either device
+    (:func:`repro_torch.models.attention.flash_bwd`): the reference's is
+    pure jnp, with no Pallas kernel behind it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, train):
+        cuda = _device_type(q) == "cuda"
+        if not train:
+            if cuda:
+                return flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window)
+            return ref.flash_attention_torch(q, k, v, causal=causal,
+                                             window=window)
+        if cuda:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, with_lse=True)
+        else:
+            out = ref.flash_attention_torch(q, k, v, causal=causal,
+                                            window=window)
+            lse = ref.flash_attention_lse_torch(q, k, causal=causal,
+                                                window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        # the pair-scan lives beside the model's attention, as in the
+        # reference; imported here, since models imports this module
+        from repro_torch.models import attention
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention.flash_bwd(q, k, v, out, lse, dout,
+                                         chunk=ctx.chunk, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+_MISSING_BACKWARD = {
+    "B5": "B5 (decode_attention) has no backward on the card; one-token "
+          "decode is inference only",
+    "B6": "B6 (mamba_scan) has no backward on the card: SSM and hybrid LM "
+          "training on CUDA waits for B6's backward, a reverse-scan kernel "
+          "(ROADMAP A11)",
+}
+
+
+def missing_backward(kernel: str) -> RuntimeError:
+    """The error for a gradient through ``kernel`` ("B5" or "B6") on the
+    card."""
+    return RuntimeError(
+        f"{_MISSING_BACKWARD[kernel]}. A gradient is wanted: train on the CPU "
+        "(device='cpu'), where the plain version is differentiable, or call "
+        "under torch.no_grad()")
+
+
+def _no_card_backward(kernel: str, *tensors) -> None:
+    """Raise for CUDA inputs that need a gradient: the kernel has no
+    backward, and its output would be cut off from autograd."""
+    if _wants_grad(*tensors):
+        raise missing_backward(kernel)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
     """B4: GQA flash attention, q (B, S, H, hd), k, v (B, S, KV, hd) ->
-    (B, S, H, hd) in q's dtype, any S."""
-    if _device_type(q) == "cpu":
-        return ref.flash_attention_torch(q, k, v, causal=causal, window=window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    (B, S, H, hd) in q's dtype, any S; differentiable through
+    :class:`FlashAttention`, whose backward runs the pair-scan over
+    ``chunk``-sized blocks."""
+    return FlashAttention.apply(q, k, v, bool(causal), window, int(chunk),
+                                _wants_grad(q, k, v))
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
@@ -114,6 +193,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
     if _device_type(q) == "cpu":
         return ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
                                           window=window)
+    _no_card_backward("B5", q, k_cache, v_cache)
     return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
                                  window=window)
 
@@ -124,6 +204,7 @@ def mamba_scan(u, dt, B_mat, C_mat, A):
     (B, d, N)), any S."""
     if _device_type(u) == "cpu":
         return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A)
+    _no_card_backward("B6", u, dt, B_mat, C_mat, A)
     return mamba_scan_cuda(u, dt, B_mat, C_mat, A)
 
 
@@ -136,9 +217,10 @@ def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     if _device_type(u) == "cpu":
         return ref.mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat,
                                           A, D, z)
+    _no_card_backward("B6", u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     return mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
 
 
-__all__ = ["PolicyScore", "policy_score", "policy_score_decode",
-           "flash_attention", "decode_attention", "mamba_scan",
-           "mamba_scan_gated", "ref"]
+__all__ = ["PolicyScore", "FlashAttention", "missing_backward",
+           "policy_score", "policy_score_decode", "flash_attention",
+           "decode_attention", "mamba_scan", "mamba_scan_gated", "ref"]

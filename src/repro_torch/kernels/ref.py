@@ -6,11 +6,13 @@ counterpart of the oracles in ``repro/kernels/ref.py``): the policy head
 batch shape and are what :mod:`repro_torch.kernels.ops` runs for tensors on
 the CPU. On a CUDA tensor ``ops`` launches the hand-written kernels of
 :mod:`repro_torch.kernels.policy_score` instead, and ``chip_smoke.py``
-holds those kernels against the ``*_torch`` functions here. The B2 kernel's
-plain version, :func:`policy_score_bwd_torch`, is the head's explicit
-backward. The attention twins (:func:`flash_attention_torch`,
-:func:`decode_attention_torch`) use f32 math, the -1e30 mask, GQA by
-reshape, and return the input dtype, as the reference's oracles do.
+holds those kernels against the ``*_torch`` functions here. The B2
+kernel's plain version, :func:`policy_score_bwd_torch`, is the head's
+explicit backward; :func:`flash_attention_lse_torch` is that of B4's
+optional log-sum-exp output. The attention twins
+(:func:`flash_attention_torch`, :func:`decode_attention_torch`) use f32
+math, the -1e30 mask, GQA by reshape, and return the input dtype, as the
+reference's oracles do.
 :func:`mamba_scan_torch` is B6's plain version: a sequential loop over S
 in f32; :func:`mamba_scan_gated_torch` is that of B6's gated entry, the SSM
 block's softplus, scan, D skip, SiLU gate and cast as plain ops.
@@ -137,10 +139,8 @@ def policy_score_decode_torch(c_emb, h_emb, w_px, w_py, edge_mask,
 NEG_INF = -1e30
 
 
-def flash_attention_torch(q, k, v, *, causal=True, window=None):
-    """Plain version of B4, twin of ``ref.flash_attention_ref``
-    (``repro/kernels/ref.py:10``). q: (B, S, H, hd); k, v: (B, S, KV, hd)
-    -> (B, S, H, hd) in q's dtype."""
+def _masked_scores(q, k, causal, window):
+    """The scaled scores (B, KV, G, S, S) in f32, masked at -1e30."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd).float()
@@ -152,10 +152,26 @@ def flash_attention_torch(q, k, v, *, causal=True, window=None):
         mask &= ki <= qi
     if window is not None:
         mask &= ki > qi - window
-    sc = torch.where(mask, sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
+    return torch.where(mask, sc, NEG_INF)
+
+
+def flash_attention_torch(q, k, v, *, causal=True, window=None):
+    """Plain version of B4, twin of ``ref.flash_attention_ref``
+    (``repro/kernels/ref.py:10``). q: (B, S, H, hd); k, v: (B, S, KV, hd)
+    -> (B, S, H, hd) in q's dtype."""
+    b, s, h, hd = q.shape
+    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
     o = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
     return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def flash_attention_lse_torch(q, k, *, causal=True, window=None):
+    """Plain version of B4's log-sum-exp output: each row's logsumexp of
+    the same masked scores as :func:`flash_attention_torch`, (B, H, S)
+    f32."""
+    b, s, h, _ = q.shape
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
+    return lse.reshape(b, h, s)
 
 
 def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,

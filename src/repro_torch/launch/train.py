@@ -1,26 +1,38 @@
-"""Training command line: CoRaiS RL (the paper's training, §IV-B); counterpart
-of ``repro/launch/train.py``'s ``corais`` subcommand.
+"""Training command line: CoRaiS RL (the paper's training, §IV-B) or LM
+pretraining; counterpart of ``repro/launch/train.py``.
 
 Checkpoints are asynchronous and keep-K in the reference's format
-(``arrays.npz`` plus ``manifest.json``), so either package's ``serve``
-loads them; a rerun on the same ``--ckpt`` resumes from the latest one at
-the batch after it. Runs on CUDA unless ``--device cpu`` is given.
+(``arrays.npz`` plus ``manifest.json``), so either package loads and
+resumes the other's. ``corais`` resumes at the batch after the latest
+checkpoint; ``lm`` resumes at the latest checkpoint's step with the token
+pipeline's state from its extras, as the reference does. Runs on CUDA
+unless ``--device cpu`` is given.
 
     python -m repro_torch.launch.train corais --batches 200 --ckpt /tmp/corais
-
-The ``lm`` subcommand (LM pretraining) is not ported (ROADMAP A11).
+    python -m repro_torch.launch.train lm --arch olmo-1b --steps 50 --scale reduced
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import Checkpointer, load_train_state, train_tree
+from repro_torch.checkpoint import (Checkpointer, load_lm_train_state,
+                                    load_train_state, lm_train_tree,
+                                    train_tree)
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.instances import InstanceConfig
 from repro_torch.core.policy import CoRaiSPolicy, PolicyConfig
 from repro_torch.core.train import RLConfig, train as rl_train
+from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.launch.steps import (TrainKnobs, build_train_step,
+                                      make_optimizer)
+from repro_torch.models import lm
+from repro_torch.nn.module import named_leaves
 
 
 def train_corais(args):
@@ -65,9 +77,69 @@ def train_corais(args):
     return policy, opt_state, hist
 
 
+def train_lm(args) -> dict:
+    """Pretrain an LM on the synthetic Zipf stream with Adam (``--lr``,
+    global-norm clip 1.0), as the reference's ``train lm``: random weights
+    from ``--seed``, checkpoints every ``--ckpt-every`` steps. Returns
+    {"cfg", "params", "opt_state", "pipeline", "start", "losses",
+    "grad_norms", "step_ms"}, each step's wall ms taken to the loss on the
+    host."""
+    cfg = (get_reduced_config(args.arch) if args.scale == "reduced"
+           else get_config(args.arch))
+    if cfg.encoder_decoder or not cfg.embed_input:
+        raise SystemExit(f"{args.arch}: synthetic token pretrain applies to "
+                         "token-input decoder archs; pick a dense/moe/ssm arch")
+    device = resolve_device(args.device)
+    lm.check_trainable(cfg, device)
+    # the reference's step: one batch, the clip at 1.0, Adam at --lr
+    train_cfg = dataclasses.replace(cfg, num_microbatches=1, optimizer="adam")
+    knobs = TrainKnobs(lr=args.lr, grad_clip=1.0)
+    _, opt_init, _ = make_optimizer(train_cfg, knobs)
+    params = lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(args.seed), device=device)
+    opt_state = opt_init(named_leaves(params))
+    pipe = SyntheticTokens(cfg.vocab_size, args.batch_size, args.seq,
+                           seed=args.seed)
+    ckpt = Checkpointer(args.ckpt, every=args.ckpt_every) if args.ckpt else None
+    start = 0
+    if ckpt is not None:
+        restored = ckpt.restore_latest()
+        if restored:
+            start = restored["step"]
+            load_lm_train_state(params, opt_state, restored["tree"])
+            pipe.load_state_dict(restored["extras"]["pipeline"])
+            print(f"resumed from step {start}")
+    step = build_train_step(train_cfg, knobs=knobs)
+
+    losses, grad_norms, step_ms = [], [], []
+    for i in range(start, start + args.steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in next(pipe).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        loss = float(metrics["loss_total"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        grad_norms.append(float(metrics["grad_norm"]))
+        if i % args.log_every == 0:
+            print(f"step {i:5d} loss {loss:8.4f} gnorm {grad_norms[-1]:8.2f} "
+                  f"({step_ms[-1]:7.1f} ms)")
+        if ckpt is not None and ckpt.should_save(i):
+            ckpt.save(i, lm_train_tree(params, opt_state),
+                      extras={"pipeline": pipe.state_dict()})
+    if ckpt is not None:
+        ckpt.wait()
+    first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
+    last = np.mean(losses[-5:])
+    print(f"loss {first:.4f} -> {last:.4f} over {len(losses)} steps")
+    return {"cfg": cfg, "params": params, "opt_state": opt_state,
+            "pipeline": pipe, "start": start, "losses": losses,
+            "grad_norms": grad_norms, "step_ms": step_ms}
+
+
 def main(argv=None):
     """Parse ``argv`` (default: the command line) and run the subcommand;
-    ``corais`` returns :func:`train_corais`'s result."""
+    returns :func:`train_corais`'s or :func:`train_lm`'s result."""
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
 
@@ -86,15 +158,24 @@ def main(argv=None):
     c.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
 
-    sub.add_parser("lm")
+    l = sub.add_parser("lm")
+    l.add_argument("--arch", required=True)
+    l.add_argument("--scale", choices=("reduced", "full"), default="reduced")
+    l.add_argument("--steps", type=int, default=100)
+    l.add_argument("--batch-size", type=int, default=8)
+    l.add_argument("--seq", type=int, default=128)
+    l.add_argument("--lr", type=float, default=3e-4)
+    l.add_argument("--seed", type=int, default=0)
+    l.add_argument("--ckpt", default=None)
+    l.add_argument("--ckpt-every", type=int, default=50)
+    l.add_argument("--log-every", type=int, default=10)
+    l.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
 
-    args, unknown = ap.parse_known_args(argv)
-    if args.mode == "lm":
-        raise SystemExit("train lm (LM pretraining) is not ported to the "
-                         "PyTorch package yet: ROADMAP A11")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    return train_corais(args)
+    args = ap.parse_args(argv)
+    if args.mode == "corais":
+        return train_corais(args)
+    return train_lm(args)
 
 
 if __name__ == "__main__":

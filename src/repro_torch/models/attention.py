@@ -9,12 +9,23 @@ their plain versions. Layouts are the reference's: q (B, S, H, hd) and
 k, v (B, S, KV, hd) for prefill; q (B, H, hd) and a (B, W, KV, hd) cache
 for decode.
 
+Training differentiates the full-sequence attention with the reference's
+flash backward (``_flash_bwd``): :func:`flash_bwd` is that pair-scan over
+the (i, j) blocks of ``chunk`` rows, in plain PyTorch, fed by B4's
+log-sum-exp through :class:`repro_torch.kernels.ops.FlashAttention`.
+
 Not ported yet: logit soft-capping (no config sets it, and neither Pallas
 kernel has it) and ``sharded_decode_attention`` (ROADMAP A11).
 """
 from __future__ import annotations
 
+import math
+
+import torch
+import torch.nn.functional as F
+
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import NEG_INF
 
 
 def _no_softcap(logit_softcap: float) -> None:
@@ -32,16 +43,111 @@ def naive_attention(q, k, v, *, causal=True, window=None, logit_softcap=0.0):
     return ref.flash_attention_torch(q, k, v, causal=causal, window=window)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    logit_softcap: float = 0.0):
-    """Full-sequence (prefill) attention through B4. q: (B, S, H, hd);
-    k, v: (B, S, KV, hd), H a multiple of KV, any S."""
+def _block_pairs(nq: int, nk: int, window_chunks, causal: bool):
+    """The (i, j) block pairs the pair-scan visits, in the reference's
+    order: row blocks i, and for each the column blocks from the window's
+    first (or 0) to i (causal) or the last."""
+    pairs = []
+    for i in range(nq):
+        lo = 0 if window_chunks is None else max(0, i - window_chunks)
+        hi = i if causal else nk - 1
+        pairs.extend((i, j) for j in range(lo, hi + 1))
+    return pairs
+
+
+def _block_mask(i, j, cq, ck, causal, window, kv_len, device):
+    """(cq, ck) bool: the allowed (row, column) pairs of block (i, j)."""
+    rows = i * cq + torch.arange(cq, device=device)[:, None]
+    cols = j * ck + torch.arange(ck, device=device)[None, :]
+    mask = (cols < kv_len).expand(cq, ck)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    return mask
+
+
+def _needs_mask(causal, window, kv_len, nk, ck) -> bool:
+    return causal or window is not None or kv_len != nk * ck
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, chunk: int, causal: bool = True,
+              window=None):
+    """The reference's flash backward (``_flash_bwd``,
+    ``repro/models/attention.py:166-233``) in plain PyTorch: from the
+    forward's residuals q (B, S, H, hd), k, v (B, S, KV, hd), out (B, S, H,
+    hd), lse (B, H, S) f32 and the cotangent dout, the gradients (dq, dk,
+    dv) in the inputs' dtypes.
+
+    As the reference: S zero-padded to the chunk grid (``chunk`` capped at
+    S), one pass over :func:`_block_pairs`, scores in f32 masked at -1e30,
+    ``delta = rowsum(dO * O)``, ``p = exp(s - lse)``, ``ds = p * (dp -
+    delta)`` masked to 0, the scale on dq and dk, and dq, dk, dv summed in
+    f32. The blocks are held as (B, KV, rows, hd) with a block's G query
+    heads folded into its rows, so each product is one batched matmul over
+    (B, KV); padded rows carry lse 0 and a zero cotangent, and add
+    nothing."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    chunk = min(chunk, max(s, 1))
+    pad = (-s) % chunk
+    n = (s + pad) // chunk
+    wc = None if window is None else -(-window // chunk)
+    masked = _needs_mask(causal, window, s, n, chunk)
+    scale = 1.0 / math.sqrt(hd)
+
+    def rows(x):  # (B, S, H, hd) -> (B, KV, n, chunk * G, hd) f32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        x = x.reshape(b, n * chunk, kv, g, hd).permute(0, 2, 1, 3, 4)
+        return x.reshape(b, kv, n, chunk * g, hd)
+
+    def cols(x):  # (B, S, KV, hd) -> (B, KV, n, chunk, hd) f32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+        return x.reshape(b, kv, n, chunk, hd)
+
+    qg, og, dog = rows(q), rows(out), rows(dout)
+    kg, vg = cols(k), cols(v)
+    delta = (og * dog).sum(-1)  # (B, KV, n, chunk * G)
+    lse_g = F.pad(lse.reshape(b, kv, g, s).permute(0, 1, 3, 2),
+                  (0, 0, 0, pad)).reshape(b, kv, n, chunk * g)
+    dq, dk, dv = (torch.zeros_like(x) for x in (qg, kg, vg))
+    for i, j in _block_pairs(n, n, wc, causal):
+        qi, kj, vj, do_i = qg[:, :, i], kg[:, :, j], vg[:, :, j], dog[:, :, i]
+        sc = (qi @ kj.transpose(-1, -2)) * scale  # (B, KV, chunk*G, chunk)
+        if masked:
+            mask = _block_mask(i, j, chunk, chunk, causal, window, s,
+                               q.device).repeat_interleave(g, dim=0)
+            sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - lse_g[:, :, i, :, None])
+        dv[:, :, j] += p.transpose(-1, -2) @ do_i
+        dp = do_i @ vj.transpose(-1, -2)
+        ds = p * (dp - delta[:, :, i, :, None])
+        if masked:
+            ds = torch.where(mask, ds, 0.0)
+        dq[:, :, i] += (ds @ kj) * scale
+        dk[:, :, j] += (ds.transpose(-1, -2) @ qi) * scale
+    dq = dq.reshape(b, kv, n * chunk, g, hd).permute(0, 2, 1, 3, 4)
+    dq = dq.reshape(b, n * chunk, h, hd)[:, :s]
+
+    def unpack(x):  # (B, KV, n, chunk, hd) -> (B, S, KV, hd)
+        return x.reshape(b, kv, n * chunk, hd).permute(0, 2, 1, 3)[:, :s]
+
+    return (dq.to(q.dtype), unpack(dk).to(k.dtype), unpack(dv).to(v.dtype))
+
+
+def flash_attention(q, k, v, *, chunk: int = 512, causal: bool = True,
+                    window=None, logit_softcap: float = 0.0):
+    """Full-sequence (prefill and training) attention through B4. q:
+    (B, S, H, hd); k, v: (B, S, KV, hd), H a multiple of KV, any S. Its
+    gradient is :func:`flash_bwd` over ``chunk``-row blocks."""
     _no_softcap(logit_softcap)
     if k.shape[1] != q.shape[1]:
         raise NotImplementedError(
             "attention over a key sequence of another length (whisper's "
             "cross attention) waits for the audio part of ROADMAP A11")
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               chunk=chunk)
 
 
 def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,

@@ -65,10 +65,11 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
 
 
 def attn_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True):
-    """Full-sequence attention (prefill) through B4. x: (B, S, D). Returns
-    (out (B, S, D), (k, v)) with k, v (B, S, KV, hd) after RoPE."""
+    """Full-sequence attention (prefill, training) through B4. x: (B, S, D).
+    Returns (out (B, S, D), (k, v)) with k, v (B, S, KV, hd) after RoPE."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = attn_lib.flash_attention(q, k, v, causal=causal,
+    out = attn_lib.flash_attention(q, k, v, chunk=cfg.attn_chunk,
+                                   causal=causal,
                                    window=cfg.sliding_window,
                                    logit_softcap=cfg.attn_logit_softcap)
     b, s = x.shape[0], x.shape[1]

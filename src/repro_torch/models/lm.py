@@ -4,6 +4,7 @@ Public surface, as the reference's, on parameters held as nested dicts of
 tensors with the reference's leaf names:
 
     init_params(cfg, generator=..., device=...) -> params
+    train_loss(params, batch, cfg, dp_groups)  -> (loss, metrics)
     prefill(params, batch, cfg, max_seq=None)  -> (cache, last_logits)
     decode_step(params, cache, batch, cfg)     -> (cache, logits)
     init_cache(cfg, batch, max_seq, device)    -> cache
@@ -19,8 +20,13 @@ it.
 
 The dense (olmo, qwen3, mistral-large, llama3), SSM (falcon-mamba) and
 hybrid (hymba) families run here; MoE and whisper raise
-``NotImplementedError`` (see ``layers.check_family``). The LM training
-loss waits for the LM-training slice of ROADMAP A11.
+``NotImplementedError`` (see ``layers.check_family``). ``train_loss`` runs
+every layer under ``cfg.remat`` (``torch.utils.checkpoint``); on the card
+the dense family trains through B4 and its pair-scan backward, while the
+SSM and hybrid families train on the CPU only: B6 has no backward yet, and
+raises on a CUDA input that needs a gradient (ROADMAP A11).
+The optimizers and checkpoints name every leaf by its "/"-path
+(``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...``.
 
 The logits are an f32 product, as in the reference (``_logits``, which
 upcasts the head). For a bf16 model with a tied embedding that upcast is a
@@ -29,9 +35,14 @@ one copy (:func:`head_f32`) and passes it as ``head``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.ssm import ssm_state_shapes
@@ -40,6 +51,30 @@ from repro_torch.nn.module import normal_init
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+# "dots": keep the matrix products' outputs, recompute the rest (the
+# counterpart of jax's dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: "none" as it is; "dots" keeping only
+    the matmul outputs for the backward; otherwise ("full") keeping only
+    the inputs, the whole forward run again in the backward."""
+    if cfg.remat == "none":
+        return fn
+    kwargs = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +105,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
+
+
+def _default_positions(cfg: ModelConfig, batch, b: int, s: int, device):
+    if "positions" in batch:
+        return batch["positions"]
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    if cfg.mrope:
+        pos = pos[None].expand(3, b, s)
+    return pos
 
 
 def _embed_in(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -113,6 +157,66 @@ def _run_layers(params, cfg: ModelConfig, x, positions):
                 if outs[keys[0]] else None)
 
     return x, stacked(("k", "v")), stacked(("h", "conv"))
+
+
+def _train_layers(params, cfg: ModelConfig, x, positions):
+    """The decoder stack for the loss, each layer under ``cfg.remat``;
+    only the residual stream is kept (the reference's scan outputs are
+    dropped by XLA)."""
+    def block(p_layer, h):
+        return L.layer_forward(p_layer, h, positions, cfg)[0]
+
+    body = _remat(block, cfg)
+    for p_layer in params["layers"]:
+        x = body(p_layer, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Raise, before anything is allocated, where :func:`train_loss` cannot
+    run: the families ``check_family`` refuses, and on the card the SSM and
+    hybrid families, whose scan B6 has no backward yet."""
+    L.check_family(cfg)
+    if (torch.device(device).type == "cuda"
+            and cfg.family in ("ssm", "hybrid")):
+        raise ops.missing_backward("B6")
+
+
+def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):
+    """batch: tokens or embeds (+ positions) and labels (B, S), -100 =
+    masked. Returns (total, {"loss", "aux_loss", "tokens"}) with the
+    reference's shard-friendly cross entropy: the max without gradient,
+    the log-sum-exp of the shifted logits, the label's logit picked by
+    comparison with an iota (labels < 0 read label 0 and are masked out),
+    the mean over unmasked labels (at least 1). ``aux`` (the MoE load
+    balancing loss) is 0 for every family the port runs; ``dp_groups``
+    (MoE dispatch groups) is unused."""
+    L.check_family(cfg)
+    labels = batch["labels"]
+    x = _embed_in(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
+    positions = _default_positions(cfg, batch, b, s, x.device)
+    x = _train_layers(params, cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = _logits(params, cfg, x)
+    m = logits.max(-1, keepdim=True).values.detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    vocab_iota = torch.arange(logits.shape[-1], device=x.device)
+    safe_labels = torch.clamp(labels.long(), min=0)
+    label_logit = torch.where(vocab_iota == safe_labels[..., None], shifted,
+                              0.0).sum(-1)
+    nll = lse - label_logit
+    mask = (labels >= 0).float()
+    tokens = mask.sum()
+    loss = (nll * mask).sum() / torch.clamp(tokens, min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
 
 
 # ---------------------------------------------------------------------------
@@ -159,10 +263,7 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
     ``batch["embeds"]``); return (cache, last-token logits (B, V_pad))."""
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
+    positions = _default_positions(cfg, batch, b, s, x.device)
     x, kvs, ssm_states = _run_layers(params, cfg, x, positions)
     cache = init_cache(cfg, b, max_seq or s, x.device)
     if kvs is not None:

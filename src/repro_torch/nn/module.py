@@ -39,6 +39,21 @@ def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
+def named_leaves(tree, prefix: str = "") -> dict:
+    """{"/"-path: leaf} of a tree of nested dicts and lists, a list's items
+    under their index: an LM's layer leaves as ``layers/<i>/<name>``,
+    where the reference stacks them on a leading L axis under
+    ``layers/<name>``."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for key, sub in items:
+            out.update(named_leaves(sub, f"{prefix}/{key}" if prefix
+                                    else str(key)))
+        return out
+    return {prefix: tree}
+
+
 def param_tree(module: nn.Module) -> dict[str, nn.Parameter]:
     """{reference "/"-path: parameter}, e.g. ``edge_layers/0/align/mha/wq``."""
     return {name.replace(".", "/"): p for name, p in module.named_parameters()}

@@ -2,7 +2,10 @@
 ``repro/optim/adam.py``.
 
 The update is the reference's, term for term: eps is added after the
-bias-corrected ``sqrt(vhat)``. ``torch.optim.Adam`` divides by
+bias-corrected ``sqrt(vhat)``, then the decoupled weight decay
+(``weight_decay * p``); the moments are computed in f32 and stored in
+``moment_dtype``; the parameter is updated in f32 and cast back to its
+dtype. ``torch.optim.Adam`` divides by
 ``sqrt(v) / sqrt(bc2) + eps`` instead, which is a different number, so it
 is not used. Parameters are updated in place (they are the policy's
 ``nn.Parameter``s); the moments live in the returned state, keyed by the
@@ -23,6 +26,8 @@ class AdamConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
+    moment_dtype: torch.dtype = torch.float32
 
     def resolve_lr(self, step: torch.Tensor) -> torch.Tensor:
         if callable(self.lr):
@@ -31,9 +36,10 @@ class AdamConfig:
 
 
 def adam_init(params: dict[str, torch.Tensor], cfg: AdamConfig) -> dict:
-    """{"step": int32 scalar, "m": {path: zeros}, "v": {path: zeros}}."""
+    """{"step": int32 scalar, "m": {path: zeros}, "v": {path: zeros}}, the
+    moments in ``cfg.moment_dtype``."""
     device = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
              for k, p in params.items()}
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
             "m": zeros,
@@ -54,10 +60,13 @@ def adam_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
     new_m, new_v = {}, {}
     for key, p in params.items():
         g = grads[key].to(torch.float32)
-        m = cfg.b1 * opt_state["m"][key] + (1 - cfg.b1) * g
-        v = cfg.b2 * opt_state["v"][key] + (1 - cfg.b2) * torch.square(g)
+        m = cfg.b1 * opt_state["m"][key].float() + (1 - cfg.b1) * g
+        v = (cfg.b2 * opt_state["v"][key].float()
+             + (1 - cfg.b2) * torch.square(g))
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
         p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
-        new_m[key] = m
-        new_v[key] = v
+        new_m[key] = m.to(cfg.moment_dtype)
+        new_v[key] = v.to(cfg.moment_dtype)
     return {"step": step, "m": new_m, "v": new_v}

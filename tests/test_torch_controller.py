@@ -398,9 +398,14 @@ def test_train_resumes_at_the_batch_after_the_checkpoint(tmp_path):
         assert torch.equal(v, resumed.state_dict()[k]), k
 
 
-def test_train_lm_names_what_is_missing():
-    with pytest.raises(SystemExit, match="A11"):
-        ttrain_cli.main(["lm", "--arch", "olmo-1b"])
+def test_train_lm_names_what_is_missing(monkeypatch):
+    """``train lm`` runs (tests/test_torch_lm_train.py); what it still
+    lacks is named before anything is allocated: SSM training on the card
+    waits for B6's backward (ROADMAP A11)."""
+    monkeypatch.setattr(ttrain_cli, "resolve_device", torch.device)
+    with pytest.raises(RuntimeError, match="A11"):
+        ttrain_cli.main(["lm", "--arch", "falcon-mamba-7b", "--device",
+                         "cuda"])
 
 
 def _tree(seed=0):

@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
                                             mamba_scan_gated_cuda)
 from repro_torch.models import lm
+from repro_torch.nn import named_leaves
 from repro_torch.serving.batching import LMEdgeBackend
 from repro_torch.serving import (CentralController, MultiEdgeSim, SimConfig,
                                  engine)
@@ -1005,3 +1006,126 @@ def test_controller_on_the_card_launches_its_kernel_once_per_round(
         np.testing.assert_array_equal(got[gapped], want[gapped])
         checked += int(gapped.sum())
     assert checked > 0
+
+
+# -- LM training: B4's log-sum-exp and the flash backward -------------------
+
+# (B, S, H, KV, hd, dtype, causal, window): olmo-1b's training heads, bf16
+# and f32; qwen3-4b's GQA heads; a ragged S, causal and windowed
+LSE_CASES = [
+    (2, 256, 16, 16, 128, torch.bfloat16, True, None),
+    (2, 256, 16, 16, 128, torch.float32, True, None),
+    (1, 300, 32, 8, 128, torch.bfloat16, True, None),
+    (2, 65, 4, 2, 64, torch.bfloat16, True, None),
+    (2, 65, 4, 2, 64, torch.float32, True, 48),
+    (2, 65, 4, 2, 64, torch.bfloat16, False, 48),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,dtype,causal,window", LSE_CASES)
+def test_flash_attention_lse_matches_plain_version(cuda_device, b, s, h, kv,
+                                                   hd, dtype, causal, window):
+    """lse within 1e-5 of max |lse| (f32 sums in another order); ``out``
+    the same bits with and without the lse store."""
+    gen = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (h, kv, kv))
+    build.reset_launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    with_lse=True)
+    bare = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 2
+    want = ref.flash_attention_lse_torch(q, k, causal=causal, window=window)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(out, bare)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,dtype,causal,window", LSE_CASES)
+def test_flash_attention_backward_matches_autograd_through_plain(
+        cuda_device, b, s, h, kv, hd, dtype, causal, window):
+    """``FlashAttention`` (B4 forward, the pair-scan backward, chunk 64)
+    against autograd through the plain version: f32 within 1e-4 of each
+    gradient's largest |entry|, bf16 within 2^-6 (the forward's bf16
+    output enters delta = rowsum(dO * O)); the same bits on two calls."""
+    gen = torch.Generator().manual_seed(s)
+    q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device,
+                                                                dtype)
+                     for n in (h, kv, kv, h))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves).backward(dout)
+        return [x.grad for x in leaves]
+
+    got = grads(lambda *x: ops.flash_attention(*x, causal=causal,
+                                               window=window, chunk=64))
+    again = grads(lambda *x: ops.flash_attention(*x, causal=causal,
+                                                 window=window, chunk=64))
+    want = grads(lambda *x: ref.flash_attention_torch(*x, causal=causal,
+                                                      window=window))
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == dtype
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+        assert torch.equal(g, a), name
+
+
+def test_b5_b6_refuse_gradients_on_the_card(cuda_device):
+    """No silent detach: with inputs that need a gradient, B5 and B6 raise
+    rather than return a kernel output cut off from autograd."""
+    def t(*shape):
+        return torch.randn(*shape, device=cuda_device, requires_grad=True)
+
+    slot_pos = torch.arange(8, dtype=torch.int32,
+                            device=cuda_device).repeat(2, 1)
+    pos = torch.full((2,), 7, dtype=torch.int32, device=cuda_device)
+    a = -torch.rand(16, 4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="B5 .* no backward"):
+        ops.decode_attention(t(2, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16),
+                             slot_pos, pos)
+    with pytest.raises(RuntimeError, match="B6's backward"):
+        ops.mamba_scan(t(1, 9, 16), torch.rand(1, 9, 16, device=cuda_device),
+                       t(1, 9, 4), t(1, 9, 4), a)
+    with pytest.raises(RuntimeError, match="B6's backward"):
+        ops.mamba_scan_gated(t(1, 9, 16), t(1, 9, 16), t(16), t(1, 9, 4),
+                             t(1, 9, 4), a, t(16), t(1, 9, 16))
+    with torch.no_grad():
+        ops.decode_attention(t(2, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16),
+                             slot_pos, pos)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_lm_training_on_the_card_matches_the_cpu(cuda_device, remat):
+    """Reduced olmo-1b in f32, the same weights and batch: the loss and
+    every gradient through B4 and the pair-scan backward on the card
+    against the plain versions on the CPU (1e-5; gradients 1e-5 + 1e-4
+    relative); B4 once per layer, twice under remat (the recompute)."""
+    cfg = dataclasses.replace(get_reduced_config("olmo-1b"), remat=remat)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    out = {}
+    build.reset_launch_counts()
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        leaves = named_leaves(params)
+        for x in leaves.values():
+            x.requires_grad_(True)
+        dev = next(iter(leaves.values())).device
+        batch = {"tokens": tokens.to(dev), "labels": tokens.to(dev)}
+        total, _ = lm.train_loss(params, batch, cfg)
+        out[name] = (total, torch.autograd.grad(
+            total, list(leaves.values()), allow_unused=True))
+    torch.cuda.synchronize()
+    per_layer = 1 if remat == "none" else 2
+    assert build.LAUNCHES["flash_attention"] == per_layer * cfg.num_layers
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               atol=1e-5, rtol=1e-5)
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)
