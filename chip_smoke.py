@@ -175,9 +175,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry); (e) the same widths at 2 layers in bf16: 6 steps, and 4 with a
     checkpoint after step 3, dropped, restored bit for bit and resumed to
     step 6 within 1e-3 of the uninterrupted losses (under the git-ignored
-    ``build/chip_smoke_lm_ckpt/``, removed after); (f) ``train lm --arch
-    falcon-mamba-7b`` on the card refused (B6 has no backward) before
-    anything is allocated;
+    ``build/chip_smoke_lm_ckpt/``, removed after);
+12c. SSM and hybrid LM training (``drive_ssm_training``): (a) B6b, the
+    backward of B6's gated entry, from the chunk states B6 stores, against
+    its plain version (every gradient within 1e-4 of its largest entry in
+    f32, 2^-6 for dz in bf16) at hymba-1.5b's (8, 1024, 3200, 16) and
+    falcon-mamba-7b's (8, 1024, 8192, 16) training shapes, a ragged S = 65
+    and N = 4, z in bf16 and f32, dh_last zero and seeded, some dt_raw
+    above softplus's threshold; the same bits twice; B6's output the same
+    bits with the state store and without; (b) ``launch.train lm --arch
+    hymba-1.5b --scale full`` (32 layers, d = 1600, bf16, remat "full") for
+    12 steps of 8 x 1024 tokens in process: losses and grad norms finite,
+    the last three steps' mean below step 0's, per step B6 64, B6b 32 and
+    B4 64 launches, B5 none, no plain version of B4-B6 or B6b reached; step
+    p50/p95, tokens/s, peak memory and a profiled step (device ms by kind:
+    B4, B6, B6b, GEMM, element-wise); (c) the same for falcon-mamba-7b at
+    full width cut to 8 of its 64 layers (B6 16, B6b 8, B4 none a step);
+    (d) both at their widths and 2 layers in f32: ``train_loss`` through
+    the kernels against the plain path (loss 1e-5 relative, every gradient
+    1e-4 of its largest entry);
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -191,11 +207,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
     there), B5 at the 4-lane qwen3-4b edge's
     cache after serving and at hymba's rolled 4-lane cache, B6's gated
     entry (the one the main paths launch) and its bare entry at
-    falcon-mamba's prefill shape) beside their bounds, and print the
-    ``{"kernels": [...]}`` line (six rows, each with its launches on every
-    main path above, the rollout's, temporal training's, the serving
-    host side's and phase 6e's (``fleet``, ``data_parallel``) included; B1
-    and B2 also timed at the temporal shapes, under ``temporal_shapes``).
+    falcon-mamba's prefill shape, and storing its chunk states at
+    hymba-1.5b's training shape, and B6b there) beside their bounds, and
+    print the ``{"kernels": [...]}`` line (seven rows, each with its
+    launches on every main path above, the rollout's, temporal training's,
+    the serving host side's and phase 6e's (``fleet``, ``data_parallel``)
+    included; B1 and B2 also timed at the temporal shapes, under
+    ``temporal_shapes``).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
 summary. Details of every comparison go to ``chiprun_out/chip_smoke.json``.
@@ -2542,7 +2560,8 @@ def _row(name, line, kern, plain, flops, nbytes, launches, err, shape, *,
     return {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}",
-        "replaces": f"src/repro/kernels/{replaces}:{line}",
+        "replaces": (f"src/repro/{replaces}:{line}" if "/" in replaces
+                     else f"src/repro/kernels/{replaces}:{line}"),
         "launches": sum(launches.values()), "max_abs_err": err,
         "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -3287,8 +3306,8 @@ TRAIN_RANGES = ("lm_train.attention_backward", "lm_train.clip",
                 "lm_train.adam")
 
 
-def _train_lm_argv(device, steps=None, *extra):
-    return ["lm", "--arch", TRAIN_LM_ARCH, "--scale", "full", "--batch-size",
+def _train_lm_argv(device, steps=None, *extra, arch=TRAIN_LM_ARCH):
+    return ["lm", "--arch", arch, "--scale", "full", "--batch-size",
             str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ), "--steps",
             str(steps or TRAIN_LM_STEPS), "--log-every", "1", "--device",
             device, *extra]
@@ -3383,10 +3402,10 @@ def _train_ranges(m):
         yield
 
 
-def profile_training(m, run, device="cuda"):
+def profile_training(m, run, device="cuda", kinds=TRAIN_KERNEL_KINDS):
     """One more step of ``run``'s model under torch.profiler: device busy
-    ms, idle share, kernels per step, device ms by kind
-    (TRAIN_KERNEL_KINDS) and by named piece (TRAIN_RANGES)."""
+    ms, idle share, kernels per step, device ms by kind (``kinds``) and by
+    named piece (TRAIN_RANGES)."""
     from torch.profiler import ProfilerActivity, profile
     cfg = dataclasses.replace(run["cfg"], num_microbatches=1,
                               optimizer="adam")
@@ -3403,8 +3422,7 @@ def profile_training(m, run, device="cuda"):
             _, opt_state, metrics = step(params, opt_state, batch)
             float(metrics["loss_total"])
             wall_ms = (time.perf_counter() - t0) * 1e3
-    out = _device_summary(prof, 1, wall_ms, skip=TRAIN_RANGES,
-                          kinds=TRAIN_KERNEL_KINDS)
+    out = _device_summary(prof, 1, wall_ms, skip=TRAIN_RANGES, kinds=kinds)
     pieces = dict.fromkeys(TRAIN_RANGES, 0.0)
     for e in prof.events():
         if e.name in pieces and str(e.device_type).endswith("CPU"):
@@ -3426,36 +3444,46 @@ def _grads_of(m, params, batch, cfg):
     return float(total.detach()), dict(zip(leaves, grads))
 
 
-def training_kernel_vs_plain(m, ref, device="cuda"):
-    """(d) olmo-1b's widths at TRAIN_LM_LAYERS layers in f32: one batch
-    through ``train_loss`` with B4 and the pair-scan backward, and through
-    the plain version under autograd, the same weights: the loss within
-    TRAIN_LOSS_TOL relative, every gradient within TRAIN_GRAD_TOL of its
-    largest |entry|."""
+def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
+                             batch_size=TRAIN_LM_BATCH):
+    """(d) ``arch``'s widths at TRAIN_LM_LAYERS layers in f32: one batch
+    through ``train_loss`` with the kernels (B4 and the pair-scan backward;
+    B6 and B6b) and through the plain versions under autograd (the
+    attention's and the gated scan's plain forward), the same weights: the
+    loss within TRAIN_LOSS_TOL relative, every gradient within
+    TRAIN_GRAD_TOL of its largest |entry|; under remat 'full' B4 and B6
+    twice per layer of theirs, B6b once, and none on the plain path."""
     from unittest import mock
-    cfg = dataclasses.replace(m.get_config(TRAIN_LM_ARCH),
+    cfg = dataclasses.replace(m.get_config(arch),
                               num_layers=TRAIN_LM_LAYERS, dtype="float32")
     params = m.lm.init_params(cfg, generator=torch.Generator(
         device=device).manual_seed(LM_SEED))
-    pipe = m.SyntheticTokens(cfg.vocab_size, TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+    pipe = m.SyntheticTokens(cfg.vocab_size, batch_size, TRAIN_LM_SEQ,
                              seed=1)
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in next(pipe).items()}
     m.build.reset_launch_counts()
     loss, grads = _grads_of(m, params, batch, cfg)
-    launched = m.build.LAUNCHES["flash_attention"]
+    launched = dict(m.build.LAUNCHES)
 
     def plain(q, k, v, *, causal=True, window=None, chunk=512):
         return ref.flash_attention_torch(q, k, v, causal=causal,
                                          window=window)
 
-    with mock.patch.object(m.ops, "flash_attention", plain):
+    with mock.patch.object(m.ops, "flash_attention", plain), \
+            mock.patch.object(m.ops, "mamba_scan_gated",
+                              ref.mamba_scan_gated_torch):
         plain_loss, plain_grads = _grads_of(m, params, batch, cfg)
-    check(m.build.LAUNCHES["flash_attention"] == launched
-          == 2 * TRAIN_LM_LAYERS, f"B4 launched {launched} times for "
-          f"{TRAIN_LM_LAYERS} layers under remat 'full', then "
-          f"{m.build.LAUNCHES['flash_attention'] - launched} on the plain "
-          "path")
+    attn = cfg.family != "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
+    want = {"flash_attention": 2 * TRAIN_LM_LAYERS * attn,
+            "mamba_scan": 2 * TRAIN_LM_LAYERS * ssm,
+            "mamba_scan_bwd": TRAIN_LM_LAYERS * ssm}
+    check(dict(m.build.LAUNCHES) == launched
+          and all(launched[k] == v for k, v in want.items()),
+          f"{arch}: launches {launched} for {TRAIN_LM_LAYERS} layers under "
+          f"remat 'full' (want {want}), then {dict(m.build.LAUNCHES)} after "
+          "the plain path")
     loss_rel = abs(loss - plain_loss) / abs(plain_loss)
     check(loss_rel <= TRAIN_LOSS_TOL, f"loss {loss} against the plain "
           f"path's {plain_loss}")
@@ -3470,10 +3498,11 @@ def training_kernel_vs_plain(m, ref, device="cuda"):
             worst, worst_key = rel, key
     check(worst <= TRAIN_GRAD_TOL, f"gradient of {worst_key} differs by "
           f"{worst} of its largest entry from the plain path's")
-    return {"layers": TRAIN_LM_LAYERS, "dtype": "float32", "loss": loss,
-            "plain_loss": plain_loss, "loss_rel_err": loss_rel,
-            "worst_grad_rel_err": worst, "worst_grad_leaf": worst_key,
-            "b4_launches": launched}
+    return {"arch": arch, "layers": TRAIN_LM_LAYERS, "dtype": "float32",
+            "batch": batch_size, "loss": loss, "plain_loss": plain_loss,
+            "loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
+            "worst_grad_leaf": worst_key,
+            "launches": {k: launched[k] for k in want}}
 
 
 def _bits(a):
@@ -3544,9 +3573,7 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     (forward and recompute), B5 and B6 never, no plain version of B4-B6
     reached; the step wall p50 and p95 over steps 2-11, tokens/s, the peak
     memory, one profiled step; (d) ``training_kernel_vs_plain``; (e)
-    ``training_resume``; (f) ``train lm --arch falcon-mamba-7b`` on the card
-    refused by B6's missing backward before anything is allocated.
-    Returns (summary, launches of (c))."""
+    ``training_resume``. Returns (summary, launches of (c))."""
     t_phase = time.perf_counter()
     out = {"card": card}
     out["attention"] = compare_training_attention(m.ops, m.ref, m.fa, device)
@@ -3574,8 +3601,9 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     check(counts["flash_attention"] == want, f"B4 launched "
           f"{counts['flash_attention']} times in {TRAIN_LM_STEPS} steps, "
           f"not {want}")
-    check(counts["decode_attention"] == 0 and counts["mamba_scan"] == 0,
-          f"B5 or B6 launched while training: {counts}")
+    check(counts["decode_attention"] == 0 and counts["mamba_scan"] == 0
+          and counts["mamba_scan_bwd"] == 0,
+          f"B5, B6 or B6b launched while training: {counts}")
     timed = run["step_ms"][TRAIN_LM_TIMED:]
     p50 = float(np.percentile(timed, 50))
     out["full_width"] = {
@@ -3602,21 +3630,177 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     out["resume"] = training_resume(m, root, device)
     print(f"lm training resume: {json.dumps(out['resume'])}", flush=True)
     torch.cuda.empty_cache()
-
-    before = torch.cuda.memory_allocated()
-    try:
-        m.launch_train.main(["lm", "--arch", "falcon-mamba-7b", "--scale",
-                             "reduced", "--device", "cuda", "--steps", "1"])
-    except RuntimeError as e:
-        refused = str(e)
-    else:
-        refused = None
-    check(refused is not None and "B6's backward" in refused,
-          f"train lm falcon-mamba-7b on the card was not refused: {refused}")
-    check(torch.cuda.memory_allocated() == before, "the refusal allocated")
-    out["refusal"] = refused
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"lm training phase: {out['phase_s']:.1f} s", flush=True)
+    return out, counts
+
+
+# -- phase 12c: SSM and hybrid LM training (B6 with its states, B6b) --------
+
+TRAIN_HYBRID_ARCH = "hymba-1.5b"
+TRAIN_SSM_ARCH = "falcon-mamba-7b"
+# (c): falcon-mamba-7b at full width cut from 64 to 8 layers: its 7.3 B
+# parameters with Adam's two f32 moments (~88 GB) do not fit one H100
+TRAIN_SSM_LAYERS = 8
+# (d): the plain path differentiates the gated scan's Python loop over S,
+# whose autograd graph holds every step's (B, d_inner, N) tensors
+TRAIN_SSM_PARITY_BATCH = 2
+# (a): B6b against its plain version, (B, S, d, N, z dtype, dh_last seeded,
+# some dt_raw above softplus's threshold): hymba-1.5b's and
+# falcon-mamba-7b's training shapes, a ragged S = 65 in f32 and bf16, N = 4
+SCAN_BWD_CASES = (
+    (8, 1024, 3200, 16, torch.bfloat16, False, False),
+    (8, 1024, 8192, 16, torch.bfloat16, True, False),
+    (2, 65, 200, 16, torch.float32, True, True),
+    (2, 65, 200, 16, torch.bfloat16, False, True),
+    (1, 37, 200, 4, torch.float32, True, True),
+)
+# of each gradient's largest |entry|: f32 sums in another order (the
+# exponentials, the softplus and the SiLU the kernels' short forms); dz in
+# bf16 rounded from two f32 values that may round apart
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+SCAN_BWD_NAMES = ("du", "ddt_raw", "ddt_bias", "dB", "dC", "dA", "dD", "dz")
+# device ms by kind in the SSM training steps' trace
+TRAIN_SSM_KERNEL_KINDS = (("B4", ("flash_fwd",)), ("B6", ("scan_chunked",)),
+                          ("B6b", ("scan_bwd",))) + TRAIN_KERNEL_KINDS[1:]
+
+
+def compare_scan_backward(ms, ref, device="cuda"):
+    """(a) B6b (``ms.mamba_scan_gated_bwd_cuda``, from the chunk states B6
+    stores) against its plain version on the same inputs at
+    SCAN_BWD_CASES: every gradient within SCAN_BWD_TOL of its largest
+    |entry|, the same bits on two calls; B6's output and h_last the same
+    bits with the state store and without."""
+    gen = torch.Generator().manual_seed(43)
+    report = []
+    for b, s, d, n, zdtype, seeded, over in SCAN_BWD_CASES:
+        args, uz = _gated_inputs(gen, b, s, d, n, over_threshold=over)
+        z = (uz if zdtype == torch.bfloat16 else uz.float())[..., d:]
+        dout = torch.randn(b, s, d, generator=gen).to(device, zdtype)
+        dh = torch.randn(b, d, n, generator=gen).to(device) if seeded else None
+        where = f"B6b at {(b, s, d, n)}, z {str(zdtype)[6:]}, " + (
+            "dh_last seeded" if seeded else "dh_last zero")
+        out, h, states = ms.mamba_scan_gated_cuda(*args, z, with_states=True)
+        bare, bare_h = ms.mamba_scan_gated_cuda(*args, z)
+        check(torch.equal(out, bare) and torch.equal(h, bare_h),
+              f"{where}: B6's output changes with the state store")
+        got = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
+        again = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
+        want = ref.mamba_scan_gated_bwd_torch(*args, z, dout, dh)
+        torch.cuda.synchronize()
+        row = {"B": b, "S": s, "d": d, "N": n, "z": str(zdtype),
+               "dh_last_seeded": seeded, "over_threshold": over}
+        for name, g, a, w in zip(SCAN_BWD_NAMES, got, again, want):
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and bool(torch.isfinite(g).all()), f"{where}: {name} "
+                  "malformed")
+            err = float((g.float() - w.float()).abs().max())
+            rel = err / max(float(w.float().abs().max()), 1e-30)
+            check(rel <= SCAN_BWD_TOL[g.dtype], f"{where}: {name} err {err} "
+                  f"({rel} of its largest entry) beyond "
+                  f"{SCAN_BWD_TOL[g.dtype]}")
+            check(torch.equal(g, a), f"{where}: {name} differs between two "
+                  "calls")
+            row[name] = {"max_abs_err": err, "of_largest": rel}
+        report.append(row)
+        del args, uz, z, dout, dh, out, states, bare, got, again, want
+        torch.cuda.empty_cache()
+    return report
+
+
+def _train_family(m, arch, want, layers=None, device="cuda"):
+    """``launch.train lm --arch arch --scale full`` (cut to ``layers``
+    layers when given) for TRAIN_LM_STEPS steps of TRAIN_LM_BATCH x
+    TRAIN_LM_SEQ tokens in process, the launch counters set to 0 just
+    before and read just after, with every plain version of B4-B6 and B6b
+    refused: losses and grad norms finite, the last three steps' mean below
+    step 0's, each kernel's launches per step ``want[kernel]`` and B5 none;
+    step wall p50/p95 over steps 2-11, tokens/s, peak memory, one profiled
+    step. Returns (summary, launches)."""
+    from unittest import mock
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops) + [
+            _refuse(m.ref, n, "the plain") for n in (
+                "flash_attention_lse_torch", "mamba_scan_gated_bwd_torch")]:
+        guard.enter_context(patch)
+    if layers is not None:
+        real = m.launch_train.get_config
+        guard.enter_context(mock.patch.object(
+            m.launch_train, "get_config", lambda a: dataclasses.replace(
+                real(a), num_layers=layers)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with guard:
+        m.build.reset_launch_counts()
+        run = m.launch_train.main(_train_lm_argv(device, arch=arch))
+        counts = dict(m.build.LAUNCHES)
+    cfg = run["cfg"]
+    losses, norms = run["losses"], run["grad_norms"]
+    check(len(losses) == TRAIN_LM_STEPS
+          and all(math.isfinite(x) for x in losses + norms),
+          f"{arch}: non-finite losses or grad norms: {losses}, {norms}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"{arch}: the loss did "
+          f"not fall: {losses}")
+    per_step = {k: v / TRAIN_LM_STEPS for k, v in counts.items()}
+    check(all(per_step[k] == v for k, v in want.items())
+          and counts["decode_attention"] == 0, f"{arch}: launches per step "
+          f"{per_step}, want {want} and no B5")
+    timed = run["step_ms"][TRAIN_LM_TIMED:]
+    p50 = float(np.percentile(timed, 50))
+    out = {
+        "arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner, "dtype": cfg.dtype, "remat": cfg.remat,
+        "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ,
+        "reduced": ([f"num_layers {m.get_config(arch).num_layers} -> "
+                     f"{layers}"] if layers is not None else []),
+        "params": sum(t.numel() for t in m.named_leaves(
+            run["params"]).values()),
+        "losses": losses, "grad_norms": norms, "step_ms": run["step_ms"],
+        "step_p50_ms": p50,
+        "step_p95_ms": float(np.percentile(timed, 95)),
+        "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / p50 * 1e3,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": per_step}
+    out["profile"] = profile_training(m, run, device,
+                                      kinds=TRAIN_SSM_KERNEL_KINDS)
+    del run
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def drive_ssm_training(m, card, device="cuda"):
+    """Phase 12c. (a) ``compare_scan_backward``; (b) ``launch.train lm``
+    at hymba-1.5b ``CONFIG`` (32 layers, d = 1600, bf16, remat "full",
+    random weights from the seed): per step B6 64 times (forward and
+    recompute), B6b 32, B4 64; (c) falcon-mamba-7b ``CONFIG`` at full width
+    cut to TRAIN_SSM_LAYERS layers: B6 16, B6b 8, B4 none; each through
+    ``_train_family``; (d) ``training_kernel_vs_plain`` at both families'
+    widths and TRAIN_LM_LAYERS layers in f32. Returns (summary,
+    {path: launches of (b) and (c)})."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    out["scan_backward"] = compare_scan_backward(m.ms, m.ref, device)
+    print(f"ssm training scan backward: {json.dumps(out['scan_backward'])}",
+          flush=True)
+    counts = {}
+    for label, arch, layers in (("hybrid", TRAIN_HYBRID_ARCH, None),
+                                ("ssm", TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS)):
+        cfg = m.get_config(arch)
+        n = layers or cfg.num_layers
+        want = {"mamba_scan": 2 * n, "mamba_scan_bwd": n,
+                "flash_attention": 2 * n if cfg.family == "hybrid" else 0}
+        out[label], counts[f"{label}_lm_training"] = _train_family(
+            m, arch, want, layers, device)
+        print(f"{label} lm training: {json.dumps(out[label])}", flush=True)
+    out["kernel_vs_plain"] = {}
+    for arch in (TRAIN_HYBRID_ARCH, TRAIN_SSM_ARCH):
+        out["kernel_vs_plain"][arch] = training_kernel_vs_plain(
+            m, m.ref, device, arch=arch, batch_size=TRAIN_SSM_PARITY_BATCH)
+        torch.cuda.empty_cache()
+    print(f"ssm training kernel vs plain: "
+          f"{json.dumps(out['kernel_vs_plain'])}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"ssm training phase: {out['phase_s']:.1f} s", flush=True)
     return out, counts
 
 
@@ -3875,6 +4059,84 @@ def scan_timing(ops, ref, args, gated, launches, errs):
     return row
 
 
+def scan_bwd_timing(ms, ref, launches, errs):
+    """B6b's row at hymba-1.5b's training shape (B=8, S=1024, d=3200,
+    N=16; z and dout bf16, z a strided view, dh_last none, as the SSM block
+    trains), from the chunk states B6 stores there, held against its plain
+    version on the inputs it times (the row's ``max_abs_err``, the largest
+    |kernel - plain| over the eight gradients, and ``max_err_of_largest``,
+    the largest such error against its gradient's largest |entry|;
+    ``compare_max_abs_err`` is compare_scan_backward's), beside
+    that version and its bound: u and dt_raw f32, z and dout bf16 read,
+    du and d dt_raw f32 and dz bf16 written, 22 bytes per (t, c); B and C
+    read and dB and dC written, 16 bytes per (t, n); the chunk states read;
+    A, D, dt_bias read and their gradients written once; 15 f32 operations
+    per (t, c, n) (the state's recompute, the adjoint and the five sums,
+    the exponential counted as one) and 30 per (t, c) (softplus, SiLU and
+    their derivatives). The timed call is the wrapper, the launch and the
+    ``torch.sum`` of its partials. No PyTorch call computes the scan's
+    gradient, so no library time. B6b at falcon-mamba-7b's width is read
+    from phase 12c's profiled step. Also returns B6's gated entry storing
+    its states at the same shape, as training launches it, held against
+    its plain version there as compare_scan holds it, for B6's row under
+    ``training_shape``."""
+    gen = torch.Generator().manual_seed(47)
+    b, s, d, n = TRAIN_LM_BATCH, TRAIN_LM_SEQ, 3200, 16
+    args, uz = _gated_inputs(gen, b, s, d, n)
+    z = uz[..., d:]
+    dout = torch.randn(b, s, d, generator=gen).to("cuda", torch.bfloat16)
+    _, _, states = ms.mamba_scan_gated_cuda(*args, z, with_states=True)
+    where = f"timed B6b at {(b, s, d, n)}"
+    got = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout)
+    again = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout)
+    want = ref.mamba_scan_gated_bwd_torch(*args, z, dout)
+    torch.cuda.synchronize()
+    check(all(map(torch.equal, got, again)), f"{where}: two calls differ")
+    err, err_rel = 0.0, 0.0
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        rel = diff / max(float(w.float().abs().max()), 1e-30)
+        check(rel <= SCAN_BWD_TOL[g.dtype], f"{where}: {name} {rel} of its "
+              "largest entry")
+        err, err_rel = max(err, diff), max(err_rel, rel)
+    del got, again, want
+    where = f"timed mamba_scan_gated with states at {(b, s, d, n)}"
+    got, want = (ms.mamba_scan_gated_cuda(*args, z, with_states=True),
+                 ref.mamba_scan_gated_torch(*args, z.float()))
+    torch.cuda.synchronize()
+    states_err = max(_within("out", got[0], want[0], SCAN_TOL, where,
+                             BF16_HALF_ULP),
+                     _within("h_last", got[1], want[1], SCAN_TOL, where))
+    del got, want
+    chunks = states.shape[1]
+    row = _row("mamba_scan_bwd", "59-120",
+               lambda: ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout),
+               lambda: ref.mamba_scan_gated_bwd_torch(*args, z, dout),
+               15 * b * s * d * n + 30 * b * s * d,
+               b * s * d * 22 + b * s * n * 16 + 4 * b * chunks * d * n
+               + 4 * 2 * (d * n + 2 * d), launches, err,
+               f"B={b} S={s} d={d} N={n} f32, z and dout bf16",
+               source="mamba_scan_bwd.cu", replaces="models/ssm.py", reps=3,
+               inner=1)
+    row["replaces_note"] = ("no TPU kernel: the reference differentiates its "
+                            "jnp scan and tail with jax.grad")
+    row["max_err_of_largest"] = err_rel
+    row["compare_max_abs_err"] = errs["mamba_scan_bwd"]
+    states_row = _row(
+        "mamba_scan", 21,
+        lambda: ms.mamba_scan_gated_cuda(*args, z, with_states=True),
+        lambda: ref.mamba_scan_gated_torch(*args, z),
+        (8 * n + 9) * b * s * d,
+        b * s * d * 12 + 4 * (2 * b * s * n + d * n + 2 * d + b * d * n
+                              + b * chunks * d * n),
+        {}, states_err,
+        f"B={b} S={s} d={d} N={n} f32, z and out bf16, states stored",
+        source="mamba_scan.cu", replaces="mamba_scan.py", reps=3, inner=1)
+    del args, uz, z, dout, states
+    torch.cuda.empty_cache()
+    return row, {k: states_row[k] for k in SHAPE_KEYS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3891,6 +4153,7 @@ def main() -> int:
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models import attention as lm_attention
     from repro_torch.models import lm
     from repro_torch.nn import named_leaves, param_count
@@ -3927,7 +4190,7 @@ def main() -> int:
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0,
-            "mamba_scan": 0.0, "mamba_scan_gated": 0.0}
+            "mamba_scan": 0.0, "mamba_scan_gated": 0.0, "mamba_scan_bwd": 0.0}
     buckets = random_cases(fpm.DEFAULT_BUCKETS)
     random = buckets + edge_cases()
     cases = compare_kernels(ops, ref, random, errs)
@@ -4133,6 +4396,22 @@ def main() -> int:
     record("lm_training", counts)
     torch.cuda.empty_cache()
 
+    # phase 12c: SSM and hybrid LM training at full width (hymba-1.5b;
+    # falcon-mamba-7b at 8 layers): B6 storing its chunk states in every
+    # layer's forward and recompute, B6b in its backward; the kernel path
+    # against the plain one
+    ssm_training, counts = drive_ssm_training(types.SimpleNamespace(
+        ops=ops, ref=ref, ms=ms, build=build, lm=lm, steps=launch_steps,
+        attention=lm_attention, launch_train=launch_train,
+        get_config=get_config, SyntheticTokens=SyntheticTokens,
+        named_leaves=named_leaves), card)
+    for path, c in counts.items():
+        record(path, c)
+    errs["mamba_scan_bwd"] = max(
+        row[name]["max_abs_err"] for row in ssm_training["scan_backward"]
+        for name in SCAN_BWD_NAMES)
+    torch.cuda.empty_cache()
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
@@ -4143,6 +4422,9 @@ def main() -> int:
                                  fa, lm_attention)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
+    b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
+        ms, ref, launches["mamba_scan_bwd"], errs)
+    kernels.append(b6b)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4156,7 +4438,7 @@ def main() -> int:
         "compare_attention": attn_cases, "lm_serving": lm_serving,
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
-        "lm_training": lm_training,
+        "lm_training": lm_training, "ssm_lm_training": ssm_training,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -4198,6 +4480,17 @@ def main() -> int:
                                                "device_ms_by_kind",
                                                "device_ms_by_piece")},
                          "phase_s": lm_training["phase_s"]},
+                      "ssm_lm_training": {
+                          label: {k: ssm_training[label][k] for k in (
+                              "step_p50_ms", "step_p95_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes")}
+                          | {"profile": {k: ssm_training[label]["profile"][k]
+                                         for k in ("wall_ms",
+                                                   "device_busy_ms",
+                                                   "idle_share",
+                                                   "device_ms_by_kind")}}
+                          for label in ("hybrid", "ssm")}
+                      | {"phase_s": ssm_training["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

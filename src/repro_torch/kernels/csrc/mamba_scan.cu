@@ -19,6 +19,9 @@
 // out = (y + D * u) * silu(z), stored once in z's dtype (bf16 or f32); z is
 // read through an explicit row stride (the strided half of in_proj's
 // output, never copied). Any S >= 1, any d >= 1, 1 <= N <= 32, B <= 65535.
+// For training the gated entry also writes, when given a buffer, the state
+// entering each chunk of the walk below, from which its backward
+// (mamba_scan_bwd.cu, "B6b") recomputes the states of a chunk.
 //
 // What bounds it. At falcon-mamba-7b's prefill (B=1, S=2048, d=8192, N=16)
 // the bare scan reads u and dt and writes y, 12 B per (t, c): 201 MB, 0.060
@@ -116,6 +119,7 @@ struct Params {
   long long z_row;  // elements between consecutive (b, t) rows of z
   void* y;
   float* h_last;
+  float* states;  // (B, nchunks, d, N): the state entering each chunk, or null
   int S, d, N;
   int vec_ud, vec_bc, vec_z, vec_y;  // 16-byte paths allowed
 };
@@ -403,6 +407,14 @@ __global__ void __launch_bounds__(kTC * P,
       cp_wait<0>();
     }
     __syncthreads();
+    if (p.states != nullptr) {  // read before the state loop below writes hs
+      for (int i = tid; i < kTC * p.N; i += L::kThreads) {
+        const int cc = i / p.N, n = i % p.N;
+        if (c0 + cc < p.d)
+          p.states[(((long)blockIdx.y * nchunks + k) * p.d + c0 + cc) * p.N +
+                   n] = hs[cc * NP + n];
+      }
+    }
     char* st = stages + (k & 1) * L::kStageBytes;
     float* us = reinterpret_cast<float*>(st);
     float* ds = us + L::kUd;
@@ -573,15 +585,19 @@ int corais_mamba_scan(const void* u, const void* dt, const void* Bm,
 // dt_bias, D: (d,) f32; Bm, Cm: (B, S, N) f32 contiguous; A: (d, N) f32;
 // z: (B, S, d) bf16 (z_bf16 = 1) or f32, unit last stride, row (b, t) at
 // z + (b * S + t) * z_row elements; out: (B, S, d) contiguous in z's
-// dtype; h_last: (B, d, N) f32.
+// dtype; h_last: (B, d, N) f32; states: null, or (B, ceil(S / chunk), d,
+// N) f32 (chunk = corais_mamba_scan_chunk()) to receive the state entering
+// each chunk, which the backward (mamba_scan_bwd.cu) starts from. out and
+// h_last are the same bits with states or without.
 int corais_mamba_scan_gated(const void* u, const void* dt_raw,
                             const void* dt_bias, const void* Bm,
                             const void* Cm, const void* A, const void* D,
                             const void* z, long long z_row, int z_bf16,
-                            void* out, void* h_last, int B, int S, int d,
-                            int N, void* stream) {
+                            void* out, void* h_last, void* states, int B,
+                            int S, int d, int N, void* stream) {
   if (bad_shape(B, S, d, N) || z_row < d) return (int)cudaErrorInvalidValue;
   Params p = make_params(u, dt_raw, Bm, Cm, A, out, h_last, S, d, N);
+  p.states = static_cast<float*>(states);
   p.dt_bias = static_cast<const float*>(dt_bias);
   p.D = static_cast<const float*>(D);
   p.z = z;
@@ -594,6 +610,9 @@ int corais_mamba_scan_gated(const void* u, const void* dt_raw,
   return z_bf16 ? launch_plan<kGatedBF16>(p, B, lg, st)
                 : launch_plan<kGatedF32>(p, B, lg, st);
 }
+
+// Steps between the saved chunk states.
+int corais_mamba_scan_chunk() { return kSegments * kSegLen; }
 
 const char* corais_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

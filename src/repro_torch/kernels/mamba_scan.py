@@ -12,8 +12,13 @@ Two entries share the kernel body: :func:`mamba_scan_cuda`, the bare scan
 :func:`mamba_scan_gated_cuda`, the SSM block's tail with dt's softplus
 before the scan and the D skip and SiLU gate after it (plain version
 :func:`repro_torch.kernels.ref.mamba_scan_gated_torch`). Both count into
-``LAUNCHES["mamba_scan"]``. :mod:`repro_torch.kernels.ops` chooses between
-each entry and its plain version by the tensors' device.
+``LAUNCHES["mamba_scan"]``. For training the gated entry also returns the
+state entering each of its chunks, from which :func:`mamba_scan_gated_bwd_cuda`
+(B6b, ``csrc/mamba_scan_bwd.cu``; plain version
+:func:`repro_torch.kernels.ref.mamba_scan_gated_bwd_torch`; counted into
+``LAUNCHES["mamba_scan_bwd"]``) forms the gradients.
+:mod:`repro_torch.kernels.ops` chooses between each entry and its plain
+version by the tensors' device.
 """
 from __future__ import annotations
 
@@ -30,8 +35,15 @@ MAX_STATE = 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "corais_mamba_scan": [_P] * 7 + [_I] * 4 + [_P],
-    "corais_mamba_scan_gated": ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 2
+    "corais_mamba_scan_gated": ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 3
                                 + [_I] * 4 + [_P]),
+    "corais_mamba_scan_chunk": [],
+}
+_BWD_SIGNATURES = {
+    "corais_mamba_scan_gated_bwd": ([_P] * 8 + [ctypes.c_longlong, _I]
+                                    + [_P] * 11 + [_I] * 5 + [_P]),
+    "corais_mamba_scan_bwd_chunk": [],
+    "corais_mamba_scan_bwd_block_channels": [_I],
 }
 
 
@@ -100,7 +112,17 @@ def _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     return b, s, d, n
 
 
-def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+def _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    dev = u.device
+    for name, t in (("u", u), ("dt_raw", dt_raw), ("dt_bias", dt_bias),
+                    ("B_mat", B_mat), ("C_mat", C_mat), ("A", A), ("D", D),
+                    ("z", z)):
+        check_device(name, t, dev)
+    return dev
+
+
+def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
+                          with_states=False):
     """B6 with the SSM block's prologue and epilogue: dt = softplus(dt_raw +
     dt_bias) (F.softplus: x above 20 stays x), the scan from a zero state,
     then (y + D*u) * silu(z), stored once in z's dtype.
@@ -109,22 +131,72 @@ def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     (d,): f32, contiguous. z (B, S, d): bf16 or f32, a unit last stride and
     evenly spaced rows (the strided half of in_proj's output is taken as it
     is, not copied). All on one card; B <= 65535, 1 <= N <= 32. Returns
-    (out (B, S, d) in z's dtype, h_last (B, d, N) f32)."""
+    (out (B, S, d) in z's dtype, h_last (B, d, N) f32), and with
+    ``with_states`` also the state entering each chunk of the kernel's walk,
+    (B, ceil(S / chunk), d, N) f32, what :func:`mamba_scan_gated_bwd_cuda`
+    starts from; out and h_last are the same bits either way."""
     b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
-    dev = u.device
-    for name, t in (("u", u), ("dt_raw", dt_raw), ("dt_bias", dt_bias),
-                    ("B_mat", B_mat), ("C_mat", C_mat), ("A", A), ("D", D),
-                    ("z", z)):
-        check_device(name, t, dev)
+    dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     lib = load("mamba_scan.cu", _SIGNATURES)
     out = torch.empty((b, s, d), dtype=z.dtype, device=dev)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    states = None
+    if with_states:
+        chunk = lib.corais_mamba_scan_chunk()
+        states = torch.empty((b, -(-s // chunk), d, n), dtype=torch.float32,
+                             device=dev)
     with torch.cuda.device(dev):
         err = lib.corais_mamba_scan_gated(
             u.data_ptr(), dt_raw.data_ptr(), dt_bias.data_ptr(),
             B_mat.data_ptr(), C_mat.data_ptr(), A.data_ptr(), D.data_ptr(),
             z.data_ptr(), z.stride(1), int(z.dtype == torch.bfloat16),
-            out.data_ptr(), h_last.data_ptr(), b, s, d, n, _stream(dev))
+            out.data_ptr(), h_last.data_ptr(),
+            None if states is None else states.data_ptr(), b, s, d, n,
+            _stream(dev))
     raise_on(err, lib, "mamba_scan_gated")
     LAUNCHES["mamba_scan"] += 1
-    return out, h_last
+    return (out, h_last) if states is None else (out, h_last, states)
+
+
+def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                              states, dout, dh_last=None):
+    """B6b: the gradients of :func:`mamba_scan_gated_cuda`'s (out, h_last)
+    with respect to all eight inputs, from its inputs, the chunk states it
+    saved (``with_states``), dout (B, S, d) in z's dtype and dh_last (B, d,
+    N) f32 or None (zero). One launch; the per-block partials of dB, dC,
+    dA, dD and d dt_bias are added here with ``torch.sum``, in a fixed
+    order. Returns (du, d dt_raw, d dt_bias, dB, dC, dA, dD, dz), f32 but
+    dz in z's dtype."""
+    b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+    dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+    lib = load("mamba_scan_bwd.cu", _BWD_SIGNATURES)
+    chunk = lib.corais_mamba_scan_bwd_chunk()
+    check_tensor("states", states, (b, -(-s // chunk), d, n), torch.float32,
+                 dev)
+    check_tensor("dout", dout, (b, s, d), z.dtype, dev)
+    if dh_last is not None:
+        check_tensor("dh_last", dh_last, (b, d, n), torch.float32, dev)
+    nblk = -(-d // lib.corais_mamba_scan_bwd_block_channels(n))
+    f32 = dict(dtype=torch.float32, device=dev)
+    du = torch.empty((b, s, d), **f32)
+    ddt = torch.empty((b, s, d), **f32)
+    dz = torch.empty((b, s, d), dtype=z.dtype, device=dev)
+    dBp = torch.empty((b, nblk, s, n), **f32)
+    dCp = torch.empty((b, nblk, s, n), **f32)
+    dAp = torch.empty((b, d, n), **f32)
+    dDp = torch.empty((b, d), **f32)
+    dbp = torch.empty((b, d), **f32)
+    with torch.cuda.device(dev):
+        err = lib.corais_mamba_scan_gated_bwd(
+            u.data_ptr(), dt_raw.data_ptr(), dt_bias.data_ptr(),
+            B_mat.data_ptr(), C_mat.data_ptr(), A.data_ptr(), D.data_ptr(),
+            z.data_ptr(), z.stride(1), int(z.dtype == torch.bfloat16),
+            dout.data_ptr(), states.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), du.data_ptr(),
+            ddt.data_ptr(), dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            dAp.data_ptr(), dDp.data_ptr(), dbp.data_ptr(), b, s, d, n, nblk,
+            _stream(dev))
+    raise_on(err, lib, "mamba_scan_gated_bwd")
+    LAUNCHES["mamba_scan_bwd"] += 1
+    return (du, ddt, dbp.sum(0), dBp.sum(1), dCp.sum(1), dAp.sum(0),
+            dDp.sum(0), dz)

@@ -16,8 +16,11 @@ counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
 on the card, their plain versions on the CPU. :func:`flash_attention` is
 differentiable through :class:`FlashAttention`: B4 forward with its
 log-sum-exp, and the reference's pair-scan backward in plain PyTorch on
-either device. B5 and B6 have no backward: on a CUDA tensor that needs a
-gradient they raise, rather than return an output cut off from autograd.
+either device. :func:`mamba_scan_gated` is differentiable through
+:class:`MambaScanGated`: B6's gated entry saving its chunk states, and
+B6b, on the card; their plain versions on the CPU. B5 and B6's bare entry
+have no backward: on a CUDA tensor that needs a gradient they raise,
+rather than return an output cut off from autograd.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                            mamba_scan_gated_bwd_cuda,
                                             mamba_scan_gated_cuda)
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
@@ -149,6 +153,52 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class MambaScanGated(torch.autograd.Function):
+    """B6's gated entry with its backward B6b. The forward is B6 on a CUDA
+    tensor and its plain version on a CPU tensor; when a gradient is wanted
+    (``train``) it saves the inputs, and on the card B6 also writes the
+    state entering each of its chunks, which are saved too; otherwise it
+    saves nothing and B6 stores no states, as serving needs. The backward
+    takes the gradients of ``out`` and ``h_last`` (either may be unused)
+    and is B6b on the card, :func:`ref.mamba_scan_gated_bwd_torch` on the
+    CPU. The reference's gradient is ``jax.grad`` of its jnp chunked scan
+    and tail (``repro/models/ssm.py:59-120``): it has no Pallas kernel
+    behind it."""
+
+    @staticmethod
+    def forward(ctx, u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, train):
+        cuda = _device_type(u) == "cuda"
+        states = None
+        if cuda and train:
+            out, h_last, states = mamba_scan_gated_cuda(
+                u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, with_states=True)
+        elif cuda:
+            out, h_last = mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat,
+                                                C_mat, A, D, z)
+        else:
+            out, h_last = ref.mamba_scan_gated_torch(u, dt_raw, dt_bias,
+                                                     B_mat, C_mat, A, D, z)
+        if train:
+            ctx.save_for_backward(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                                  states)
+        ctx.set_materialize_grads(False)
+        return out, h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout, dh_last):
+        *args, states = ctx.saved_tensors
+        z = args[-1]
+        if dout is None:
+            dout = torch.zeros(z.shape, dtype=z.dtype, device=z.device)
+        if _device_type(z) == "cuda":
+            grads = mamba_scan_gated_bwd_cuda(*args, states,
+                                              dout.contiguous(), dh_last)
+        else:
+            grads = ref.mamba_scan_gated_bwd_torch(*args, dout, dh_last)
+        return (*grads, None)
+
+
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -156,15 +206,15 @@ def _wants_grad(*tensors) -> bool:
 _MISSING_BACKWARD = {
     "B5": "B5 (decode_attention) has no backward on the card; one-token "
           "decode is inference only",
-    "B6": "B6 (mamba_scan) has no backward on the card: SSM and hybrid LM "
-          "training on CUDA waits for B6's backward, a reverse-scan kernel "
-          "(ROADMAP A11)",
+    "B6": "B6's bare entry (mamba_scan) has no backward on the card; the SSM "
+          "block trains through the gated entry, ops.mamba_scan_gated, whose "
+          "backward is B6b",
 }
 
 
 def missing_backward(kernel: str) -> RuntimeError:
-    """The error for a gradient through ``kernel`` ("B5" or "B6") on the
-    card."""
+    """The error for a gradient through ``kernel`` ("B5", or "B6" for B6's
+    bare entry) on the card."""
     return RuntimeError(
         f"{_MISSING_BACKWARD[kernel]}. A gradient is wanted: train on the CPU "
         "(device='cpu'), where the plain version is differentiable, or call "
@@ -201,7 +251,8 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
 def mamba_scan(u, dt, B_mat, C_mat, A):
     """B6: the mamba-1 selective scan from a zero state, u, dt (B, S, d),
     B_mat, C_mat (B, S, N), A (d, N), f32 -> (y (B, S, d), h_last
-    (B, d, N)), any S."""
+    (B, d, N)), any S. Off the training path: on the card it has no
+    backward (the SSM block trains through :func:`mamba_scan_gated`)."""
     if _device_type(u) == "cpu":
         return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A)
     _no_card_backward("B6", u, dt, B_mat, C_mat, A)
@@ -213,14 +264,14 @@ def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     dt_bias), the scan from a zero state, then (y + D*u) * silu(z) in z's
     dtype. u, dt_raw (B, S, d), B_mat, C_mat (B, S, N), A (d, N), dt_bias,
     D (d,) f32; z (B, S, d) bf16 or f32 with a unit last stride ->
-    (out (B, S, d), h_last (B, d, N) f32)."""
-    if _device_type(u) == "cpu":
-        return ref.mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat,
-                                          A, D, z)
-    _no_card_backward("B6", u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
-    return mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+    (out (B, S, d), h_last (B, d, N) f32), differentiable with respect to
+    all eight inputs through :class:`MambaScanGated`."""
+    return MambaScanGated.apply(
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+        _wants_grad(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z))
 
 
-__all__ = ["PolicyScore", "FlashAttention", "missing_backward",
+__all__ = ["PolicyScore", "FlashAttention", "MambaScanGated",
+           "missing_backward",
            "policy_score", "policy_score_decode", "flash_attention",
            "decode_attention", "mamba_scan", "mamba_scan_gated", "ref"]

@@ -15,7 +15,8 @@ math, the -1e30 mask, GQA by reshape, and return the input dtype, as the
 reference's oracles do.
 :func:`mamba_scan_torch` is B6's plain version: a sequential loop over S
 in f32; :func:`mamba_scan_gated_torch` is that of B6's gated entry, the SSM
-block's softplus, scan, D skip, SiLU gate and cast as plain ops.
+block's softplus, scan, D skip, SiLU gate and cast as plain ops, and
+:func:`mamba_scan_gated_bwd_torch` that of its backward B6b.
 
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
@@ -227,3 +228,64 @@ def mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     y = y + D * u
     y = y * F.silu(z.float())
     return y.to(z.dtype), h_last
+
+
+def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                               dout, dh_last=None):
+    """Plain version of B6b, the backward of B6's gated entry
+    (:func:`mamba_scan_gated_torch`), written out as a reverse loop over S
+    in f32, not autograd. dout (B, S, d) is the gradient of ``out`` (in z's
+    dtype), ``dh_last`` (B, d, N) that of ``h_last`` or None (zero).
+
+    The forward's states h_t (B, S, d, N) are recomputed from zero; then the
+    adjoint ``g_t = C_t * dy_t + exp(dt_{t+1} A) * g_{t+1}`` (seeded with
+    ``dh_last``) runs backwards, where dy = dout * silu(z) is the gradient of
+    y + D*u. With a_t = exp(dt_t A) and h_{-1} = 0, step t gives
+    du_t = dt_t sum_n g_t B_t + D dy_t,
+    ddt_t = sum_n g_t A a_t h_{t-1} + u_t sum_n g_t B_t,
+    dB_t = sum_c g_t dt_t u_t, dC_t = sum_c dy_t h_t and
+    dA += g_t dt_t a_t h_{t-1}; dt_raw's gradient is ddt times softplus's
+    derivative, F.softplus's rule: 1 where dt_raw + dt_bias is above 20,
+    else its sigmoid. Returns (du, d dt_raw, d dt_bias, dB, dC, dA, dD, dz),
+    f32 but dz in z's dtype."""
+    b, s, d = u.shape
+    n = A.shape[-1]
+    u, dt_raw, B_mat, C_mat, A = (t.float() for t in (u, dt_raw, B_mat,
+                                                      C_mat, A))
+    x = dt_raw + dt_bias
+    dt = F.softplus(x)
+    hs = torch.empty((b, s, d, n), dtype=torch.float32, device=u.device)
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+    for t in range(s):
+        dt_t = dt[:, t, :, None]
+        h = torch.exp(dt_t * A) * h + dt_t * B_mat[:, t, None, :] * u[:, t, :,
+                                                                      None]
+        hs[:, t] = h
+    y = (hs * C_mat[:, :, None, :]).sum(-1) + D * u
+    zf, do = z.float(), dout.float()
+    sig = torch.sigmoid(zf)
+    dy = do * (zf * sig)
+    dz = (do * y * sig * (1 + zf * (1 - sig))).to(z.dtype)
+    g = (torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+         if dh_last is None else dh_last.float())
+    du = torch.empty_like(u)
+    ddt = torch.empty_like(u)
+    dB = torch.empty((b, s, n), dtype=torch.float32, device=u.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros((d, n), dtype=torch.float32, device=u.device)
+    zero = torch.zeros_like(h)
+    for t in range(s - 1, -1, -1):
+        dt_t = dt[:, t, :, None]
+        g = g + C_mat[:, t, None, :] * dy[:, t, :, None]
+        a = torch.exp(dt_t * A)
+        q = g * a * (hs[:, t - 1] if t else zero)
+        gb = (g * B_mat[:, t, None, :]).sum(-1)
+        du[:, t] = dt[:, t] * gb
+        ddt[:, t] = (q * A).sum(-1) + u[:, t] * gb
+        dA += (q * dt_t).sum(0)
+        dB[:, t] = (g * (dt[:, t] * u[:, t])[..., None]).sum(1)
+        dC[:, t] = (hs[:, t] * dy[:, t, :, None]).sum(1)
+        g = a * g
+    du = du + D * dy
+    dx = torch.where(x > 20, ddt, ddt * torch.sigmoid(x))
+    return (du, dx, dx.sum((0, 1)), dB, dC, dA, (dy * u).sum((0, 1)), dz)

@@ -43,6 +43,18 @@ def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return (xf * torch.rsqrt(ms + 1e-6) * p["scale"]).to(dtype)
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype, the model's projections. On the CPU a bf16
+    product is formed in f32 and rounded once to bf16: PyTorch runs bf16
+    products there on oneDNN's AMX kernel where the CPU has AMX, and that
+    kernel returned NaN from finite inputs in a process preempted under
+    load (ROADMAP C9). The f32 product has the same exact bf16 products
+    and f32 sums; on the card the product stays a bf16 GEMM."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
+
+
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """qk-norm (qwen3): RMSNorm over head_dim with a learned (head_dim,)
     scale."""

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.common import (norm_apply, norm_init,
+from repro_torch.models.common import (dense, norm_apply, norm_init,
                                        position_encode, rms_head_norm)
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
@@ -53,9 +53,9 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype,
 def _project_qkv(p, x, cfg: ModelConfig, positions):
     b, s = x.shape[0], x.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = dense(x, p["wq"]).reshape(b, s, h, hd)
+    k = dense(x, p["wk"]).reshape(b, s, kv, hd)
+    v = dense(x, p["wv"]).reshape(b, s, kv, hd)
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
@@ -73,7 +73,7 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True):
                                    window=cfg.sliding_window,
                                    logit_softcap=cfg.attn_logit_softcap)
     b, s = x.shape[0], x.shape[1]
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    out = dense(out.reshape(b, s, cfg.num_heads * cfg.head_dim), p["wo"])
     return out, (k, v)
 
 
@@ -97,7 +97,8 @@ def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
                                     slot_pos, pos,
                                     logit_softcap=cfg.attn_logit_softcap,
                                     window=cfg.sliding_window)
-    return out.reshape(b, cfg.num_heads * cfg.head_dim) @ p["wo"], layer_cache
+    return (dense(out.reshape(b, cfg.num_heads * cfg.head_dim), p["wo"]),
+            layer_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +121,8 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, dtype,
 def mlp_apply(p, x, cfg: ModelConfig):
     """SwiGLU, or a GELU MLP with jax's default tanh approximation."""
     if "wg" in p:
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+        return dense(F.silu(dense(x, p["wg"])) * dense(x, p["wu"]), p["wo"])
+    return dense(F.gelu(dense(x, p["wi"]), approximate="tanh"), p["wo"])
 
 
 # ---------------------------------------------------------------------------

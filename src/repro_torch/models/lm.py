@@ -22,9 +22,8 @@ The dense (olmo, qwen3, mistral-large, llama3), SSM (falcon-mamba) and
 hybrid (hymba) families run here; MoE and whisper raise
 ``NotImplementedError`` (see ``layers.check_family``). ``train_loss`` runs
 every layer under ``cfg.remat`` (``torch.utils.checkpoint``); on the card
-the dense family trains through B4 and its pair-scan backward, while the
-SSM and hybrid families train on the CPU only: B6 has no backward yet, and
-raises on a CUDA input that needs a gradient (ROADMAP A11).
+attention trains through B4 and its pair-scan backward, and the SSM block
+through B6's gated entry and its backward B6b (``ops.MambaScanGated``).
 The optimizers and checkpoints name every leaf by its "/"-path
 (``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...``.
 
@@ -42,7 +41,6 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.ssm import ssm_state_shapes
@@ -179,12 +177,11 @@ def _train_layers(params, cfg: ModelConfig, x, positions):
 
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise, before anything is allocated, where :func:`train_loss` cannot
-    run: the families ``check_family`` refuses, and on the card the SSM and
-    hybrid families, whose scan B6 has no backward yet."""
+    run on ``device``: the families ``check_family`` refuses. Every other
+    family trains on either device (on the card the SSM block's scan
+    through B6 and its backward B6b)."""
+    del device  # no family is refused on one device only
     L.check_family(cfg)
-    if (torch.device(device).type == "cuda"
-            and cfg.family in ("ssm", "hybrid")):
-        raise ops.missing_backward("B6")
 
 
 def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import causal_depthwise_conv, conv_step
+from repro_torch.models.common import (causal_depthwise_conv, conv_step,
+                                       dense)
 from repro_torch.nn.module import normal_init, uniform_init
 
 
@@ -101,11 +102,12 @@ def ssm_apply(p, x, cfg: ModelConfig):
     :func:`ssm_decode_step`'s format so prefill hands over to decode."""
     _check_scan_dtype(cfg)
     k = cfg.ssm_conv
-    uz = x @ p["in_proj"]
+    uz = dense(x, p["in_proj"])
     u_raw, z = uz.chunk(2, dim=-1)
     u_raw = u_raw.float()
     u = F.silu(causal_depthwise_conv(u_raw, p["conv_w"], p["conv_b"]))
-    dt_raw, B_mat, C_mat = _dt_b_c(p, u.to(x.dtype) @ p["x_proj"], cfg)
+    xdbc = dense(u.to(x.dtype), p["x_proj"])
+    dt_raw, B_mat, C_mat = _dt_b_c(p, xdbc, cfg)
     A = -torch.exp(p["A_log"])
     # softplus, scan, D skip, gate and the cast to z's (= x's) dtype
     y, h_last = ops.mamba_scan_gated(u, dt_raw, p["dt_bias"],
@@ -118,19 +120,20 @@ def ssm_apply(p, x, cfg: ModelConfig):
         conv_state = u_raw[:, s_len - (k - 1):, :].clone()
     else:
         conv_state = F.pad(u_raw, (0, 0, k - 1 - s_len, 0))
-    return y @ p["out_proj"], {"h": h_last, "conv": conv_state}
+    return dense(y, p["out_proj"]), {"h": h_last, "conv": conv_state}
 
 
 def ssm_decode_step(p, x_t, state, cfg: ModelConfig):
     """One-token step. x_t: (B, D); state: {"h": (B, d, N), "conv":
     (B, K-1, d)}, both f32, updated in place (the reference returns new
     arrays). Returns y_t (B, D) in x_t's dtype."""
-    uz = x_t @ p["in_proj"]
+    uz = dense(x_t, p["in_proj"])
     u, z = uz.chunk(2, dim=-1)
     u_c, conv_state = conv_step(u.float(), state["conv"], p["conv_w"],
                                 p["conv_b"])
     u_c = F.silu(u_c)
-    dt_raw, B_mat, C_mat = _dt_b_c(p, u_c.to(x_t.dtype) @ p["x_proj"], cfg)
+    dt_raw, B_mat, C_mat = _dt_b_c(p, dense(u_c.to(x_t.dtype), p["x_proj"]),
+                                   cfg)
     dt = F.softplus(dt_raw + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt[..., None] * A)  # (B, d, N)
@@ -140,7 +143,7 @@ def ssm_decode_step(p, x_t, state, cfg: ModelConfig):
     y = y * F.silu(z.float())
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
-    return y.to(x_t.dtype) @ p["out_proj"]
+    return dense(y.to(x_t.dtype), p["out_proj"])
 
 
 def ssm_state_shapes(cfg: ModelConfig, batch: int) -> dict:

@@ -35,12 +35,13 @@ from repro_torch.kernels import (build, decode_attention, ops, policy_score,
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                            mamba_scan_gated_bwd_cuda,
                                             mamba_scan_gated_cuda)
 from repro_torch.models import lm
 from repro_torch.nn import named_leaves
 from repro_torch.serving.batching import LMEdgeBackend
 from repro_torch.serving import (CentralController, MultiEdgeSim, SimConfig,
-                                 engine)
+                                 engine, rounds)
 from repro_torch.serving.fastpath import DecisionFastPath
 from repro_torch.resilience import faults
 from repro_torch.resilience.policies import ResilienceConfig
@@ -744,6 +745,99 @@ def test_mamba_scan_gated_wrapper_rejects_bad_inputs(cuda_device):
         mamba_scan_gated_cuda(u.cpu(), dt_raw, bias, bm, cm, a, dskip, z)
 
 
+# B6b's shapes: the gated test's, a ragged S past two chunks of 128, and
+# S = 1
+SCAN_BWD_SHAPES = SCAN_SHAPES + [(2, 300, 96, 16), (2, 1, 40, 16)]
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("zdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,d,n", SCAN_BWD_SHAPES)
+def test_mamba_scan_gated_backward_matches_plain_version(cuda_device, b, s, d,
+                                                         n, zdtype, seeded):
+    """B6b from B6's saved chunk states against its plain version on the
+    same inputs: every gradient within 1e-4 of its largest |entry| (dz in
+    bf16 within 2^-6), dh_last zero or seeded, some dt_raw above softplus's
+    threshold; two calls the same bits; B6's output the same bits with
+    the states stored and without; one launch each, counted as B6b's."""
+    args, z = _gated_inputs(b, s, d, n, cuda_device, zdtype, seed=s)
+    gen = torch.Generator().manual_seed(s + 1)
+    dout = torch.randn(b, s, d, generator=gen).to(cuda_device, zdtype)
+    dh = (torch.randn(b, d, n, generator=gen).to(cuda_device) if seeded
+          else None)
+    build.reset_launch_counts()
+    out, h, states = mamba_scan_gated_cuda(*args, z, with_states=True)
+    bare_out, bare_h = mamba_scan_gated_cuda(*args, z)
+    assert torch.equal(out, bare_out) and torch.equal(h, bare_h)
+    assert states.shape == (b, -(-s // 128), d, n)
+    got = mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
+    again = mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mamba_scan"] == 2
+    assert build.LAUNCHES["mamba_scan_bwd"] == 2
+    want = ref.mamba_scan_gated_bwd_torch(*args, z, dout, dh)
+    names = ("du", "ddt_raw", "ddt_bias", "dB", "dC", "dA", "dD", "dz")
+    for name, g, a, w in zip(names, got, again, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        tol = 2.0 ** -6 if g.dtype == torch.bfloat16 else 1e-4
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()) + 1e-30, (name, err)
+        assert torch.equal(g, a), name  # the same bits
+
+
+def test_mamba_scan_gated_backward_wrapper_rejects_bad_inputs(cuda_device):
+    args, z = _gated_inputs(1, 16, 40, 4, cuda_device, torch.float32)
+    _, _, states = mamba_scan_gated_cuda(*args, z, with_states=True)
+    dout = torch.randn(1, 16, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="states has shape"):
+        mamba_scan_gated_bwd_cuda(*args, z, states[:, :, :8], dout)
+    with pytest.raises(TypeError, match="dout must be torch.float32"):
+        mamba_scan_gated_bwd_cuda(*args, z, states, dout.bfloat16())
+    with pytest.raises(ValueError, match="dh_last has shape"):
+        mamba_scan_gated_bwd_cuda(*args, z, states, dout,
+                                  torch.zeros(1, 40, 5, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mamba_scan_gated_bwd_cuda(*args, z, states.cpu(), dout)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_lm_training_on_the_card_matches_the_cpu(cuda_device, arch,
+                                                     remat):
+    """Reduced f32 SSM and hybrid models, the same weights and batch: the
+    loss and every gradient through B6, B6b (and hymba's B4) on the card
+    against the plain versions on the CPU (1e-5; gradients 1e-5 + 1e-4
+    relative); B6 once per layer, twice under remat (the recompute), B6b
+    once per layer."""
+    cfg = dataclasses.replace(get_reduced_config(arch), remat=remat)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 140),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    out = {}
+    build.reset_launch_counts()
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        leaves = named_leaves(params)
+        for x in leaves.values():
+            x.requires_grad_(True)
+        dev = next(iter(leaves.values())).device
+        batch = {"tokens": tokens.to(dev), "labels": tokens.to(dev)}
+        total, _ = lm.train_loss(params, batch, cfg)
+        out[name] = (total, torch.autograd.grad(
+            total, list(leaves.values()), allow_unused=True))
+    torch.cuda.synchronize()
+    per_layer = 1 if remat == "none" else 2
+    assert build.LAUNCHES["mamba_scan"] == per_layer * cfg.num_layers
+    assert build.LAUNCHES["mamba_scan_bwd"] == cfg.num_layers
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               atol=1e-5, rtol=1e-5)
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
 def test_ssm_lm_on_the_card_matches_the_cpu(cuda_device, arch):
     """Reduced f32 SSM and hybrid models, same weights: a 40-token prefill
@@ -948,7 +1042,7 @@ def test_device_samplers_on_a_cuda_generator(cuda_device):
     host = faults.materialize_faults(spec, 4, 6, seed=0)
     for b in range(64):
         assert np.array_equal(out["alive"][b].cpu().numpy(), host["alive"])
-    assert bool((out["jitter"][c["mask"]] >= faults.MIN_JITTER).all())
+    assert bool((out["jitter"][c["mask"]] >= rounds.MIN_JITTER).all())
 
 
 # -- the serving host side (the central controller on the card) ------------
@@ -1074,8 +1168,9 @@ def test_flash_attention_backward_matches_autograd_through_plain(
 
 
 def test_b5_b6_refuse_gradients_on_the_card(cuda_device):
-    """No silent detach: with inputs that need a gradient, B5 and B6 raise
-    rather than return a kernel output cut off from autograd."""
+    """No silent detach: with inputs that need a gradient, B5 and B6's bare
+    entry raise rather than return a kernel output cut off from autograd;
+    B6's gated entry carries the graph (its backward is B6b)."""
     def t(*shape):
         return torch.randn(*shape, device=cuda_device, requires_grad=True)
 
@@ -1086,12 +1181,13 @@ def test_b5_b6_refuse_gradients_on_the_card(cuda_device):
     with pytest.raises(RuntimeError, match="B5 .* no backward"):
         ops.decode_attention(t(2, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16),
                              slot_pos, pos)
-    with pytest.raises(RuntimeError, match="B6's backward"):
+    with pytest.raises(RuntimeError, match="no backward.*mamba_scan_gated"):
         ops.mamba_scan(t(1, 9, 16), torch.rand(1, 9, 16, device=cuda_device),
                        t(1, 9, 4), t(1, 9, 4), a)
-    with pytest.raises(RuntimeError, match="B6's backward"):
-        ops.mamba_scan_gated(t(1, 9, 16), t(1, 9, 16), t(16), t(1, 9, 4),
-                             t(1, 9, 4), a, t(16), t(1, 9, 16))
+    out, _ = ops.mamba_scan_gated(t(1, 9, 16), t(1, 9, 16), t(16),
+                                  t(1, 9, 4), t(1, 9, 4), a, t(16),
+                                  t(1, 9, 16))
+    assert out.grad_fn is not None
     with torch.no_grad():
         ops.decode_attention(t(2, 4, 16), t(2, 8, 2, 16), t(2, 8, 2, 16),
                              slot_pos, pos)

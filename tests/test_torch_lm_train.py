@@ -328,14 +328,17 @@ def test_train_lm_rejects_embedding_input_archs(arch, match):
 
 
 def test_train_lm_refuses_families_before_allocating():
+    """MoE is refused on either device before anything is allocated; the
+    SSM and hybrid families train on the card too (B6b), as the dense one
+    does."""
     with pytest.raises(NotImplementedError, match="MoE"):
         launch_train.main(["lm", "--arch", "mixtral-8x7b", "--device", "cpu"])
-    for arch in ("falcon-mamba-7b", "hymba-1.5b"):
-        cfg = configs.get_config(arch)  # full width: nothing is allocated
-        with pytest.raises(RuntimeError, match="B6's backward"):
-            lm.check_trainable(cfg, "cuda")
-        lm.check_trainable(cfg, "cpu")
-    lm.check_trainable(configs.get_config("olmo-1b"), "cuda")
+    for device in ("cuda", "cpu"):
+        with pytest.raises(NotImplementedError, match="MoE"):
+            lm.check_trainable(configs.get_config("mixtral-8x7b"), device)
+        for arch in ("falcon-mamba-7b", "hymba-1.5b", "olmo-1b"):
+            # full width: nothing is allocated
+            lm.check_trainable(configs.get_config(arch), device)
 
 
 # -- checkpoints across the packages ----------------------------------------
@@ -385,16 +388,19 @@ def test_port_checkpoint_resumes_in_the_reference(tmp_path, capsys):
 
 def _on_card(monkeypatch, launched):
     """``ops`` dispatching as for CUDA tensors, with the CUDA entries
-    replaced by recorders that return their plain versions' outputs."""
+    replaced by recorders that return their plain versions' outputs (and,
+    where B6's chunk states are asked for, a stand-in)."""
     monkeypatch.setattr(ops, "_device_type", lambda t: "cuda")
     for name, plain in (("decode_attention_cuda", ref.decode_attention_torch),
                         ("mamba_scan_cuda", ref.mamba_scan_torch),
                         ("mamba_scan_gated_cuda",
                          ref.mamba_scan_gated_torch)):
-        def entry(*args, _name=name, _plain=plain, **kwargs):
+        def entry(*args, _name=name, _plain=plain, with_states=False,
+                  **kwargs):
             launched.append(_name)
             with torch.no_grad():  # a kernel's output has no grad_fn
-                return _plain(*args, **kwargs)
+                out = _plain(*args, **kwargs)
+            return (*out, torch.zeros(())) if with_states else out
         monkeypatch.setattr(ops, name, entry)
 
 
@@ -422,11 +428,20 @@ def _b5_b6_inputs(requires_grad):
 @pytest.mark.parametrize("name", ["decode_attention", "mamba_scan",
                                   "mamba_scan_gated"])
 def test_b5_b6_never_return_a_detached_kernel_output(monkeypatch, name):
+    """On CUDA inputs that need a gradient, B5 and B6's bare entry raise;
+    B6's gated entry launches and returns an output on the graph of
+    ``MambaScanGated``, whose backward is B6b."""
     launched = []
     _on_card(monkeypatch, launched)
-    with pytest.raises(RuntimeError, match="no backward on the card"):
-        _b5_b6_inputs(True)[name]()
-    assert launched == []
+    if name == "mamba_scan_gated":
+        out, _ = _b5_b6_inputs(True)[name]()
+        assert type(out.grad_fn).__name__ == "MambaScanGatedBackward"
+        assert launched == [f"{name}_cuda"]
+        launched.clear()
+    else:
+        with pytest.raises(RuntimeError, match="no backward on the card"):
+            _b5_b6_inputs(True)[name]()
+        assert launched == []
     with torch.no_grad():  # inference launches the kernel
         _b5_b6_inputs(True)[name]()
     _b5_b6_inputs(False)[name]()

@@ -179,7 +179,7 @@ def main() -> int:
         bare.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ptr]
         gated = lib.corais_mamba_scan_gated
         gated.argtypes = ([ptr] * 8 + [ctypes.c_longlong, ctypes.c_int]
-                          + [ptr] * 2 + [ctypes.c_int] * 4 + [ptr])
+                          + [ptr] * 3 + [ctypes.c_int] * 4 + [ptr])
 
         def run_bare():
             return bare(u.data_ptr(), dt.data_ptr(), bm.data_ptr(),
@@ -190,7 +190,8 @@ def main() -> int:
             return gated(u.data_ptr(), dt_raw.data_ptr(), bias.data_ptr(),
                          bm.data_ptr(), cm.data_ptr(), a.data_ptr(),
                          dskip.data_ptr(), z.data_ptr(), z.stride(1), 1,
-                         out.data_ptr(), h.data_ptr(), b, s, d, n, stream)
+                         out.data_ptr(), h.data_ptr(), None, b, s, d, n,
+                         stream)
 
         row = {}
         if run_bare() != 0:
