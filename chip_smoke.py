@@ -107,8 +107,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    on the same seeds: B1 and B2 once per round of each update, parameters
    within 1e-5, metrics within 1e-4, per-update ms p50 of both;
 7. hold the attention kernels B4 (flash attention) and B5 (decode
-   attention) against their plain versions at qwen3-4b, olmo-1b and
-   hymba-1.5b head shapes, bf16 and f32, ragged lengths (S = 1, 63, 65),
+   attention) against their plain versions at qwen3-4b, olmo-1b,
+   hymba-1.5b, mixtral-8x7b (a 4500-token prompt past its 4096 window, its
+   rolled 4-lane cache) and qwen2-vl-72b (64 query heads) head shapes,
+   bf16 and f32, ragged lengths (S = 1, 63, 65),
    bf16 head widths 16 to 128, windows causal and not, rolling caches
    (hymba's 4-lane cache past its 2048 window), a lane with no valid
    slot, one lane over 4096 slots and W = 1; each bit for bit across two
@@ -194,6 +196,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (d) both at their widths and 2 layers in f32: ``train_loss`` through
     the kernels against the plain path (loss 1e-5 relative, every gradient
     1e-4 of its largest entry);
+12d. mixtral-8x7b (``drive_moe_lm``): ``CONFIG`` cut to 24 of its 32
+    layers (35.1 B parameters, bf16, random weights from the seed), served
+    with phase 8's flow and sizes but 16 generated tokens a request, then
+    one 4500-token request on a fourth edge with 8192 slots a lane, whose
+    cache must be the rolling one: B4 24 times per admission, B5 24 times
+    per decode step, B6 never, no plain version reached; a profiled
+    2048-token prefill and 4-lane decode step (device ms by kind: B4, B5,
+    index, GEMM, element-wise; and the MoE layer's expert products apart
+    from its routing, dispatch and combine); a 1500-token request with 16
+    teacher-forced steps through the kernel and the plain path, the plain
+    run's routes forced on the kernel run: bf16 logits within 0.1 at full
+    depth (the routes that would differ reported, and beside them the same
+    readings with SDPA in place of B4 and B5), at the widths with 2 layers
+    in bf16 (0.1; a differing route's plain gap within 0.03 of its token's
+    largest |router logit|) and with 8 layers in f32 (1e-3; GAP);
+12e. the qwen2-vl-72b backbone (``drive_vlm_lm``): ``CONFIG`` cut to 32 of
+    its 80 layers (bf16), one prefill of two 2048-token prompts of patch
+    embeddings (128 text tokens, a 40 x 44 image, text) with (3, B, S)
+    M-RoPE positions whose rows differ, then 16 greedy decode steps with
+    their position rows: B4 32 times in the prefill, B5 32 times a step,
+    B6 never, no plain version reached; the same profile; the kernel path
+    against the plain path on a 1500-token prompt with a 30 x 40 image
+    (bf16 0.1 at full depth, SDPA's reported beside it; f32 1e-3 at 8
+    layers);
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -204,15 +230,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
     at the training shape, B4 at qwen3-4b's and
     hymba-1.5b's 2048-token prefills and, storing its lse, olmo-1b's
     training shape (with the pair-scan backward beside SDPA's backward
-    there), B5 at the 4-lane qwen3-4b edge's
-    cache after serving and at hymba's rolled 4-lane cache, B6's gated
+    there), at mixtral-8x7b's 2048-token prefill and a 4500-token one past
+    its window and at qwen2-vl-72b's (2, 2048) prefill, B5 at the 4-lane
+    qwen3-4b edge's cache after serving, at hymba's and mixtral's rolled
+    4-lane caches and at phase 12e's cache, B6's gated
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape, and storing its chunk states at
     hymba-1.5b's training shape, and B6b there) beside their bounds, and
     print the ``{"kernels": [...]}`` line (seven rows, each with its
     launches on every main path above, the rollout's, temporal training's,
-    the serving host side's and phase 6e's (``fleet``, ``data_parallel``)
-    included; B1 and B2 also timed at the temporal shapes, under
+    the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
+    and phases 12d's and 12e's (``moe_lm_serving``, ``vlm_lm``) included;
+    B1 and B2 also timed at the temporal shapes, under
     ``temporal_shapes``).
 
 The last line of standard output is the ``{"ok": true, "device": ...}``
@@ -281,6 +310,53 @@ LM_HYBRID_PROMPT = 2300
 # a single slot; G*hd = 320. Compared in phase 7, timed in phase 13.
 HYMBA_CACHE = (4, 2048, 25, 5, 64, torch.bfloat16, (0, 0, 700, 1),
                (513, 1, None, None), 2048)
+# mixtral-8x7b's 4-lane decode cache (its window 4096 = W): three lanes
+# rolled past the window (positions 404-4499, 4097-8192 and 1-4096), one
+# partly filled; G*hd = 512. Compared in phase 7, timed in phase 13.
+MIXTRAL_CACHE = (4, 4096, 32, 8, 128, torch.bfloat16, (0, 0, 1500, 0),
+                 (404, 4097, None, 1), 4096)
+# phase 12d: mixtral-8x7b CONFIG cut to 24 of its 32 layers (24 x 2.90 GB
+# of bf16 weights, with the embedding, lm_head and each edge's f32 head
+# about 72 GB of the card's 80), served with phase 8's flow and sizes but
+# MOE_GEN generated tokens a request (the decode steps are what the phase's
+# time is taken from); one MOE_LONG_PROMPT-token request on a fourth edge
+# with MOE_LONG_MAX_SEQ slots a lane takes the rolling cache
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 24
+MOE_GEN = 16
+MOE_LONG_PROMPT = 4500
+MOE_LONG_MAX_SEQ = 8192
+# kernel vs plain at full width, bf16; then at the widths with
+# LM_F32_LAYERS layers in f32 (f32 at 24 layers would be 139 GB; at 8 it
+# is 46 GB, in place of the bf16 layers) and, for mixtral, MOE_ROUTE_LAYERS
+# layers in bf16. The plain run's routes are forced on the kernel run (as
+# tokens are teacher-forced), and in the cut runs a (token, layer) route
+# that the kernel run would choose otherwise must be a near-tie: the plain
+# run's logit gap between the two experts within MOE_ROUTE_GAP of the
+# token's largest |router logit|. In f32 that is GAP. In bf16 at 2 layers
+# it is 0.03, twice the largest gap read there on an H100 (0.0143, 18 of
+# 3,032 routes) and below the 90th percentile at full depth (0.063;
+# PERF.md §6). At full depth in bf16 the routes are reported, not barred:
+# the bf16 hidden states drift apart over the layers (9.4 % of the logits
+# on an H100), so flips there are not confined to near-ties. Beside it the
+# same model runs with PyTorch's scaled_dot_product_attention in place of
+# B4 and B5 against the same plain run, the routes forced alike
+# (``library_attention``): the drift that a second bf16 attention shows
+LM_F32_LAYERS = 8
+MOE_ROUTE_LAYERS = 2
+MOE_ROUTE_GAP = {"float32": GAP, "bfloat16": 0.03}
+# phase 12e: qwen2-vl-72b's backbone CONFIG cut to 32 of its 80 layers (32 x
+# 1.76 GB, with the embedding, lm_head and the f32 head 66 GB); VLM_BATCH
+# prompts of VLM_TEXT text tokens, a VLM_GRID image of patch embeddings and
+# the rest text, then VLM_DECODE decode steps
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 32
+VLM_BATCH = 2
+VLM_PROMPT = 2048
+VLM_TEXT = 128
+VLM_GRID = (40, 44)
+VLM_DECODE = 16
+VLM_PARITY_GRID = (30, 40)   # kernel vs plain: a 1500-token prompt
 SCAN_TOL = 5e-4        # B6 against its plain version (tests/test_kernels.py)
 # B6 cases (B, S, d, N): falcon-mamba's prefill, hymba's four lanes, a
 # ragged one and the reference sweep's; the first is also timed
@@ -2776,8 +2852,9 @@ def _slot_cache(gen, b, w, kv, hd, dtype, fills=None, rolling_from=None):
 
 def compare_attention(ops, ref, errs):
     """B4 and B5 against their plain versions on the card at the listed
-    cases, among them the shapes the qwen3-4b and hymba-1.5b edges give
-    them; raises on a disagreement beyond the reference's bars (2e-4 f32,
+    cases, among them the shapes the qwen3-4b, hymba-1.5b, mixtral-8x7b
+    and qwen2-vl-72b models give them; raises on a disagreement beyond
+    the reference's bars (2e-4 f32,
     2e-2 bf16) or when two calls differ in a bit, and folds the largest
     errors into ``errs``."""
     gen = torch.Generator().manual_seed(21)
@@ -2799,7 +2876,13 @@ def compare_attention(ops, ref, errs):
             (1, 65, 25, 5, 64, bf16, True, 2048),
             (2, 200, 4, 2, 16, bf16, True, None),
             (1, 150, 8, 4, 32, bf16, True, None),
-            (1, 300, 16, 4, 128, bf16, False, 70)):
+            (1, 300, 16, 4, 128, bf16, False, 70),
+            # mixtral heads (G=4) and its 4096 window, a prompt past it;
+            # qwen2-vl heads (G=8)
+            (1, 4500, 32, 8, 128, bf16, True, 4096),
+            (1, 4500, 32, 8, 128, f32, True, 4096),
+            (1, 2048, 64, 8, 128, bf16, True, None),
+            (2, 700, 64, 8, 128, f32, True, None)):
         q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda", dtype)
                    for n in (h, kv, kv))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -2832,7 +2915,12 @@ def compare_attention(ops, ref, errs):
             # V), one lane over 4096 slots (64 splits), W = 1
             (3, 300, 32, 8, 128, bf16, (0, 120, 300), None, None),
             (1, 4096, 32, 8, 128, bf16, (3000,), None, None),
-            (2, 1, 32, 8, 128, bf16, (1, 0), None, None)):
+            (2, 1, 32, 8, 128, bf16, (1, 0), None, None),
+            # mixtral's rolled 4-lane cache, and in f32; qwen2-vl's heads
+            MIXTRAL_CACHE,
+            (2, 4096, 32, 8, 128, f32, (0, 3000), (404, None), 4096),
+            (4, 4096, 64, 8, 128, bf16, (1, 700, 2600, 4096), None, None),
+            (2, 512, 64, 8, 128, f32, (100, 512), None, None)):
         kc, vc, slot_pos, pos = _slot_cache(gen, b, w, kv, hd, dtype, fills,
                                             roll)
         q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
@@ -2989,7 +3077,7 @@ def _plain_guard(ref, ops):
 
 
 def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
-                     ref, ops):
+                     ref, ops, gen_len=LM_GEN, long_request=None):
     """The example's flow (examples/serve_multi_edge.py) at full width: three
     ``LMEdgeBackend`` edges with lanes [1, 2, 4] share one weight set; a phi
     warm-up of eight prefills per edge, after which each edge's phi must
@@ -3000,8 +3088,12 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
     phi. The launch counters are set to 0 just before the edges serve and
     read just after; each family's kernels must launch exactly once per
     layer that runs them (B4 and B6 per admission, B5 per decode step), the
-    plain versions never, and B6 only through its gated entry. Returns the
-    summary and the edges."""
+    plain versions never, and B6 only through its gated entry. Each
+    dispatched request generates ``gen_len`` tokens. ``long_request``
+    (prompt tokens, slots a lane) serves one more request, on a fourth,
+    1-lane edge, after the others, in the same count: with a prompt past
+    the window its cache must be the rolling one (every slot holding one of
+    the last W positions). Returns the summary and the edges."""
     lanes = [1, 2, 4]
     edges = [batching.LMEdgeBackend(cfg, params, lanes=n, max_seq=LM_MAX_SEQ,
                                     seed=i) for i, n in enumerate(lanes)]
@@ -3056,7 +3148,7 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
     share = {i: int(np.sum(assign[:len(reqs)] == i)) for i in range(3)}
     t0 = time.perf_counter()
     for r, target in zip(reqs, assign):
-        edges[int(target)].submit(r.rid, int(r.data_size), gen_len=LM_GEN)
+        edges[int(target)].submit(r.rid, int(r.data_size), gen_len=gen_len)
 
     def real_done():
         return sum(len([r for r in be.finished if r < LM_WARM])
@@ -3068,18 +3160,39 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
             step(be)
         rounds += 1
     serve_s = time.perf_counter() - t0
+    long = None
+    if long_request is not None:
+        plen, max_seq = long_request
+        long_edge = batching.LMEdgeBackend(cfg, params, lanes=1,
+                                           max_seq=max_seq, seed=len(lanes))
+        long_edge.submit(len(reqs), plen, gen_len)
+        while long_edge._queue or long_edge._lane_states[0].remaining:
+            step(long_edge)
+        check(long_edge.finished == {len(reqs): gen_len},
+              f"the long request finished as {long_edge.finished}")
+        sp = long_edge._cache["slot_pos"][0]
+        w, last = sp.shape[0], plen + gen_len - 1
+        check(w < plen and int(sp.min()) == last - w + 1
+              and int(sp.max()) == last,
+              f"the {plen}-token request's cache (W = {w}) holds positions "
+              f"{int(sp.min())}..{int(sp.max())}, not the rolling "
+              f"{last - w + 1}..{last}")
+        long = {"prompt_tokens": plen, "max_seq": max_seq, "window": w,
+                "generated": gen_len, "slot_pos_min": int(sp.min()),
+                "slot_pos_max": int(sp.max()),
+                "prefill_ms": long_edge.phi._ys[0] * 1e3}
     torch.cuda.synchronize()
     launches = {k: build.LAUNCHES[k] for k in ("flash_attention",
                                                "decode_attention",
                                                "mamba_scan")}
     guard.close()
-    admissions = sum(len(be.phi._xs) for be in edges)
+    admissions = sum(len(be.phi._xs) for be in edges) + (long is not None)
     check(real_done() == len(reqs), f"served {real_done()} of {len(reqs)}")
     check(share[2] >= share[0], f"dispatch share {share}: the 4-lane edge "
           "got fewer requests than the 1-lane edge")
     for be in edges:
         for rid, n in be.finished.items():
-            want = 1 if rid >= LM_WARM else LM_GEN
+            want = 1 if rid >= LM_WARM else gen_len
             check(n == want, f"request {rid} generated {n} tokens, not {want}")
     attn = int(cfg.family != "ssm")
     scan = int(cfg.family in ("ssm", "hybrid"))
@@ -3096,7 +3209,7 @@ def drive_lm_serving(cfg, params, lm, batching, state, heuristics, build,
         "layers": cfg.num_layers,
         "params": sum(t.numel() for t in _leaves(params)),
         "lanes": lanes, "max_seq": LM_MAX_SEQ, "requests": len(reqs),
-        "gen_len": LM_GEN, "dispatch_share": share,
+        "gen_len": gen_len, "dispatch_share": share, "long_request": long,
         "served": {i: len([r for r in be.finished if r < LM_WARM])
                    for i, be in enumerate(edges)},
         "admissions": admissions,
@@ -3123,43 +3236,73 @@ def _leaves(tree):
     return [tree]
 
 
-def profile_lm(cfg, params, lm, edge, prompt_len=2048, n_decode=5):
+def profile_lm(cfg, params, lm, edge=None, prompt_len=2048, n_decode=5, *,
+               kinds=KERNEL_KINDS, ranges=None, prefill_batch=None,
+               decode_cache=None, decode_batch=None):
     """Device busy ms, idle share and kernels per unit from torch.profiler
-    traces of one prefill (``prompt_len`` tokens) and of ``n_decode`` decode
-    steps over ``edge``'s batch cache (all its lanes)."""
+    traces of one prefill (``prompt_len`` random tokens, or
+    ``prefill_batch``) and of ``n_decode`` decode steps over ``edge``'s
+    batch cache (all its lanes; or ``decode_cache`` with ``decode_batch``);
+    device ms by kind (``kinds``). ``ranges``: a context manager that names
+    pieces in the trace with ``record_function`` and yields their names;
+    their device ms go under ``device_ms_by_piece``."""
     from torch.profiler import ProfilerActivity, profile
     head = lm.head_f32(params, cfg)
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len),
-                           generator=torch.Generator().manual_seed(5),
-                           dtype=torch.int32).cuda()
-    lm.prefill(params, {"tokens": tokens}, cfg, max_seq=LM_MAX_SEQ, head=head)
+    if prefill_batch is None:
+        prefill_batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, prompt_len),
+            generator=torch.Generator().manual_seed(5),
+            dtype=torch.int32).cuda()}
+    prompt_len = next(iter(prefill_batch.values())).shape[1]
+    lm.prefill(params, prefill_batch, cfg, max_seq=LM_MAX_SEQ, head=head)
     torch.cuda.synchronize()
     out = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lm.prefill(params, {"tokens": tokens}, cfg, max_seq=LM_MAX_SEQ,
-                   head=head)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    out["prefill"] = {"prompt_tokens": prompt_len,
-                      **_device_summary(prof, 1, wall_ms)}
-    token = torch.zeros(edge.lanes, dtype=torch.int32, device=edge.device)
-    cache = edge._cache
-    cache, _ = lm.decode_step(params, cache, {"token": token}, cfg, head=head)
+
+    def traced(fn, n):
+        with contextlib.ExitStack() as stack:
+            names = stack.enter_context(ranges()) if ranges else ()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        res = _device_summary(prof, n, wall_ms, skip=names, kinds=kinds)
+        if names:
+            res["device_ms_by_piece"] = _range_device_ms(prof, names, n)
+        return res
+
+    out["prefill"] = {"prompt_tokens": prompt_len, **traced(
+        lambda: lm.prefill(params, prefill_batch, cfg, max_seq=LM_MAX_SEQ,
+                           head=head), 1)}
+    if decode_cache is None:
+        decode_cache = edge._cache
+        decode_batch = {"token": torch.zeros(edge.lanes, dtype=torch.int32,
+                                             device=edge.device)}
+    cache, _ = lm.decode_step(params, decode_cache, decode_batch, cfg,
+                              head=head)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps():
         for _ in range(n_decode):
-            cache, _ = lm.decode_step(params, cache, {"token": token}, cfg,
-                                      head=head)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_decode
-    out["decode"] = {"lanes": edge.lanes,
-                     "pos": cache["pos"].tolist(),
-                     **_device_summary(prof, n_decode, wall_ms)}
+            lm.decode_step(params, cache, decode_batch, cfg, head=head)
+
+    out["decode"] = {"lanes": int(cache["pos"].shape[0]),
+                     **traced(steps, n_decode),
+                     "pos": cache["pos"].tolist()}
     return out
+
+
+def _range_device_ms(prof, names, n):
+    """Device ms per unit under each ``record_function`` range ``names``."""
+    pieces = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.name in pieces and str(e.device_type).endswith("CPU"):
+            pieces[e.name] += next(
+                (getattr(e, a) for a in ("device_time_total",
+                                         "cuda_time_total")
+                 if hasattr(e, a)), 0.0) / 1e3 / n
+    return pieces
 
 
 def _to_f32(tree):
@@ -3170,8 +3313,116 @@ def _to_f32(tree):
     return tree.float()
 
 
+class _RouteForcing:
+    """Routes of the MoE layers (``moe.route``) recorded on the plain run
+    and forced on the kernel run, call for call, as the tokens are
+    teacher-forced: the kernel run keeps its own router logits and gates
+    (the softmax of its logits at the forced experts) and counts the
+    (token, layer) routes where its own top k differs from the forced one,
+    in its experts or only in their order. A differing route's margin is
+    the plain run's logit gap, at the first place the two lists differ,
+    between the expert the plain run chose and the one the kernel run
+    chose instead, relative to the token's largest |router logit|: the
+    near-tie that the two runs broke either way."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.calls, self.next, self.margins, self.where = [], 0, [], []
+        self.routes = self.sets = 0
+
+    def recording(self):
+        from unittest import mock
+
+        def route(x, router, k):
+            logits, idx, gates = self.route(x, router, k)
+            self.calls.append((logits, idx))
+            return logits, idx, gates
+        return mock.patch.object(self.moe, "route", route)
+
+    def forcing(self):
+        from unittest import mock
+
+        def route(x, router, k):
+            logits, own, _ = self.route(x, router, k)
+            plain_logits, idx = self.calls[self.next]
+            self.next += 1
+            neq = own != idx
+            differ = neq.any(-1)
+            j = neq.int().argmax(-1, keepdim=True)  # the first difference
+            gap = (plain_logits.gather(-1, idx.gather(-1, j))
+                   - plain_logits.gather(-1, own.gather(-1, j)))[..., 0]
+            rel = gap / plain_logits.abs().amax(-1)
+            self.margins.append(rel[differ])
+            self.where.extend([self.next - 1] * int(differ.sum()))
+            self.sets += int((own.sort(-1).values
+                              != idx.sort(-1).values).any(-1).sum())
+            self.routes += differ.numel()
+            return logits, idx, torch.softmax(logits.gather(-1, idx), -1)
+        return mock.patch.object(self.moe, "route", route)
+
+    def replay(self):
+        """A second forcing of the same recorded routes, counted apart."""
+        other = _RouteForcing(self.moe)
+        other.route, other.calls = self.route, self.calls
+        return other
+
+    def report(self, gap):
+        """{"routes", "differing", "experts_differing", "max_rel_margin"};
+        raises where a differing route's margin exceeds ``gap`` (None: no
+        bar)."""
+        check(self.next == len(self.calls), f"the kernel run routed "
+              f"{self.next} times, the plain run {len(self.calls)}")
+        margins = torch.cat(self.margins) if self.margins else torch.zeros(0)
+        worst = float(margins.max()) if margins.numel() else None
+        quantiles = ([float(q) for q in margins.float().quantile(
+            torch.tensor([0.5, 0.9, 0.99], device=margins.device))]
+            if margins.numel() else None)
+        worst_call = (self.where[int(margins.argmax())]
+                      if margins.numel() else None)
+        check(worst is None or gap is None or worst <= gap,
+              f"a route that differs between the kernel and plain paths "
+              f"has a plain logit gap of {worst} of the token's largest "
+              f"|router logit|, above {gap}")
+        return {"routes": self.routes, "differing": int(margins.numel()),
+                "experts_differing": self.sets, "max_rel_margin": worst,
+                "rel_margin_quantiles_50_90_99": quantiles,
+                "worst_call": worst_call, "calls": len(self.calls),
+                "gap": gap}
+
+
+def _sdpa_prefill(q, k, v, *, causal, window, chunk=None):
+    """B4's function through PyTorch's ``scaled_dot_product_attention``:
+    q (B, S, H, hd), k/v (B, S, KV, hd), causal, an optional window (then
+    a boolean mask, the plain version's: key > query - window)."""
+    import torch.nn.functional as F
+    check(causal, "the LM's attention is causal")
+    s = q.shape[1]
+    mask = None
+    if window is not None and window < s:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    return o.transpose(1, 2).contiguous()
+
+
+def _sdpa_decode(q, k_cache, v_cache, slot_pos, pos, *, window):
+    """B5's function through PyTorch's ``scaled_dot_product_attention``,
+    the plain version's valid slots as a boolean mask."""
+    import torch.nn.functional as F
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window is not None:
+        valid &= slot_pos > (pos[:, None] - window)
+    o = F.scaled_dot_product_attention(
+        q[:, :, None], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+        attn_mask=valid[:, None, None, :], enable_gqa=True)
+    return o[:, :, 0]
+
+
 def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
-                       n_decode=16, scan_ulp=False):
+                       n_decode=16, scan_ulp=False, *, inputs=None, moe=None,
+                       f32_layers=None, library=False):
     """One request through the kernel path (B4, B5, B6) and the plain path
     (their plain versions on the card), same weights, teacher-forced on the
     same tokens, in bf16 (the serving path) and with the same weights in
@@ -3185,20 +3436,40 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     reading that shows LM_LOGIT_TOL_BF16 admits a B6 rounded 1 ulp apart
     from its plain version. The gated entry never exposes its f32 y, so
     the nudged run takes the gated entry's plain version with B6's bare
-    entry in place of its plain scan."""
+    entry in place of its plain scan.
+
+    ``inputs``: {"prefill": batch, "decode": [batch per step]} in place of
+    a random ``prompt_len``-token prompt and ``n_decode`` random tokens
+    (embeddings are cast to each run's dtype). ``moe``: the MoE module,
+    whose routes the kernel run takes from the plain run
+    (:class:`_RouteForcing`, checked against MOE_ROUTE_GAP).
+    ``f32_layers``: run f32 at the model's widths with only its first
+    ``f32_layers`` layers; the others are dropped from ``params`` first and
+    the rest made f32 in place, so the caller's model is spent. With
+    ``moe`` too, the full-depth bf16 routes are reported without a bar, and
+    the first MOE_ROUTE_LAYERS layers are compared in bf16 as well
+    (``bf16_cut``), their routes barred. ``library``: the full-depth bf16
+    model also runs with :func:`_sdpa_prefill` and :func:`_sdpa_decode` in
+    place of B4 and B5 against the same plain run, its logits' error and
+    routes reported (``library_attention``), with no bar."""
     from unittest import mock
-    gen = torch.Generator().manual_seed(6)
-    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
-                           dtype=torch.int32).cuda()
-    forced = torch.randint(0, cfg.vocab_size, (n_decode, 1), generator=gen,
-                           dtype=torch.int32).cuda()
+    if inputs is None:
+        gen = torch.Generator().manual_seed(6)
+        prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                               generator=gen, dtype=torch.int32).cuda()
+        forced = torch.randint(0, cfg.vocab_size, (n_decode, 1),
+                               generator=gen, dtype=torch.int32).cuda()
+        inputs = {"prefill": {"tokens": prompt},
+                  "decode": [{"token": t} for t in forced]}
+    prompt_len = next(iter(inputs["prefill"].values())).shape[1]
+    n_decode = len(inputs["decode"])
 
     def run(cfg, params, head):
-        cache, logits = lm.prefill(params, {"tokens": prompt}, cfg,
+        cache, logits = lm.prefill(params, inputs["prefill"], cfg,
                                    max_seq=prompt_len + n_decode, head=head)
         rows = [logits]
-        for tok in forced:
-            cache, logits = lm.decode_step(params, cache, {"token": tok}, cfg,
+        for batch in inputs["decode"]:
+            cache, logits = lm.decode_step(params, cache, batch, cfg,
                                            head=head)
             rows.append(logits)
         return torch.cat(rows)[:, :cfg.vocab_size]
@@ -3206,21 +3477,44 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     def rel_err(got, plain):
         return (got - plain).abs().amax(-1) / plain.abs().amax(-1)
 
-    def compare(cfg, params, tol, nudge=False):
+    def compare(cfg, params, tol, nudge=False, route_bar=True,
+                library=False):
         head = lm.head_f32(params, cfg)
-        kern = run(cfg, params, head)
-        with mock.patch.object(ops, "flash_attention",
-                               lambda q, k, v, *, causal, window, chunk:
-                               ref.flash_attention_torch(
-                                   q, k, v, causal=causal, window=window)), \
-                mock.patch.object(ops, "decode_attention",
-                                  lambda q, kc, vc, sp, pos, *, window:
-                                  ref.decode_attention_torch(
-                                      q, kc, vc, sp, pos, window=window)), \
-                mock.patch.object(ops, "mamba_scan", ref.mamba_scan_torch), \
-                mock.patch.object(ops, "mamba_scan_gated",
-                                  ref.mamba_scan_gated_torch):
+        routes = _RouteForcing(moe) if moe is not None else None
+        lib_routes = routes.replay() if library and moe is not None else None
+        with contextlib.ExitStack() as stack:
+            if routes is not None:
+                stack.enter_context(routes.recording())
+            for patch in (
+                    mock.patch.object(ops, "flash_attention",
+                                      lambda q, k, v, *, causal, window,
+                                      chunk: ref.flash_attention_torch(
+                                          q, k, v, causal=causal,
+                                          window=window)),
+                    mock.patch.object(ops, "decode_attention",
+                                      lambda q, kc, vc, sp, pos, *, window:
+                                      ref.decode_attention_torch(
+                                          q, kc, vc, sp, pos,
+                                          window=window)),
+                    mock.patch.object(ops, "mamba_scan",
+                                      ref.mamba_scan_torch),
+                    mock.patch.object(ops, "mamba_scan_gated",
+                                      ref.mamba_scan_gated_torch)):
+                stack.enter_context(patch)
             plain = run(cfg, params, head)
+        with contextlib.ExitStack() as stack:
+            if routes is not None:
+                stack.enter_context(routes.forcing())
+            kern = run(cfg, params, head)
+        if library:
+            with contextlib.ExitStack() as stack:
+                if lib_routes is not None:
+                    stack.enter_context(lib_routes.forcing())
+                stack.enter_context(mock.patch.object(
+                    ops, "flash_attention", _sdpa_prefill))
+                stack.enter_context(mock.patch.object(
+                    ops, "decode_attention", _sdpa_decode))
+                lib = run(cfg, params, head)
         torch.cuda.synchronize()
         scale = plain.abs().amax(-1)
         err = rel_err(kern, plain)
@@ -3234,6 +3528,20 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
               f"largest |logit|, above {tol} (PERF.md section 6 says how "
               f"each bar was set)")
         out = {}
+        if routes is not None:
+            out["routes"] = routes.report(MOE_ROUTE_GAP[cfg.dtype]
+                                          if route_bar else None)
+        if library:
+            lib_err = rel_err(lib, plain)
+            check(bool(torch.isfinite(lib).all()),
+                  f"non-finite SDPA-path logits ({cfg.dtype})")
+            out["library_attention"] = {
+                "max_rel_err": float(lib_err.max()),
+                "rel_err_prefill": float(lib_err[0]),
+                "argmax_equal_share_all": float(
+                    (lib.argmax(-1) == plain.argmax(-1)).float().mean())}
+            if lib_routes is not None:
+                out["library_attention"]["routes"] = lib_routes.report(None)
         if nudge:
             kernel_scan = ops.mamba_scan
 
@@ -3256,11 +3564,27 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                 "argmax_equal_share_all": float(same.float().mean())}
 
     out = {"prompt_tokens": prompt_len, "decode_steps": n_decode,
-           "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16,
-                           nudge=scan_ulp)}
+           "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16, nudge=scan_ulp,
+                           route_bar=f32_layers is None, library=library)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if f32_layers is not None:
+        layers = params["layers"]
+        del layers[f32_layers:]
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg32, num_layers=f32_layers)
+        out["f32_layers"] = f32_layers
+        if moe is not None:
+            check(MOE_ROUTE_LAYERS <= f32_layers, "the bf16 route cut is "
+                  "taken from the f32 cut's layers")
+            out["bf16_cut_layers"] = MOE_ROUTE_LAYERS
+            out["bf16_cut"] = compare(
+                dataclasses.replace(cfg, num_layers=MOE_ROUTE_LAYERS),
+                {**params, "layers": layers[:MOE_ROUTE_LAYERS]},
+                LM_LOGIT_TOL_BF16)
+        for i, layer in enumerate(layers):  # each bf16 layer goes as its
+            layers[i] = _to_f32(layer)      # f32 copy comes
     params32 = _to_f32(params)
-    out["f32"] = compare(dataclasses.replace(cfg, dtype="float32"), params32,
-                         LM_LOGIT_TOL_F32)
+    out["f32"] = compare(cfg32, params32, LM_LOGIT_TOL_F32)
     del params32
     torch.cuda.empty_cache()
     return out
@@ -3423,14 +3747,7 @@ def profile_training(m, run, device="cuda", kinds=TRAIN_KERNEL_KINDS):
             float(metrics["loss_total"])
             wall_ms = (time.perf_counter() - t0) * 1e3
     out = _device_summary(prof, 1, wall_ms, skip=TRAIN_RANGES, kinds=kinds)
-    pieces = dict.fromkeys(TRAIN_RANGES, 0.0)
-    for e in prof.events():
-        if e.name in pieces and str(e.device_type).endswith("CPU"):
-            pieces[e.name] += next(
-                (getattr(e, n) for n in ("device_time_total",
-                                         "cuda_time_total")
-                 if hasattr(e, n)), 0.0) / 1e3
-    out["device_ms_by_piece"] = pieces
+    out["device_ms_by_piece"] = _range_device_ms(prof, TRAIN_RANGES, 1)
     return out
 
 
@@ -3804,6 +4121,221 @@ def drive_ssm_training(m, card, device="cuda"):
     return out, counts
 
 
+# -- phases 12d and 12e: the MoE (mixtral) and M-RoPE (qwen2-vl) families --
+
+# device ms by kind in the MoE and VLM traces: B4, B5, the dispatch's and
+# routing's index kernels (index store and gather, scatter, cumsum,
+# argmax), the library GEMMs (projections and expert products alike; the
+# expert products apart under ``device_ms_by_piece``), element-wise
+MOE_KERNEL_KINDS = (("B4", ("flash_fwd",)), ("B5", ("decode_split",)),
+                    ("index", ("index", "scatter", "gather", "scan",
+                               "ArgMax", "cumsum")),
+                    ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                    ("elementwise", ("elementwise_kernel",)))
+MOE_RANGES = ("moe.layer", "moe.expert_gemm")
+
+
+@contextlib.contextmanager
+def _moe_ranges(moe):
+    """Name the MoE layer (``moe._dispatch_ffn`` or ``_dense_moe``) and
+    its expert products (``moe._bmm``) in a torch.profiler trace; yields
+    MOE_RANGES."""
+    from unittest import mock
+    from torch.profiler import record_function
+
+    def ranged(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for name, label in (("_dispatch_ffn", "moe.layer"),
+                            ("_dense_moe", "moe.layer"),
+                            ("_bmm", "moe.expert_gemm")):
+            stack.enter_context(mock.patch.object(
+                moe, name, ranged(label, getattr(moe, name))))
+        yield MOE_RANGES
+
+
+def drive_moe_lm(m):
+    """Phase 12d: mixtral-8x7b ``CONFIG`` cut to MOE_LAYERS layers, bf16,
+    random weights from the seed, served with phase 8's flow and sizes
+    (MOE_GEN tokens a request; B4 once per layer and admission, B5 once per
+    layer and decode step, B6 never, no plain version reached) plus one
+    MOE_LONG_PROMPT-token request through the rolling cache; a profile of a
+    2048-token prefill and a 4-lane decode step (device ms by kind and the
+    MoE layer's pieces); the kernel path against the plain path on a
+    1500-token request (bf16 at full width with SDPA's drift beside it,
+    bf16 at MOE_ROUTE_LAYERS and f32 at LM_F32_LAYERS layers, the routes
+    forced from the plain run). Frees the model. Returns the
+    report and the serving launches."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(m.get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    served, edges = drive_lm_serving(
+        cfg, params, m.lm, m.batching, m.state, m.heuristics, m.build, m.ref,
+        m.ops, gen_len=MOE_GEN,
+        long_request=(MOE_LONG_PROMPT, MOE_LONG_MAX_SEQ))
+    print(f"moe lm serving: {json.dumps(served)}", flush=True)
+    profiled = profile_lm(cfg, params, m.lm, edges[2],
+                          kinds=MOE_KERNEL_KINDS,
+                          ranges=lambda: _moe_ranges(m.moe))
+    for unit in profiled.values():  # the layer apart from its products
+        pieces = unit["device_ms_by_piece"]
+        pieces["moe.route_dispatch_combine"] = (pieces["moe.layer"]
+                                                - pieces["moe.expert_gemm"])
+    print(f"moe lm profile: {json.dumps(profiled)}", flush=True)
+    del edges
+    torch.cuda.empty_cache()
+    parity = lm_kernel_vs_plain(cfg, params, m.lm, m.ops, m.ref, moe=m.moe,
+                                f32_layers=LM_F32_LAYERS, library=True)
+    print(f"moe lm kernel vs plain: {json.dumps(parity)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out = {"serving": served, "profile": profiled, "kernel_vs_plain": parity,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"moe lm phase: {out['phase_s']:.1f} s", flush=True)
+    return out, served["launches"]
+
+
+def _vlm_inputs(cfg, batch, prompt_len, grid, n_decode, seed=7,
+                device="cuda"):
+    """{"prefill": {"embeds", "positions"}, "decode": [{"token",
+    "positions"}]}: ``batch`` prompts of random patch embeddings (std 0.02,
+    as the embedding table's rows) with qwen2-vl's M-RoPE ids: VLM_TEXT
+    text tokens at (p, p, p), an image of ``grid`` patches at t =
+    VLM_TEXT, h = VLM_TEXT + row, w = VLM_TEXT + column, then text again
+    from one past the largest id; the ``n_decode`` decode steps' random
+    tokens continue the text ids, which run behind the sequence position
+    (``cache["pos"]``) once an image has been seen."""
+    rows, cols = grid
+    check(VLM_TEXT + rows * cols <= prompt_len, "the image does not fit")
+    t = list(range(VLM_TEXT))
+    h, w = list(t), list(t)
+    for r in range(rows):
+        for c in range(cols):
+            t.append(VLM_TEXT)
+            h.append(VLM_TEXT + r)
+            w.append(VLM_TEXT + c)
+    nxt = VLM_TEXT + max(rows, cols)
+    while len(t) < prompt_len + n_decode:
+        t.append(nxt)
+        h.append(nxt)
+        w.append(nxt)
+        nxt += 1
+    ids = torch.tensor([t, h, w], dtype=torch.int32)[:, None].expand(
+        3, batch, -1)
+    gen = torch.Generator().manual_seed(seed)
+    embeds = 0.02 * torch.randn(batch, prompt_len, cfg.d_model, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (n_decode, batch),
+                           generator=gen, dtype=torch.int32)
+    return {"prefill": {
+        "embeds": embeds.to(device),
+        "positions": ids[:, :, :prompt_len].contiguous().to(device)},
+        "decode": [{"token": tokens[i].to(device),
+                    "positions": ids[:, :, prompt_len + i].contiguous().to(
+                        device)} for i in range(n_decode)]}
+
+
+def drive_vlm_lm(m):
+    """Phase 12e: qwen2-vl-72b's backbone ``CONFIG`` cut to VLM_LAYERS
+    layers, bf16, random weights from the seed: one prefill of VLM_BATCH
+    prompts from patch embeddings with (3, B, S) positions whose rows
+    differ, then VLM_DECODE greedy decode steps of text tokens with their
+    M-RoPE rows; B4 once per layer in the prefill, B5 once per layer and
+    step, B6 never, no plain version reached; the same profile as phase
+    12d; the kernel path against the plain path on a 1500-token prompt with
+    a VLM_PARITY_GRID image (bf16 at full width with SDPA's drift beside
+    it, f32 at LM_F32_LAYERS layers). Frees the model. Returns the report, the launches and a copy
+    of layer 0's cache (B5's timing input)."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(m.get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    head = m.lm.head_f32(params, cfg)
+    inputs = _vlm_inputs(cfg, VLM_BATCH, VLM_PROMPT, VLM_GRID, VLM_DECODE)
+    max_seq = VLM_PROMPT + VLM_DECODE + 8  # the profile's steps fit too
+    m.lm.prefill(params, inputs["prefill"], cfg, max_seq=max_seq, head=head)
+    torch.cuda.synchronize()
+    names = ("flash_attention", "decode_attention", "mamba_scan")
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops):
+        guard.enter_context(patch)
+    m.build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, logits = m.lm.prefill(params, inputs["prefill"], cfg,
+                                 max_seq=max_seq, head=head)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = {k: m.build.LAUNCHES[k] for k in names}
+    step_ms, tokens = [], []
+    for batch in inputs["decode"]:
+        batch = dict(batch, token=torch.argmax(
+            logits[:, :cfg.vocab_size], -1).to(torch.int32))
+        t0 = time.perf_counter()
+        cache, logits = m.lm.decode_step(params, cache, batch, cfg,
+                                         head=head)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(batch["token"].tolist())
+    launches = {k: m.build.LAUNCHES[k] for k in names}
+    guard.close()
+    n_layers = cfg.num_layers
+    check(after_prefill == {"flash_attention": n_layers,
+                            "decode_attention": 0, "mamba_scan": 0},
+          f"the prefill launched {after_prefill}, not B4 {n_layers} times")
+    check(launches == {"flash_attention": n_layers,
+                       "decode_attention": n_layers * VLM_DECODE,
+                       "mamba_scan": 0},
+          f"launched {launches}, not B4 {n_layers} and B5 "
+          f"{n_layers * VLM_DECODE} times")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (VLM_BATCH, cfg.padded_vocab),
+          "malformed decode logits")
+    check(cache["pos"].tolist() == [VLM_PROMPT + VLM_DECODE] * VLM_BATCH,
+          f"cache positions {cache['pos'].tolist()}")
+    served = {
+        "arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+        "layers": n_layers,
+        "params": sum(t.numel() for t in _leaves(params)),
+        "batch": VLM_BATCH, "prompt_tokens": VLM_PROMPT,
+        "image_patches": VLM_GRID[0] * VLM_GRID[1],
+        "decode_steps": VLM_DECODE, "launches": launches,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": VLM_BATCH * VLM_PROMPT / prefill_ms * 1e3,
+        "decode_step_ms": {"p50": float(np.percentile(step_ms, 50)),
+                           "p95": float(np.percentile(step_ms, 95)),
+                           "n": len(step_ms)},
+        "decode_tokens_per_s": VLM_BATCH * len(step_ms) / sum(step_ms) * 1e3,
+        "greedy_tokens": tokens,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    print(f"vlm lm: {json.dumps(served)}", flush=True)
+    vlm_cache = tuple(t.clone() for t in (
+        cache["layers"]["k"][0], cache["layers"]["v"][0], cache["slot_pos"],
+        cache["pos"]))
+    del head
+    profiled = profile_lm(cfg, params, m.lm, prefill_batch=inputs["prefill"],
+                          decode_cache=cache, decode_batch=inputs["decode"][0],
+                          kinds=MOE_KERNEL_KINDS)
+    print(f"vlm lm profile: {json.dumps(profiled)}", flush=True)
+    del cache, inputs
+    torch.cuda.empty_cache()
+    parity = lm_kernel_vs_plain(
+        cfg, params, m.lm, m.ops, m.ref, f32_layers=LM_F32_LAYERS,
+        library=True,
+        inputs=_vlm_inputs(cfg, 1, 1500, VLM_PARITY_GRID, 16, seed=8))
+    print(f"vlm lm kernel vs plain: {json.dumps(parity)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out = {"serving": served, "profile": profiled, "kernel_vs_plain": parity,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"vlm lm phase: {out['phase_s']:.1f} s", flush=True)
+    return out, launches, vlm_cache
+
+
 def edge_cache(edge):
     """Layer 0's K and V, the slot positions and positions of ``edge``'s
     batch cache, copied so that they outlive the model."""
@@ -3966,7 +4498,8 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches):
     return row
 
 
-def attention_timings(ops, ref, da, cache, launches, errs, fa, attention):
+def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
+                      vlm_cache):
     """B4 and B5 at the main paths' shapes, each held against its plain
     version on the inputs it is timed on (that error is the row's
     ``max_abs_err``; ``compare_max_abs_err`` is compare_attention's), beside
@@ -3979,7 +4512,12 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention):
     at hymba's rolled 4-lane cache (HYMBA_CACHE). The hymba readings go
     into each row under ``hymba_shape``; B4 storing its lse at olmo-1b's
     training shape (8, 1024, 16, 16, 128) under ``training_shape``, and the
-    pair-scan backward there beside SDPA's under ``training_backward``."""
+    pair-scan backward there beside SDPA's under ``training_backward``.
+    Under ``mixtral_shapes``: B4 at mixtral-8x7b's 2048-token prefill and
+    a 4500-token one past its 4096 window, B5 at its rolled 4-lane cache
+    (MIXTRAL_CACHE); under ``qwen2_vl_shape``: B4 at qwen2-vl-72b's
+    (2, 2048, 64, 8, 128) prefill, B5 at the phase 12e cache after its
+    decode steps (``vlm_cache``)."""
     gen = torch.Generator().manual_seed(31)
     b4 = _flash_row(ops, ref, gen, 1, 2048, 32, 8, 128, None,
                     launches["flash_attention"])
@@ -3996,8 +4534,24 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention):
     b, w, h, kv, hd, dtype, fills, roll, window = HYMBA_CACHE
     hymba = _decode_row(ops, ref, da, gen, _slot_cache(
         gen, b, w, kv, hd, dtype, fills, roll), h, window, {})
-    b5["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS + (
-        "valid_slot_share", "split_plan", "split_sweep")}
+    b5_keys = SHAPE_KEYS + ("valid_slot_share", "split_plan", "split_sweep")
+    b5["hymba_shape"] = {k: hymba[k] for k in b5_keys}
+    b4["mixtral_shapes"] = {
+        label: {k: row[k] for k in SHAPE_KEYS} for label, row in (
+            ("prefill_2048", _flash_row(ops, ref, gen, 1, 2048, 32, 8, 128,
+                                        4096, {})),
+            ("prefill_4500_window", _flash_row(ops, ref, gen, 1, 4500, 32,
+                                               8, 128, 4096, {})))}
+    b, w, h, kv, hd, dtype, fills, roll, window = MIXTRAL_CACHE
+    mixtral = _decode_row(ops, ref, da, gen, _slot_cache(
+        gen, b, w, kv, hd, dtype, fills, roll), h, window, {})
+    b5["mixtral_shapes"] = {"rolled_4_lanes": {k: mixtral[k]
+                                               for k in b5_keys}}
+    vlm = _flash_row(ops, ref, gen, VLM_BATCH, VLM_PROMPT, 64, 8, 128, None,
+                     {})
+    b4["qwen2_vl_shape"] = {k: vlm[k] for k in SHAPE_KEYS}
+    vlm = _decode_row(ops, ref, da, gen, vlm_cache, 64, None, {})
+    b5["qwen2_vl_shape"] = {k: vlm[k] for k in b5_keys}
     b5["compare_max_abs_err"] = errs["decode_attention"]
     return [b4, b5]
 
@@ -4155,7 +4709,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models import attention as lm_attention
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.nn import named_leaves, param_count
     from repro_torch import resilience
     from repro_torch import workloads as wl
@@ -4412,6 +4966,19 @@ def main() -> int:
         for name in SCAN_BWD_NAMES)
     torch.cuda.empty_cache()
 
+    # phase 12d: mixtral-8x7b at 24 of its 32 layers, full width, bf16:
+    # served through B4 and B5 with the MoE layer's capacity dispatch
+    lm_ns = types.SimpleNamespace(
+        lm=lm, batching=batching, state=state, heuristics=heuristics,
+        build=build, ref=ref, ops=ops, moe=moe, get_config=get_config)
+    moe_lm, counts = drive_moe_lm(lm_ns)
+    record("moe_lm_serving", counts)
+
+    # phase 12e: the qwen2-vl-72b backbone at 32 of its 80 layers: a
+    # prefill from patch embeddings with M-RoPE rows, then decode steps
+    vlm_lm, counts, vlm_cache = drive_vlm_lm(lm_ns)
+    record("vlm_lm", counts)
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
@@ -4419,7 +4986,7 @@ def main() -> int:
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
                       rollout_inputs[0], temporal_inputs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs,
-                                 fa, lm_attention)
+                                 fa, lm_attention, vlm_cache)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
@@ -4439,6 +5006,7 @@ def main() -> int:
         "lm_kernel_vs_plain": lm_parity, "lm_profile": lm_profile,
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "lm_training": lm_training, "ssm_lm_training": ssm_training,
+        "moe_lm": moe_lm, "vlm_lm": vlm_lm,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -4491,6 +5059,37 @@ def main() -> int:
                                                    "device_ms_by_kind")}}
                           for label in ("hybrid", "ssm")}
                       | {"phase_s": ssm_training["phase_s"]},
+                      "moe_lm": {
+                          k: moe_lm["serving"][k] for k in (
+                              "decode_step_ms", "decode_tokens_per_s",
+                              "max_memory_allocated_bytes")}
+                      | {"profile": {u: {k: moe_lm["profile"][u][k] for k in (
+                          "wall_ms", "device_busy_ms", "idle_share",
+                          "kernels_per_unit", "device_ms_by_kind",
+                          "device_ms_by_piece")}
+                          for u in ("prefill", "decode")},
+                         "kernel_vs_plain": {
+                             d: {k: moe_lm["kernel_vs_plain"][d][k] for k in
+                                 ("max_rel_err", "routes")}
+                             for d in ("bf16", "bf16_cut", "f32")}
+                         | {"library_attention": moe_lm["kernel_vs_plain"][
+                             "bf16"]["library_attention"]},
+                         "phase_s": moe_lm["phase_s"]},
+                      "vlm_lm": {
+                          k: vlm_lm["serving"][k] for k in (
+                              "prefill_ms", "decode_step_ms",
+                              "decode_tokens_per_s",
+                              "max_memory_allocated_bytes")}
+                      | {"profile": {u: {k: vlm_lm["profile"][u][k] for k in (
+                          "wall_ms", "device_busy_ms", "idle_share",
+                          "kernels_per_unit", "device_ms_by_kind")}
+                          for u in ("prefill", "decode")},
+                         "kernel_vs_plain": {
+                             d: vlm_lm["kernel_vs_plain"][d]["max_rel_err"]
+                             for d in ("bf16", "f32")}
+                         | {"library_attention": vlm_lm["kernel_vs_plain"][
+                             "bf16"]["library_attention"]["max_rel_err"]},
+                         "phase_s": vlm_lm["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

@@ -1,12 +1,14 @@
 """Shared LM building blocks: norm dispatch, qk-norm, rotary position
-embeddings and the mamba front's causal depthwise conv (counterpart of
+embeddings (incl. qwen2-vl's multimodal M-RoPE), whisper's sinusoidal
+table and the mamba front's causal depthwise conv (counterpart of
 ``repro/models/common.py``).
 
 Parameters are plain tensors in nested dicts with the reference's leaf
-names. M-RoPE and the sinusoidal table wait for the VLM and audio slices
-(ROADMAP A11).
+names.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -69,12 +71,9 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Split-halves RoPE. x: (..., S, H, hd); positions broadcastable to
-    (..., S). Angles in f32; returns x's dtype."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., :, None].float() * freqs  # (..., S, hd/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Split-halves rotation of x (..., S, H, hd) by f32 angles (..., S,
+    hd/2); returns x's dtype."""
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -82,14 +81,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-halves RoPE. x: (..., S, H, hd); positions broadcastable to
+    (..., S). Angles in f32; returns x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., :, None].float() * freqs)
+
+
+def _slot_axes(sections, slots: int) -> list[int]:
+    """The position row (0 = t, 1 = h, 2 = w) of each of the ``slots``
+    frequency slots: ``sections[a]`` slots of row a in turn, cut to
+    ``slots`` or padded with the last row (``jnp.repeat`` with
+    ``total_repeat_length``)."""
+    axes = [a for a, n in enumerate(sections) for _ in range(n)]
+    return (axes + axes[-1:] * slots)[:slots]
+
+
+def apply_mrope(x: torch.Tensor, position_ids: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (..., S, H, hd); position_ids: (3, ...,
+    S), the (t, h, w) rows; ``sections`` split the hd/2 frequency slots
+    across the three rows. Angles in f32; returns x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    axes = torch.tensor(_slot_axes(sections, hd // 2), device=x.device)
+    # (..., S, hd/2): each slot's position, taken from its row
+    per_slot = position_ids.float().movedim(0, -1)[..., axes]
+    return _rotate(x, per_slot * freqs)
+
+
 def position_encode(cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
-    """q/k position encoding. positions: (..., S) int."""
+    """q/k position encoding. positions: (..., S) int, or (3, ..., S) for
+    M-RoPE."""
     if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: it waits for the VLM part "
-            "of ROADMAP A11")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (S, dim) in f32: sin in the
+    even columns, cos in the odd."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-math.log(10_000.0) * torch.arange(
+        0, dim, 2, dtype=torch.float32, device=device) / dim)
+    tab = torch.zeros((seq_len, dim), dtype=torch.float32, device=device)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab
 
 
 # ---------------------------------------------------------------------------

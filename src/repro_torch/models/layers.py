@@ -1,10 +1,11 @@
-"""Per-layer blocks of the LM: attention (prefill + decode), the MLP and
-the decoder layer of the dense, SSM (falcon-mamba) and hybrid (hymba)
-families (counterpart of ``repro/models/layers.py``).
+"""Per-layer blocks of the LM: attention (prefill + decode), the MLP or
+MoE and the decoder layer of the dense, MoE (mixtral), VLM backbone
+(qwen2-vl, M-RoPE), SSM (falcon-mamba) and hybrid (hymba) families
+(counterpart of ``repro/models/layers.py``).
 
 Parameters are nested dicts of tensors with the reference's leaf names and
-(in, out) layouts. MoE (mixtral) and the whisper encoder/decoder layers are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+(in, out) layouts. The whisper encoder/decoder layers are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (dense, norm_apply, norm_init,
                                        position_encode, rms_head_norm)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
 
@@ -22,9 +24,6 @@ from repro_torch.nn.module import normal_init
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the layer families this port does not have yet (called
     where params and caches are made, ``lm.init_params`` / ``init_cache``)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers (mixtral) wait for ROADMAP A11")
     if cfg.encoder_decoder or cfg.family == "audio":
         raise NotImplementedError(
             "the whisper encoder/decoder layers wait for ROADMAP A11")
@@ -77,16 +76,28 @@ def attn_forward(p, x, positions, cfg: ModelConfig, *, causal: bool = True):
     return out, (k, v)
 
 
-def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
+def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
+                positions=None):
     """One-token attention through B5. x_t: (B, D); layer_cache: {"k", "v"}
-    (B, W, KV, hd); slot_pos (B, W) already holds ``pos`` in its slot.
+    (B, W, KV, hd); slot_pos (B, W) already holds ``pos`` (B,), the
+    sequence position, in its slot; ``positions`` (3, B) are the M-RoPE
+    rows (``pos`` on each row by default).
 
     The new K/V row is written into slot ``pos % W`` of the cache in place
     (the reference blends it in with a one-hot mask,
     ``repro/models/layers.py:90-92``; for finite caches the result is the
-    same). Returns (out (B, D), layer_cache)."""
+    same). The slot and the causal mask follow ``pos``, as ``slot_pos``
+    does; M-RoPE takes only its angles from ``positions``. (The reference
+    keys both by the t row, which disagrees with its ``slot_pos`` wherever
+    t is not the sequence position: ROADMAP C10.) Returns (out (B, D),
+    layer_cache)."""
     b = x_t.shape[0]
-    q, k, v = _project_qkv(p, x_t[:, None, :], cfg, pos[:, None])
+    if cfg.mrope:
+        rope_pos = (pos[None].expand(3, b) if positions is None
+                    else positions)[..., None]
+    else:
+        rope_pos = pos[:, None]
+    q, k, v = _project_qkv(p, x_t[:, None, :], cfg, rope_pos)
     q = q[:, 0]  # (B, H, hd)
     w = layer_cache["k"].shape[1]
     rows = torch.arange(b, device=x_t.device)
@@ -126,7 +137,7 @@ def mlp_apply(p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# decoder layer (dense / ssm / hybrid)
+# decoder layer (dense / moe / vlm / ssm / hybrid)
 # ---------------------------------------------------------------------------
 
 
@@ -144,7 +155,10 @@ def layer_init(generator: torch.Generator, cfg: ModelConfig, dtype,
         p["ssm_branch_norm"] = torch.ones((cfg.d_model,),
                                           dtype=torch.float32, device=device)
     p["ln2"] = norm_init(cfg, cfg.d_model, device)
-    p["mlp"] = mlp_init(generator, cfg, dtype, device)
+    if cfg.num_experts:
+        p["moe"] = moe_init(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, dtype, device)
     return p
 
 
@@ -160,33 +174,43 @@ def _hybrid_mix(p, a, s):
                   + _branch_rms(p["ssm_branch_norm"], s))
 
 
-def layer_forward(p, x, positions, cfg: ModelConfig):
+def layer_forward(p, x, positions, cfg: ModelConfig, dp_groups: int = 1):
     """Full-sequence decoder layer. Returns (x, (k, v) or None, SSM state
-    {"h", "conv"} or None)."""
+    {"h", "conv"} or None, the MoE layer's load-balance loss or None
+    without experts (the reference's 0))."""
     h = norm_apply(cfg, p["ln1"], x)
     if cfg.family == "ssm":
         y, ssm_state = ssm_apply(p["ssm"], h, cfg)
-        return x + y, None, ssm_state
+        return x + y, None, ssm_state, None
     a, kv = attn_forward(p["attn"], h, positions, cfg, causal=True)
     ssm_state = None
     if cfg.hybrid:
         s, ssm_state = ssm_apply(p["ssm"], h, cfg)
         a = _hybrid_mix(p, a, s)
     x = x + a
-    y = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg)
-    return x + y, kv, ssm_state
+    h2 = norm_apply(cfg, p["ln2"], x)
+    if cfg.num_experts:
+        y, aux = moe_apply(p["moe"], h2, cfg, dp_groups)
+        return x + y, kv, ssm_state, aux
+    return x + mlp_apply(p["mlp"], h2, cfg), kv, ssm_state, None
 
 
-def layer_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig):
+def layer_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
+                 positions=None):
     """One-token decoder layer. x_t: (B, D); layer_cache holds this layer's
     "k", "v" (attention) and "h", "conv" (SSM) views of the cache, updated
-    in place. Returns x_t."""
+    in place; ``positions`` the M-RoPE rows (:func:`attn_decode`). The MoE
+    sees the B tokens as (B, 1, D), as the reference's does. Returns
+    x_t."""
     h = norm_apply(cfg, p["ln1"], x_t)
     if cfg.family == "ssm":
         return x_t + ssm_decode_step(p["ssm"], h, layer_cache, cfg)
-    a, _ = attn_decode(p["attn"], h, layer_cache, slot_pos, pos, cfg)
+    a, _ = attn_decode(p["attn"], h, layer_cache, slot_pos, pos, cfg,
+                       positions)
     if cfg.hybrid:
         a = _hybrid_mix(p, a, ssm_decode_step(p["ssm"], h, layer_cache, cfg))
     x_t = x_t + a
-    y = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x_t), cfg)
-    return x_t + y
+    h2 = norm_apply(cfg, p["ln2"], x_t)
+    if cfg.num_experts:
+        return x_t + moe_apply(p["moe"], h2[:, None, :], cfg)[0][:, 0]
+    return x_t + mlp_apply(p["mlp"], h2, cfg)

@@ -5,8 +5,10 @@ tensors with the reference's leaf names:
 
     init_params(cfg, generator=..., device=...) -> params
     train_loss(params, batch, cfg, dp_groups)  -> (loss, metrics)
-    prefill(params, batch, cfg, max_seq=None)  -> (cache, last_logits)
-    decode_step(params, cache, batch, cfg)     -> (cache, logits)
+    prefill(params, batch, cfg, max_seq=None, head=None, dp_groups=1)
+                                               -> (cache, last_logits)
+    decode_step(params, cache, batch, cfg, head=None)
+                                               -> (cache, logits)
     init_cache(cfg, batch, max_seq, device)    -> cache
 
 ``params["layers"]`` is a list with one dict per layer where the reference
@@ -18,12 +20,18 @@ hybrid) ``layers/h`` (L, B, d_inner, N) and ``layers/conv`` (L, B, K-1,
 d_inner), both f32. ``decode_step`` updates the cache in place and returns
 it.
 
-The dense (olmo, qwen3, mistral-large, llama3), SSM (falcon-mamba) and
-hybrid (hymba) families run here; MoE and whisper raise
-``NotImplementedError`` (see ``layers.check_family``). ``train_loss`` runs
+The dense (olmo, qwen3, mistral-large, llama3), MoE (mixtral), VLM
+backbone (qwen2-vl: embeddings in, (3, B, S) M-RoPE positions), SSM
+(falcon-mamba) and hybrid (hymba) families run here; whisper raises
+``NotImplementedError`` (see ``layers.check_family``). ``prefill``'s
+``dp_groups`` is the MoE dispatch's token groups, as in the reference; a
+decode step dispatches its B tokens as one group. ``train_loss`` runs
 every layer under ``cfg.remat`` (``torch.utils.checkpoint``); on the card
 attention trains through B4 and its pair-scan backward, and the SSM block
 through B6's gated entry and its backward B6b (``ops.MambaScanGated``).
+MoE training is refused (:func:`check_trainable`): it waits for
+``train_loss``'s load-balance term and ``dp_groups`` through
+``launch/steps.py`` (ROADMAP A11).
 The optimizers and checkpoints name every leaf by its "/"-path
 (``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...``.
 
@@ -137,12 +145,15 @@ def _logits(params, cfg: ModelConfig, x, head=None) -> torch.Tensor:
     return logits
 
 
-def _run_layers(params, cfg: ModelConfig, x, positions):
+def _run_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
     """The decoder stack. Returns (x, {"k", "v"}: (L, B, S, KV, hd) or None
-    without attention, {"h", "conv"}: (L, B, ...) or None without an SSM)."""
+    without attention, {"h", "conv"}: (L, B, ...) or None without an SSM).
+    The MoE layers' load-balance losses are dropped, as the reference's
+    prefill drops them."""
     outs = {"k": [], "v": [], "h": [], "conv": []}
     for p_layer in params["layers"]:
-        x, kv, ssm_state = L.layer_forward(p_layer, x, positions, cfg)
+        x, kv, ssm_state, _ = L.layer_forward(p_layer, x, positions, cfg,
+                                              dp_groups)
         if kv is not None:
             outs["k"].append(kv[0])
             outs["v"].append(kv[1])
@@ -177,11 +188,17 @@ def _train_layers(params, cfg: ModelConfig, x, positions):
 
 def check_trainable(cfg: ModelConfig, device) -> None:
     """Raise, before anything is allocated, where :func:`train_loss` cannot
-    run on ``device``: the families ``check_family`` refuses. Every other
-    family trains on either device (on the card the SSM block's scan
-    through B6 and its backward B6b)."""
+    run on ``device``: the families ``check_family`` refuses, and MoE,
+    whose training needs the loss's ``0.01 * aux`` term and ``dp_groups``
+    through ``launch/steps.py``. Every other family trains on either device
+    (on the card the SSM block's scan through B6 and its backward B6b)."""
     del device  # no family is refused on one device only
     L.check_family(cfg)
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE training (mixtral) waits for ROADMAP A11's MoE-training "
+            "step: train_loss's 0.01 * aux term and dp_groups through "
+            "launch/steps.py; MoE serving (prefill, decode_step) runs")
 
 
 def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):
@@ -191,9 +208,10 @@ def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):
     the log-sum-exp of the shifted logits, the label's logit picked by
     comparison with an iota (labels < 0 read label 0 and are masked out),
     the mean over unmasked labels (at least 1). ``aux`` (the MoE load
-    balancing loss) is 0 for every family the port runs; ``dp_groups``
-    (MoE dispatch groups) is unused."""
-    L.check_family(cfg)
+    balancing loss) is 0 for every family that trains here (MoE is refused
+    by :func:`check_trainable`); ``dp_groups`` (MoE dispatch groups) is
+    unused."""
+    check_trainable(cfg, None)
     labels = batch["labels"]
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
@@ -255,13 +273,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 
 def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
-            head=None):
+            head=None, dp_groups: int = 1):
     """Process the full prompt (``batch["tokens"]`` (B, S) or
-    ``batch["embeds"]``); return (cache, last-token logits (B, V_pad))."""
+    ``batch["embeds"]``, optional ``batch["positions"]``: (3, B, S) for
+    M-RoPE); return (cache, last-token logits (B, V_pad))."""
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, batch, b, s, x.device)
-    x, kvs, ssm_states = _run_layers(params, cfg, x, positions)
+    x, kvs, ssm_states = _run_layers(params, cfg, x, positions, dp_groups)
     cache = init_cache(cfg, b, max_seq or s, x.device)
     if kvs is not None:
         cache = _fill_kv(cache, kvs, cfg, s)
@@ -300,15 +319,20 @@ def _fill_kv(cache, kvs, cfg: ModelConfig, s: int):
 
 def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     """One token for every sequence. batch: {"token": (B,)} or {"embed":
-    (B, D)}. Updates ``cache`` in place (the new slot position and each
-    layer's K/V row where there is attention, each layer's SSM state where
-    there is an SSM, ``pos`` + 1) and returns (cache, logits (B, V_pad))."""
+    (B, D)}, and for M-RoPE optional "positions" (3, B), ``cache["pos"]``
+    on each row by default. Updates ``cache`` in place (the new slot
+    position and each layer's K/V row where there is attention, each
+    layer's SSM state where there is an SSM, ``pos`` + 1) and returns
+    (cache, logits (B, V_pad)). The K/V slot and the causal mask follow
+    ``cache["pos"]``; the M-RoPE rows only rotate q and k
+    (``layers.attn_decode``, ROADMAP C10)."""
     if "embed" in batch:
         x = batch["embed"].to(_dtype(cfg))
     else:
         x = params["embed"][batch["token"]]
     b = x.shape[0]
     pos = cache["pos"]
+    positions = batch.get("positions") if cfg.mrope else None
     slot_pos = cache.get("slot_pos")
     if slot_pos is not None:
         rows = torch.arange(b, device=x.device)
@@ -316,7 +340,8 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     layers = cache["layers"]
     for i, p_layer in enumerate(params["layers"]):
         x = L.layer_decode(p_layer, x, {key: t[i] for key, t in
-                                        layers.items()}, slot_pos, pos, cfg)
+                                        layers.items()}, slot_pos, pos, cfg,
+                           positions)
     logits = _logits(params, cfg, x, head)
     cache["pos"] = pos + 1
     return cache, logits

@@ -400,8 +400,8 @@ def test_train_resumes_at_the_batch_after_the_checkpoint(tmp_path):
 
 def test_train_lm_names_what_is_missing(monkeypatch):
     """``train lm`` runs (tests/test_torch_lm_train.py); what it still
-    lacks is named before anything is allocated: MoE layers (mixtral) wait
-    for ROADMAP A11."""
+    lacks is named before anything is allocated: MoE training (mixtral)
+    waits for ROADMAP A11."""
     monkeypatch.setattr(ttrain_cli, "resolve_device", torch.device)
     with pytest.raises(RuntimeError, match="A11"):
         ttrain_cli.main(["lm", "--arch", "mixtral-8x7b", "--device",

@@ -604,6 +604,118 @@ def test_lm_on_the_card_matches_the_cpu(cuda_device, arch):
                                cache_c["layers"]["k"], atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd,dtype,window", [
+    # mixtral heads (G = 4) with its 4096 window, a prompt past it
+    (1, 4500, 32, 8, 128, torch.bfloat16, 4096),
+    (1, 4500, 32, 8, 128, torch.float32, 4096),
+    # qwen2-vl heads (G = 8)
+    (2, 700, 64, 8, 128, torch.bfloat16, None),
+    (2, 700, 64, 8, 128, torch.float32, None),
+])
+def test_flash_attention_at_mixtral_and_qwen2_vl_heads(
+        cuda_device, b, s, h, kv, hd, dtype, window):
+    """B4 at the MoE and VLM families' head shapes, causal: within the
+    bars of its plain version, the same bits on two calls."""
+    gen = torch.Generator().manual_seed(s + h)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (h, kv, kv))
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    again = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_torch(q, k, v, causal=True, window=window)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("b,w,h,kv,hd,dtype,fills,window,roll", [
+    # mixtral's 4-lane cache rolled past its 4096 window (three lanes),
+    # one lane partly filled
+    (4, 4096, 32, 8, 128, torch.bfloat16, (0, 0, 1500, 0), 4096,
+     (404, 4097, None, 1)),
+    (2, 4096, 32, 8, 128, torch.float32, (0, 3000), 4096, (404, None)),
+    # qwen2-vl heads: G * hd = 1024
+    (4, 4096, 64, 8, 128, torch.bfloat16, (1, 700, 2600, 4096), None, None),
+    (2, 512, 64, 8, 128, torch.float32, (100, 512), None, None),
+])
+def test_decode_attention_at_mixtral_and_qwen2_vl_heads(
+        cuda_device, b, w, h, kv, hd, dtype, fills, window, roll):
+    """B5 at the MoE and VLM families' head shapes: within the bars of its
+    plain version, the same bits on two calls."""
+    kc, vc, slot_pos, pos = _cache(b, w, kv, hd, fills, dtype, cuda_device,
+                                   rolling_from=roll)
+    q = torch.randn(b, h, hd, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda_device, dtype)
+    got = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    again = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos, window=window)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-vl-72b"])
+def test_moe_and_vlm_lm_on_the_card_match_the_cpu(cuda_device, arch):
+    """Reduced f32 mixtral (a 45-token prompt past its 16-token window,
+    the capacity dispatch in prefill and decode) and qwen2-vl (embeddings
+    with three distinct M-RoPE rows): prefill and three decode steps on
+    the card against the CPU, logits to 1e-4; B4 once per layer of the
+    prefill, B5 once per layer of each step."""
+    cfg = get_reduced_config(arch)
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    s = 45
+    if cfg.mrope:
+        ids = torch.arange(s, dtype=torch.int32)
+        rows = torch.stack([ids, ids // 3, ids % 7])[:, None].expand(3, 2, s)
+        batch = {"embeds": torch.randn(2, s, cfg.d_model, generator=gen),
+                 "positions": rows.contiguous()}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s),
+                                         generator=gen, dtype=torch.int32)}
+    build.reset_launch_counts()
+    cache_g, lg = lm.prefill(gpu, {k: v.to(cuda_device)
+                                   for k, v in batch.items()}, cfg, max_seq=64)
+    cache_c, lc = lm.prefill(cpu, batch, cfg, max_seq=64)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    for step in range(3):
+        dec = {"token": torch.tensor([step + 3, 7 * step], dtype=torch.int32)}
+        if cfg.mrope:
+            dec["positions"] = torch.tensor([[s + step] * 2, [20] * 2,
+                                             [step] * 2], dtype=torch.int32)
+        cache_g, lg = lm.decode_step(gpu, cache_g, {
+            k: v.to(cuda_device) for k, v in dec.items()}, cfg)
+        cache_c, lc = lm.decode_step(cpu, cache_c, dec, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert build.LAUNCHES["decode_attention"] == 3 * cfg.num_layers
+    torch.testing.assert_close(cache_g["layers"]["k"].cpu(),
+                               cache_c["layers"]["k"], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dense_decode_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """The MoE layer's dense decode path (reduced mixtral, 4 tokens): its
+    output product is one GEMM with an f32 result on the card (bf16
+    operands in bf16), against the CPU's product on f32 copies: f32 within
+    1e-5 of the largest |entry|, bf16 at the bf16 bar."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_reduced_config("mixtral-8x7b"),
+                              moe_dense_decode=True)
+    gen = torch.Generator().manual_seed(5)
+    p = moe.moe_init(gen, cfg, dtype)
+    x = torch.randn(4, 1, cfg.d_model, generator=gen).to(dtype)
+    y_c, aux_c = moe.moe_apply(p, x, cfg)
+    y_g, aux_g = moe.moe_apply(_to(p, cuda_device), x.to(cuda_device), cfg)
+    assert y_g.dtype == dtype
+    torch.testing.assert_close(aux_g.cpu(), aux_c, atol=1e-6, rtol=0)
+    scale = float(y_c.float().abs().max())
+    if dtype == torch.float32:
+        assert float((y_g.cpu() - y_c).abs().max()) <= 1e-5 * scale
+    else:
+        torch.testing.assert_close(y_g.cpu().float(), y_c.float(),
+                                   atol=2e-2 * scale, rtol=2e-2)
+
+
 def test_lm_edge_backend_on_the_card(cuda_device):
     """The serving loop on the card: every request finishes with its
     generation length; one phi observation per admission."""

@@ -6,8 +6,10 @@
 where the port fits ``a = 0`` and the reference keeps its previous
 coefficients (tested as such). ``LMEdgeBackend``
 runs with the reference's own weights, bridged, at reduced olmo-1b,
-qwen3-4b, falcon-mamba-7b (SSM) and hymba-1.5b (hybrid, a 16-token window)
-in f32 on the requests of ``tests/test_data_and_batching.py``, in
+qwen3-4b, falcon-mamba-7b (SSM), hymba-1.5b (hybrid, a 16-token window)
+and mixtral-8x7b (MoE: 4 experts top-2, the capacity dispatch in prefill
+and on the lanes' tokens in decode, a 16-token window) in f32 on the
+requests of ``tests/test_data_and_batching.py``, in
 lockstep with the reference's backend: the same prompts, the same finished
 counts, one phi observation per admission, and the same greedy tokens. A
 token is held exactly where the reference's top-2 logit gap exceeds 1e-4;
@@ -145,7 +147,7 @@ def _gapped(logits):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-4b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "mixtral-8x7b"])
 def test_lm_edge_backend_matches_reference(arch, monkeypatch):
     jcfg = j_reduced(arch)
     cfg = get_reduced_config(arch)

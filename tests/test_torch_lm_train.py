@@ -328,9 +328,10 @@ def test_train_lm_rejects_embedding_input_archs(arch, match):
 
 
 def test_train_lm_refuses_families_before_allocating():
-    """MoE is refused on either device before anything is allocated; the
-    SSM and hybrid families train on the card too (B6b), as the dense one
-    does."""
+    """MoE training (its load-balance term and dispatch groups) is refused
+    on either device before anything is allocated, though MoE serving runs;
+    the SSM and hybrid families train on the card too (B6b), as the dense
+    one does."""
     with pytest.raises(NotImplementedError, match="MoE"):
         launch_train.main(["lm", "--arch", "mixtral-8x7b", "--device", "cpu"])
     for device in ("cuda", "cpu"):
