@@ -114,7 +114,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bf16 head widths 16 to 128, windows causal and not, rolling caches
    (hymba's 4-lane cache past its 2048 window), a lane with no valid
    slot, one lane over 4096 slots and W = 1; each bit for bit across two
-   calls; and
+   calls; whisper's shapes (``compare_cross_attention``): B4 non-causal
+   over its encoder's (8, 1500, 6, 64), and with keys of their own length
+   (Sq in 1, 4, 65, 448 against Sk in 63, 1500), bf16 and f32, its lse
+   against the plain one, ``FlashAttention``'s gradients at (16, 448 |
+   1500, 6, 64) and (16, 1500 | 1500) against autograd through the plain
+   version (12b's bars), and the one-token cross attention through B5 on
+   the frames' slot map against the plain unmasked attention; and
    the selective scan B6 against its plain version at falcon-mamba's and
    hymba's prefill shapes, a ragged one and the reference sweep's, within
    the reference's 5e-4 and bit for bit across two calls; and B6's gated
@@ -207,8 +213,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     from its routing, dispatch and combine); a 1500-token request with 16
     teacher-forced steps through the kernel and the plain path, the plain
     run's routes forced on the kernel run: bf16 logits within 0.1 at full
-    depth (the routes that would differ reported, and beside them the same
-    readings with SDPA in place of B4 and B5), at the widths with 2 layers
+    depth (the routes that would differ reported), at the widths with 2 layers
     in bf16 (0.1; a differing route's plain gap within 0.03 of its token's
     largest |router logit|) and with 8 layers in f32 (1e-3; GAP);
 12e. the qwen2-vl-72b backbone (``drive_vlm_lm``): ``CONFIG`` cut to 32 of
@@ -218,8 +223,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
     their position rows: B4 32 times in the prefill, B5 32 times a step,
     B6 never, no plain version reached; the same profile; the kernel path
     against the plain path on a 1500-token prompt with a 30 x 40 image
-    (bf16 0.1 at full depth, SDPA's reported beside it; f32 1e-3 at 8
-    layers);
+    (bf16 0.1 at full depth; f32 1e-3 at 8 layers);
+12f. whisper-tiny (``drive_whisper_lm``): ``CONFIG`` (4 encoder and 4
+    decoder layers, d 384, bf16, random weights from the seed; nothing
+    cut): ``build_prefill`` on 8 utterances of 1,500 random frame
+    embeddings and a 4-token prompt into 448-slot caches, then 64 greedy
+    ``build_decode_step``s: B4 12 times in the prefill (4 encoder, 4
+    decoder self, 4 cross), B5 8 times a step (4 self, 4 cross over the
+    frames), B6 never, no plain version reached; prefill ms, step p50/p95,
+    a profiled prefill and 5 steps; kernel vs plain at full depth over the
+    prefill and 16 teacher-forced steps (f32 1e-3, bf16 0.1 of the largest
+    |logit|); ``build_train_step`` (Adam, remat "full") for 12 steps of 16
+    utterances x (1,500 frames, 448 tokens): losses and grad norms finite,
+    the loss falling, B4 24 times a step, step p50/p95, utterances/s, peak
+    memory, a profiled step; in f32 at full width ``train_loss`` through
+    the kernels against the plain path (loss 1e-5 relative, every gradient
+    1e-4 of its largest entry);
+12g. MoE training (``drive_moe_training``): ``launch.train lm --arch
+    mixtral-8x7b --scale full`` cut to 2 of its 32 layers (3.2 B
+    parameters) for 12 steps of 8 x 1024 tokens: losses, aux losses and
+    grad norms finite, the loss falling, B4 4 times a step, B5 and B6
+    never, no plain version reached; step p50/p95, tokens/s, peak memory,
+    a profiled step with the MoE layer's pieces; three steps run twice
+    from the seed give the same bits in every parameter; at 2 layers in f32
+    on 2 x 256 tokens, the plain run's routes forced, ``train_loss``
+    through the kernels against the plain path (loss 1e-5 relative,
+    ``aux_loss`` and every gradient 1e-4);
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -233,14 +262,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
     there), at mixtral-8x7b's 2048-token prefill and a 4500-token one past
     its window and at qwen2-vl-72b's (2, 2048) prefill, B5 at the 4-lane
     qwen3-4b edge's cache after serving, at hymba's and mixtral's rolled
-    4-lane caches and at phase 12e's cache, B6's gated
+    4-lane caches and at phase 12e's cache, B4 at whisper's encoder and
+    cross shapes (the prefill's 4 rows and training's 448, with lse) and
+    B5 on its frames' slot map, B6's gated
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape, and storing its chunk states at
     hymba-1.5b's training shape, and B6b there) beside their bounds, and
     print the ``{"kernels": [...]}`` line (seven rows, each with its
     launches on every main path above, the rollout's, temporal training's,
     the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
-    and phases 12d's and 12e's (``moe_lm_serving``, ``vlm_lm``) included;
+    and phases 12d's to 12g's (``moe_lm_serving``, ``vlm_lm``,
+    ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``)
+    included;
     B1 and B2 also timed at the temporal shapes, under
     ``temporal_shapes``).
 
@@ -338,10 +371,9 @@ MOE_LONG_MAX_SEQ = 8192
 # 3,032 routes) and below the 90th percentile at full depth (0.063;
 # PERF.md §6). At full depth in bf16 the routes are reported, not barred:
 # the bf16 hidden states drift apart over the layers (9.4 % of the logits
-# on an H100), so flips there are not confined to near-ties. Beside it the
-# same model runs with PyTorch's scaled_dot_product_attention in place of
-# B4 and B5 against the same plain run, the routes forced alike
-# (``library_attention``): the drift that a second bf16 attention shows
+# on an H100), so flips there are not confined to near-ties; PyTorch's
+# scaled_dot_product_attention in place of B4 and B5 drifts as far (10.3 %,
+# PERF.md §6), so the drift is bf16's, not the kernels'
 LM_F32_LAYERS = 8
 MOE_ROUTE_LAYERS = 2
 MOE_ROUTE_GAP = {"float32": GAP, "bfloat16": 0.03}
@@ -357,6 +389,39 @@ VLM_TEXT = 128
 VLM_GRID = (40, 44)
 VLM_DECODE = 16
 VLM_PARITY_GRID = (30, 40)   # kernel vs plain: a 1500-token prompt
+# phase 12f: whisper-tiny CONFIG (4 encoder and 4 decoder layers, d 384, 6
+# heads of 64, vocab 51,865, bf16, random weights from the seed; nothing
+# cut): WHISPER_BATCH utterances of WHISPER_FRAMES random frame embeddings
+# and a WHISPER_PROMPT-token prompt into caches of WHISPER_SLOTS slots
+# (whisper's text context), WHISPER_DECODE greedy decode steps; kernel vs
+# plain on WHISPER_PARITY_BATCH utterances and 16 teacher-forced steps;
+# training: WHISPER_TRAIN_BATCH utterances x (WHISPER_FRAMES frames,
+# WHISPER_SLOTS tokens) a step for TRAIN_LM_STEPS steps, Adam, remat
+# "full"; kernel vs plain ``train_loss`` in f32 on WHISPER_PARITY_BATCH
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_BATCH = 8
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 4
+WHISPER_SLOTS = 448
+WHISPER_DECODE = 64
+WHISPER_PARITY_BATCH = 2
+WHISPER_TRAIN_BATCH = 16
+# phase 7: whisper's cross attention, decoder rows against frames, and its
+# training shapes for FlashAttention's gradients (B, Sq, Sk, dtype)
+WHISPER_CROSS_SQ = (1, 4, 65, 448)
+WHISPER_CROSS_SK = (63, 1500)
+WHISPER_BWD_CASES = ((16, 448, 1500, torch.float32),
+                     (16, 448, 1500, torch.bfloat16),
+                     (16, 1500, 1500, torch.bfloat16))
+# phase 12g: mixtral-8x7b CONFIG trained through ``train lm`` cut to
+# MOE_TRAIN_LAYERS of its 32 layers (3.2 B parameters; bf16 weights and
+# gradients and f32 Adam moments ~38 GB: the 32 layers need ~600 GB);
+# MOE_RERUN_STEPS steps twice from the seed, the parameters compared bit
+# for bit; kernel vs plain in f32 at MOE_TRAIN_LAYERS layers on
+# MOE_PARITY_BATCH x MOE_PARITY_SEQ tokens, the plain run's routes forced
+MOE_TRAIN_LAYERS = 2
+MOE_RERUN_STEPS = 3
+MOE_PARITY_BATCH, MOE_PARITY_SEQ = 2, 256
 SCAN_TOL = 5e-4        # B6 against its plain version (tests/test_kernels.py)
 # B6 cases (B, S, d, N): falcon-mamba's prefill, hymba's four lanes, a
 # ragged one and the reference sweep's; the first is also timed
@@ -2882,7 +2947,10 @@ def compare_attention(ops, ref, errs):
             (1, 4500, 32, 8, 128, bf16, True, 4096),
             (1, 4500, 32, 8, 128, f32, True, 4096),
             (1, 2048, 64, 8, 128, bf16, True, None),
-            (2, 700, 64, 8, 128, f32, True, None)):
+            (2, 700, 64, 8, 128, f32, True, None),
+            # whisper's encoder self attention over 1,500 frames
+            (8, 1500, 6, 6, 64, bf16, False, None),
+            (8, 1500, 6, 6, 64, f32, False, None)):
         q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda", dtype)
                    for n in (h, kv, kv))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -2943,6 +3011,98 @@ def compare_attention(ops, ref, errs):
                        "fills": fills, "rolling_from": roll,
                        "window": window, "err": err})
     torch.cuda.synchronize()
+    return report
+
+
+def compare_cross_attention(ops, ref, fa, attention, errs):
+    """Whisper's attention shapes on the card, against the plain versions:
+    B4 non-causal at Sq in WHISPER_CROSS_SQ against Sk in WHISPER_CROSS_SK
+    (the decoder's cross attention over the frames), 8 utterances, bf16
+    and f32, at the reference's bars, with its lse against the plain one
+    (LSE_TOL of max |lse|) and the output the same bits with the lse store;
+    ``FlashAttention``'s gradients (B4 forward, the pair-scan backward) at
+    WHISPER_BWD_CASES against autograd through the plain version
+    (ATTN_BWD_TOL); the one-token cross attention
+    (``attention.cross_decode_attention``: B5 over the frames' slot map)
+    against the plain unmasked attention at (8, 1500, 6, 64). Every reading
+    the same bits on two calls; the largest errors fold into ``errs``."""
+    gen = torch.Generator().manual_seed(22)
+    report = {"cross": [], "backward": [], "decode": []}
+    h, hd, b = 6, 64, WHISPER_BATCH
+    for dtype in (torch.bfloat16, torch.float32):
+        for sk in WHISPER_CROSS_SK:
+            k, v = (torch.randn(b, sk, h, hd, generator=gen).to("cuda", dtype)
+                    for _ in range(2))
+            for sq in WHISPER_CROSS_SQ:
+                where = (b, sq, sk, h, hd, str(dtype))
+                q = torch.randn(b, sq, h, hd, generator=gen).to("cuda", dtype)
+                got = ops.flash_attention(q, k, v, causal=False)
+                again, lse = fa.flash_attention_cuda(q, k, v, causal=False,
+                                                     with_lse=True)
+                want = ref.flash_attention_torch(q, k, v, causal=False)
+                want_lse = ref.flash_attention_lse_torch(q, k, causal=False)
+                err, excess = _attn_err(got, want, dtype)
+                lse_err = float((lse - want_lse).abs().max())
+                check(got.shape == q.shape and bool(torch.isfinite(got).all()),
+                      f"cross flash_attention malformed at {where}")
+                check(excess <= ATTN_TOL[dtype], f"cross flash_attention err "
+                      f"{err} beyond allclose({ATTN_TOL[dtype]}) at {where}")
+                check(lse.shape == (b, h, sq) and lse_err <= LSE_TOL * float(
+                    want_lse.abs().max()), f"cross lse err {lse_err} at "
+                      f"{where}")
+                check(torch.equal(got, again), "cross flash_attention differs "
+                      f"with the lse store or between two calls at {where}")
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                report["cross"].append({"B": b, "Sq": sq, "Sk": sk,
+                                        "dtype": str(dtype), "err": err,
+                                        "lse_err": lse_err})
+    for bb, sq, sk, dtype in WHISPER_BWD_CASES:
+        where = (bb, sq, sk, h, hd, str(dtype))
+        q, dout = (torch.randn(bb, sq, h, hd, generator=gen).to("cuda", dtype)
+                   for _ in range(2))
+        k, v = (torch.randn(bb, sk, h, hd, generator=gen).to("cuda", dtype)
+                for _ in range(2))
+
+        def grads(fn):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            fn(*leaves).backward(dout)
+            return [x.grad for x in leaves]
+
+        got = grads(lambda *x: ops.flash_attention(*x, causal=False))
+        again = grads(lambda *x: ops.flash_attention(*x, causal=False))
+        plain = grads(lambda *x: ref.flash_attention_torch(*x, causal=False))
+        row = {"B": bb, "Sq": sq, "Sk": sk, "dtype": str(dtype)}
+        for name, g, a, p in zip(("dq", "dk", "dv"), got, again, plain):
+            rel = float((g.float() - p.float()).abs().max()) / max(
+                float(p.float().abs().max()), 1e-30)
+            check(g.shape == p.shape and bool(torch.isfinite(g).all()),
+                  f"{name} malformed at {where}")
+            check(rel <= ATTN_BWD_TOL[dtype], f"{name} at {where}: {rel} of "
+                  f"its largest entry, beyond {ATTN_BWD_TOL[dtype]}")
+            check(torch.equal(g, a), f"{name} differs between two calls at "
+                  f"{where}")
+            row[f"{name}_of_largest"] = rel
+        report["backward"].append(row)
+        del q, k, v, dout, got, again, plain
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, 1, h, hd, generator=gen).to("cuda", dtype)
+        k, v = (torch.randn(b, WHISPER_FRAMES, h, hd, generator=gen).to(
+            "cuda", dtype) for _ in range(2))
+        got = attention.cross_decode_attention(q, k, v)
+        again = attention.cross_decode_attention(q, k, v)
+        want = ref.flash_attention_torch(q, k, v, causal=False)
+        err, excess = _attn_err(got, want, dtype)
+        where = (b, WHISPER_FRAMES, h, hd, str(dtype))
+        check(got.shape == q.shape and excess <= ATTN_TOL[dtype],
+              f"cross decode attention (B5 on the frames) err {err} at "
+              f"{where}")
+        check(torch.equal(got, again), f"cross decode attention differs "
+              f"between two calls at {where}")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        report["decode"].append({"B": b, "frames": WHISPER_FRAMES,
+                                 "dtype": str(dtype), "err": err})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return report
 
 
@@ -3238,14 +3398,15 @@ def _leaves(tree):
 
 def profile_lm(cfg, params, lm, edge=None, prompt_len=2048, n_decode=5, *,
                kinds=KERNEL_KINDS, ranges=None, prefill_batch=None,
-               decode_cache=None, decode_batch=None):
+               decode_cache=None, decode_batch=None, max_seq=LM_MAX_SEQ):
     """Device busy ms, idle share and kernels per unit from torch.profiler
     traces of one prefill (``prompt_len`` random tokens, or
     ``prefill_batch``) and of ``n_decode`` decode steps over ``edge``'s
     batch cache (all its lanes; or ``decode_cache`` with ``decode_batch``);
     device ms by kind (``kinds``). ``ranges``: a context manager that names
     pieces in the trace with ``record_function`` and yields their names;
-    their device ms go under ``device_ms_by_piece``."""
+    their device ms go under ``device_ms_by_piece``. The prefill's cache
+    has ``max_seq`` slots; its prompt length is its ``tokens``'."""
     from torch.profiler import ProfilerActivity, profile
     head = lm.head_f32(params, cfg)
     if prefill_batch is None:
@@ -3253,8 +3414,9 @@ def profile_lm(cfg, params, lm, edge=None, prompt_len=2048, n_decode=5, *,
             0, cfg.vocab_size, (1, prompt_len),
             generator=torch.Generator().manual_seed(5),
             dtype=torch.int32).cuda()}
-    prompt_len = next(iter(prefill_batch.values())).shape[1]
-    lm.prefill(params, prefill_batch, cfg, max_seq=LM_MAX_SEQ, head=head)
+    prompt_len = prefill_batch.get(
+        "tokens", next(iter(prefill_batch.values()))).shape[1]
+    lm.prefill(params, prefill_batch, cfg, max_seq=max_seq, head=head)
     torch.cuda.synchronize()
     out = {}
 
@@ -3273,7 +3435,7 @@ def profile_lm(cfg, params, lm, edge=None, prompt_len=2048, n_decode=5, *,
         return res
 
     out["prefill"] = {"prompt_tokens": prompt_len, **traced(
-        lambda: lm.prefill(params, prefill_batch, cfg, max_seq=LM_MAX_SEQ,
+        lambda: lm.prefill(params, prefill_batch, cfg, max_seq=max_seq,
                            head=head), 1)}
     if decode_cache is None:
         decode_cache = edge._cache
@@ -3360,12 +3522,6 @@ class _RouteForcing:
             return logits, idx, torch.softmax(logits.gather(-1, idx), -1)
         return mock.patch.object(self.moe, "route", route)
 
-    def replay(self):
-        """A second forcing of the same recorded routes, counted apart."""
-        other = _RouteForcing(self.moe)
-        other.route, other.calls = self.route, self.calls
-        return other
-
     def report(self, gap):
         """{"routes", "differing", "experts_differing", "max_rel_margin"};
         raises where a differing route's margin exceeds ``gap`` (None: no
@@ -3390,39 +3546,9 @@ class _RouteForcing:
                 "gap": gap}
 
 
-def _sdpa_prefill(q, k, v, *, causal, window, chunk=None):
-    """B4's function through PyTorch's ``scaled_dot_product_attention``:
-    q (B, S, H, hd), k/v (B, S, KV, hd), causal, an optional window (then
-    a boolean mask, the plain version's: key > query - window)."""
-    import torch.nn.functional as F
-    check(causal, "the LM's attention is causal")
-    s = q.shape[1]
-    mask = None
-    if window is not None and window < s:
-        i = torch.arange(s, device=q.device)
-        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-    o = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, is_causal=mask is None, enable_gqa=True)
-    return o.transpose(1, 2).contiguous()
-
-
-def _sdpa_decode(q, k_cache, v_cache, slot_pos, pos, *, window):
-    """B5's function through PyTorch's ``scaled_dot_product_attention``,
-    the plain version's valid slots as a boolean mask."""
-    import torch.nn.functional as F
-    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-    if window is not None:
-        valid &= slot_pos > (pos[:, None] - window)
-    o = F.scaled_dot_product_attention(
-        q[:, :, None], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-        attn_mask=valid[:, None, None, :], enable_gqa=True)
-    return o[:, :, 0]
-
-
 def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                        n_decode=16, scan_ulp=False, *, inputs=None, moe=None,
-                       f32_layers=None, library=False):
+                       f32_layers=None):
     """One request through the kernel path (B4, B5, B6) and the plain path
     (their plain versions on the card), same weights, teacher-forced on the
     same tokens, in bf16 (the serving path) and with the same weights in
@@ -3448,10 +3574,8 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     the rest made f32 in place, so the caller's model is spent. With
     ``moe`` too, the full-depth bf16 routes are reported without a bar, and
     the first MOE_ROUTE_LAYERS layers are compared in bf16 as well
-    (``bf16_cut``), their routes barred. ``library``: the full-depth bf16
-    model also runs with :func:`_sdpa_prefill` and :func:`_sdpa_decode` in
-    place of B4 and B5 against the same plain run, its logits' error and
-    routes reported (``library_attention``), with no bar."""
+    (``bf16_cut``), their routes barred. The prompt's length is its
+    ``tokens``' (whisper's prefill also takes its frames, ``embeds``)."""
     from unittest import mock
     if inputs is None:
         gen = torch.Generator().manual_seed(6)
@@ -3461,7 +3585,8 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
                                generator=gen, dtype=torch.int32).cuda()
         inputs = {"prefill": {"tokens": prompt},
                   "decode": [{"token": t} for t in forced]}
-    prompt_len = next(iter(inputs["prefill"].values())).shape[1]
+    prompt = inputs["prefill"]
+    prompt_len = prompt.get("tokens", next(iter(prompt.values()))).shape[1]
     n_decode = len(inputs["decode"])
 
     def run(cfg, params, head):
@@ -3477,11 +3602,9 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
     def rel_err(got, plain):
         return (got - plain).abs().amax(-1) / plain.abs().amax(-1)
 
-    def compare(cfg, params, tol, nudge=False, route_bar=True,
-                library=False):
+    def compare(cfg, params, tol, nudge=False, route_bar=True):
         head = lm.head_f32(params, cfg)
         routes = _RouteForcing(moe) if moe is not None else None
-        lib_routes = routes.replay() if library and moe is not None else None
         with contextlib.ExitStack() as stack:
             if routes is not None:
                 stack.enter_context(routes.recording())
@@ -3506,15 +3629,6 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
             if routes is not None:
                 stack.enter_context(routes.forcing())
             kern = run(cfg, params, head)
-        if library:
-            with contextlib.ExitStack() as stack:
-                if lib_routes is not None:
-                    stack.enter_context(lib_routes.forcing())
-                stack.enter_context(mock.patch.object(
-                    ops, "flash_attention", _sdpa_prefill))
-                stack.enter_context(mock.patch.object(
-                    ops, "decode_attention", _sdpa_decode))
-                lib = run(cfg, params, head)
         torch.cuda.synchronize()
         scale = plain.abs().amax(-1)
         err = rel_err(kern, plain)
@@ -3531,17 +3645,6 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
         if routes is not None:
             out["routes"] = routes.report(MOE_ROUTE_GAP[cfg.dtype]
                                           if route_bar else None)
-        if library:
-            lib_err = rel_err(lib, plain)
-            check(bool(torch.isfinite(lib).all()),
-                  f"non-finite SDPA-path logits ({cfg.dtype})")
-            out["library_attention"] = {
-                "max_rel_err": float(lib_err.max()),
-                "rel_err_prefill": float(lib_err[0]),
-                "argmax_equal_share_all": float(
-                    (lib.argmax(-1) == plain.argmax(-1)).float().mean())}
-            if lib_routes is not None:
-                out["library_attention"]["routes"] = lib_routes.report(None)
         if nudge:
             kernel_scan = ops.mamba_scan
 
@@ -3565,7 +3668,7 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
 
     out = {"prompt_tokens": prompt_len, "decode_steps": n_decode,
            "bf16": compare(cfg, params, LM_LOGIT_TOL_BF16, nudge=scan_ulp,
-                           route_bar=f32_layers is None, library=library)}
+                           route_bar=f32_layers is None)}
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     if f32_layers is not None:
         layers = params["layers"]
@@ -3726,19 +3829,25 @@ def _train_ranges(m):
         yield
 
 
-def profile_training(m, run, device="cuda", kinds=TRAIN_KERNEL_KINDS):
+def profile_training(m, run, device="cuda", kinds=TRAIN_KERNEL_KINDS, *,
+                     batch=None, ranges=None):
     """One more step of ``run``'s model under torch.profiler: device busy
     ms, idle share, kernels per step, device ms by kind (``kinds``) and by
-    named piece (TRAIN_RANGES)."""
+    named piece (TRAIN_RANGES, and the names ``ranges``, a context manager
+    like :func:`_moe_ranges`, yields). The step's batch is the run's next
+    (or ``batch``)."""
     from torch.profiler import ProfilerActivity, profile
     cfg = dataclasses.replace(run["cfg"], num_microbatches=1,
                               optimizer="adam")
     params, opt_state, pipe = run["params"], run["opt_state"], run["pipeline"]
-    with _train_ranges(m):
+    with _train_ranges(m), (ranges() if ranges
+                            else contextlib.nullcontext(())) as extra:
+        names = TRAIN_RANGES + tuple(extra)
         step = m.steps.build_train_step(cfg, knobs=m.steps.TrainKnobs(
             lr=3e-4, grad_clip=1.0))
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in next(pipe).items()}
+        if batch is None:
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in next(pipe).items()}
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3746,64 +3855,64 @@ def profile_training(m, run, device="cuda", kinds=TRAIN_KERNEL_KINDS):
             _, opt_state, metrics = step(params, opt_state, batch)
             float(metrics["loss_total"])
             wall_ms = (time.perf_counter() - t0) * 1e3
-    out = _device_summary(prof, 1, wall_ms, skip=TRAIN_RANGES, kinds=kinds)
-    out["device_ms_by_piece"] = _range_device_ms(prof, TRAIN_RANGES, 1)
+    out = _device_summary(prof, 1, wall_ms, skip=names, kinds=kinds)
+    out["device_ms_by_piece"] = _range_device_ms(prof, names, 1)
     return out
 
 
-def _grads_of(m, params, batch, cfg):
+def _loss_aux_grads(m, params, batch, cfg):
+    """(total, aux_loss, {path: gradient}) of ``lm.train_loss``."""
     leaves = m.named_leaves(params)
     for t in leaves.values():
         t.requires_grad_(True)
-    total, _ = m.lm.train_loss(params, batch, cfg)
+    total, metrics = m.lm.train_loss(params, batch, cfg)
     grads = torch.autograd.grad(total, list(leaves.values()),
                                 allow_unused=True)
-    return float(total.detach()), dict(zip(leaves, grads))
+    return (float(total.detach()), float(metrics["aux_loss"].detach()),
+            dict(zip(leaves, grads)))
 
 
-def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
-                             batch_size=TRAIN_LM_BATCH):
-    """(d) ``arch``'s widths at TRAIN_LM_LAYERS layers in f32: one batch
-    through ``train_loss`` with the kernels (B4 and the pair-scan backward;
-    B6 and B6b) and through the plain versions under autograd (the
-    attention's and the gated scan's plain forward), the same weights: the
-    loss within TRAIN_LOSS_TOL relative, every gradient within
-    TRAIN_GRAD_TOL of its largest |entry|; under remat 'full' B4 and B6
-    twice per layer of theirs, B6b once, and none on the plain path."""
+def train_loss_vs_plain(m, ref, cfg, params, batch, want, routes=None):
+    """``train_loss`` and its gradients through the kernels (B4 with its
+    lse and the pair-scan backward; B6's gated entry and B6b) against the
+    plain path (autograd through the plain versions of B4 and of B6's gated
+    entry), the plain path first, the same weights and batch: the loss
+    within TRAIN_LOSS_TOL relative, ``aux_loss`` and every gradient within
+    TRAIN_GRAD_TOL (relative; of the gradient's largest |entry|); the
+    launches of both runs are ``want`` ({kernel: launches} on the kernel
+    path; nothing on the plain path) and B5 none. ``routes``: a
+    :class:`_RouteForcing` whose plain-run routes the kernel run takes
+    (reported, barred at GAP)."""
     from unittest import mock
-    cfg = dataclasses.replace(m.get_config(arch),
-                              num_layers=TRAIN_LM_LAYERS, dtype="float32")
-    params = m.lm.init_params(cfg, generator=torch.Generator(
-        device=device).manual_seed(LM_SEED))
-    pipe = m.SyntheticTokens(cfg.vocab_size, batch_size, TRAIN_LM_SEQ,
-                             seed=1)
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in next(pipe).items()}
-    m.build.reset_launch_counts()
-    loss, grads = _grads_of(m, params, batch, cfg)
-    launched = dict(m.build.LAUNCHES)
 
     def plain(q, k, v, *, causal=True, window=None, chunk=512):
         return ref.flash_attention_torch(q, k, v, causal=causal,
                                          window=window)
 
-    with mock.patch.object(m.ops, "flash_attention", plain), \
-            mock.patch.object(m.ops, "mamba_scan_gated",
-                              ref.mamba_scan_gated_torch):
-        plain_loss, plain_grads = _grads_of(m, params, batch, cfg)
-    attn = cfg.family != "ssm"
-    ssm = cfg.family in ("ssm", "hybrid")
-    want = {"flash_attention": 2 * TRAIN_LM_LAYERS * attn,
-            "mamba_scan": 2 * TRAIN_LM_LAYERS * ssm,
-            "mamba_scan_bwd": TRAIN_LM_LAYERS * ssm}
-    check(dict(m.build.LAUNCHES) == launched
-          and all(launched[k] == v for k, v in want.items()),
-          f"{arch}: launches {launched} for {TRAIN_LM_LAYERS} layers under "
-          f"remat 'full' (want {want}), then {dict(m.build.LAUNCHES)} after "
-          "the plain path")
+    m.build.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(m.ops, "flash_attention",
+                                              plain))
+        stack.enter_context(mock.patch.object(m.ops, "mamba_scan_gated",
+                                              ref.mamba_scan_gated_torch))
+        if routes is not None:
+            stack.enter_context(routes.recording())
+        plain_loss, plain_aux, plain_grads = _loss_aux_grads(m, params,
+                                                             batch, cfg)
+    with (routes.forcing() if routes is not None
+          else contextlib.nullcontext()):
+        loss, aux, grads = _loss_aux_grads(m, params, batch, cfg)
+    torch.cuda.synchronize()
+    launched = {k: m.build.LAUNCHES[k] for k in want}
+    check(launched == want and m.build.LAUNCHES["decode_attention"] == 0,
+          f"{cfg.name}: launched {dict(m.build.LAUNCHES)} in a kernel and a "
+          f"plain loss, want {want} and no B5 (remat {cfg.remat!r})")
     loss_rel = abs(loss - plain_loss) / abs(plain_loss)
-    check(loss_rel <= TRAIN_LOSS_TOL, f"loss {loss} against the plain "
-          f"path's {plain_loss}")
+    aux_rel = abs(aux - plain_aux) / max(abs(plain_aux), 1e-30)
+    check(loss_rel <= TRAIN_LOSS_TOL, f"{cfg.name}: loss {loss} against "
+          f"the plain path's {plain_loss}")
+    check(aux_rel <= TRAIN_GRAD_TOL, f"{cfg.name}: aux_loss {aux} against "
+          f"the plain path's {plain_aux}")
     worst, worst_key = 0.0, None
     for key, g in grads.items():
         p = plain_grads[key]
@@ -3815,11 +3924,37 @@ def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
             worst, worst_key = rel, key
     check(worst <= TRAIN_GRAD_TOL, f"gradient of {worst_key} differs by "
           f"{worst} of its largest entry from the plain path's")
-    return {"arch": arch, "layers": TRAIN_LM_LAYERS, "dtype": "float32",
-            "batch": batch_size, "loss": loss, "plain_loss": plain_loss,
-            "loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
-            "worst_grad_leaf": worst_key,
-            "launches": {k: launched[k] for k in want}}
+    out = {"layers": cfg.num_layers, "dtype": cfg.dtype,
+           "batch": {k: list(v.shape) for k, v in batch.items()},
+           "loss": loss, "plain_loss": plain_loss, "loss_rel_err": loss_rel,
+           "aux_loss": aux, "aux_rel_err": aux_rel,
+           "worst_grad_rel_err": worst, "worst_grad_leaf": worst_key,
+           "launches": launched}
+    if routes is not None:
+        out["routes"] = routes.report(MOE_ROUTE_GAP["float32"])
+    return out
+
+
+def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
+                             batch_size=TRAIN_LM_BATCH):
+    """(d) ``arch``'s widths at TRAIN_LM_LAYERS layers in f32: one batch of
+    ``batch_size`` x TRAIN_LM_SEQ tokens through :func:`train_loss_vs_plain`;
+    under remat 'full' B4 and B6 twice per layer of theirs, B6b once."""
+    cfg = dataclasses.replace(m.get_config(arch),
+                              num_layers=TRAIN_LM_LAYERS, dtype="float32")
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    pipe = m.SyntheticTokens(cfg.vocab_size, batch_size, TRAIN_LM_SEQ,
+                             seed=1)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in next(pipe).items()}
+    attn = cfg.family != "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
+    want = {"flash_attention": 2 * TRAIN_LM_LAYERS * attn,
+            "mamba_scan": 2 * TRAIN_LM_LAYERS * ssm,
+            "mamba_scan_bwd": TRAIN_LM_LAYERS * ssm}
+    return {"arch": arch, **train_loss_vs_plain(m, ref, cfg, params, batch,
+                                                want)}
 
 
 def _bits(a):
@@ -4025,7 +4160,8 @@ def compare_scan_backward(ms, ref, device="cuda"):
     return report
 
 
-def _train_family(m, arch, want, layers=None, device="cuda"):
+def _train_family(m, arch, want, layers=None, device="cuda", *,
+                  kinds=TRAIN_SSM_KERNEL_KINDS, ranges=None):
     """``launch.train lm --arch arch --scale full`` (cut to ``layers``
     layers when given) for TRAIN_LM_STEPS steps of TRAIN_LM_BATCH x
     TRAIN_LM_SEQ tokens in process, the launch counters set to 0 just
@@ -4033,7 +4169,8 @@ def _train_family(m, arch, want, layers=None, device="cuda"):
     refused: losses and grad norms finite, the last three steps' mean below
     step 0's, each kernel's launches per step ``want[kernel]`` and B5 none;
     step wall p50/p95 over steps 2-11, tokens/s, peak memory, one profiled
-    step. Returns (summary, launches)."""
+    step (``kinds`` and ``ranges`` as :func:`profile_training` takes them);
+    the MoE load-balance losses finite too. Returns (summary, launches)."""
     from unittest import mock
     guard = contextlib.ExitStack()
     for patch in _plain_guard(m.ref, m.ops) + [
@@ -4052,10 +4189,11 @@ def _train_family(m, arch, want, layers=None, device="cuda"):
         run = m.launch_train.main(_train_lm_argv(device, arch=arch))
         counts = dict(m.build.LAUNCHES)
     cfg = run["cfg"]
-    losses, norms = run["losses"], run["grad_norms"]
+    losses, norms, aux = run["losses"], run["grad_norms"], run["aux_losses"]
     check(len(losses) == TRAIN_LM_STEPS
-          and all(math.isfinite(x) for x in losses + norms),
-          f"{arch}: non-finite losses or grad norms: {losses}, {norms}")
+          and all(math.isfinite(x) for x in losses + norms + aux),
+          f"{arch}: non-finite losses, grad norms or aux losses: {losses}, "
+          f"{norms}, {aux}")
     check(float(np.mean(losses[-3:])) < losses[0], f"{arch}: the loss did "
           f"not fall: {losses}")
     per_step = {k: v / TRAIN_LM_STEPS for k, v in counts.items()}
@@ -4072,14 +4210,14 @@ def _train_family(m, arch, want, layers=None, device="cuda"):
                      f"{layers}"] if layers is not None else []),
         "params": sum(t.numel() for t in m.named_leaves(
             run["params"]).values()),
-        "losses": losses, "grad_norms": norms, "step_ms": run["step_ms"],
-        "step_p50_ms": p50,
+        "losses": losses, "aux_losses": aux, "grad_norms": norms,
+        "step_ms": run["step_ms"], "step_p50_ms": p50,
         "step_p95_ms": float(np.percentile(timed, 95)),
         "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / p50 * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches_per_step": per_step}
-    out["profile"] = profile_training(m, run, device,
-                                      kinds=TRAIN_SSM_KERNEL_KINDS)
+    out["profile"] = profile_training(m, run, device, kinds=kinds,
+                                      ranges=ranges)
     del run
     torch.cuda.empty_cache()
     return out, counts
@@ -4166,9 +4304,9 @@ def drive_moe_lm(m):
     MOE_LONG_PROMPT-token request through the rolling cache; a profile of a
     2048-token prefill and a 4-lane decode step (device ms by kind and the
     MoE layer's pieces); the kernel path against the plain path on a
-    1500-token request (bf16 at full width with SDPA's drift beside it,
-    bf16 at MOE_ROUTE_LAYERS and f32 at LM_F32_LAYERS layers, the routes
-    forced from the plain run). Frees the model. Returns the
+    1500-token request (bf16 at full width, bf16 at MOE_ROUTE_LAYERS and
+    f32 at LM_F32_LAYERS layers, the routes forced from the plain run).
+    Frees the model. Returns the
     report and the serving launches."""
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(m.get_config(MOE_ARCH), num_layers=MOE_LAYERS)
@@ -4190,7 +4328,7 @@ def drive_moe_lm(m):
     del edges
     torch.cuda.empty_cache()
     parity = lm_kernel_vs_plain(cfg, params, m.lm, m.ops, m.ref, moe=m.moe,
-                                f32_layers=LM_F32_LAYERS, library=True)
+                                f32_layers=LM_F32_LAYERS)
     print(f"moe lm kernel vs plain: {json.dumps(parity)}", flush=True)
     del params
     torch.cuda.empty_cache()
@@ -4247,8 +4385,8 @@ def drive_vlm_lm(m):
     M-RoPE rows; B4 once per layer in the prefill, B5 once per layer and
     step, B6 never, no plain version reached; the same profile as phase
     12d; the kernel path against the plain path on a 1500-token prompt with
-    a VLM_PARITY_GRID image (bf16 at full width with SDPA's drift beside
-    it, f32 at LM_F32_LAYERS layers). Frees the model. Returns the report, the launches and a copy
+    a VLM_PARITY_GRID image (bf16 at full width, f32 at LM_F32_LAYERS
+    layers). Frees the model. Returns the report, the launches and a copy
     of layer 0's cache (B5's timing input)."""
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(m.get_config(VLM_ARCH), num_layers=VLM_LAYERS)
@@ -4325,7 +4463,6 @@ def drive_vlm_lm(m):
     torch.cuda.empty_cache()
     parity = lm_kernel_vs_plain(
         cfg, params, m.lm, m.ops, m.ref, f32_layers=LM_F32_LAYERS,
-        library=True,
         inputs=_vlm_inputs(cfg, 1, 1500, VLM_PARITY_GRID, 16, seed=8))
     print(f"vlm lm kernel vs plain: {json.dumps(parity)}", flush=True)
     del params
@@ -4334,6 +4471,311 @@ def drive_vlm_lm(m):
            "phase_s": time.perf_counter() - t_phase}
     print(f"vlm lm phase: {out['phase_s']:.1f} s", flush=True)
     return out, launches, vlm_cache
+
+
+# -- phases 12f and 12g: whisper (served and trained) and MoE training ------
+
+# device ms by kind in the training steps of 12f and 12g: B4, the MoE
+# layer's index kernels, the library GEMMs, element-wise, reductions
+MOE_TRAIN_KINDS = MOE_KERNEL_KINDS[:1] + MOE_KERNEL_KINDS[2:] + (
+    ("reduce", ("reduce_kernel",)),)
+
+
+def _whisper_frames(cfg, batch, seed, device="cuda"):
+    """``batch`` utterances of WHISPER_FRAMES random frame embeddings, std
+    0.02 as ``data.synthetic.make_batch`` draws them, from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return (0.02 * torch.randn(batch, WHISPER_FRAMES, cfg.d_model,
+                               generator=gen)).to(device)
+
+
+def _whisper_prompt(cfg, batch, n, seed, device="cuda"):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def whisper_serving(m, cfg, params):
+    """12f (a): ``build_prefill`` on WHISPER_BATCH utterances of
+    WHISPER_FRAMES frames and a WHISPER_PROMPT-token prompt into
+    WHISPER_SLOTS-slot caches (after an untimed warm-up prefill), then
+    WHISPER_DECODE greedy ``build_decode_step``s, every plain version of
+    B4-B6 refused and the launch counters set to 0 just before: B4 once
+    per encoder layer and twice per decoder layer (self, cross) in the
+    prefill, B5 twice per decoder layer a step (self, and cross over the
+    frames), B6 never. Returns (report, the prefill batch, the cache after
+    the steps, the last tokens, the launches)."""
+    shape = m.ShapeConfig("whisper_serving", WHISPER_SLOTS, WHISPER_BATCH,
+                          "prefill")
+    prefill = m.steps.build_prefill(cfg, shape=shape)
+    decode = m.steps.build_decode_step(cfg)
+    batch = {"tokens": _whisper_prompt(cfg, WHISPER_BATCH, WHISPER_PROMPT,
+                                       11),
+             "embeds": _whisper_frames(cfg, WHISPER_BATCH, 12)}
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    names = ("flash_attention", "decode_attention", "mamba_scan")
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops):
+        guard.enter_context(patch)
+    m.build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = {k: m.build.LAUNCHES[k] for k in names}
+    step_ms, tokens = [], []
+    for _ in range(WHISPER_DECODE):
+        token = torch.argmax(logits[:, :cfg.vocab_size], -1).to(torch.int32)
+        t0 = time.perf_counter()
+        cache, logits = decode(params, cache, {"token": token})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(token.tolist())
+    launches = {k: m.build.LAUNCHES[k] for k in names}
+    guard.close()
+    b4 = cfg.num_encoder_layers + 2 * cfg.num_layers
+    check(after_prefill == {"flash_attention": b4, "decode_attention": 0,
+                            "mamba_scan": 0},
+          f"whisper's prefill launched {after_prefill}, not B4 {b4} times")
+    check(launches == {"flash_attention": b4,
+                       "decode_attention": 2 * cfg.num_layers
+                       * WHISPER_DECODE, "mamba_scan": 0},
+          f"whisper launched {launches}, not B4 {b4} and B5 "
+          f"{2 * cfg.num_layers * WHISPER_DECODE} times")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (WHISPER_BATCH, cfg.padded_vocab),
+          "malformed whisper decode logits")
+    check(cache["pos"].tolist() == [WHISPER_PROMPT + WHISPER_DECODE]
+          * WHISPER_BATCH and tuple(cache["enc_out"].shape) == (
+              WHISPER_BATCH, cfg.encoder_len, cfg.d_model),
+          f"whisper cache: pos {cache['pos'].tolist()}, enc_out "
+          f"{tuple(cache['enc_out'].shape)}")
+    served = {
+        "arch": cfg.name, "dtype": cfg.dtype,
+        "layers": [cfg.num_encoder_layers, cfg.num_layers],
+        "params": sum(t.numel() for t in _leaves(params)),
+        "batch": WHISPER_BATCH, "frames": WHISPER_FRAMES,
+        "prompt_tokens": WHISPER_PROMPT, "slots": WHISPER_SLOTS,
+        "decode_steps": WHISPER_DECODE, "launches": launches,
+        "prefill_ms": prefill_ms,
+        "decode_step_ms": {"p50": float(np.percentile(step_ms, 50)),
+                           "p95": float(np.percentile(step_ms, 95)),
+                           "n": len(step_ms)},
+        "decode_tokens_per_s": WHISPER_BATCH * len(step_ms) / sum(step_ms)
+        * 1e3,
+        "greedy_tokens_lane0": [t[0] for t in tokens],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return served, batch, cache, token, launches
+
+
+def whisper_training(m, cfg, device="cuda"):
+    """12f (c): ``build_train_step`` (Adam, the config's remat "full") for
+    TRAIN_LM_STEPS steps of WHISPER_TRAIN_BATCH utterances x
+    (WHISPER_FRAMES random frames, WHISPER_SLOTS Zipf tokens), random
+    weights from the seed, every plain version refused and the launch
+    counters set to 0 just before: losses and grad norms finite, the last
+    three steps' mean below step 0's, B4 twice per attention a step
+    (forward and recompute: 2 x (4 + 2 x 4) = 24), B5 and B6 never; step
+    p50/p95 over steps 2-11, utterances/s, peak memory and one profiled
+    step. Returns (report, launches)."""
+    tcfg = dataclasses.replace(cfg, num_microbatches=1, optimizer="adam")
+    knobs = m.steps.TrainKnobs(lr=3e-4, grad_clip=1.0)
+    params = m.lm.init_params(tcfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    _, opt_init, _ = m.steps.make_optimizer(tcfg, knobs)
+    opt_state = opt_init(m.named_leaves(params))
+    step = m.steps.build_train_step(tcfg, knobs=knobs, shape=m.ShapeConfig(
+        "whisper_train", WHISPER_SLOTS, WHISPER_TRAIN_BATCH, "train"))
+    pipe = m.SyntheticTokens(cfg.vocab_size, WHISPER_TRAIN_BATCH,
+                             WHISPER_SLOTS, seed=LM_SEED)
+    frames = _whisper_frames(cfg, WHISPER_TRAIN_BATCH, 15, device)
+
+    def next_batch():
+        return {"embeds": frames, **{k: torch.from_numpy(v).to(device)
+                                     for k, v in next(pipe).items()}}
+
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops) + [
+            _refuse(m.ref, "flash_attention_lse_torch", "the plain")]:
+        guard.enter_context(patch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    with guard:
+        m.build.reset_launch_counts()
+        for _ in range(TRAIN_LM_STEPS):
+            batch = next_batch()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            losses.append(float(metrics["loss_total"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(metrics["grad_norm"]))
+        counts = dict(m.build.LAUNCHES)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"whisper: non-finite losses or grad norms: {losses}, {norms}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"whisper: the loss did "
+          f"not fall: {losses}")
+    b4 = 2 * (cfg.num_encoder_layers + 2 * cfg.num_layers)
+    check(counts["flash_attention"] == b4 * TRAIN_LM_STEPS
+          and counts["decode_attention"] == 0 and counts["mamba_scan"] == 0,
+          f"whisper training launched {counts}, not B4 {b4} a step")
+    timed = step_ms[TRAIN_LM_TIMED:]
+    p50 = float(np.percentile(timed, 50))
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "remat": tcfg.remat,
+           "batch": WHISPER_TRAIN_BATCH, "frames": WHISPER_FRAMES,
+           "tokens": WHISPER_SLOTS, "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "step_p50_ms": p50,
+           "step_p95_ms": float(np.percentile(timed, 95)),
+           "utterances_per_s": WHISPER_TRAIN_BATCH / p50 * 1e3,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "b4_launches_per_step": counts["flash_attention"]
+           / TRAIN_LM_STEPS}
+    out["profile"] = profile_training(
+        m, {"cfg": tcfg, "params": params, "opt_state": opt_state,
+            "pipeline": None}, device, kinds=MOE_TRAIN_KINDS,
+        batch=next_batch())
+    return out, counts
+
+
+def drive_whisper_lm(m, card):
+    """Phase 12f: whisper-tiny ``CONFIG`` (bf16, random weights from the
+    seed), served (:func:`whisper_serving`) and profiled (a prefill and
+    five decode steps: device ms by kind, idle share, kernels); the kernel
+    path against the plain path at full depth (:func:`lm_kernel_vs_plain`
+    on WHISPER_PARITY_BATCH utterances and 16 teacher-forced steps: f32
+    within LM_LOGIT_TOL_F32 of the largest |logit|, bf16 within
+    LM_LOGIT_TOL_BF16); trained (:func:`whisper_training`); and in f32 at
+    full width ``train_loss`` through the kernels against the plain path
+    on WHISPER_PARITY_BATCH utterances (:func:`train_loss_vs_plain`).
+    Returns (report, {path: launches})."""
+    t_phase = time.perf_counter()
+    cfg = m.get_config(WHISPER_ARCH)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    out = {"card": card}
+    out["serving"], batch, cache, token, served = whisper_serving(m, cfg,
+                                                                  params)
+    print(f"whisper lm serving: {json.dumps(out['serving'])}", flush=True)
+    out["profile"] = profile_lm(cfg, params, m.lm, prefill_batch=batch,
+                                decode_cache=cache,
+                                decode_batch={"token": token},
+                                kinds=MOE_KERNEL_KINDS,
+                                max_seq=WHISPER_SLOTS)
+    print(f"whisper lm profile: {json.dumps(out['profile'])}", flush=True)
+    del batch, cache
+    p = WHISPER_PARITY_BATCH
+    forced = _whisper_prompt(cfg, 16, p, 14)
+    out["kernel_vs_plain"] = lm_kernel_vs_plain(
+        cfg, params, m.lm, m.ops, m.ref, inputs={
+            "prefill": {"tokens": _whisper_prompt(cfg, p, WHISPER_PROMPT, 13),
+                        "embeds": _whisper_frames(cfg, p, 16)},
+            "decode": [{"token": t} for t in forced]})
+    print(f"whisper lm kernel vs plain: "
+          f"{json.dumps(out['kernel_vs_plain'])}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["training"], trained = whisper_training(m, cfg)
+    print(f"whisper lm training: {json.dumps(out['training'])}", flush=True)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = m.lm.init_params(cfg32, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    tokens = _whisper_prompt(cfg, p, WHISPER_SLOTS + 1, 17)
+    out["training_kernel_vs_plain"] = train_loss_vs_plain(
+        m, m.ref, cfg32, params32, {
+            "embeds": _whisper_frames(cfg, p, 18),
+            "tokens": tokens[:, :-1].contiguous(),
+            "labels": tokens[:, 1:].contiguous()},
+        {"flash_attention": 2 * (cfg.num_encoder_layers + 2 * cfg.num_layers),
+         "mamba_scan": 0, "mamba_scan_bwd": 0})
+    print(f"whisper lm training kernel vs plain: "
+          f"{json.dumps(out['training_kernel_vs_plain'])}", flush=True)
+    del params32
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"whisper lm phase: {out['phase_s']:.1f} s", flush=True)
+    return out, {"whisper_lm_serving": served,
+                 "whisper_lm_training": trained}
+
+
+def moe_training_rerun(m, device="cuda"):
+    """12g (b): ``train lm`` at mixtral's widths cut to MOE_TRAIN_LAYERS
+    layers for MOE_RERUN_STEPS steps, twice from the same seed (the first
+    run's parameters copied to the host, where the second run's are
+    compared, so that the card holds one run at a time): every parameter
+    the same bits and the same losses (ROADMAP C7: no float atomics on
+    the path, and the dispatch's and combine's index backward in a fixed
+    order)."""
+    from unittest import mock
+    real = m.launch_train.get_config
+    with mock.patch.object(m.launch_train, "get_config", lambda a: (
+            dataclasses.replace(real(a), num_layers=MOE_TRAIN_LAYERS))):
+        first = m.launch_train.main(_train_lm_argv(
+            device, MOE_RERUN_STEPS, arch=MOE_ARCH))
+        saved = {k: t.detach().cpu()
+                 for k, t in m.named_leaves(first["params"]).items()}
+        first_losses = first["losses"]
+        del first
+        torch.cuda.empty_cache()
+        second = m.launch_train.main(_train_lm_argv(
+            device, MOE_RERUN_STEPS, arch=MOE_ARCH))
+    leaves = m.named_leaves(second["params"])
+    differ = [k for k, t in leaves.items()
+              if not torch.equal(t.detach().cpu(), saved[k])]
+    check(not differ and second["losses"] == first_losses,
+          f"mixtral training is not bit-identical on a rerun: {len(differ)} "
+          f"leaves differ ({differ[:4]}), losses {first_losses} then "
+          f"{second['losses']}")
+    out = {"steps": MOE_RERUN_STEPS, "layers": MOE_TRAIN_LAYERS,
+           "leaves": len(leaves), "leaves_differing": len(differ),
+           "losses": first_losses, "aux_losses": second["aux_losses"]}
+    del second, saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_moe_training(m, card, device="cuda"):
+    """Phase 12g: (a) ``launch.train lm --arch mixtral-8x7b --scale full``
+    cut to MOE_TRAIN_LAYERS layers through ``_train_family`` (B4 twice per
+    layer a step, B5 and B6 never, losses, aux losses and grad norms
+    finite, the loss falling; a profiled step with the MoE layer's pieces
+    as in 12d); (b) :func:`moe_training_rerun`; (c) at MOE_TRAIN_LAYERS
+    layers in f32 on MOE_PARITY_BATCH x MOE_PARITY_SEQ tokens, the kernel
+    path against the plain path with the plain run's routes forced
+    (:func:`train_loss_vs_plain`). Returns (report, {path: launches})."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    n = MOE_TRAIN_LAYERS
+    out["full_width"], counts = _train_family(
+        m, MOE_ARCH, {"flash_attention": 2 * n, "mamba_scan": 0,
+                      "mamba_scan_bwd": 0}, n, device,
+        kinds=MOE_TRAIN_KINDS, ranges=lambda: _moe_ranges(m.moe))
+    pieces = out["full_width"]["profile"]["device_ms_by_piece"]
+    pieces["moe.route_dispatch_combine"] = (pieces["moe.layer"]
+                                            - pieces["moe.expert_gemm"])
+    print(f"moe lm training: {json.dumps(out['full_width'])}", flush=True)
+    out["rerun"] = moe_training_rerun(m, device)
+    print(f"moe lm training rerun: {json.dumps(out['rerun'])}", flush=True)
+    cfg = dataclasses.replace(m.get_config(MOE_ARCH), num_layers=n,
+                              dtype="float32")
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in next(
+        m.SyntheticTokens(cfg.vocab_size, MOE_PARITY_BATCH, MOE_PARITY_SEQ,
+                          seed=1)).items()}
+    out["kernel_vs_plain"] = train_loss_vs_plain(
+        m, m.ref, cfg, params, batch, {"flash_attention": 2 * n,
+                                       "mamba_scan": 0, "mamba_scan_bwd": 0},
+        routes=_RouteForcing(m.moe))
+    print(f"moe lm training kernel vs plain: "
+          f"{json.dumps(out['kernel_vs_plain'])}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe lm training phase: {out['phase_s']:.1f} s", flush=True)
+    return out, {"moe_lm_training": counts}
 
 
 def edge_cache(edge):
@@ -4362,46 +4804,57 @@ def _timed_err(kern, plain, where):
     return err
 
 
-def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None):
-    """B4 at (b, s, h, kv, hd) bf16, causal with ``window``, held against
-    its plain version on the inputs it is timed on, beside that version,
-    SDPA and its bound: the (row, column) pairs the mask keeps on the bf16
-    tensor cores against q, k, v read and o written. With the wrapper
-    module ``fa`` the kernel is timed storing its log-sum-exp too, as
-    training launches it (the bound then counts the lse written)."""
+def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None,
+               *, sk=None, causal=True):
+    """B4 at (b, s, h, kv, hd) bf16, causal with ``window`` (or, with
+    ``causal`` False, every column: whisper's encoder, and with ``sk`` its
+    cross attention over ``sk`` keys), held against its plain version on
+    the inputs it is timed on, beside that version, SDPA and its bound:
+    the (row, column) pairs the mask keeps on the bf16 tensor cores
+    against q, k, v read and o written. With the wrapper module ``fa`` the
+    kernel is timed storing its log-sum-exp too, as training launches it
+    (the bound then counts the lse written)."""
     import torch.nn.functional as F
-    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to("cuda",
-                                                         torch.bfloat16)
-               for n in (h, kv, kv))
+    sk = s if sk is None else sk
+    q = torch.randn(b, s, h, hd, generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn(b, sk, kv, hd, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+            for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    w = s if window is None else min(window, s)
-    pairs = b * (w * (w + 1) // 2 + (s - w) * w)
     mask = None
-    if w < s:  # SDPA takes a window only as a mask
-        i = torch.arange(s, device="cuda")
-        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
-    shape = (f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal"
+    if causal:
+        w = s if window is None else min(window, s)
+        pairs = b * (w * (w + 1) // 2 + (s - w) * w)
+        if w < s:  # SDPA takes a window only as a mask
+            i = torch.arange(s, device="cuda")
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
+    else:
+        pairs = b * s * sk
+    shape = (f"B={b} S={s}" + (f" Sk={sk}" if sk != s else "")
+             + f" H={h} KV={kv} hd={hd} bf16"
+             + (" causal" if causal else " non-causal")
              + (f" window {window}" if window else "")
              + (" with lse" if fa else ""))
 
     def kern():
         if fa is not None:
-            return fa.flash_attention_cuda(q, k, v, causal=True,
+            return fa.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, with_lse=True)[0]
-        return ops.flash_attention(q, k, v, causal=True, window=window)
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
 
     def plain():
-        return ref.flash_attention_torch(q, k, v, causal=True, window=window)
+        return ref.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
 
     err = _timed_err(kern, plain, f"flash_attention at {shape}")
     lse_bytes = 4 * b * h * s if fa is not None else 0
     return _row("flash_attention", 26, kern, plain, 4 * h * hd * pairs,
-                2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) + lse_bytes,
+                2 * (2 * b * s * h * hd + 2 * b * sk * kv * hd) + lse_bytes,
                 launches, err, shape,
                 source="flash_attention.cu", replaces="flash_attention.py",
                 library=lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True),
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True),
                 peak=BF16_FLOPS, reps=10, inner=5)
 
 
@@ -4552,6 +5005,27 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
     b4["qwen2_vl_shape"] = {k: vlm[k] for k in SHAPE_KEYS}
     vlm = _decode_row(ops, ref, da, gen, vlm_cache, 64, None, {})
     b5["qwen2_vl_shape"] = {k: vlm[k] for k in b5_keys}
+    b4["whisper_shapes"] = {
+        label: {k: row[k] for k in SHAPE_KEYS} for label, row in (
+            ("encoder", _flash_row(ops, ref, gen, WHISPER_BATCH,
+                                   WHISPER_FRAMES, 6, 6, 64, None, {},
+                                   causal=False)),
+            ("cross_prefill", _flash_row(
+                ops, ref, gen, WHISPER_BATCH, WHISPER_PROMPT, 6, 6, 64, None,
+                {}, sk=WHISPER_FRAMES, causal=False)),
+            ("cross_training", _flash_row(
+                ops, ref, gen, WHISPER_TRAIN_BATCH, WHISPER_SLOTS, 6, 6, 64,
+                None, {}, fa=fa, sk=WHISPER_FRAMES, causal=False)))}
+    kc, vc = (torch.randn(WHISPER_BATCH, WHISPER_FRAMES, 6, 64,
+                          generator=gen).to("cuda", torch.bfloat16)
+              for _ in range(2))
+    frames = _decode_row(ops, ref, da, gen, (
+        kc, vc, torch.arange(WHISPER_FRAMES, dtype=torch.int32,
+                             device="cuda").expand(WHISPER_BATCH,
+                                                   -1).contiguous(),
+        torch.full((WHISPER_BATCH,), WHISPER_FRAMES - 1, dtype=torch.int32,
+                   device="cuda")), 6, None, {})
+    b5["whisper_shape"] = {k: frames[k] for k in b5_keys}
     b5["compare_max_abs_err"] = errs["decode_attention"]
     return [b4, b5]
 
@@ -4630,7 +5104,8 @@ def scan_bwd_timing(ms, ref, launches, errs):
     their derivatives). The timed call is the wrapper, the launch and the
     ``torch.sum`` of its partials. No PyTorch call computes the scan's
     gradient, so no library time. B6b at falcon-mamba-7b's width is read
-    from phase 12c's profiled step. Also returns B6's gated entry storing
+    from phase 12c's profiled step; its bound there, by the same count, is
+    under ``falcon_mamba_shape``. Also returns B6's gated entry storing
     its states at the same shape, as training launches it, held against
     its plain version there as compare_scan holds it, for B6's row under
     ``training_shape``."""
@@ -4674,6 +5149,12 @@ def scan_bwd_timing(ms, ref, launches, errs):
                inner=1)
     row["replaces_note"] = ("no TPU kernel: the reference differentiates its "
                             "jnp scan and tail with jax.grad")
+    fd = 8192  # falcon-mamba-7b's d_inner, its training shape's bound
+    fm_ms, fm_by = bound(15 * b * s * fd * n + 30 * b * s * fd,
+                         b * s * fd * 22 + b * s * n * 16
+                         + 4 * b * chunks * fd * n + 4 * 2 * (fd * n + 2 * fd))
+    row["falcon_mamba_shape"] = {"shape": f"B={b} S={s} d={fd} N={n}",
+                                 "bound_ms": fm_ms, "bound_by": fm_by}
     row["max_err_of_largest"] = err_rel
     row["compare_max_abs_err"] = errs["mamba_scan_bwd"]
     states_row = _row(
@@ -4698,6 +5179,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import checkpoint
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import heuristics, state
     from repro_torch.core import instances as tinst
     from repro_torch.core import objective as obj
@@ -4724,6 +5206,12 @@ def main() -> int:
     from repro_torch.serving import fastpath as fpm
     from repro_torch.serving import topology
 
+    t_run = time.perf_counter()
+
+    def stamp(phase):
+        print(f"[{time.perf_counter() - t_run:.1f} s] phase {phase} done",
+              flush=True)
+
     # phase 1: the card
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4735,6 +5223,7 @@ def main() -> int:
     reports = build.build(force=True)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
+    stamp("2")
     for src, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -4765,6 +5254,7 @@ def main() -> int:
           f"the rollout's, Z = {width}), {len(ties)} exact-tie "
           f"decodes, B1 = B3 bits at {len(bits)} shapes; memory "
           f"{json.dumps(mem)}", flush=True)
+    stamp("3")
 
     # phase 4: the serving decision path at full width
     summary, enc = drive_main_path(pol, obj, fpm, tinst, policy_score,
@@ -4772,24 +5262,31 @@ def main() -> int:
     print(f"main path: {json.dumps(summary)}", flush=True)
     # the kernels again, on the real encoder outputs of a 100x1000 round
     cases += compare_kernels(ops, ref, [("encoder", *enc)], errs)
+    stamp("4")
 
     # phase 5: gradients through the kernels against plain autograd
     parity = gradient_parity(pol, tr, tinst)
     print(f"gradient parity: {json.dumps(parity)}", flush=True)
+    stamp("5")
 
     # phase 6: static REINFORCE training at full width
     training, enc_train = drive_training(pol, tr, tinst, policy_score)
     print(f"training: {json.dumps(training)}", flush=True)
     bwd += compare_backward(policy_score, ref, [("encoder", *enc_train)],
                             errs)
+    stamp("6")
 
     # phase 7: the attention and scan kernels against their plain versions
     attn_cases = compare_attention(ops, ref, errs)
     print(f"compare attention: max_abs_err flash "
           f"{errs['flash_attention']}, decode {errs['decode_attention']} "
           f"over {len(attn_cases)} cases", flush=True)
+    whisper_attn = compare_cross_attention(ops, ref, fa, lm_attention, errs)
+    print(f"compare whisper attention: {json.dumps(whisper_attn)}",
+          flush=True)
     scan_cases, scan_args, gated_args = compare_scan(ops, ref, errs)
     print(f"compare scan: {json.dumps(scan_cases)}", flush=True)
+    stamp("7")
 
     # {kernel: {path: launches}} from each main-path run
     launches = {}
@@ -4808,6 +5305,7 @@ def main() -> int:
     eng_parity_s = time.perf_counter() - t0
     print(f"engine parity ({eng_parity_s:.1f} s): {json.dumps(eng_parity)}",
           flush=True)
+    stamp("6a")
 
     # phase 6b: the scale run, B3 and then B1 once per round for 256
     # instances of a 100-edge cluster at full policy width
@@ -4820,6 +5318,7 @@ def main() -> int:
     for backend, r in rollout.items():
         print(f"rollout {backend}: {json.dumps(r)}", flush=True)
         record("rollout", rollout_counts[backend])
+    stamp("6b")
 
     # phase 6c: temporal REINFORCE on engine rollouts at full policy width,
     # B1 forward and B2 backward once per round of every update
@@ -4863,6 +5362,7 @@ def main() -> int:
           f"{json.dumps(temporal['resume'])}", flush=True)
     del host_policy
     torch.cuda.empty_cache()
+    stamp("6c")
 
     # phase 6d: the serving host side, the paper's Fig. 2 loop on a
     # 100-edge cluster, trained and served through the command lines
@@ -4874,6 +5374,7 @@ def main() -> int:
         policy_score=policy_score, ref=ref))
     record("serving_host", counts)
     torch.cuda.empty_cache()
+    stamp("6d")
 
     # phase 6e: the fleet and data parallelism on a world of one (NCCL):
     # the fleet rollout through B3 and B1 against 6b, the sharded epoch
@@ -4888,6 +5389,7 @@ def main() -> int:
         record(path, c)
     del rollout_arr, rollout_partials
     torch.cuda.empty_cache()
+    stamp("6e")
 
     # phase 8: the LM edge servers at full width (qwen3-4b, bf16)
     cfg = get_config(LM_ARCH)
@@ -4909,6 +5411,7 @@ def main() -> int:
     qwen3_cache = edge_cache(edges[2])
     del params, edges
     torch.cuda.empty_cache()
+    stamp("8-10")
 
     def serve_lm(label, arch, prompt_len, scan_ulp=False):
         """Serve, profile and check one model's kernel path against its
@@ -4935,9 +5438,11 @@ def main() -> int:
     # phase 11: SSM edge serving (falcon-mamba-7b, B6 in every layer)
     ssm_lm = {LM_SSM_ARCH: serve_lm("ssm", LM_SSM_ARCH, LM_SSM_PROMPT,
                                     scan_ulp=True)}
+    stamp("11")
     # phase 12: hybrid edge serving (hymba-1.5b: B4, B5 windowed; B6)
     ssm_lm[LM_HYBRID_ARCH] = serve_lm("hybrid", LM_HYBRID_ARCH,
                                       LM_HYBRID_PROMPT)
+    stamp("12")
 
     # phase 12b: LM pretraining at full width (olmo-1b, bf16): B4 with its
     # log-sum-exp in every layer's forward and recompute, the pair-scan
@@ -4949,6 +5454,7 @@ def main() -> int:
         SyntheticTokens=SyntheticTokens, named_leaves=named_leaves), card)
     record("lm_training", counts)
     torch.cuda.empty_cache()
+    stamp("12b")
 
     # phase 12c: SSM and hybrid LM training at full width (hymba-1.5b;
     # falcon-mamba-7b at 8 layers): B6 storing its chunk states in every
@@ -4965,6 +5471,7 @@ def main() -> int:
         row[name]["max_abs_err"] for row in ssm_training["scan_backward"]
         for name in SCAN_BWD_NAMES)
     torch.cuda.empty_cache()
+    stamp("12c")
 
     # phase 12d: mixtral-8x7b at 24 of its 32 layers, full width, bf16:
     # served through B4 and B5 with the MoE layer's capacity dispatch
@@ -4973,11 +5480,35 @@ def main() -> int:
         build=build, ref=ref, ops=ops, moe=moe, get_config=get_config)
     moe_lm, counts = drive_moe_lm(lm_ns)
     record("moe_lm_serving", counts)
+    stamp("12d")
 
     # phase 12e: the qwen2-vl-72b backbone at 32 of its 80 layers: a
     # prefill from patch embeddings with M-RoPE rows, then decode steps
     vlm_lm, counts, vlm_cache = drive_vlm_lm(lm_ns)
     record("vlm_lm", counts)
+    stamp("12e")
+
+    # phase 12f: whisper-tiny at full width, bf16: served (B4 over the
+    # frames and over the decoder's own tokens, B5 for the self and cross
+    # attention of a step) and trained (B4 with its lse, the pair-scan
+    # backward); the kernel path against the plain one
+    train_ns = types.SimpleNamespace(
+        ops=ops, ref=ref, build=build, lm=lm, moe=moe, steps=launch_steps,
+        attention=lm_attention, launch_train=launch_train,
+        get_config=get_config, SyntheticTokens=SyntheticTokens,
+        ShapeConfig=ShapeConfig, named_leaves=named_leaves)
+    whisper_lm, counts = drive_whisper_lm(train_ns, card)
+    for path, c in counts.items():
+        record(path, c)
+    stamp("12f")
+
+    # phase 12g: mixtral-8x7b trained at 2 of its 32 layers through
+    # ``train lm``: the load-balance term, a bit-identical rerun, the
+    # kernel path against the plain one with the routes forced
+    moe_training, counts = drive_moe_training(train_ns, card)
+    for path, c in counts.items():
+        record(path, c)
+    stamp("12g")
 
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
@@ -4992,6 +5523,7 @@ def main() -> int:
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
         ms, ref, launches["mamba_scan_bwd"], errs)
     kernels.append(b6b)
+    stamp("13")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5007,6 +5539,8 @@ def main() -> int:
         "compare_scan": scan_cases, "ssm_lm": ssm_lm,
         "lm_training": lm_training, "ssm_lm_training": ssm_training,
         "moe_lm": moe_lm, "vlm_lm": vlm_lm,
+        "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
+        "moe_lm_training": moe_training,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -5071,9 +5605,7 @@ def main() -> int:
                          "kernel_vs_plain": {
                              d: {k: moe_lm["kernel_vs_plain"][d][k] for k in
                                  ("max_rel_err", "routes")}
-                             for d in ("bf16", "bf16_cut", "f32")}
-                         | {"library_attention": moe_lm["kernel_vs_plain"][
-                             "bf16"]["library_attention"]},
+                             for d in ("bf16", "bf16_cut", "f32")},
                          "phase_s": moe_lm["phase_s"]},
                       "vlm_lm": {
                           k: vlm_lm["serving"][k] for k in (
@@ -5086,10 +5618,36 @@ def main() -> int:
                           for u in ("prefill", "decode")},
                          "kernel_vs_plain": {
                              d: vlm_lm["kernel_vs_plain"][d]["max_rel_err"]
-                             for d in ("bf16", "f32")}
-                         | {"library_attention": vlm_lm["kernel_vs_plain"][
-                             "bf16"]["library_attention"]["max_rel_err"]},
+                             for d in ("bf16", "f32")},
                          "phase_s": vlm_lm["phase_s"]},
+                      "whisper_lm": {
+                          "serving": {k: whisper_lm["serving"][k] for k in (
+                              "prefill_ms", "decode_step_ms",
+                              "decode_tokens_per_s",
+                              "max_memory_allocated_bytes")},
+                          "training": {k: whisper_lm["training"][k] for k in (
+                              "step_p50_ms", "step_p95_ms",
+                              "utterances_per_s",
+                              "max_memory_allocated_bytes")},
+                          "kernel_vs_plain": {
+                              d: whisper_lm["kernel_vs_plain"][d][
+                                  "max_rel_err"] for d in ("bf16", "f32")},
+                          "training_kernel_vs_plain": {
+                              k: whisper_lm["training_kernel_vs_plain"][k]
+                              for k in ("loss_rel_err",
+                                        "worst_grad_rel_err")},
+                          "phase_s": whisper_lm["phase_s"]},
+                      "moe_lm_training": {
+                          k: moe_training["full_width"][k] for k in (
+                              "step_p50_ms", "step_p95_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes")}
+                      | {"rerun_leaves_differing": moe_training["rerun"][
+                          "leaves_differing"],
+                         "kernel_vs_plain": {
+                             k: moe_training["kernel_vs_plain"][k] for k in (
+                                 "loss_rel_err", "aux_rel_err",
+                                 "worst_grad_rel_err")},
+                         "phase_s": moe_training["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

@@ -102,15 +102,16 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-# a layer's leaf in the port, ``<prefix>layers/<i>/<rest>``
-_LAYER_PATH = re.compile(r"^((?:.*/)?layers)/(\d+)/(.*)$")
+# a layer's leaf in the port, ``<prefix>layers/<i>/<rest>`` or whisper's
+# encoder ``<prefix>enc_layers/<i>/<rest>``
+_LAYER_PATH = re.compile(r"^((?:.*/)?(?:enc_)?layers)/(\d+)/(.*)$")
 
 
 def _layer_groups(flat: dict) -> dict[str, tuple[bool, list]]:
     """{reference path: (stacked, [values in layer order])} of {port
     "/"-path: value}: the leaves ``<prefix>layers/<i>/<rest>`` of all i
     form ``<prefix>layers/<rest>``, stacked on a leading L axis in the
-    reference; any other leaf is its own."""
+    reference (``enc_layers`` likewise); any other leaf is its own."""
     groups = {}
     for key, value in flat.items():
         m = _LAYER_PATH.match(key)

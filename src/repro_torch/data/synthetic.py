@@ -48,22 +48,9 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def _decode_cache(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """The decode cache's shapes and dtypes on ``meta``: the port's
-    ``init_cache`` for the families it runs, and the reference's layout
-    (``repro/models/lm.py:226-244``) for MoE, which caches as the dense
-    family does, and whisper, which adds the encoder output."""
-    from repro_torch.models import lm
-    if not (cfg.num_experts or cfg.encoder_decoder):
-        return lm.init_cache(cfg, batch, max_seq, device="meta")
-    w = lm.cache_window(cfg, max_seq)
-    kvd = (cfg.num_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
-    cache = {"pos": _meta((batch,), torch.int32),
-             "slot_pos": _meta((batch, w), torch.int32),
-             "layers": {"k": _meta(kvd, _float(cfg)),
-                        "v": _meta(kvd, _float(cfg))}}
-    if cfg.encoder_decoder:
-        cache["enc_out"] = _meta((batch, cfg.encoder_len, cfg.d_model),
-                                 _float(cfg))
-    return cache
+    ``init_cache``, the reference's layout (``repro/models/lm.py:226-244``)
+    for every family, whisper's encoder output included."""
+    return lm.init_cache(cfg, batch, max_seq, device="meta")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:

@@ -8,17 +8,24 @@
 // src/repro/kernels/flash_attention.py:26 (entry flash_attention_fwd, :74),
 // which computes ref.flash_attention_ref (src/repro/kernels/ref.py:10):
 //   o[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h // G] / sqrt(hd)) v[b, t, h // G]
-// over the columns t allowed by the mask (t <= s if causal, t > s - window
-// with a window), with masked scores at -1e30, f32 running max and sum,
-// f32 accumulators and the output in q's dtype. Layout (B, S, H, hd) for q
-// and o, (B, S, KV, hd) for k and v, all contiguous; G = H / KV.
+// over the columns t < Sk allowed by the mask (t <= s if causal, t > s -
+// window with a window, both aligned at the top left as the reference's
+// model attention has them), with masked scores at -1e30, f32 running max
+// and sum, f32 accumulators and the output in q's dtype. Layout (B, Sq, H,
+// hd) for q and o, (B, Sk, KV, hd) for k and v, all contiguous; G = H /
+// KV. The keys have a length of their own: whisper's decoder attends from
+// its Sq tokens to Sk = 1500 encoder frames (the reference's
+// models/attention.py pads both to its chunk grid and masks columns >= Sk).
+// A row with no allowed column (only where a window ends before the keys
+// start) writes 0 and an lse of about -1e30.
 // Optionally it also writes each row's log-sum-exp of the scaled, masked
 // scores, lse[b, h, s] = m + log(max(l, 1e-30)) from the running max m and
-// sum l, (B, H, S) f32: the residual the training attention's backward
+// sum l, (B, H, Sq) f32: the residual the training attention's backward
 // (the reference's pair-scan `_flash_bwd`, models/attention.py:166) takes.
 // A null lse pointer writes nothing; `o` is the same either way.
-// Unlike the Pallas kernel, which needs S % 128 == 0, it takes any S:
-// rows past S are not stored and columns past S are masked.
+// Unlike the Pallas kernel, which needs S % 128 == 0 and one S for queries
+// and keys, it takes any Sq and Sk: rows past Sq are not stored and columns
+// past Sk are masked.
 //
 // What bounds it. At the prefill of the LM edge server (qwen3-4b heads:
 // H=32, KV=8, hd=128) and a prompt of S=2048, the causal half is about
@@ -101,8 +108,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
-          float* __restrict__ lse, int S, int H, int KV, int hd, int causal,
-          int window, float scale) {
+          float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd,
+          int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;  // odd row stride: row-parallel reads hit distinct banks
   float* qs = smem;
@@ -123,13 +130,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const long q_stride = (long)H * hd;   // between consecutive s of q and o
   const long kv_stride = (long)KV * hd;  // between consecutive s of k and v
-  const T* qb = q + (long)b * S * q_stride + (long)h * hd;
-  const T* kb = k + (long)b * S * kv_stride + (long)kvh * hd;
-  const T* vb = v + (long)b * S * kv_stride + (long)kvh * hd;
+  const T* qb = q + (long)b * Sq * q_stride + (long)h * hd;
+  const T* kb = k + (long)b * Sk * kv_stride + (long)kvh * hd;
+  const T* vb = v + (long)b * Sk * kv_stride + (long)kvh * hd;
 
   for (int i = tid; i < kBQ * hd; i += kThreads) {
     const int r = i / hd, d = i % hd, s = q0 + r;
-    qs[r * hdp + d] = s < S ? to_f32(qb[s * q_stride + d]) : 0.f;
+    qs[r * hdp + d] = s < Sq ? to_f32(qb[s * q_stride + d]) : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
@@ -142,8 +149,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kHdPerThread; ++j) acc[i][j] = 0.f;
 
   // live kv tiles: [lo, hi]
-  const int last_row = min(q0 + kBQ - 1, S - 1);
-  const int hi = causal ? last_row / kBK : (S - 1) / kBK;
+  const int last_row = min(q0 + kBQ - 1, Sq - 1);
+  const int hi = (causal ? min(last_row, Sk - 1) : Sk - 1) / kBK;
   int lo = 0;
   if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
 
@@ -158,7 +165,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tid + j * kThreads;
         kr[j] = vr[j] = make_uint4(0u, 0u, 0u, 0u);
         const int s = k0 + c / cpr;
-        if (c < chunks && s < S) {
+        if (c < chunks && s < Sk) {
           const long off = s * kv_stride + (c % cpr) * kVec<T>;
           kr[j] = *reinterpret_cast<const uint4*>(kb + off);
           vr[j] = *reinterpret_cast<const uint4*>(vb + off);
@@ -205,7 +212,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        bool ok = col < S;
+        bool ok = col < Sk;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && col > row - window;
         ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
@@ -266,14 +273,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  if (lse != nullptr && tid < kBQ && q0 + tid < S)
-    lse[((long)b * H + h) * S + q0 + tid] =
+  if (lse != nullptr && tid < kBQ && q0 + tid < Sq)
+    lse[((long)b * H + h) * Sq + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
-  T* ob = o + (long)b * S * q_stride + (long)h * hd;
+  T* ob = o + (long)b * Sq * q_stride + (long)h * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, s = q0 + r;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kHdPerThread; ++j) {
@@ -284,18 +291,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int KV, int hd, int causal,
-               int window, float scale, cudaStream_t stream) {
+               float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+               int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
-      hd, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -377,7 +384,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
 }
 
 // Copy rows r0 .. r0+63 of a (row stride `stride`) matrix into a swizzled
-// tile, zero-filling rows at or past S.
+// tile, zero-filling rows at or past S (the matrix's rows: Sq or Sk).
 template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long stride, int r0, int S,
@@ -396,8 +403,8 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             float* __restrict__ lse, int S, int H, int KV, int causal,
-             int window, float scale) {
+             float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+             int causal, int window, float scale) {
   using L = Tile<HD>;
   constexpr int kKSteps = HD / 16;  // k16 steps of Q K^T
   constexpr int kDTiles = HD / 8;   // n8 tiles of the output
@@ -415,20 +422,20 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const long q_stride = (long)H * HD;
   const long kv_stride = (long)KV * HD;
-  const bf16* qb = q + (long)b * S * q_stride + (long)h * HD;
-  const bf16* kb = k + (long)b * S * kv_stride + (long)kvh * HD;
-  const bf16* vb = v + (long)b * S * kv_stride + (long)kvh * HD;
+  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * HD;
+  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * HD;
+  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * HD;
 
   // live kv tiles: [lo, hi]
-  const int last_row = min(q0 + kBQ - 1, S - 1);
-  const int hi = causal ? last_row / kBK : (S - 1) / kBK;
+  const int last_row = min(q0 + kBQ - 1, Sq - 1);
+  const int hi = (causal ? min(last_row, Sk - 1) : Sk - 1) / kBK;
   int lo = 0;
   if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
 
-  load_tile<HD>(qs, qb, q_stride, q0, S, tid);
-  load_tile<HD>(ks, kb, kv_stride, lo * kBK, S, tid);
+  load_tile<HD>(qs, qb, q_stride, q0, Sq, tid);
+  load_tile<HD>(ks, kb, kv_stride, lo * kBK, Sk, tid);
   cp_async_commit();  // Q and K[lo]
-  load_tile<HD>(vs, vb, kv_stride, lo * kBK, S, tid);
+  load_tile<HD>(vs, vb, kv_stride, lo * kBK, Sk, tid);
   cp_async_commit();  // V[lo]
 
   unsigned qf[kKSteps][4];
@@ -450,10 +457,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();     // K[j] visible; every warp is past tile j-1
     if (j < hi) {        // tile j+1 into the other stage
       const int nxt = (stage + 1) % kStages;
-      load_tile<HD>(ks + nxt * L::kElems, kb, kv_stride, (j + 1) * kBK, S,
+      load_tile<HD>(ks + nxt * L::kElems, kb, kv_stride, (j + 1) * kBK, Sk,
                     tid);
       cp_async_commit();
-      load_tile<HD>(vs + nxt * L::kElems, vb, kv_stride, (j + 1) * kBK, S,
+      load_tile<HD>(vs + nxt * L::kElems, vb, kv_stride, (j + 1) * kBK, Sk,
                     tid);
     } else {
       cp_async_commit();  // empty groups keep the count
@@ -485,9 +492,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // scale; masks only on tiles that cut the diagonal, window or end of S
+    // scale; masks only on tiles that cut the diagonal, window or end of Sk
     const int k0 = j * kBK;
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kBQ - 1 - window);
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt)
@@ -497,7 +504,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (edge) {
           const int col = k0 + nt * 8 + 2 * tq + (e & 1);
           const int row = row0 + (e / 2) * 8;
-          bool ok = col < S;
+          bool ok = col < Sk;
           if (causal) ok = ok && col <= row;
           if (window > 0) ok = ok && col > row - window;
           if (!ok) s = kNegInf;
@@ -559,15 +566,21 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // epilogue: o = acc / l in bf16, staged in this warp's rows of the Q tile
-  // (read only at tile lo, before two barriers), stored in 16-byte chunks
+  // (read only at tile lo, before two barriers), stored in 16-byte chunks.
+  // With no live tile (a window that ends before the keys start) the loop
+  // never waited for the first copies: wait for every thread's now.
+  if (lo > hi) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
     const int s = row0 + 8 * i;  // m[i] is the quad's; one thread stores
-    if (lse != nullptr && tq == 0 && s < S)
-      lse[((long)b * H + h) * S + s] = m[i] + logf(l[i]);
+    if (lse != nullptr && tq == 0 && s < Sq)
+      lse[((long)b * H + h) * Sq + s] = m[i] + logf(l[i]);
   }
 #pragma unroll
   for (int dt = 0; dt < kDTiles; ++dt)
@@ -580,12 +593,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 acc[dt][2 * i + 1] / l[i]);
     }
   __syncwarp();
-  bf16* ob = o + (long)b * S * q_stride + (long)h * HD;
+  bf16* ob = o + (long)b * Sq * q_stride + (long)h * HD;
 #pragma unroll
   for (int c = lane; c < 16 * L::kChunks; c += 32) {
     const int r = warp * 16 + c / L::kChunks, ch = c % L::kChunks;
     const int s = q0 + r;
-    if (s < S)
+    if (s < Sq)
       *reinterpret_cast<uint4*>(ob + s * q_stride + ch * 8) =
           *reinterpret_cast<const uint4*>(qs + swz(r, ch, L::kRowElems));
   }
@@ -593,33 +606,33 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int S, int H, int KV, int causal, int window,
-              float scale, cudaStream_t stream) {
+              float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+              int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (1 + 2 * kStages) * Tile<HD>::kElems;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, (S + kBQ - 1) / kBQ, B);
+  dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   flash_fwd_tc<HD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
-      causal, window, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int S, int H, int KV, int hd, int causal,
-                int window, float scale, cudaStream_t st) {
+                float* lse, int B, int S, int Sk, int H, int KV, int hd,
+                int causal, int window, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 48: return launch_tc<48>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 80: return launch_tc<80>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 96: return launch_tc<96>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 112: return launch_tc<112>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, st);
+    case 16: return launch_tc<16>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 48: return launch_tc<48>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 80: return launch_tc<80>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 96: return launch_tc<96>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 112: return launch_tc<112>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -632,28 +645,29 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, all f32 or all
+// q, o: (B, S, H, hd); k, v: (B, Sk, KV, hd); contiguous, all f32 or all
 // bf16 (is_bf16). f32: hd <= 128 a multiple of 4, k and v 16-byte aligned.
 // bf16: hd <= 128 a multiple of 16, q, k, v and o 16-byte aligned.
 // window <= 0 means no window. lse: (B, H, S) f32, or null for none.
 // Returns the first CUDA error of the launch (0 when it was accepted).
 int corais_flash_attention(const void* q, const void* k, const void* v,
-                           void* o, void* lse, int B, int S, int H, int KV,
-                           int hd, int causal, int window, float scale,
-                           int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || hd < 1 || hd > kMaxHd ||
+                           void* o, void* lse, int B, int S, int Sk, int H,
+                           int KV, int hd, int causal, int window,
+                           float scale, int is_bf16, void* stream) {
+  if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
+      hd > kMaxHd ||
       !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (hd % 16 != 0 || !aligned16(q) || !aligned16(o))
       return (int)cudaErrorInvalidValue;
-    return launch_bf16(q, k, v, o, static_cast<float*>(lse), B, S, H, KV,
-                       hd, causal, window, scale, st);
+    return launch_bf16(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H,
+                       KV, hd, causal, window, scale, st);
   }
   if (hd % 4 != 0) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, o, static_cast<float*>(lse), B, S, H, KV, hd,
-                    causal, window, scale, st);
+  return launch_f32(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H, KV,
+                    hd, causal, window, scale, st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -3,10 +3,12 @@
 Replaces the Pallas ``_kernel`` of ``repro/kernels/flash_attention.py:26``
 (causal / sliding-window GQA flash attention, online softmax in f32, dead
 tiles skipped, KV head ``h // G``). Unlike the Pallas kernel it takes any
-sequence length. bf16 runs on the tensor cores (hd a multiple of 16), f32
+sequence length, and keys of a length of their own (Sk, as the
+reference's model attention takes them: whisper's cross attention), the
+masks aligned at the top left. bf16 runs on the tensor cores (hd a multiple of 16), f32
 on the CUDA cores (hd a multiple of 4). The source's header note says what
 bounds it on the H100 and what its design does about that. With
-``with_lse`` it also writes each row's log-sum-exp (B, H, S) f32, the
+``with_lse`` it also writes each row's log-sum-exp (B, H, Sq) f32, the
 residual of the training attention's backward; without it (serving) the
 kernel stores nothing more, and the output is the same bits either way.
 
@@ -31,7 +33,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 BF16_HEAD_DIM_MULTIPLE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"corais_flash_attention": [_P] * 5 + [_I] * 7 + [_F, _I, _P]}
+_SIGNATURES = {"corais_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _P]}
 
 
 def check_vector_loads(hd: int, dtype, **tensors) -> None:
@@ -56,26 +58,28 @@ def window_arg(window) -> int:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
                          with_lse: bool = False):
-    """B4: q (B, S, H, hd); k, v (B, S, KV, hd), H a multiple of KV,
+    """B4: q (B, Sq, H, hd); k, v (B, Sk, KV, hd), H a multiple of KV,
     hd <= 128 and a multiple of 16 (bf16) or 4 (f32), all f32 or all bf16,
-    contiguous, k and v (and q in bf16) 16-byte aligned, on one card.
-    Returns (B, S, H, hd) in q's dtype, and with ``with_lse`` also the
-    rows' log-sum-exp (B, H, S) f32."""
+    contiguous, k and v (and q in bf16) 16-byte aligned, on one card. The
+    causal and window masks compare the query row with the key column from
+    the top left (``col <= row``), as the reference's model attention
+    does. Returns (B, Sq, H, hd) in q's dtype, and with ``with_lse`` also
+    the rows' log-sum-exp (B, H, Sq) f32."""
     win = window_arg(window)
     if q.ndim != 4 or k.ndim != 4:
-        raise ValueError("q must be (B, S, H, hd) and k, v (B, S, KV, hd)")
+        raise ValueError("q must be (B, Sq, H, hd) and k, v (B, Sk, KV, hd)")
     b, s, h, hd = q.shape
-    kv = k.shape[2]
+    sk, kv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if not (b >= 1 and s >= 1 and kv >= 1 and h % kv == 0
+    if not (b >= 1 and s >= 1 and sk >= 1 and kv >= 1 and h % kv == 0
             and 1 <= hd <= MAX_HEAD_DIM):
-        raise ValueError(f"unsupported shape B={b} S={s} H={h} KV={kv} "
-                         f"hd={hd}: the kernel takes H % KV == 0 and "
-                         f"1 <= hd <= {MAX_HEAD_DIM}")
+        raise ValueError(f"unsupported shape B={b} Sq={s} Sk={sk} H={h} "
+                         f"KV={kv} hd={hd}: the kernel takes H % KV == 0 "
+                         f"and 1 <= hd <= {MAX_HEAD_DIM}")
     check_tensor("q", q, (b, s, h, hd), q.dtype, q.device)
-    check_tensor("k", k, (b, s, kv, hd), q.dtype, q.device)
-    check_tensor("v", v, (b, s, kv, hd), q.dtype, q.device)
+    check_tensor("k", k, (b, sk, kv, hd), q.dtype, q.device)
+    check_tensor("v", v, (b, sk, kv, hd), q.dtype, q.device)
     if q.dtype == torch.bfloat16:
         if hd % BF16_HEAD_DIM_MULTIPLE:
             raise ValueError(f"hd={hd} must be a multiple of "
@@ -92,7 +96,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.corais_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, s, h, kv, hd,
+            lse.data_ptr() if with_lse else None, b, s, sk, h, kv, hd,
             int(bool(causal)), win, 1.0 / math.sqrt(hd),
             int(q.dtype == torch.bfloat16), stream)
     raise_on(err, lib, "flash_attention")

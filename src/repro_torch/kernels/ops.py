@@ -229,8 +229,8 @@ def _no_card_backward(kernel: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
-    """B4: GQA flash attention, q (B, S, H, hd), k, v (B, S, KV, hd) ->
-    (B, S, H, hd) in q's dtype, any S; differentiable through
+    """B4: GQA flash attention, q (B, Sq, H, hd), k, v (B, Sk, KV, hd) ->
+    (B, Sq, H, hd) in q's dtype, any Sq and Sk; differentiable through
     :class:`FlashAttention`, whose backward runs the pair-scan over
     ``chunk``-sized blocks."""
     return FlashAttention.apply(q, k, v, bool(causal), window, int(chunk),

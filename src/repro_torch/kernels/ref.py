@@ -141,14 +141,16 @@ NEG_INF = -1e30
 
 
 def _masked_scores(q, k, causal, window):
-    """The scaled scores (B, KV, G, S, S) in f32, masked at -1e30."""
+    """The scaled scores (B, KV, G, Sq, Sk) in f32, masked at -1e30; the
+    causal and window masks compare row and column from the top left, as
+    the reference's model attention does at Sq != Sk."""
     b, s, h, hd = q.shape
-    kv = k.shape[2]
+    sk, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd).float()
     sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, k.float()) / math.sqrt(hd)
     qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= ki <= qi
     if window is not None:
@@ -158,8 +160,9 @@ def _masked_scores(q, k, causal, window):
 
 def flash_attention_torch(q, k, v, *, causal=True, window=None):
     """Plain version of B4, twin of ``ref.flash_attention_ref``
-    (``repro/kernels/ref.py:10``). q: (B, S, H, hd); k, v: (B, S, KV, hd)
-    -> (B, S, H, hd) in q's dtype."""
+    (``repro/kernels/ref.py:10``) with keys of a length of their own, as
+    the reference's model attention takes them. q: (B, Sq, H, hd); k, v:
+    (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
     b, s, h, hd = q.shape
     p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
     o = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
@@ -168,7 +171,7 @@ def flash_attention_torch(q, k, v, *, causal=True, window=None):
 
 def flash_attention_lse_torch(q, k, *, causal=True, window=None):
     """Plain version of B4's log-sum-exp output: each row's logsumexp of
-    the same masked scores as :func:`flash_attention_torch`, (B, H, S)
+    the same masked scores as :func:`flash_attention_torch`, (B, H, Sq)
     f32."""
     b, s, h, _ = q.shape
     lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)

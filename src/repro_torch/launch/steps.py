@@ -8,10 +8,10 @@ over ``cfg.num_microbatches`` microbatches accumulated in
 Adafactor). It runs eagerly and updates the parameters in place, where the
 reference jits a step that donates them.
 
-Sharding waits for the LM-sharding part of ROADMAP A11: the builders take
-a mesh of one device or None, and raise for a larger one. ``dp_groups``
-(MoE dispatch groups per data shard) is therefore 1, and no builder needs
-the reference's shape argument but the prefill, which sizes its cache.
+Sharding waits for the LM-sharding part of ROADMAP A4: the step makers take
+a mesh of one device or None, and raise for a larger one. The train step
+passes the MoE dispatch groups the reference's ``_dp_groups`` chooses,
+which is 1 on one device.
 """
 from __future__ import annotations
 
@@ -42,7 +42,23 @@ def _check_mesh(mesh) -> None:
     if mesh is not None and mesh.size() != 1:
         raise NotImplementedError(
             f"a mesh of {mesh.size()} devices: LM sharding waits for "
-            "ROADMAP A11; the LM steps run on one device")
+            "ROADMAP A4; the LM steps run on one device")
+
+
+def _dp_groups(mesh, cfg: ModelConfig, shape: ShapeConfig | None) -> int:
+    """MoE dispatch groups, the reference's rule
+    (``repro/launch/steps.py:47-57``): one group per data shard where each
+    holds at least 64 tokens, else one global group. The data axis here is
+    the mesh of one device (or none), so the rule gives 1."""
+    dp = 1 if mesh is None else mesh.size()
+    if shape is None:
+        return 1
+    tokens = shape.global_batch * (shape.seq_len if shape.kind == "train"
+                                   else 1)
+    if shape.global_batch % dp == 0 and tokens % dp == 0 \
+            and tokens // dp >= 64:
+        return dp
+    return 1
 
 
 def make_optimizer(cfg: ModelConfig, knobs: TrainKnobs):
@@ -56,10 +72,10 @@ def make_optimizer(cfg: ModelConfig, knobs: TrainKnobs):
     return ocfg, partial(adam_init, cfg=ocfg), partial(adam_update, cfg=ocfg)
 
 
-def _value_and_grad(params, leaves, batch, cfg: ModelConfig):
+def _value_and_grad(params, leaves, batch, cfg: ModelConfig, dp_groups):
     """(total, metrics, {path: grad}) of ``lm.train_loss``; a leaf the loss
     does not reach (a nonparametric norm's placeholder) gets zeros."""
-    total, metrics = lm.train_loss(params, batch, cfg, 1)
+    total, metrics = lm.train_loss(params, batch, cfg, dp_groups)
     grads = torch.autograd.grad(total, list(leaves.values()),
                                 allow_unused=True)
     grads = {k: torch.zeros_like(t) if g is None else g
@@ -83,15 +99,18 @@ def _microbatches(batch: dict, m: int) -> list[dict]:
 
 
 def build_train_step(cfg: ModelConfig, mesh=None,
-                     knobs: TrainKnobs = TrainKnobs()):
+                     knobs: TrainKnobs = TrainKnobs(),
+                     shape: ShapeConfig | None = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     with metrics ``loss``, ``aux_loss``, ``tokens`` (the microbatches'
     mean), ``grad_norm`` (before clipping) and ``loss_total``. The
     parameters are updated in place; the optimizer state is keyed by
     :func:`repro_torch.nn.named_leaves`' paths (``make_optimizer``'s
-    init over those leaves makes it)."""
+    init over those leaves makes it). The loss's MoE dispatch runs in
+    :func:`_dp_groups` groups (``shape``: the cell's batch and length)."""
     _check_mesh(mesh)
     _, _, opt_update = make_optimizer(cfg, knobs)
+    dp_groups = _dp_groups(mesh, cfg, shape)
     accum_dtype = _ACCUM_DTYPES[knobs.grad_accum_dtype]
     m = max(cfg.num_microbatches, 1)
 
@@ -100,13 +119,15 @@ def build_train_step(cfg: ModelConfig, mesh=None,
         for t in leaves.values():
             t.requires_grad_(True)
         if m == 1:
-            loss, metrics, grads = _value_and_grad(params, leaves, batch, cfg)
+            loss, metrics, grads = _value_and_grad(params, leaves, batch,
+                                                   cfg, dp_groups)
         else:
             acc = {k: torch.zeros(t.shape, dtype=accum_dtype, device=t.device)
                    for k, t in leaves.items()}
             loss_sum, mets = 0.0, []
             for mb in _microbatches(batch, m):
-                loss_mb, met, g = _value_and_grad(params, leaves, mb, cfg)
+                loss_mb, met, g = _value_and_grad(params, leaves, mb, cfg,
+                                                  dp_groups)
                 acc = {k: a + g[k].to(accum_dtype) for k, a in acc.items()}
                 loss_sum = loss_sum + loss_mb
                 mets.append(met)

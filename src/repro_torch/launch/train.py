@@ -80,17 +80,19 @@ def train_corais(args):
 def train_lm(args) -> dict:
     """Pretrain an LM on the synthetic Zipf stream with Adam (``--lr``,
     global-norm clip 1.0), as the reference's ``train lm``: random weights
-    from ``--seed``, checkpoints every ``--ckpt-every`` steps. Returns
+    from ``--seed``, checkpoints every ``--ckpt-every`` steps; every
+    token-input family (dense, MoE with its load-balance term and one
+    dispatch group, SSM, hybrid). Returns
     {"cfg", "params", "opt_state", "pipeline", "start", "losses",
-    "grad_norms", "step_ms"}, each step's wall ms taken to the loss on the
-    host."""
+    "aux_losses", "grad_norms", "step_ms"}, each step's wall ms taken to
+    the loss on the host (``aux_losses``: the MoE load-balance loss, 0
+    without experts)."""
     cfg = (get_reduced_config(args.arch) if args.scale == "reduced"
            else get_config(args.arch))
     if cfg.encoder_decoder or not cfg.embed_input:
         raise SystemExit(f"{args.arch}: synthetic token pretrain applies to "
                          "token-input decoder archs; pick a dense/moe/ssm arch")
     device = resolve_device(args.device)
-    lm.check_trainable(cfg, device)
     # the reference's step: one batch, the clip at 1.0, Adam at --lr
     train_cfg = dataclasses.replace(cfg, num_microbatches=1, optimizer="adam")
     knobs = TrainKnobs(lr=args.lr, grad_clip=1.0)
@@ -111,7 +113,7 @@ def train_lm(args) -> dict:
             print(f"resumed from step {start}")
     step = build_train_step(train_cfg, knobs=knobs)
 
-    losses, grad_norms, step_ms = [], [], []
+    losses, aux_losses, grad_norms, step_ms = [], [], [], []
     for i in range(start, start + args.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in next(pipe).items()}
@@ -120,6 +122,7 @@ def train_lm(args) -> dict:
         loss = float(metrics["loss_total"])
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
+        aux_losses.append(float(metrics["aux_loss"]))
         grad_norms.append(float(metrics["grad_norm"]))
         if i % args.log_every == 0:
             print(f"step {i:5d} loss {loss:8.4f} gnorm {grad_norms[-1]:8.2f} "
@@ -134,7 +137,8 @@ def train_lm(args) -> dict:
     print(f"loss {first:.4f} -> {last:.4f} over {len(losses)} steps")
     return {"cfg": cfg, "params": params, "opt_state": opt_state,
             "pipeline": pipe, "start": start, "losses": losses,
-            "grad_norms": grad_norms, "step_ms": step_ms}
+            "aux_losses": aux_losses, "grad_norms": grad_norms,
+            "step_ms": step_ms}
 
 
 def main(argv=None):

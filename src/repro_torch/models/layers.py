@@ -1,11 +1,12 @@
 """Per-layer blocks of the LM: attention (prefill + decode), the MLP or
-MoE and the decoder layer of the dense, MoE (mixtral), VLM backbone
-(qwen2-vl, M-RoPE), SSM (falcon-mamba) and hybrid (hymba) families
+MoE, the decoder layer of the dense, MoE (mixtral), VLM backbone
+(qwen2-vl, M-RoPE), SSM (falcon-mamba) and hybrid (hymba) families, and
+whisper's encoder and decoder layers with their cross attention
 (counterpart of ``repro/models/layers.py``).
 
 Parameters are nested dicts of tensors with the reference's leaf names and
-(in, out) layouts. The whisper encoder/decoder layers are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+(in, out) layouts. Whisper (``family == "audio"``) has absolute positions
+added at embedding time: its attention takes no RoPE.
 """
 from __future__ import annotations
 
@@ -21,21 +22,15 @@ from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for the layer families this port does not have yet (called
-    where params and caches are made, ``lm.init_params`` / ``init_cache``)."""
-    if cfg.encoder_decoder or cfg.family == "audio":
-        raise NotImplementedError(
-            "the whisper encoder/decoder layers wait for ROADMAP A11")
-
-
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype,
-              device=None):
+              device=None, cross: bool = False):
+    """wq, wk, wv, wo; the qk-norm scales where the config has them, never
+    on a cross attention."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def w(shape):
@@ -43,7 +38,7 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype,
 
     p = {"wq": w((d, h * hd)), "wk": w((d, kv * hd)), "wv": w((d, kv * hd)),
          "wo": w((h * hd, d))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
     return p
@@ -58,8 +53,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
-    q = position_encode(cfg, q, positions)
-    k = position_encode(cfg, k, positions)
+    if cfg.family != "audio":  # whisper: absolute positions, no RoPE
+        q = position_encode(cfg, q, positions)
+        k = position_encode(cfg, k, positions)
     return q, k, v
 
 
@@ -110,6 +106,27 @@ def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
                                     window=cfg.sliding_window)
     return (dense(out.reshape(b, cfg.num_heads * cfg.head_dim), p["wo"]),
             layer_cache)
+
+
+def cross_attn_forward(p, x, enc_out, cfg: ModelConfig):
+    """Decoder-to-encoder cross attention (whisper): queries from x (B, S,
+    D), keys and values from enc_out (B, S_enc, D); no RoPE, no mask, no
+    qk-norm. S > 1 runs B4 at Sq = S against Sk = S_enc; a decode step's
+    single row runs :func:`attention.cross_decode_attention` (B5 on the
+    card), where the reference runs ``naive_attention``. The frames' K/V
+    are projected on every call, as the reference does. Returns (B, S,
+    D)."""
+    b, s = x.shape[0], x.shape[1]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, p["wq"]).reshape(b, s, h, hd)
+    k = dense(enc_out, p["wk"]).reshape(b, enc_out.shape[1], kv, hd)
+    v = dense(enc_out, p["wv"]).reshape(b, enc_out.shape[1], kv, hd)
+    if s == 1:
+        out = attn_lib.cross_decode_attention(q, k, v)
+    else:
+        out = attn_lib.flash_attention(q, k, v, chunk=cfg.attn_chunk,
+                                       causal=False)
+    return dense(out.reshape(b, s, h * hd), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +231,59 @@ def layer_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
     if cfg.num_experts:
         return x_t + moe_apply(p["moe"], h2[:, None, :], cfg)[0][:, 0]
     return x_t + mlp_apply(p["mlp"], h2, cfg)
+
+
+# ---------------------------------------------------------------------------
+# whisper encoder / decoder layers
+# ---------------------------------------------------------------------------
+
+
+def enc_layer_init(generator: torch.Generator, cfg: ModelConfig, dtype,
+                   device=None):
+    return {"ln1": norm_init(cfg, cfg.d_model, device),
+            "attn": attn_init(generator, cfg, dtype, device),
+            "ln2": norm_init(cfg, cfg.d_model, device),
+            "mlp": mlp_init(generator, cfg, dtype, device)}
+
+
+def enc_layer_forward(p, x, positions, cfg: ModelConfig):
+    """Encoder layer: non-causal self attention over the frames, the MLP."""
+    h = norm_apply(cfg, p["ln1"], x)
+    x = x + attn_forward(p["attn"], h, positions, cfg, causal=False)[0]
+    return x + mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg)
+
+
+def dec_layer_init(generator: torch.Generator, cfg: ModelConfig, dtype,
+                   device=None):
+    return {"ln1": norm_init(cfg, cfg.d_model, device),
+            "attn": attn_init(generator, cfg, dtype, device),
+            "ln_x": norm_init(cfg, cfg.d_model, device),
+            "xattn": attn_init(generator, cfg, dtype, device, cross=True),
+            "ln2": norm_init(cfg, cfg.d_model, device),
+            "mlp": mlp_init(generator, cfg, dtype, device)}
+
+
+def dec_layer_forward(p, x, enc_out, positions, cfg: ModelConfig):
+    """Decoder layer over a token sequence: causal self attention, cross
+    attention to ``enc_out``, the MLP. Returns (x, (k, v)) with the self
+    attention's k, v (B, S, KV, hd)."""
+    a, kv = attn_forward(p["attn"], norm_apply(cfg, p["ln1"], x), positions,
+                         cfg, causal=True)
+    x = x + a
+    x = x + cross_attn_forward(p["xattn"], norm_apply(cfg, p["ln_x"], x),
+                               enc_out, cfg)
+    return x + mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg), kv
+
+
+def dec_layer_decode(p, x_t, enc_out, layer_cache, slot_pos, pos,
+                     cfg: ModelConfig):
+    """One-token decoder layer: self attention through the cache (updated
+    in place, :func:`attn_decode`), cross attention to ``enc_out``, the
+    MLP. x_t: (B, D). Returns x_t."""
+    a, _ = attn_decode(p["attn"], norm_apply(cfg, p["ln1"], x_t),
+                       layer_cache, slot_pos, pos, cfg)
+    x_t = x_t + a
+    hx = norm_apply(cfg, p["ln_x"], x_t)
+    x_t = x_t + cross_attn_forward(p["xattn"], hx[:, None, :], enc_out,
+                                   cfg)[:, 0]
+    return x_t + mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x_t), cfg)

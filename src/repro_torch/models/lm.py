@@ -11,29 +11,29 @@ tensors with the reference's leaf names:
                                                -> (cache, logits)
     init_cache(cfg, batch, max_seq, device)    -> cache
 
-``params["layers"]`` is a list with one dict per layer where the reference
-stacks layers on a leading L axis for ``lax.scan``; the layer loop is a
-Python loop. The cache keeps the reference's layout, by family: ``pos``
-(B,) int32 always; with attention (dense, hybrid) ``slot_pos`` (B, W)
-int32 and ``layers/k``, ``layers/v`` (L, B, W, KV, hd); with an SSM (ssm,
-hybrid) ``layers/h`` (L, B, d_inner, N) and ``layers/conv`` (L, B, K-1,
-d_inner), both f32. ``decode_step`` updates the cache in place and returns
-it.
+``params["layers"]`` (and whisper's ``params["enc_layers"]``) is a list
+with one dict per layer where the reference stacks layers on a leading L
+axis for ``lax.scan``; the layer loop is a Python loop. The cache keeps
+the reference's layout, by family: ``pos`` (B,) int32 always; with
+attention (dense, hybrid, whisper's decoder) ``slot_pos`` (B, W) int32 and
+``layers/k``, ``layers/v`` (L, B, W, KV, hd); with an SSM (ssm, hybrid)
+``layers/h`` (L, B, d_inner, N) and ``layers/conv`` (L, B, K-1, d_inner),
+both f32; whisper adds ``enc_out`` (B, encoder_len, D), the encoder's
+output. ``decode_step`` updates the cache in place and returns it.
 
 The dense (olmo, qwen3, mistral-large, llama3), MoE (mixtral), VLM
 backbone (qwen2-vl: embeddings in, (3, B, S) M-RoPE positions), SSM
-(falcon-mamba) and hybrid (hymba) families run here; whisper raises
-``NotImplementedError`` (see ``layers.check_family``). ``prefill``'s
-``dp_groups`` is the MoE dispatch's token groups, as in the reference; a
-decode step dispatches its B tokens as one group. ``train_loss`` runs
-every layer under ``cfg.remat`` (``torch.utils.checkpoint``); on the card
-attention trains through B4 and its pair-scan backward, and the SSM block
-through B6's gated entry and its backward B6b (``ops.MambaScanGated``).
-MoE training is refused (:func:`check_trainable`): it waits for
-``train_loss``'s load-balance term and ``dp_groups`` through
-``launch/steps.py`` (ROADMAP A11).
+(falcon-mamba), hybrid (hymba) and audio (whisper: frame embeddings into
+the encoder, tokens into the decoder) families run here. ``dp_groups`` is
+the MoE dispatch's token groups, as in the reference; a decode step
+dispatches its B tokens as one group. ``train_loss`` runs every layer
+under ``cfg.remat`` (``torch.utils.checkpoint``) and adds the MoE layers'
+mean load-balance loss at 0.01; on the card attention trains through B4
+and its pair-scan backward, and the SSM block through B6's gated entry
+and its backward B6b (``ops.MambaScanGated``).
 The optimizers and checkpoints name every leaf by its "/"-path
-(``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...``.
+(``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...`` or
+``enc_layers/<i>/...``.
 
 The logits are an f32 product, as in the reference (``_logits``, which
 upcasts the head). For a bf16 model with a tied embedding that upcast is a
@@ -50,7 +50,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import norm_apply, norm_init
+from repro_torch.models.common import (norm_apply, norm_init,
+                                       sinusoidal_positions)
 from repro_torch.models.ssm import ssm_state_shapes
 from repro_torch.nn.module import normal_init
 
@@ -92,14 +93,26 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None) -> dict:
     """Random weights at the reference's init (normal, std 0.02, drawn in
     f32 and cast to ``cfg.dtype``; norms at ones), drawn from ``generator``
-    on ``device`` (the generator's device by default)."""
-    L.check_family(cfg)
+    on ``device`` (the generator's device by default). Whisper's tree, as
+    the reference's: ``enc_layers``, decoder ``layers`` with their cross
+    attention, ``enc_norm`` and the learned decoder positions ``dec_pos``
+    (32,768 x D, std 0.01)."""
     dtype = _dtype(cfg)
     device = generator.device if device is None else torch.device(device)
     params = {"embed": normal_init(generator, (cfg.padded_vocab, cfg.d_model),
                                    0.02, dtype, device)}
-    params["layers"] = [L.layer_init(generator, cfg, dtype, device)
-                        for _ in range(cfg.num_layers)]
+    if cfg.encoder_decoder:
+        params["enc_layers"] = [L.enc_layer_init(generator, cfg, dtype,
+                                                 device)
+                                for _ in range(cfg.num_encoder_layers)]
+        params["layers"] = [L.dec_layer_init(generator, cfg, dtype, device)
+                            for _ in range(cfg.num_layers)]
+        params["enc_norm"] = norm_init(cfg, cfg.d_model, device)
+        params["dec_pos"] = normal_init(generator, (32_768, cfg.d_model),
+                                        0.01, dtype, device)
+    else:
+        params["layers"] = [L.layer_init(generator, cfg, dtype, device)
+                            for _ in range(cfg.num_layers)]
     params["final_norm"] = norm_init(cfg, cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(generator,
@@ -168,17 +181,62 @@ def _run_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
     return x, stacked(("k", "v")), stacked(("h", "conv"))
 
 
-def _train_layers(params, cfg: ModelConfig, x, positions):
-    """The decoder stack for the loss, each layer under ``cfg.remat``;
-    only the residual stream is kept (the reference's scan outputs are
-    dropped by XLA)."""
+def _train_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
+    """The decoder stack for the loss, each layer under ``cfg.remat``.
+    Returns (x, the mean of the MoE layers' load-balance losses, 0 without
+    experts); the K/V and SSM states are not kept (the reference's scan
+    outputs are dropped by XLA)."""
     def block(p_layer, h):
-        return L.layer_forward(p_layer, h, positions, cfg)[0]
+        y, _, _, aux = L.layer_forward(p_layer, h, positions, cfg, dp_groups)
+        return y, aux
 
     body = _remat(block, cfg)
+    auxs = []
     for p_layer in params["layers"]:
+        x, aux = body(p_layer, x)
+        auxs.append(aux)
+    if auxs and auxs[0] is not None:
+        return x, torch.stack(auxs).mean()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _whisper_encode(params, cfg: ModelConfig, enc_embeds, train=False):
+    """The encoder over frame embeddings (B, S_enc, D): the sinusoidal
+    table in x's dtype added, the layers (each under ``cfg.remat`` when
+    ``train``), ``enc_norm``."""
+    x = enc_embeds.to(_dtype(cfg))
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)
+
+    def block(p_layer, h):  # no RoPE: the attention takes no positions
+        return L.enc_layer_forward(p_layer, h, None, cfg)
+
+    body = _remat(block, cfg) if train else block
+    for p_layer in params["enc_layers"]:
         x = body(p_layer, x)
-    return x
+    return norm_apply(cfg, params["enc_norm"], x)
+
+
+def _whisper_decode_stack(params, cfg: ModelConfig, tokens, enc_out,
+                          train=False):
+    """The decoder over tokens (B, S) with learned positions ``dec_pos``
+    and cross attention to ``enc_out``. Returns (x, {"k", "v"}: (L, B, S,
+    KV, hd)); under ``train`` each layer runs under ``cfg.remat`` and the
+    K/V are not kept (None)."""
+    s = tokens.shape[1]
+    x = params["embed"][tokens] + params["dec_pos"][:s][None]
+    if train:
+        body = _remat(lambda p_layer, h: L.dec_layer_forward(
+            p_layer, h, enc_out, None, cfg)[0], cfg)
+        for p_layer in params["layers"]:
+            x = body(p_layer, x)
+        return x, None
+    ks, vs = [], []
+    for p_layer in params["layers"]:
+        x, (k, v) = L.dec_layer_forward(p_layer, x, enc_out, None, cfg)
+        ks.append(k)
+        vs.append(v)
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 # ---------------------------------------------------------------------------
@@ -186,38 +244,27 @@ def _train_layers(params, cfg: ModelConfig, x, positions):
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise, before anything is allocated, where :func:`train_loss` cannot
-    run on ``device``: the families ``check_family`` refuses, and MoE,
-    whose training needs the loss's ``0.01 * aux`` term and ``dp_groups``
-    through ``launch/steps.py``. Every other family trains on either device
-    (on the card the SSM block's scan through B6 and its backward B6b)."""
-    del device  # no family is refused on one device only
-    L.check_family(cfg)
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE training (mixtral) waits for ROADMAP A11's MoE-training "
-            "step: train_loss's 0.01 * aux term and dp_groups through "
-            "launch/steps.py; MoE serving (prefill, decode_step) runs")
-
-
 def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):
     """batch: tokens or embeds (+ positions) and labels (B, S), -100 =
-    masked. Returns (total, {"loss", "aux_loss", "tokens"}) with the
-    reference's shard-friendly cross entropy: the max without gradient,
-    the log-sum-exp of the shifted logits, the label's logit picked by
-    comparison with an iota (labels < 0 read label 0 and are masked out),
-    the mean over unmasked labels (at least 1). ``aux`` (the MoE load
-    balancing loss) is 0 for every family that trains here (MoE is refused
-    by :func:`check_trainable`); ``dp_groups`` (MoE dispatch groups) is
-    unused."""
-    check_trainable(cfg, None)
+    masked; whisper: frame embeddings ``embeds`` (B, S_enc, D), decoder
+    ``tokens`` and ``labels`` (B, S). Returns (total, {"loss", "aux_loss",
+    "tokens"}) with the reference's shard-friendly cross entropy: the max
+    without gradient, the log-sum-exp of the shifted logits, the label's
+    logit picked by comparison with an iota (labels < 0 read label 0 and
+    are masked out), the mean over unmasked labels (at least 1); ``total``
+    adds 0.01 times ``aux``, the MoE layers' mean load-balance loss (0
+    without experts), whose dispatch runs in ``dp_groups`` token groups."""
     labels = batch["labels"]
-    x = _embed_in(params, cfg, batch)
-    b, s = x.shape[0], x.shape[1]
-    positions = _default_positions(cfg, batch, b, s, x.device)
-    x = _train_layers(params, cfg, x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.encoder_decoder:
+        enc_out = _whisper_encode(params, cfg, batch["embeds"], train=True)
+        x, _ = _whisper_decode_stack(params, cfg, batch["tokens"], enc_out,
+                                     train=True)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x = _embed_in(params, cfg, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = _default_positions(cfg, batch, b, s, x.device)
+        x, aux = _train_layers(params, cfg, x, positions, dp_groups)
     logits = _logits(params, cfg, x)
     m = logits.max(-1, keepdim=True).values.detach()
     shifted = logits - m
@@ -248,8 +295,8 @@ def cache_window(cfg: ModelConfig, max_seq: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     """Zero cache for ``batch`` sequences with capacity ``max_seq``: K/V
     and slot positions where the family has attention, SSM states where it
-    has an SSM (``repro/models/lm.py:226-244``)."""
-    L.check_family(cfg)
+    has an SSM, the encoder output where there is an encoder
+    (``repro/models/lm.py:226-244``)."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     lcache = {}
     if cfg.family != "ssm":
@@ -264,6 +311,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             lcache[key] = torch.zeros((cfg.num_layers, *shape),
                                       dtype=torch.float32, device=device)
     cache["layers"] = lcache
+    if cfg.encoder_decoder:
+        cache["enc_out"] = torch.zeros((batch, cfg.encoder_len, cfg.d_model),
+                                       dtype=_dtype(cfg), device=device)
     return cache
 
 
@@ -276,7 +326,22 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
             head=None, dp_groups: int = 1):
     """Process the full prompt (``batch["tokens"]`` (B, S) or
     ``batch["embeds"]``, optional ``batch["positions"]``: (3, B, S) for
-    M-RoPE); return (cache, last-token logits (B, V_pad))."""
+    M-RoPE; whisper: frame embeddings ``embeds`` and decoder ``tokens``);
+    return (cache, last-token logits (B, V_pad)).
+
+    Whisper's decoder reads every frame, while the cache keeps the first
+    ``encoder_len`` (its ``enc_out`` then has fewer rows if fewer frames
+    came), as the reference's does (``repro/models/lm.py:255-265``)."""
+    if cfg.encoder_decoder:
+        enc_out = _whisper_encode(params, cfg, batch["embeds"])
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x, kvs = _whisper_decode_stack(params, cfg, tokens, enc_out)
+        cache = init_cache(cfg, b, max_seq or s, x.device)
+        cache["enc_out"] = enc_out[:, :cfg.encoder_len].contiguous()
+        cache = _fill_kv(cache, kvs, cfg, s)
+        cache["pos"].fill_(s)
+        return cache, _logits(params, cfg, x[:, -1], head)
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, batch, b, s, x.device)
@@ -325,13 +390,18 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     layer's SSM state where there is an SSM, ``pos`` + 1) and returns
     (cache, logits (B, V_pad)). The K/V slot and the causal mask follow
     ``cache["pos"]``; the M-RoPE rows only rotate q and k
-    (``layers.attn_decode``, ROADMAP C10)."""
+    (``layers.attn_decode``, ROADMAP C10). Whisper adds ``dec_pos`` at
+    ``pos`` (its last row past 32,768) and cross-attends to
+    ``cache["enc_out"]``, projecting the frames' K/V in every step."""
     if "embed" in batch:
         x = batch["embed"].to(_dtype(cfg))
     else:
         x = params["embed"][batch["token"]]
     b = x.shape[0]
     pos = cache["pos"]
+    if cfg.encoder_decoder:
+        dec_pos = params["dec_pos"]
+        x = x + dec_pos[torch.clamp(pos, max=dec_pos.shape[0] - 1).long()]
     positions = batch.get("positions") if cfg.mrope else None
     slot_pos = cache.get("slot_pos")
     if slot_pos is not None:
@@ -339,9 +409,13 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
         slot_pos[rows, (pos % slot_pos.shape[1]).long()] = pos
     layers = cache["layers"]
     for i, p_layer in enumerate(params["layers"]):
-        x = L.layer_decode(p_layer, x, {key: t[i] for key, t in
-                                        layers.items()}, slot_pos, pos, cfg,
-                           positions)
+        layer_cache = {key: t[i] for key, t in layers.items()}
+        if cfg.encoder_decoder:
+            x = L.dec_layer_decode(p_layer, x, cache["enc_out"], layer_cache,
+                                   slot_pos, pos, cfg)
+        else:
+            x = L.layer_decode(p_layer, x, layer_cache, slot_pos, pos, cfg,
+                               positions)
     logits = _logits(params, cfg, x, head)
     cache["pos"] = pos + 1
     return cache, logits

@@ -19,7 +19,11 @@ What decides the result is kept as the reference has it:
 * the dispatch writes each kept entry to its distinct (expert, slot) row
   with a plain indexed store, and every dropped entry to one scratch row
   past the grid, which is then sliced off: no scatter-add (float atomics,
-  ROADMAP C7) and no duplicate index that could race with a kept row;
+  ROADMAP C7) and no duplicate index that could race with a kept row. In
+  training the store's backward is a gather, the k copies of a token are
+  an ``expand`` (its backward a sum), and the combine's gather backward
+  is PyTorch's sorted index-add, which runs duplicates in a fixed order on
+  the card: a rerun gives the same bits;
 * nothing reads a value back to the host: every shape depends on the token
   count alone.
 
@@ -137,7 +141,7 @@ def _dispatch_ffn(x: torch.Tensor, p, cfg: ModelConfig):
     # (E, G * cap) rows and one scratch row past them for dropped entries
     buf = x.new_zeros(e * g * cap + 1, d)
     buf[torch.where(keep, row, e * g * cap).reshape(-1)] = (
-        x.repeat_interleave(k, dim=1).reshape(g * n * k, d))
+        x[:, :, None].expand(g, n, k, d).reshape(g * n * k, d))
     buf = buf[:-1].view(e, g * cap, d)
     h = F.silu(_bmm(buf, p["wg"])) * _bmm(buf, p["wu"])
     out = _bmm(h, p["wo"]).view(e * g * cap, d)

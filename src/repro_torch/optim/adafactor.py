@@ -12,8 +12,9 @@ The state has the port's Adam layout, keyed by the parameters' "/"-paths:
 ``{"step", "v": {path: {"vr", "vc"} or {"v"}}}``. The reference stacks an
 LM's layers on a leading L axis, so its RMS of the update and its
 parameter scale are taken over all layers of a leaf at once. Here the
-leaves ``layers/<i>/<rest>`` of one ``<rest>`` are that stacked leaf
-(:func:`stack_key`), and the two statistics are taken over the group.
+leaves ``layers/<i>/<rest>`` of one ``<rest>`` (and whisper's
+``enc_layers/<i>/<rest>``) are that stacked leaf (:func:`stack_key`), and
+the two statistics are taken over the group.
 """
 from __future__ import annotations
 
@@ -23,14 +24,14 @@ from typing import Callable
 
 import torch
 
-_LAYER = re.compile(r"^layers/\d+/")
+_LAYER = re.compile(r"^((?:enc_)?layers)/\d+/")
 
 
 def stack_key(path: str) -> str:
     """The reference's path of the stacked leaf that ``path`` is one layer
-    of (``layers/3/attn/wq`` -> ``layers/attn/wq``); other paths are their
-    own."""
-    return _LAYER.sub("layers/", path)
+    of (``layers/3/attn/wq`` -> ``layers/attn/wq``, ``enc_layers/1/mlp/wi``
+    -> ``enc_layers/mlp/wi``); other paths are their own."""
+    return _LAYER.sub(r"\1/", path)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1337,3 +1337,167 @@ def test_lm_training_on_the_card_matches_the_cpu(cuda_device, remat):
         assert (g is None) == (w is None)
         if g is not None:
             torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)
+
+
+# -- whisper: B4 over a key sequence of its own length; MoE training ---------
+
+
+CROSS_CASES = [
+    (2, 4, 1500, 6, 6, 64, torch.bfloat16, False),   # whisper's cross prefill
+    (2, 65, 63, 6, 6, 64, torch.bfloat16, False),
+    (1, 448, 1500, 6, 6, 64, torch.float32, False),  # whisper's training
+    (2, 1, 300, 8, 2, 64, torch.bfloat16, False),
+    (2, 100, 37, 8, 2, 64, torch.float32, True),     # causal, rows past Sk
+    (1, 40, 130, 4, 4, 128, torch.bfloat16, True),   # causal, top left
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,dtype,causal", CROSS_CASES)
+def test_flash_attention_at_other_key_lengths(cuda_device, b, sq, sk, h, kv,
+                                              hd, dtype, causal):
+    """B4 with Sq != Sk against its plain version (the reference's bars),
+    its lse within 1e-5 of max |lse|, the output the same bits with and
+    without the lse store and on two calls."""
+    gen = torch.Generator().manual_seed(sq * 7 + sk)
+    q = torch.randn(b, sq, h, hd, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(b, sk, kv, hd, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    want = ref.flash_attention_torch(q, k, v, causal=causal)
+    want_lse = ref.flash_attention_lse_torch(q, k, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.equal(got, out)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    assert lse.shape == (b, h, sq)
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+        want_lse.abs().max())
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("sq,sk,dtype", [(16, 448, torch.float32),
+                                         (16, 1500, torch.bfloat16),
+                                         (37, 20, torch.float32)])
+def test_flash_attention_backward_at_other_key_lengths(cuda_device, sq, sk,
+                                                       dtype):
+    """``FlashAttention``'s gradients at Sq != Sk (non-causal, whisper's 6
+    heads of 64, chunk 512 capped at Sq) against autograd through the
+    plain version: f32 within 1e-4 of each gradient's largest |entry|,
+    bf16 within 2^-6; the same bits on two calls."""
+    gen = torch.Generator().manual_seed(sk)
+    q, dout = (torch.randn(2, sq, 6, 64, generator=gen).to(cuda_device, dtype)
+               for _ in range(2))
+    k, v = (torch.randn(2, sk, 6, 64, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves).backward(dout)
+        return [x.grad for x in leaves]
+
+    got = grads(lambda *x: ops.flash_attention(*x, causal=False))
+    again = grads(lambda *x: ops.flash_attention(*x, causal=False))
+    want = grads(lambda *x: ref.flash_attention_torch(*x, causal=False))
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_decode_attention_runs_b5_on_the_frames(cuda_device, dtype):
+    """The one-token cross attention over 1,500 frames goes through B5
+    (the frames' slot map, the query at Sk - 1), once, against the plain
+    unmasked attention."""
+    from repro_torch.models import attention
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(8, 1, 6, 64, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(8, 1500, 6, 64, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+    build.reset_launch_counts()
+    got = attention.cross_decode_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 1
+    assert build.LAUNCHES["flash_attention"] == 0
+    want = ref.flash_attention_torch(q, k, v, causal=False)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced f32 whisper: prefill over 40 frames (more than its 32
+    ``encoder_len``) and a 5-token prompt, then three decode steps, on the
+    card against the CPU (logits 1e-4); B4 once per encoder layer and
+    twice per decoder layer in the prefill (self and cross), B5 twice per
+    decoder layer in each step."""
+    cfg = get_reduced_config("whisper-tiny")
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"embeds": torch.randn(2, 40, cfg.d_model, generator=gen),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 5), generator=gen,
+                                     dtype=torch.int32)}
+    build.reset_launch_counts()
+    cache_g, lg = lm.prefill(gpu, {k: v.to(cuda_device)
+                                   for k, v in batch.items()}, cfg, max_seq=16)
+    cache_c, lc = lm.prefill(cpu, batch, cfg, max_seq=16)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    for step in range(3):
+        dec = {"token": torch.tensor([step + 3, 7 * step], dtype=torch.int32)}
+        cache_g, lg = lm.decode_step(gpu, cache_g, {
+            k: v.to(cuda_device) for k, v in dec.items()}, cfg)
+        cache_c, lc = lm.decode_step(cpu, cache_c, dec, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == (cfg.num_encoder_layers
+                                                 + 2 * cfg.num_layers)
+    assert build.LAUNCHES["decode_attention"] == 3 * 2 * cfg.num_layers
+    for key in ("k", "v"):
+        torch.testing.assert_close(cache_g["layers"][key].cpu(),
+                                   cache_c["layers"][key], atol=1e-5,
+                                   rtol=1e-5)
+    torch.testing.assert_close(cache_g["enc_out"].cpu(), cache_c["enc_out"],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "mixtral-8x7b"])
+def test_whisper_and_moe_training_on_the_card_match_the_cpu(cuda_device,
+                                                            arch):
+    """Reduced f32 whisper (24 frames, 9 tokens) and mixtral under remat
+    "full": the loss, ``aux_loss`` and every gradient through B4 and the
+    pair-scan backward on the card against the plain versions on the CPU
+    (1e-5; gradients 1e-5 + 1e-4 relative); B4 twice per attention (the
+    recompute)."""
+    cfg = dataclasses.replace(get_reduced_config(arch), remat="full")
+    cpu = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    gpu = _to(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.encoder_decoder:
+        batch["embeds"] = torch.randn(2, 24, cfg.d_model, generator=gen)
+    out = {}
+    build.reset_launch_counts()
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        leaves = named_leaves(params)
+        for x in leaves.values():
+            x.requires_grad_(True)
+        dev = next(iter(leaves.values())).device
+        total, metrics = lm.train_loss(
+            params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        out[name] = (total, metrics["aux_loss"], torch.autograd.grad(
+            total, list(leaves.values()), allow_unused=True))
+    torch.cuda.synchronize()
+    attentions = (cfg.num_encoder_layers + 2 * cfg.num_layers
+                  if cfg.encoder_decoder else cfg.num_layers)
+    assert build.LAUNCHES["flash_attention"] == 2 * attentions
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(),
+                                   atol=1e-5, rtol=1e-5)
+    for g, w in zip(out["cuda"][2], out["cpu"][2]):
+        assert (g is None) == (w is None)
+        if g is not None:
+            torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)

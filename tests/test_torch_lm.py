@@ -151,9 +151,17 @@ def test_decode_steps_match_reference(arch, prompt, max_seq):
 
 @pytest.mark.parametrize("arch,match", [("whisper-tiny", "whisper")])
 def test_other_families_are_not_ported_yet(arch, match):
+    """Every family is ported now: whisper's encoder-decoder tree is made
+    (its parity is ``tests/test_torch_lm_whisper.py``'s), and its cache
+    holds the encoder output."""
     cfg = configs.get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=match):
-        lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    assert match in cfg.name
+    params = lm.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    assert len(params["enc_layers"]) == cfg.num_encoder_layers
+    assert len(params["layers"]) == cfg.num_layers
+    assert "xattn" in params["layers"][0]
+    cache = lm.init_cache(cfg, 2, 8)
+    assert cache["enc_out"].shape == (2, cfg.encoder_len, cfg.d_model)
 
 
 def test_mrope_is_not_ported_yet():

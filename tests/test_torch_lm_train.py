@@ -328,18 +328,15 @@ def test_train_lm_rejects_embedding_input_archs(arch, match):
 
 
 def test_train_lm_refuses_families_before_allocating():
-    """MoE training (its load-balance term and dispatch groups) is refused
-    on either device before anything is allocated, though MoE serving runs;
-    the SSM and hybrid families train on the card too (B6b), as the dense
-    one does."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        launch_train.main(["lm", "--arch", "mixtral-8x7b", "--device", "cpu"])
-    for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            lm.check_trainable(configs.get_config("mixtral-8x7b"), device)
-        for arch in ("falcon-mamba-7b", "hymba-1.5b", "olmo-1b"):
-            # full width: nothing is allocated
-            lm.check_trainable(configs.get_config(arch), device)
+    """No token-input family is refused any more: MoE trains with its
+    load-balance term (``tests/test_torch_moe_train.py`` holds it to the
+    reference), here through ``train lm`` at the reduced mixtral, as the
+    dense, SSM and hybrid families do."""
+    run = launch_train.main(["lm", "--arch", "mixtral-8x7b", "--device",
+                             "cpu", "--steps", "3", "--batch-size", "2",
+                             "--seq", "16", "--log-every", "1"])
+    assert run["cfg"].num_experts and len(run["losses"]) == 3
+    assert all(np.isfinite(run["losses"] + run["grad_norms"]))
 
 
 # -- checkpoints across the packages ----------------------------------------

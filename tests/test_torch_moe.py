@@ -312,13 +312,21 @@ def test_mixtral_weight_bridge_both_ways(dtype):
 
 
 def test_moe_training_is_refused_before_allocating():
-    """Serving runs; training waits for its ROADMAP step, refused by
-    ``check_trainable`` and ``train_loss`` alike."""
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            lm.check_trainable(configs.get_config(ARCH), device)
+    """MoE training runs now: ``train_loss`` at the reduced mixtral adds
+    0.01 times the layers' mean load-balance loss, reports it as
+    ``aux_loss``, and its gradient reaches the router and every expert.
+    (Its parity is ``tests/test_torch_moe_train.py``'s.)"""
     cfg, _, _, params, _ = _reference()
+    leaves = named_leaves(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
              "labels": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        lm.train_loss(params, batch, cfg)
+    total, metrics = lm.train_loss(params, batch, cfg)
+    aux = float(metrics["aux_loss"].detach())
+    assert aux > 0
+    torch.testing.assert_close(float(total.detach()),
+                               float(metrics["loss"].detach()) + 0.01 * aux)
+    router, wo = torch.autograd.grad(
+        total, [leaves["layers/0/moe/router"], leaves["layers/1/moe/wo"]])
+    assert float(router.abs().max()) > 0 and bool(torch.isfinite(wo).all())
