@@ -114,9 +114,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bf16 head widths 16 to 128, windows causal and not, rolling caches
    (hymba's 4-lane cache past its 2048 window), a lane with no valid
    slot, one lane over 4096 slots and W = 1; each bit for bit across two
-   calls; whisper's shapes (``compare_cross_attention``): B4 non-causal
-   over its encoder's (8, 1500, 6, 64), and with keys of their own length
-   (Sq in 1, 4, 65, 448 against Sk in 63, 1500), bf16 and f32, its lse
+   calls; at every B5 case (qwen3-4b's 4-lane cache and the empty lane
+   among them) B5 asked for its log-sum-exp (``compare_decode_lse``): the
+   output the same bits, the lse within 1e-5 of the largest |lse| of its
+   plain version and -1e30 exactly on an empty lane; whisper's shapes
+   (``compare_cross_attention``): B4 non-causal over its encoder's (8,
+   1500, 6, 64), and with keys of their own length (Sq in 1, 4, 65, 448
+   against Sk in 63, 1500), bf16 and f32, its lse
    against the plain one, ``FlashAttention``'s gradients at (16, 448 |
    1500, 6, 64) and (16, 1500 | 1500) against autograd through the plain
    version (12b's bars), and the one-token cross attention through B5 on
@@ -249,6 +253,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
     on 2 x 256 tokens, the plain run's routes forced, ``train_loss``
     through the kernels against the plain path (loss 1e-5 relative,
     ``aux_loss`` and every gradient 1e-4);
+12h. the LM's sharding (``drive_sharded_lm``): ``make_host_mesh(1)``, a
+    ("data", "model") mesh of (1, 1) over phase 6e's NCCL world of one;
+    olmo-1b ``CONFIG`` trained 3 steps of 8 x 1024 tokens (Adam, remat
+    "full") meshless and through the sharded ``build_train_step`` from the
+    same weights and batches: every parameter, Adam slot and loss the same
+    bits, B4 twice per layer a step; qwen3-4b ``CONFIG`` with
+    ``decode_flash_shardmap``: a 2048-token prefill on 4 lanes and 16
+    decode steps through the sharded ``build_prefill`` and
+    ``build_decode_step`` against the meshless ones (the logits within
+    1e-3 of the largest |logit|, the largest difference printed), B4 once
+    per layer in the prefill and B5 with its lse once per layer a step
+    (the flash-decode on every layer, no redistribution of the cache for
+    B5); ``sharded_decode_attention`` on the last cache's layer 0 against
+    its plain version (the reference's local body) and B5's; step p50 and
+    host ms beside the meshless path's, DTensor's host cost a step and the
+    redistributions a step makes; the launches go under ``sharded_lm``;
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -261,7 +281,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     training shape (with the pair-scan backward beside SDPA's backward
     there), at mixtral-8x7b's 2048-token prefill and a 4500-token one past
     its window and at qwen2-vl-72b's (2, 2048) prefill, B5 at the 4-lane
-    qwen3-4b edge's cache after serving, at hymba's and mixtral's rolled
+    qwen3-4b edge's cache after serving (there also with its lse, beside
+    B5 without it, under ``with_lse``), at hymba's and mixtral's rolled
     4-lane caches and at phase 12e's cache, B4 at whisper's encoder and
     cross shapes (the prefill's 4 rows and training's 448, with lse) and
     B5 on its frames' slot map, B6's gated
@@ -271,9 +292,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     print the ``{"kernels": [...]}`` line (seven rows, each with its
     launches on every main path above, the rollout's, temporal training's,
     the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
-    and phases 12d's to 12g's (``moe_lm_serving``, ``vlm_lm``,
-    ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``)
-    included;
+    and phases 12d's to 12h's (``moe_lm_serving``, ``vlm_lm``,
+    ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``,
+    ``sharded_lm``) included;
     B1 and B2 also timed at the temporal shapes, under
     ``temporal_shapes``).
 
@@ -2915,6 +2936,33 @@ def _slot_cache(gen, b, w, kv, hd, dtype, fills=None, rolling_from=None):
     return kc, vc, slot_pos.cuda(), pos.cuda()
 
 
+def compare_decode_lse(ops, ref, out, q, kc, vc, slot_pos, pos, window,
+                       where):
+    """B5 asked for its log-sum-exp: the output the same bits as ``out``
+    (the call without it); the lse (B, H) f32 finite, within LSE_TOL of
+    the largest |lse| of its plain version on lanes with a valid slot, and
+    exactly the plain version's -1e30 on a lane with none. Returns the
+    largest |lse - plain| over the lanes with a valid slot."""
+    o, lse = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window,
+                                  with_lse=True)
+    want = ref.decode_attention_lse_torch(q, kc, slot_pos, pos,
+                                          window=window)
+    check(torch.equal(o, out), f"decode_attention's output changed when "
+          f"asked for its lse at {where}")
+    check(lse.shape == want.shape and lse.dtype == torch.float32
+          and bool(torch.isfinite(lse).all()),
+          f"decode_attention's lse malformed at {where}")
+    empty = want <= -1e29
+    check(torch.equal(lse[empty], want[empty]), f"decode_attention's lse of "
+          f"a lane with no valid slot is not -1e30 at {where}")
+    if bool(empty.all()):
+        return 0.0
+    err = float((lse - want)[~empty].abs().max())
+    check(err <= LSE_TOL * float(want[~empty].abs().max()),
+          f"decode_attention's lse err {err} at {where}")
+    return err
+
+
 def compare_attention(ops, ref, errs):
     """B4 and B5 against their plain versions on the card at the listed
     cases, among them the shapes the qwen3-4b, hymba-1.5b, mixtral-8x7b
@@ -3005,11 +3053,16 @@ def compare_attention(ops, ref, errs):
               f"{(b, w, h, kv, hd, str(dtype), fills, roll, window)}")
         check(torch.equal(got, again), "decode_attention differs between two "
               f"calls at {(b, w, h, kv, hd, str(dtype), fills, roll, window)}")
+        lse_err = compare_decode_lse(ops, ref, got, q, kc, vc, slot_pos, pos,
+                                     window, (b, w, h, kv, hd, str(dtype),
+                                              fills, roll, window))
         errs["decode_attention"] = max(errs["decode_attention"], err)
+        errs["decode_attention_lse"] = max(errs["decode_attention_lse"],
+                                           lse_err)
         report.append({"kernel": "decode_attention", "B": b, "W": w, "H": h,
                        "KV": kv, "hd": hd, "dtype": str(dtype),
                        "fills": fills, "rolling_from": roll,
-                       "window": window, "err": err})
+                       "window": window, "err": err, "lse_err": lse_err})
     torch.cuda.synchronize()
     return report
 
@@ -4778,6 +4831,282 @@ def drive_moe_training(m, card, device="cuda"):
     return out, {"moe_lm_training": counts}
 
 
+# -- phase 12h: the LM's sharding (DTensor placements on a (1, 1) mesh) -----
+
+SHARDED_TRAIN_STEPS = 3
+SHARDED_LANES = 4
+SHARDED_PROMPT = 2048
+SHARDED_DECODE = 16
+# qwen3-4b's decode logits through the flash-decode (B5 with its lse on the
+# rank's block of slots, the blocks combined in f32) against the meshless
+# path (B5 alone), of the largest |logit|: the output goes through one
+# more bf16 rounding and an f32 rescale
+SHARDED_LOGIT_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _plain_guard_lse(ref, ops):
+    """:func:`_plain_guard` with the plain log-sum-exps of B4 and B5
+    refused too: the runs of phase 12h reach only the kernels."""
+    with contextlib.ExitStack() as guard:
+        for patch in _plain_guard(ref, ops) + [
+                _refuse(ref, name, "the plain") for name in (
+                    "flash_attention_lse_torch",
+                    "decode_attention_lse_torch")]:
+            guard.enter_context(patch)
+        yield
+
+
+def _bits_differ(meshless: dict, sharded: dict) -> list:
+    """The leaves whose local block on the (1, 1) mesh is not the meshless
+    leaf bit for bit."""
+    return [k for k, t in meshless.items()
+            if not torch.equal(t, sharded[k].to_local())]
+
+
+def sharded_training(m, mesh, device="cuda"):
+    """12h (a): olmo-1b ``CONFIG`` (Adam, ``train lm``'s knobs) for
+    SHARDED_TRAIN_STEPS steps of TRAIN_LM_BATCH x TRAIN_LM_SEQ tokens,
+    meshless and through the sharded ``build_train_step`` on ``mesh``,
+    from the same weights and batches: every parameter, Adam slot and loss
+    the same bits; B4 twice per layer a step on both. The step times
+    (host: until the step returns; wall: until the card is done) and the
+    redistributions a sharded step makes."""
+    cfg = dataclasses.replace(m.get_config(TRAIN_LM_ARCH),
+                              num_microbatches=1, optimizer="adam")
+    knobs = m.steps.TrainKnobs(lr=3e-4, grad_clip=1.0)
+    shape = m.ShapeConfig("train", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
+    init = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    pipe = m.SyntheticTokens(cfg.vocab_size, TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+                             seed=LM_SEED)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in next(
+        pipe).items()} for _ in range(SHARDED_TRAIN_STEPS)]
+    _, opt_init, _ = m.steps.make_optimizer(cfg, knobs)
+    runs = {}
+    with _plain_guard_lse(m.ref, m.ops):
+        for label, on in (("meshless", None), ("sharded", mesh)):
+            params = _clone_tree(init)
+            opt = opt_init(m.named_leaves(params))
+            step = m.steps.build_train_step(cfg, on, knobs, shape)
+            m.build.reset_launch_counts()
+            m.ctx.REDISTRIBUTES.clear()
+            losses, host_ms, wall_ms = [], [], []
+            for batch in batches:
+                _sync(device)
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                _sync(device)
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+                loss = met["loss_total"]
+                losses.append(loss.to_local() if on is not None else loss)
+            counts = dict(m.build.LAUNCHES)
+            runs[label] = {"params": m.named_leaves(params),
+                           "opt": m.named_leaves(opt), "losses": losses,
+                           "counts": counts, "host_ms": host_ms,
+                           "wall_ms": wall_ms,
+                           "redistributes": dict(m.ctx.REDISTRIBUTES)}
+            want = 2 * cfg.num_layers * SHARDED_TRAIN_STEPS
+            check(counts["flash_attention"] == want,
+                  f"{label} olmo-1b training launched B4 "
+                  f"{counts['flash_attention']} times, not {want}")
+    a, b = runs["meshless"], runs["sharded"]
+    differ = (_bits_differ(a["params"], b["params"])
+              + _bits_differ(a["opt"], b["opt"]))
+    same_loss = all(torch.equal(x, y) for x, y in zip(a["losses"],
+                                                      b["losses"]))
+    check(not differ and same_loss, f"the sharded olmo-1b step on a (1, 1) "
+          f"mesh is not the meshless step bit for bit: {len(differ)} leaves "
+          f"differ ({differ[:4]}), losses "
+          f"{[float(x) for x in a['losses']]} then "
+          f"{[float(x) for x in b['losses']]}")
+    out = {"arch": TRAIN_LM_ARCH, "layers": cfg.num_layers,
+           "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ,
+           "steps": SHARDED_TRAIN_STEPS,
+           "leaves": len(a["params"]) + len(a["opt"]),
+           "leaves_differing": len(differ),
+           "losses": [float(x) for x in b["losses"]],
+           "redistributes_per_step": {
+               k: v / SHARDED_TRAIN_STEPS
+               for k, v in b["redistributes"].items()}}
+    for label, r in runs.items():
+        out[label] = {"host_ms": r["host_ms"], "wall_ms": r["wall_ms"],
+                      "step_p50_ms": float(np.median(r["wall_ms"])),
+                      "host_p50_ms": float(np.median(r["host_ms"]))}
+    out["dtensor_host_ms"] = (out["sharded"]["host_p50_ms"]
+                              - out["meshless"]["host_p50_ms"])
+    counts = b["counts"]
+    del runs, a, b, init, batches
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def sharded_serving(m, mesh, device="cuda"):
+    """12h (b): qwen3-4b ``CONFIG`` with ``decode_flash_shardmap``: a
+    SHARDED_PROMPT-token prefill on SHARDED_LANES lanes and SHARDED_DECODE
+    decode steps (fixed tokens), meshless and through the sharded
+    ``build_prefill`` and ``build_decode_step`` on ``mesh``, where each
+    layer's decode attention is the flash-decode: B5 with its lse on the
+    rank's slots, combined over ``model``. The logits within
+    SHARDED_LOGIT_TOL of the largest |logit| of the meshless ones; B4 once
+    per layer in the prefill and B5 once per layer a step on both; the
+    flash-decode taken on every layer, and B5's own redistribution of the
+    cache never. Then ``sharded_decode_attention`` on the last cache's
+    layer 0 against its plain version and B5's."""
+    cfg = dataclasses.replace(m.get_config(LM_ARCH),
+                              decode_flash_shardmap=True)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    max_seq = SHARDED_PROMPT + SHARDED_DECODE
+    rng = np.random.default_rng(LM_SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARDED_LANES, SHARDED_PROMPT)).astype(
+            np.int32)).to(device)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARDED_DECODE, SHARDED_LANES)).astype(
+            np.int32)).to(device)
+    runs = {}
+    with _plain_guard_lse(m.ref, m.ops):
+        for label, on in (("meshless", None), ("sharded", mesh)):
+            prefill = m.steps.build_prefill(cfg, on, m.ShapeConfig(
+                "prefill", max_seq, SHARDED_LANES, "prefill"))
+            decode = m.steps.build_decode_step(cfg, on, m.ShapeConfig(
+                "decode", max_seq, SHARDED_LANES, "decode"))
+            held = params if on is None else m.steps.place(
+                params, prefill.in_specs[0], on)
+            m.build.reset_launch_counts()
+            m.ctx.REDISTRIBUTES.clear()
+            _sync(device)
+            t0 = time.perf_counter()
+            cache, logits = prefill(held, {"tokens": prompt})
+            _sync(device)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            rows, step_ms, host_ms = [_local(logits)], [], []
+            after_prefill = dict(m.build.LAUNCHES)
+            for i in range(SHARDED_DECODE):
+                t0 = time.perf_counter()
+                cache, logits = decode(held, cache, {"token": tokens[i]})
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                _sync(device)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append(_local(logits))
+            counts = dict(m.build.LAUNCHES)
+            runs[label] = {"logits": rows, "counts": counts,
+                           "after_prefill": after_prefill,
+                           "prefill_ms": prefill_ms, "step_ms": step_ms,
+                           "host_ms": host_ms, "cache": cache,
+                           "redistributes": dict(m.ctx.REDISTRIBUTES)}
+            n = cfg.num_layers
+            check(after_prefill["flash_attention"] == n
+                  and counts["decode_attention"] == n * SHARDED_DECODE,
+                  f"{label} qwen3-4b serving launched {counts}, not B4 {n} "
+                  f"times in the prefill and B5 {n} a step")
+            if label == "meshless":
+                del cache
+    a, b = runs["meshless"], runs["sharded"]
+    redis = b["redistributes"]
+    check(redis.get("flash_decode", 0) == cfg.num_layers * SHARDED_DECODE
+          and "B5" not in redis, f"the sharded decode did not take the "
+          f"flash-decode on every layer: {redis}")
+    errs = [float((y.float() - x.float()).abs().max()
+                  / x.float().abs().max()) for x, y in zip(a["logits"],
+                                                          b["logits"])]
+    check(max(errs) <= SHARDED_LOGIT_TOL, f"qwen3-4b sharded logits differ "
+          f"from the meshless ones by {max(errs)} of the largest |logit| "
+          f"(bar {SHARDED_LOGIT_TOL})")
+    print(f"sharded qwen3-4b: largest logit difference {max(errs):.3e} of "
+          f"the largest |logit| (prefill {errs[0]:.3e})", flush=True)
+    out = {"arch": LM_ARCH, "layers": cfg.num_layers,
+           "lanes": SHARDED_LANES, "prompt": SHARDED_PROMPT,
+           "decode_steps": SHARDED_DECODE, "max_rel_logit_err": max(errs),
+           "rel_logit_err_by_step": errs,
+           "redistributes_per_decode_step": {
+               k: v / SHARDED_DECODE for k, v in redis.items()
+               if k not in ("residual", "logits")}}
+    for label, r in runs.items():
+        out[label] = {"prefill_ms": r["prefill_ms"],
+                      "step_p50_ms": float(np.median(r["step_ms"][1:])),
+                      "host_p50_ms": float(np.median(r["host_ms"][1:])),
+                      "step_ms": r["step_ms"]}
+    out["dtensor_host_ms_per_decode_step"] = (
+        out["sharded"]["host_p50_ms"] - out["meshless"]["host_p50_ms"])
+    out["flash_decode"] = _flash_decode_vs_plain(m, mesh, cfg, b["cache"],
+                                                 device)
+    counts = b["counts"]
+    del runs, a, b, params
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _local(x):
+    return (x.to_local() if hasattr(x, "to_local") else x).detach().clone()
+
+
+def _flash_decode_vs_plain(m, mesh, cfg, cache, device):
+    """``sharded_decode_attention`` (B5 with lse, the combine) on layer 0
+    of the sharded cache with random q, against its plain version (the
+    reference's local body) and against B5's plain version on the whole
+    cache, at the bf16 bar."""
+    k, v = cache["layers"]["k"][0], cache["layers"]["v"][0]
+    sp, pos = cache["slot_pos"], cache["pos"] - 1
+    q = torch.randn(SHARDED_LANES, cfg.num_heads, cfg.head_dim,
+                    generator=torch.Generator().manual_seed(5)).to(
+        device, torch.bfloat16)
+    ctx = m.steps._shard_ctx(mesh, cfg, m.ShapeConfig(
+        "decode", SHARDED_PROMPT + SHARDED_DECODE, SHARDED_LANES, "decode"))
+    from torch.distributed.tensor.experimental import implicit_replication
+    with m.ctx.use_sharding(ctx), implicit_replication():
+        got = _local(m.attention.sharded_decode_attention(q, k, v, sp, pos,
+                                                          ctx=ctx))
+        plain = _local(m.attention.sharded_decode_attention_torch(
+            q, k, v, sp, pos, ctx=ctx))
+    whole = m.ref.decode_attention_torch(q, k.to_local(), v.to_local(),
+                                         sp.to_local(), pos.to_local())
+    out = {}
+    for name, want in (("plain", plain), ("b5_plain", whole)):
+        err, excess = _attn_err(got, want, torch.bfloat16)
+        check(excess <= ATTN_TOL[torch.bfloat16], f"sharded_decode_attention "
+              f"against its {name} version: err {err}")
+        out[f"max_abs_err_vs_{name}"] = err
+    return out
+
+
+def drive_sharded_lm(m, card, device="cuda"):
+    """Phase 12h: the LM's sharded steps on a ("data", "model") mesh of
+    (1, 1) over the world of one that phase 6e started (NCCL on the card):
+    :func:`sharded_training` and :func:`sharded_serving`, the launch
+    counters set to 0 before each run and read after, every plain version
+    of B4-B6 and of B4's and B5's lse refused. Returns (report, the
+    sharded runs' launches)."""
+    t_phase = time.perf_counter()
+    mesh = m.launch_mesh.make_host_mesh(1, device=device)
+    check(tuple(mesh.shape) == (1, 1)
+          and mesh.mesh_dim_names == ("data", "model"),
+          f"make_host_mesh gave {mesh}")
+    if device == "cuda":
+        check("nccl" in str(torch.distributed.get_backend()).lower(),
+              "the sharded LM steps' world does not run NCCL")
+    out = {"card": card}
+    out["training"], counts = sharded_training(m, mesh, device)
+    print(f"sharded lm training: {json.dumps(out['training'])}", flush=True)
+    out["serving"], more = sharded_serving(m, mesh, device)
+    print(f"sharded lm serving: {json.dumps(out['serving'])}", flush=True)
+    for k, v in more.items():
+        counts[k] = counts.get(k, 0) + v
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharded lm phase: {out['phase_s']:.1f} s", flush=True)
+    return out, counts
+
+
 def edge_cache(edge):
     """Layer 0's K and V, the slot positions and positions of ``edge``'s
     batch cache, copied so that they outlive the model."""
@@ -4895,13 +5224,18 @@ def _flash_backward_row(attention, fa, gen, b, s, h, kv, hd, chunk):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _decode_row(ops, ref, da, gen, cache, h, window, launches):
+def _decode_row(ops, ref, da, gen, cache, h, window, launches,
+                with_lse=False):
     """B5 over ``cache`` (k, v, slot positions, positions) with ``h`` query
     heads and random q, held against its plain version on those inputs,
     beside that version, SDPA and its bound: the valid slots' K and V rows
     against the tensor-core peak. ``split_sweep``: the kernel's time and
     error at SPLIT_SWEEP tiles per split (module ``da`` launched with an
-    explicit plan), each checked like the plan's own choice."""
+    explicit plan), each checked like the plan's own choice. With
+    ``with_lse``, ``with_lse``: B5 writing its log-sum-exp too (as the
+    flash-decode launches it), checked by ``compare_decode_lse`` and timed
+    beside B5 without it (without, with, with, without), with its bound
+    (the lse written added)."""
     import torch.nn.functional as F
     kc, vc, slot_pos, pos = cache
     b, w, kv, hd = kc.shape
@@ -4937,6 +5271,21 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches):
             qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True),
         peak=BF16_FLOPS)
     row["valid_slot_share"] = n_valid / (b * w)
+    if with_lse:
+        lse_err = compare_decode_lse(ops, ref, kern(), qd, kc, vc, slot_pos,
+                                     pos, window, shape)
+
+        def kern_lse():
+            return ops.decode_attention(qd, kc, vc, slot_pos, pos,
+                                        window=window, with_lse=True)
+        runs = [time_ms(f) for f in (kern, kern_lse, kern_lse, kern)]
+        row["with_lse"] = {
+            "ms": min(runs[1:3]), "ms_without": min(runs[0], runs[3]),
+            "ms_runs": runs[1:3], "ms_without_runs": [runs[0], runs[3]],
+            "lse_max_abs_err": lse_err,
+            "bound_ms": bound(4 * h * hd * n_valid, 2 * n_valid * kv * hd
+                              * 2 + 2 * 2 * b * h * hd + 4 * b * w + 4 * b
+                              + 4 * b * h, BF16_FLOPS)[0]}
     row["split_plan"] = da.split_plan(
         w, b, kv, torch.cuda.get_device_properties(0).multi_processor_count)
     row["split_sweep"] = []
@@ -4983,7 +5332,7 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
                                                   *shape, 512)
     b4["compare_max_abs_err"] = errs["flash_attention"]
     b5 = _decode_row(ops, ref, da, gen, cache, 32, None,
-                     launches["decode_attention"])
+                     launches["decode_attention"], with_lse=True)
     b, w, h, kv, hd, dtype, fills, roll, window = HYMBA_CACHE
     hymba = _decode_row(ops, ref, da, gen, _slot_cache(
         gen, b, w, kv, hd, dtype, fills, roll), h, window, {})
@@ -5027,6 +5376,7 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
                    device="cuda")), 6, None, {})
     b5["whisper_shape"] = {k: frames[k] for k in b5_keys}
     b5["compare_max_abs_err"] = errs["decode_attention"]
+    b5["compare_lse_max_abs_err"] = errs["decode_attention_lse"]
     return [b4, b5]
 
 
@@ -5205,6 +5555,7 @@ def main() -> int:
     from repro_torch.serving import engine, fleet
     from repro_torch.serving import fastpath as fpm
     from repro_torch.serving import topology
+    from repro_torch.sharding import ctx as sharding_ctx
 
     t_run = time.perf_counter()
 
@@ -5233,7 +5584,8 @@ def main() -> int:
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0,
-            "mamba_scan": 0.0, "mamba_scan_gated": 0.0, "mamba_scan_bwd": 0.0}
+            "decode_attention_lse": 0.0, "mamba_scan": 0.0,
+            "mamba_scan_gated": 0.0, "mamba_scan_bwd": 0.0}
     buckets = random_cases(fpm.DEFAULT_BUCKETS)
     random = buckets + edge_cases()
     cases = compare_kernels(ops, ref, random, errs)
@@ -5510,6 +5862,21 @@ def main() -> int:
         record(path, c)
     stamp("12g")
 
+    # phase 12h: the LM's sharding on a (1, 1) ("data", "model") mesh over
+    # NCCL: olmo-1b trained through the sharded build_train_step bit for
+    # bit with the meshless step; qwen3-4b served through the sharded
+    # prefill and decode with the flash-decode (B5 with its lse) on every
+    # layer, against the meshless path
+    sharded_lm, counts = drive_sharded_lm(types.SimpleNamespace(
+        build=build, lm=lm, ops=ops, steps=launch_steps,
+        attention=lm_attention,
+        ctx=sharding_ctx, ref=ref, launch_mesh=launch_mesh,
+        get_config=get_config, SyntheticTokens=SyntheticTokens,
+        ShapeConfig=ShapeConfig, named_leaves=named_leaves), card)
+    record("sharded_lm", counts)
+    torch.cuda.empty_cache()
+    stamp("12h")
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
@@ -5540,7 +5907,7 @@ def main() -> int:
         "lm_training": lm_training, "ssm_lm_training": ssm_training,
         "moe_lm": moe_lm, "vlm_lm": vlm_lm,
         "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
-        "moe_lm_training": moe_training,
+        "moe_lm_training": moe_training, "sharded_lm": sharded_lm,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -5648,6 +6015,21 @@ def main() -> int:
                                  "loss_rel_err", "aux_rel_err",
                                  "worst_grad_rel_err")},
                          "phase_s": moe_training["phase_s"]},
+                      "sharded_lm": {
+                          "training": {k: sharded_lm["training"][k] for k in (
+                              "leaves_differing", "dtensor_host_ms",
+                              "redistributes_per_step")}
+                          | {label: sharded_lm["training"][label][
+                              "step_p50_ms"]
+                             for label in ("meshless", "sharded")},
+                          "serving": {k: sharded_lm["serving"][k] for k in (
+                              "max_rel_logit_err",
+                              "dtensor_host_ms_per_decode_step",
+                              "redistributes_per_decode_step")}
+                          | {label: {k: sharded_lm["serving"][label][k]
+                                     for k in ("prefill_ms", "step_p50_ms")}
+                             for label in ("meshless", "sharded")},
+                          "phase_s": sharded_lm["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

@@ -46,6 +46,16 @@
 // writes l = 0; when every split of a lane is empty the combining block
 // returns the reference's answer, the mean of all W V rows (every score
 // -1e30: a uniform softmax).
+//
+// Optionally the combining block also writes each (lane, head)'s
+// log-sum-exp of the masked scores, lse = m + log(l) in f32, (B, H): the
+// flash-decode over a sequence-sharded cache combines the ranks' outputs
+// with it (repro_torch/models/attention.py::sharded_decode_attention). A
+// lane with no valid slot writes -1e30 + log(W), the log-sum-exp of W
+// scores of -1e30 (which rounds to -1e30 in f32), never -inf or NaN, so
+// that such a block weighs exactly 0 beside a block with a valid slot and
+// the blocks of an all-empty lane weigh alike. A null lse writes nothing;
+// the output is the same either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,7 +135,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_split(const T* __restrict__ q, const T* __restrict__ kc,
              const T* __restrict__ vc, const int* __restrict__ slot_pos,
              const int* __restrict__ pos, T* __restrict__ o,
-             float* __restrict__ part, int* __restrict__ counters, int W,
+             float* __restrict__ lse, float* __restrict__ part,
+             int* __restrict__ counters, int W,
              int H, int KV, int hd, int window, float scale, int tps) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
@@ -372,13 +383,17 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kc,
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) store(ob + idx + e, a[e] / l);
+    if (lse != nullptr && d == 0)  // once per head: l is the same for all d
+      lse[(long)b * H + (long)kvh * G + g] =
+          seen ? mx + logf(l) : kNegInf + logf((float)W);
   }
   if (tid == 0) counters[pair] = 0;  // ready for the next launch
 }
 
 template <typename T>
 int launch(const void* q, const void* kc, const void* vc, const int* slot_pos,
-           const int* pos, void* o, float* part, int* counters, int B, int W,
+           const int* pos, void* o, float* lse, float* part, int* counters,
+           int B, int W,
            int H, int KV, int hd, int window, float scale, int splits,
            int tps, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KV, hd, tps, sizeof(T));
@@ -389,8 +404,8 @@ int launch(const void* q, const void* kc, const void* vc, const int* slot_pos,
   dim3 grid(splits, KV, B);
   decode_split<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), slot_pos, pos, static_cast<T*>(o), part,
-      counters, W, H, KV, hd, window, scale, tps);
+      static_cast<const T*>(vc), slot_pos, pos, static_cast<T*>(o), lse,
+      part, counters, W, H, KV, hd, window, scale, tps);
   return (int)cudaGetLastError();
 }
 
@@ -404,12 +419,14 @@ extern "C" {
 // window <= 0 means no window. The split plan: `splits` splits of `tps`
 // 64-slot tiles (tps <= 64) covering W, none empty. part: f32 scratch of
 // B * KV * splits * (G * hd + 2 * G) elements, 16-byte aligned; counters:
-// B * KV int32, all 0 (each launch leaves them 0). Returns the first CUDA
-// error of the launch (0 when it was accepted).
+// B * KV int32, all 0 (each launch leaves them 0). lse: (B, H) f32, each
+// row's log-sum-exp of its masked scores, or null for none. Returns the
+// first CUDA error of the launch (0 when it was accepted).
 int corais_decode_attention(const void* q, const void* k_cache,
                             const void* v_cache, const void* slot_pos,
                             const void* pos, void* o, void* part,
-                            void* counters, int B, int W, int H, int KV,
+                            void* counters, void* lse, int B, int W, int H,
+                            int KV,
                             int hd, int window, float scale, int splits,
                             int tps, int is_bf16, void* stream) {
   const int vec = is_bf16 ? 8 : 4;  // elements per 16-byte load
@@ -426,12 +443,13 @@ int corais_decode_attention(const void* q, const void* k_cache,
   const int* ps = static_cast<const int*>(pos);
   float* pt = static_cast<float*>(part);
   int* cn = static_cast<int*>(counters);
+  float* ls = static_cast<float*>(lse);
   return is_bf16
-             ? launch<__nv_bfloat16>(q, k_cache, v_cache, sp, ps, o, pt, cn, B,
-                                     W, H, KV, hd, window, scale, splits, tps,
-                                     st)
-             : launch<float>(q, k_cache, v_cache, sp, ps, o, pt, cn, B, W, H,
-                             KV, hd, window, scale, splits, tps, st);
+             ? launch<__nv_bfloat16>(q, k_cache, v_cache, sp, ps, o, ls, pt,
+                                     cn, B, W, H, KV, hd, window, scale,
+                                     splits, tps, st)
+             : launch<float>(q, k_cache, v_cache, sp, ps, o, ls, pt, cn, B, W,
+                             H, KV, hd, window, scale, splits, tps, st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -5,8 +5,10 @@ one query token per sequence over a (possibly rolling) KV cache, the G
 query heads of a KV head sharing each cache read, slot validity from
 ``slot_pos`` and ``pos`` evaluated in the kernel. It splits W over many
 blocks (split-W flash-decode) and combines their partial softmaxes in the
-same launch; :func:`split_plan` chooses the splits. The source's header
-note says what bounds it on the H100 and what its design does about that.
+same launch; :func:`split_plan` chooses the splits. With ``with_lse`` it
+also writes each row's log-sum-exp (the flash-decode over a
+sequence-sharded cache combines ranks with it). The source's header note
+says what bounds it on the H100 and what its design does about that.
 
 :func:`decode_attention_cuda` takes CUDA tensors only; its plain version is
 :func:`repro_torch.kernels.ref.decode_attention_torch`, and
@@ -42,7 +44,7 @@ MIN_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"corais_decode_attention":
-               [_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + [_P]}
+               [_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + [_P]}
 _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -93,13 +95,15 @@ def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
-                          plan=None):
+                          plan=None, with_lse=False):
     """B5: q (B, H, hd); k_cache, v_cache (B, W, KV, hd), all f32 or all
     bf16, 16-byte aligned; slot_pos (B, W) int32 (-1 = empty); pos (B,)
     int32; contiguous, on one card; H a multiple of KV, hd <= 128 and a
     multiple of 8 (bf16) or 4 (f32), (H / KV) * hd <= 2048. ``plan``,
     (splits, tiles per split), replaces :func:`split_plan`'s choice (see
-    :func:`check_plan`). Returns (B, H, hd) in q's dtype."""
+    :func:`check_plan`). Returns (B, H, hd) in q's dtype, and with
+    ``with_lse`` also each (lane, head)'s log-sum-exp of its masked scores,
+    (B, H) f32 (-1e30 for a lane with no valid slot)."""
     win = window_arg(window)
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError("q must be (B, H, hd) and the caches (B, W, KV, hd)")
@@ -128,6 +132,8 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
     check_plan(w, splits, per)
     g = h // kv
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if with_lse else None)
     part = torch.empty(b * kv * splits * (g * hd + 2 * g),
                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -136,9 +142,10 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
         err = lib.corais_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            part.data_ptr(), counters.data_ptr(), b, w, h, kv, hd, win,
+            part.data_ptr(), counters.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, w, h, kv, hd, win,
             1.0 / math.sqrt(hd), splits, per, int(q.dtype == torch.bfloat16),
             stream)
     raise_on(err, lib, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out

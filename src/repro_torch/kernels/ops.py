@@ -21,11 +21,27 @@ either device. :func:`mamba_scan_gated` is differentiable through
 B6b, on the card; their plain versions on the CPU. B5 and B6's bare entry
 have no backward: on a CUDA tensor that needs a gradient they raise,
 rather than return an output cut off from autograd.
+
+**DTensors.** On a mesh (:mod:`repro_torch.launch.steps`) the attention
+and scan wrappers take DTensors and run the kernel, or its plain version,
+on each rank's local blocks through ``local_map``. Each declares the
+placements it takes: the batch over any mesh axis; for B4 and B5 the
+heads over an axis whose size divides both H and KV (q's query heads and
+the caches' KV heads split alike, so a rank's query heads read only its
+own KV heads); for B6 d_inner (the scan's channels). An input on other
+placements (heads split inside a head, a sequence or a cache's slot axis
+split, a partial sum) is redistributed to placements the kernel takes
+first: never a silent gather, each such redistribution counted under the
+kernel's name in :data:`repro_torch.sharding.ctx.REDISTRIBUTES`. The
+autograd Functions run on the local blocks; ``local_map``'s
+``to_local``/``from_local`` carry the gradients across.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -36,6 +52,7 @@ from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
                                               policy_score_decode_cuda)
+from repro_torch.sharding.ctx import REDISTRIBUTES
 
 
 def _flatten(c_emb, h_emb, edge_mask):
@@ -228,24 +245,139 @@ def _no_card_backward(kernel: str, *tensors) -> None:
         raise missing_backward(kernel)
 
 
+# -- DTensor inputs: the kernels on each rank's local blocks ------------------
+
+
+def mesh_roles(x: DTensor, dims: dict, ok=lambda role, n: True) -> tuple:
+    """For each mesh axis of ``x``: the role ("batch", "heads", ...) whose
+    tensor dimension in ``dims`` that axis splits, if ``ok(role, axis
+    size)``; None where it splits nothing a kernel can take (it is then
+    replicated)."""
+    mesh = x.device_mesh
+    roles = []
+    for i, p in enumerate(x.placements):
+        role = None
+        if isinstance(p, Shard):
+            for r, d in dims.items():
+                if p.dim == d and ok(r, mesh.size(i)):
+                    role = r
+        roles.append(role)
+    return tuple(roles)
+
+
+def role_placements(roles: tuple, dims: dict) -> tuple:
+    """The placements of a tensor whose roles sit at ``dims``: each mesh
+    axis splits its role's dimension, or nothing."""
+    return tuple(Shard(dims[r]) if r in dims else Replicate()
+                 for r in roles)
+
+
+def to_placements(x, mesh, want: tuple, site: str) -> DTensor:
+    """``x`` on ``want``: a DTensor redistributed (counted under ``site``
+    when that moves anything), a plain tensor taken as replicated (every
+    rank holds the same one) and cut to its block."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == want:
+        return x
+    REDISTRIBUTES[site] += 1
+    return x.redistribute(mesh, want)
+
+
+def run_on_blocks(site: str, fn, mesh, roles: tuple, args, outs):
+    """``fn`` on each rank's local blocks: ``args`` is a list of (value,
+    dims) with dims None for a non-tensor, each tensor first brought to the
+    placements of ``roles`` at its dims; ``outs`` the dims of each output
+    (a dict for one output, a tuple of dicts for several)."""
+    ins, in_pl, grad_pl = [], [], []
+    for x, dims in args:
+        if dims is None:
+            ins.append(x)
+            in_pl.append(None)
+            grad_pl.append(None)
+        else:
+            want = role_placements(roles, dims)
+            ins.append(to_placements(x, mesh, want, site))
+            in_pl.append(list(want))
+            # an input whole on an axis that splits the work (A beside a
+            # batch block, B_mat beside a block of channels) gets a part
+            # of its gradient on each rank: their sum
+            grad_pl.append([Partial() if r is not None and r not in dims
+                            else p for r, p in zip(roles, want)])
+    # local_map reads a list as one output's placements, a tuple as many
+    out_pl = (list(role_placements(roles, outs)) if isinstance(outs, dict)
+              else tuple(list(role_placements(roles, d)) for d in outs))
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=mesh)(*ins)
+
+
+def _heads_ok(h: int, kv: int):
+    return lambda role, n: role != "heads" or (h % n == 0 and kv % n == 0)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
     """B4: GQA flash attention, q (B, Sq, H, hd), k, v (B, Sk, KV, hd) ->
     (B, Sq, H, hd) in q's dtype, any Sq and Sk; differentiable through
     :class:`FlashAttention`, whose backward runs the pair-scan over
-    ``chunk``-sized blocks."""
-    return FlashAttention.apply(q, k, v, bool(causal), window, int(chunk),
-                                _wants_grad(q, k, v))
+    ``chunk``-sized blocks. DTensors: the batch and the heads may be split
+    (the module's docstring)."""
+    train = _wants_grad(q, k, v)
+
+    def run(q, k, v):
+        return FlashAttention.apply(q, k, v, bool(causal), window, int(chunk),
+                                    train)
+
+    if not isinstance(q, DTensor):
+        return run(q, k, v)
+    dims = {"batch": 0, "heads": 2}
+    roles = mesh_roles(q, dims, _heads_ok(q.shape[2], k.shape[2]))
+    return run_on_blocks("B4", run, q.device_mesh, roles,
+                         [(q, dims), (k, dims), (v, dims)], dims)
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None):
-    """B5: one query token per sequence, q (B, H, hd), over a rolling cache
-    (B, W, KV, hd) with slot positions (B, W) and query positions (B,)."""
+def _decode_local(q, k_cache, v_cache, slot_pos, pos, window, with_lse):
     if _device_type(q) == "cpu":
-        return ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
-                                          window=window)
+        o = ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
+                                       window=window)
+        if not with_lse:
+            return o
+        return o, ref.decode_attention_lse_torch(q, k_cache, slot_pos, pos,
+                                                 window=window)
     _no_card_backward("B5", q, k_cache, v_cache)
+    if with_lse:
+        return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
+                                     window=window, with_lse=True)
     return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
                                  window=window)
+
+
+#: where B5's inputs keep their roles: q (B, H, hd), the caches (B, W, KV,
+#: hd), slot_pos (B, W), pos (B,); the output as q, the lse (B, H)
+_B5_Q = {"batch": 0, "heads": 1}
+_B5_CACHE = {"batch": 0, "heads": 2, "slots": 1}
+_B5_SLOTS = {"batch": 0, "slots": 1}
+_B5_POS = {"batch": 0}
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None,
+                     with_lse=False):
+    """B5: one query token per sequence, q (B, H, hd), over a rolling cache
+    (B, W, KV, hd) with slot positions (B, W) and query positions (B,);
+    with ``with_lse`` also each (lane, head)'s log-sum-exp of its masked
+    scores (B, H) f32. DTensors: the batch and the heads may be split; a
+    cache split on its slot axis is brought whole to each rank first
+    (counted), as B5 reads all of a lane's slots."""
+    if not isinstance(q, DTensor):
+        return _decode_local(q, k_cache, v_cache, slot_pos, pos, window,
+                             with_lse)
+    roles = mesh_roles(q, _B5_Q, _heads_ok(q.shape[1], k_cache.shape[2]))
+    outs = (_B5_Q, {"batch": 0, "heads": 1}) if with_lse else _B5_Q
+    return run_on_blocks(
+        "B5", lambda *a: _decode_local(*a, window, with_lse), q.device_mesh,
+        roles, [(q, _B5_Q), (k_cache, _B5_CACHE), (v_cache, _B5_CACHE),
+                (slot_pos, _B5_SLOTS), (pos, _B5_POS)], outs)
 
 
 def mamba_scan(u, dt, B_mat, C_mat, A):
@@ -265,10 +397,24 @@ def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     dtype. u, dt_raw (B, S, d), B_mat, C_mat (B, S, N), A (d, N), dt_bias,
     D (d,) f32; z (B, S, d) bf16 or f32 with a unit last stride ->
     (out (B, S, d), h_last (B, d, N) f32), differentiable with respect to
-    all eight inputs through :class:`MambaScanGated`."""
-    return MambaScanGated.apply(
-        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
-        _wants_grad(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z))
+    all eight inputs through :class:`MambaScanGated`. DTensors: the batch
+    and d_inner may be split (d_inner where u splits it)."""
+    train = _wants_grad(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+
+    def run(*args):
+        return MambaScanGated.apply(*args, train)
+
+    args = (u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
+    if not isinstance(u, DTensor):
+        return run(*args)
+    seq = {"batch": 0, "inner": 2}
+    chan = {"inner": 0}
+    bc = {"batch": 0}
+    roles = mesh_roles(u, seq)
+    return run_on_blocks(
+        "B6", run, u.device_mesh, roles,
+        list(zip(args, (seq, seq, chan, bc, bc, chan, chan, seq))),
+        (seq, {"batch": 0, "inner": 1}))
 
 
 __all__ = ["PolicyScore", "FlashAttention", "MambaScanGated",

@@ -178,12 +178,9 @@ def flash_attention_lse_torch(q, k, *, causal=True, window=None):
     return lse.reshape(b, h, s)
 
 
-def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
-                           window=None):
-    """Plain version of B5, twin of ``ref.decode_attention_ref``
-    (``repro/kernels/ref.py:30``). q: (B, H, hd); k/v_cache: (B, W, KV, hd);
-    slot_pos: (B, W) absolute position per slot (-1 = empty); pos: (B,)
-    -> (B, H, hd) in q's dtype."""
+def _decode_scores(q, k_cache, slot_pos, pos, window):
+    """(B, KV, G, W) f32 scores of one query row per lane against its
+    cache, invalid slots at -1e30."""
     b, w, kv, hd = k_cache.shape
     h = q.shape[1]
     qg = q.reshape(b, kv, h // kv, hd).float()
@@ -191,10 +188,28 @@ def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
     if window is not None:
         valid &= slot_pos > (pos[:, None] - window)
-    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
+    return torch.where(valid[:, None, None, :], sc, NEG_INF)
+
+
+def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
+                           window=None):
+    """Plain version of B5, twin of ``ref.decode_attention_ref``
+    (``repro/kernels/ref.py:30``). q: (B, H, hd); k/v_cache: (B, W, KV, hd);
+    slot_pos: (B, W) absolute position per slot (-1 = empty); pos: (B,)
+    -> (B, H, hd) in q's dtype."""
+    p = torch.softmax(_decode_scores(q, k_cache, slot_pos, pos, window),
+                      dim=-1)
     o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
-    return o.reshape(b, h, hd).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def decode_attention_lse_torch(q, k_cache, slot_pos, pos, *, window=None):
+    """Plain version of B5's log-sum-exp output: each (lane, head)'s
+    ``torch.logsumexp`` of the same masked scores as
+    :func:`decode_attention_torch`, (B, H) f32; a lane with no valid slot
+    gives the log-sum-exp of W scores of -1e30."""
+    sc = _decode_scores(q, k_cache, slot_pos, pos, window)
+    return torch.logsumexp(sc, dim=-1).reshape(q.shape[:2])
 
 
 def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None):

@@ -1,11 +1,12 @@
-"""The fleet mesh over ``torch.distributed`` (counterpart of
+"""Meshes over ``torch.distributed`` (counterpart of ``make_host_mesh`` and
 ``make_fleet_mesh`` in ``repro/launch/mesh.py``).
 
-:func:`make_fleet_mesh` returns a
+:func:`make_host_mesh` returns a 2-D
 :class:`torch.distributed.device_mesh.DeviceMesh` with the reference's
-``("fleet",)`` axis. A rank is a process with one device, so the
-"devices" the reference counts are the ranks of the world here: CUDA
-ranks talk over NCCL and CPU ranks over gloo.
+``("data", "model")`` axes, the LM steps' mesh; :func:`make_fleet_mesh` a
+1-D one with the ``("fleet",)`` axis. A rank is a process with one
+device, so the "devices" the reference counts are the ranks of the world
+here: CUDA ranks talk over NCCL and CPU ranks over gloo.
 
 When no process group exists, the first mesh starts one. Under a launcher
 (``torchrun`` sets ``RANK`` and ``WORLD_SIZE``) it joins the launcher's
@@ -27,7 +28,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import resolve_device
 
-__all__ = ["make_fleet_mesh", "mesh_axis"]
+__all__ = ["make_host_mesh", "make_fleet_mesh", "mesh_axis"]
 
 
 def _backend_for(device: torch.device) -> str:
@@ -72,6 +73,24 @@ def _world(device: torch.device) -> int:
                                     world_size=1)
     _check_backend(device)
     return dist.get_world_size()
+
+
+def make_host_mesh(model_parallel: int = 1,
+                   axis_names: tuple[str, str] = ("data", "model"), *,
+                   device=None):
+    """A (world / model_parallel, model_parallel) mesh over every rank of
+    the world, ranks in row-major order. Raises ``ValueError`` when the
+    world does not divide by ``model_parallel``."""
+    device = resolve_device(device)
+    n = _world(device)
+    if model_parallel < 1 or n % model_parallel != 0:
+        raise ValueError(
+            f"cannot build a host mesh: {n} available device(s) not "
+            f"divisible by model_parallel={model_parallel}")
+    return DeviceMesh(device.type,
+                      torch.arange(n).reshape(n // model_parallel,
+                                              model_parallel),
+                      mesh_dim_names=tuple(axis_names))
 
 
 def make_fleet_mesh(num_shards: int | None = None, *, device=None):

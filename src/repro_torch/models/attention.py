@@ -16,18 +16,29 @@ flash backward (``_flash_bwd``): :func:`flash_bwd` is that pair-scan over
 the (i, j) blocks of ``chunk`` rows, in plain PyTorch, fed by B4's
 log-sum-exp through :class:`repro_torch.kernels.ops.FlashAttention`.
 
-Not ported yet: logit soft-capping (no config sets it, and neither Pallas
-kernel has it) and ``sharded_decode_attention`` (ROADMAP A4).
+On a mesh, :func:`sharded_decode_attention` is the reference's flash-decode
+over a cache whose slot axis is split over the tensor-parallel axis: B5
+with its log-sum-exp on each rank's block of slots, the blocks combined in
+f32 with the reference's three collectives. :func:`write_slot` writes a
+decode step's new row into a cache split that way.
+
+Not ported: logit soft-capping (no config sets it, and neither Pallas
+kernel has it).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.sharding.ctx import current
 
 
 def _no_softcap(logit_softcap: float) -> None:
@@ -187,3 +198,123 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
     _no_softcap(logit_softcap)
     return ops.decode_attention(q, k_cache, v_cache, cache_positions, pos,
                                 window=window)
+
+
+def combine_partials(o, lse, group):
+    """The ranks' partial attentions over disjoint blocks of slots, o (B,
+    H, hd) with their log-sum-exps lse (B, H) f32, combined over ``group``
+    in f32: the max of the lse, then the sums of the rescaled numerator and
+    of the denominator (three all-reduces, in that order). A block with no
+    valid slot carries lse -1e30 and weighs 0 beside one with a valid slot;
+    when no block has one, all weigh alike and the result is the mean of
+    every value row, as the reference's."""
+    m = lse.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - m)
+    num = o.float() * w[..., None]
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(w, group=group)
+    return (num / torch.clamp(w, min=1e-30)[..., None]).to(o.dtype)
+
+
+def _on_slot_blocks(site, local, ctx, q, k_cache, v_cache, cache_positions,
+                    pos):
+    """``local`` on each rank's block: its lanes of q and pos, its lanes
+    and its block of slots (over ``ctx.tp_axis``) of the caches and the
+    slot positions; the output split over the lanes only."""
+    dp = ctx.dp or ()
+    roles = tuple("batch" if n in dp else "slots" if n == ctx.tp_axis
+                  else None for n in ctx.mesh.mesh_dim_names)
+    row, blocks = {"batch": 0}, {"batch": 0, "slots": 1}
+    return ops.run_on_blocks(
+        site, local, ctx.mesh, roles,
+        [(q, row), (k_cache, blocks), (v_cache, blocks),
+         (cache_positions, blocks), (pos, row)], row)
+
+
+def sharded_decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
+                             window=None, logit_softcap: float = 0.0,
+                             ctx=None):
+    """Flash-decode over a sequence-sharded KV cache (the reference's
+    ``sharded_decode_attention``, ``repro/models/attention.py:260-310``).
+
+    The cache's slot axis W is split over ``ctx.tp_axis`` and the batch
+    over ``ctx.dp``; each rank runs B5 with its log-sum-exp on its block
+    of slots (its plain version on the CPU) and :func:`combine_partials`
+    joins the blocks. Where the axis does not divide W, this is
+    :func:`decode_attention` (the reference's fallback). Inputs and output
+    are DTensors; q (B, H, hd), the caches (B, W, KV, hd), cache_positions
+    (B, W), pos (B,) -> (B, H, hd), split over the batch only."""
+    _no_softcap(logit_softcap)
+    if ctx is None:
+        ctx = current()
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    if tp is None or k_cache.shape[1] % mesh.size(
+            mesh.mesh_dim_names.index(tp)) != 0:
+        return decode_attention(q, k_cache, v_cache, cache_positions, pos,
+                                window=window)
+    group = mesh.get_group(tp)
+
+    def local(q, kc, vc, sp, p):
+        o, lse = ops.decode_attention(q, kc, vc, sp, p, window=window,
+                                      with_lse=True)
+        return combine_partials(o, lse, group)
+
+    return _on_slot_blocks("flash_decode", local, ctx, q, k_cache, v_cache,
+                           cache_positions, pos)
+
+
+def sharded_decode_attention_torch(q, k_cache, v_cache, cache_positions,
+                                   pos, *, window=None, ctx=None):
+    """Plain version of :func:`sharded_decode_attention`: the reference's
+    ``local`` body (``repro/models/attention.py:286-302``) in PyTorch on
+    each rank's block, f32 scores masked at -1e30, the max of the local
+    maxima, then the sums of the exponentials and of their products with
+    V, over ``ctx.tp_axis``."""
+    if ctx is None:
+        ctx = current()
+    group = ctx.mesh.get_group(ctx.tp_axis)
+
+    def local(q, kc, vc, sp, p):
+        sc = ref._decode_scores(q, kc, sp, p, window)      # (b, KV, G, w)
+        m = sc.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(sc - m[..., None])
+        denom = e.sum(-1)
+        dist.all_reduce(denom, group=group)
+        num = torch.einsum("bkgm,bmkd->bkgd", e, vc.float())
+        dist.all_reduce(num, group=group)
+        out = num / torch.clamp(denom, min=1e-30)[..., None]
+        return out.reshape(q.shape).to(q.dtype)
+
+    return _on_slot_blocks("flash_decode_plain", local, ctx, q, k_cache,
+                           v_cache, cache_positions, pos)
+
+
+def write_slot(cache, slot, row) -> None:
+    """``cache[b, slot[b]] = row[b]`` for every lane b, in place: cache
+    (B, W, ...), slot (B,) int64, row (B, ...). A DTensor cache may split
+    its batch and its slot axis W: each rank writes the rows whose slot
+    falls in its block (a masked write: no host read)."""
+    b = cache.shape[0]
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(b, device=cache.device), slot] = row
+        return
+    mesh = cache.device_mesh
+    pl = tuple(cache.placements)
+    if any(p not in (Shard(0), Shard(1), Replicate()) for p in pl):
+        raise ValueError(f"a cache on {pl} cannot take a slot write")
+    lane_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+    row_l = ops.to_placements(row, mesh, lane_pl, "cache_write").to_local()
+    slot_l = ops.to_placements(slot, mesh, lane_pl,
+                               "cache_write").to_local()
+    local = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    n = local.shape[1]
+    rel = slot_l - offset[1]
+    inside = (rel >= 0) & (rel < n)
+    idx = torch.clamp(rel, 0, n - 1)
+    lanes = torch.arange(local.shape[0], device=local.device)
+    keep = local[lanes, idx]
+    mask = inside.reshape(-1, *(1,) * (keep.ndim - 1))
+    local[lanes, idx] = torch.where(mask, row_l.to(local.dtype), keep)

@@ -57,6 +57,26 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of an embedding table. On DTensors each
+    rank gathers its block of ``ids`` from the whole table (the table
+    brought whole first, counted as an "embed" redistribution), so its
+    backward is the meshless path's index-add on each rank, summed over
+    the ranks that split the ids. DTensor's own sharding rule for this
+    index's backward fails on some PyTorch releases (2.11 on the card)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(table, DTensor):
+        return table[ids]
+    from repro_torch.kernels import ops
+    rows = {"batch": 0}
+    if not isinstance(ids, DTensor):
+        roles = (None,) * table.device_mesh.ndim
+    else:
+        roles = ops.mesh_roles(ids, rows)
+    return ops.run_on_blocks("embed", lambda t, i: t[i], table.device_mesh,
+                             roles, [(table, {}), (ids, rows)], rows)
+
+
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """qk-norm (qwen3): RMSNorm over head_dim with a learned (head_dim,)
     scale."""

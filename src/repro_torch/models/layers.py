@@ -20,6 +20,7 @@ from repro_torch.models.common import (dense, norm_apply, norm_init,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
+from repro_torch.sharding.ctx import current
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +78,11 @@ def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
     """One-token attention through B5. x_t: (B, D); layer_cache: {"k", "v"}
     (B, W, KV, hd); slot_pos (B, W) already holds ``pos`` (B,), the
     sequence position, in its slot; ``positions`` (3, B) are the M-RoPE
-    rows (``pos`` on each row by default).
+    rows (``pos`` on each row by default). Inside a sharding context with
+    ``cfg.decode_flash_shardmap`` the attention is the flash-decode over
+    the sequence-sharded cache (``attention.sharded_decode_attention``),
+    as the reference's (``repro/models/layers.py:93-104``); otherwise B5
+    takes the cache on the placements it can (``ops.decode_attention``).
 
     The new K/V row is written into slot ``pos % W`` of the cache in place
     (the reference blends it in with a one-hot mask,
@@ -95,15 +100,16 @@ def attn_decode(p, x_t, layer_cache, slot_pos, pos, cfg: ModelConfig,
         rope_pos = pos[:, None]
     q, k, v = _project_qkv(p, x_t[:, None, :], cfg, rope_pos)
     q = q[:, 0]  # (B, H, hd)
-    w = layer_cache["k"].shape[1]
-    rows = torch.arange(b, device=x_t.device)
-    slot = (pos % w).long()
-    layer_cache["k"][rows, slot] = k[:, 0]
-    layer_cache["v"][rows, slot] = v[:, 0]
-    out = attn_lib.decode_attention(q, layer_cache["k"], layer_cache["v"],
-                                    slot_pos, pos,
-                                    logit_softcap=cfg.attn_logit_softcap,
-                                    window=cfg.sliding_window)
+    slot = (pos % layer_cache["k"].shape[1]).long()
+    attn_lib.write_slot(layer_cache["k"], slot, k[:, 0])
+    attn_lib.write_slot(layer_cache["v"], slot, v[:, 0])
+    ctx = current()
+    decode = (attn_lib.sharded_decode_attention
+              if cfg.decode_flash_shardmap and ctx is not None
+              else attn_lib.decode_attention)
+    out = decode(q, layer_cache["k"], layer_cache["v"], slot_pos, pos,
+                 logit_softcap=cfg.attn_logit_softcap,
+                 window=cfg.sliding_window)
     return (dense(out.reshape(b, cfg.num_heads * cfg.head_dim), p["wo"]),
             layer_cache)
 

@@ -45,15 +45,18 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import (norm_apply, norm_init,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, take_rows)
 from repro_torch.models.ssm import ssm_state_shapes
 from repro_torch.nn.module import normal_init
+from repro_torch.sharding.ctx import constrain
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -137,8 +140,10 @@ def _default_positions(cfg: ModelConfig, batch, b: int, s: int, device):
 
 def _embed_in(params, cfg: ModelConfig, batch) -> torch.Tensor:
     if "embeds" in batch:
-        return batch["embeds"].to(_dtype(cfg))
-    return params["embed"][batch["tokens"]]
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = take_rows(params["embed"], batch["tokens"])
+    return constrain(x, "residual")
 
 
 def head_f32(params, cfg: ModelConfig) -> torch.Tensor:
@@ -154,8 +159,12 @@ def _logits(params, cfg: ModelConfig, x, head=None) -> torch.Tensor:
         head = head_f32(params, cfg)
     logits = x.float() @ head
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
-    return logits
+        if isinstance(logits, DTensor):  # no in-place write across shards
+            pad = torch.arange(cfg.padded_vocab, device=logits.device)
+            logits = torch.where(pad >= cfg.vocab_size, -1e9, logits)
+        else:
+            logits[..., cfg.vocab_size:] = -1e9
+    return constrain(logits, "logits")
 
 
 def _run_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
@@ -165,8 +174,9 @@ def _run_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
     prefill drops them."""
     outs = {"k": [], "v": [], "h": [], "conv": []}
     for p_layer in params["layers"]:
-        x, kv, ssm_state, _ = L.layer_forward(p_layer, x, positions, cfg,
-                                              dp_groups)
+        x, kv, ssm_state, _ = L.layer_forward(
+            p_layer, constrain(x, "residual"), positions, cfg, dp_groups)
+        x = constrain(x, "residual")
         if kv is not None:
             outs["k"].append(kv[0])
             outs["v"].append(kv[1])
@@ -187,8 +197,9 @@ def _train_layers(params, cfg: ModelConfig, x, positions, dp_groups=1):
     experts); the K/V and SSM states are not kept (the reference's scan
     outputs are dropped by XLA)."""
     def block(p_layer, h):
-        y, _, _, aux = L.layer_forward(p_layer, h, positions, cfg, dp_groups)
-        return y, aux
+        y, _, _, aux = L.layer_forward(p_layer, constrain(h, "residual"),
+                                       positions, cfg, dp_groups)
+        return constrain(y, "residual"), aux
 
     body = _remat(block, cfg)
     auxs = []
@@ -224,7 +235,7 @@ def _whisper_decode_stack(params, cfg: ModelConfig, tokens, enc_out,
     KV, hd)); under ``train`` each layer runs under ``cfg.remat`` and the
     K/V are not kept (None)."""
     s = tokens.shape[1]
-    x = params["embed"][tokens] + params["dec_pos"][:s][None]
+    x = take_rows(params["embed"], tokens) + params["dec_pos"][:s][None]
     if train:
         body = _remat(lambda p_layer, h: L.dec_layer_forward(
             p_layer, h, enc_out, None, cfg)[0], cfg)
@@ -337,44 +348,56 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None,
         tokens = batch["tokens"]
         b, s = tokens.shape
         x, kvs = _whisper_decode_stack(params, cfg, tokens, enc_out)
-        cache = init_cache(cfg, b, max_seq or s, x.device)
+        cache = _prefill_cache(cfg, b, s, max_seq or s, kvs, None, x.device)
         cache["enc_out"] = enc_out[:, :cfg.encoder_len].contiguous()
-        cache = _fill_kv(cache, kvs, cfg, s)
-        cache["pos"].fill_(s)
         return cache, _logits(params, cfg, x[:, -1], head)
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, batch, b, s, x.device)
     x, kvs, ssm_states = _run_layers(params, cfg, x, positions, dp_groups)
-    cache = init_cache(cfg, b, max_seq or s, x.device)
-    if kvs is not None:
-        cache = _fill_kv(cache, kvs, cfg, s)
-    if ssm_states is not None:
-        cache["layers"]["h"].copy_(ssm_states["h"])
-        cache["layers"]["conv"].copy_(ssm_states["conv"])
-    cache["pos"].fill_(s)
+    cache = _prefill_cache(cfg, b, s, max_seq or s, kvs, ssm_states,
+                           x.device)
     return cache, _logits(params, cfg, x[:, -1], head)
 
 
-def _fill_kv(cache, kvs, cfg: ModelConfig, s: int):
-    """Place prefill K/V (L, B, S, KV, hd) into the (rolling) cache, in
-    place: positions 0..S-1 in slots 0..S-1 when they fit, else the last W
-    positions at their rolling slots p % W."""
-    k, v = cache["layers"]["k"], cache["layers"]["v"]
-    w = k.shape[2]
+def _prefill_cache(cfg: ModelConfig, b: int, s: int, max_seq: int, kvs,
+                   ssm_states, device):
+    """The cache after a prompt of ``s`` tokens, in :func:`init_cache`'s
+    layout, made from the layers' outputs (no zero cache written into):
+    ``pos`` at s, the K/V and slot positions by :func:`_fill_kv`, the SSM
+    states as they came."""
+    cache = {"pos": torch.full((b,), s, dtype=torch.int32, device=device)}
+    lcache = {}
+    if kvs is not None:
+        lcache["k"], lcache["v"], cache["slot_pos"] = _fill_kv(
+            kvs, cache_window(cfg, max_seq), s)
+    if ssm_states is not None:
+        lcache.update(ssm_states)
+    cache["layers"] = lcache
+    return cache
+
+
+def _fill_kv(kvs, w: int, s: int):
+    """The prefill K/V (L, B, S, KV, hd) as a (rolling) cache of ``w``
+    slots, with its slot positions (B, W): positions 0..S-1 in slots
+    0..S-1 and the rest empty (-1) when they fit, else the last W
+    positions at their rolling slots p % W (the reference's ``_fill_kv``,
+    ``repro/models/lm.py:278-300``)."""
+    k, v = kvs["k"], kvs["v"]
+    b = k.shape[1]
     dev = k.device
     if s <= w:
-        k[:, :, :s] = kvs["k"]
-        v[:, :, :s] = kvs["v"]
-        cache["slot_pos"][:, :s] = torch.arange(s, dtype=torch.int32,
-                                                device=dev)
+        pad = (0, 0, 0, 0, 0, w - s)
+        slot_pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
+        slot_pos[:s] = torch.arange(s, dtype=torch.int32, device=dev)
+        k, v = F.pad(k, pad), F.pad(v, pad)
     else:
-        tail = torch.arange(s - w, s, dtype=torch.int32, device=dev)
-        slots = (tail % w).long()  # a permutation of [0, w)
-        k[:, :, slots] = kvs["k"][:, :, s - w:]
-        v[:, :, slots] = kvs["v"][:, :, s - w:]
-        cache["slot_pos"][:, slots] = tail
-    return cache
+        # slot j holds position s - w + ((j - (s - w)) mod w)
+        idx = (torch.arange(w, device=dev) - (s - w)) % w
+        k = k[:, :, s - w:].index_select(2, idx)
+        v = v[:, :, s - w:].index_select(2, idx)
+        slot_pos = (s - w + idx).to(torch.int32)
+    return k, v, slot_pos[None].expand(b, w).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -396,26 +419,28 @@ def decode_step(params, cache, batch, cfg: ModelConfig, head=None):
     if "embed" in batch:
         x = batch["embed"].to(_dtype(cfg))
     else:
-        x = params["embed"][batch["token"]]
-    b = x.shape[0]
+        x = take_rows(params["embed"], batch["token"])
+    x = constrain(x, "decode_x")
     pos = cache["pos"]
     if cfg.encoder_decoder:
         dec_pos = params["dec_pos"]
-        x = x + dec_pos[torch.clamp(pos, max=dec_pos.shape[0] - 1).long()]
+        x = x + take_rows(dec_pos, torch.clamp(pos, max=dec_pos.shape[0] - 1)
+                          .long())
     positions = batch.get("positions") if cfg.mrope else None
     slot_pos = cache.get("slot_pos")
     if slot_pos is not None:
-        rows = torch.arange(b, device=x.device)
-        slot_pos[rows, (pos % slot_pos.shape[1]).long()] = pos
+        L.attn_lib.write_slot(slot_pos, (pos % slot_pos.shape[1]).long(), pos)
     layers = cache["layers"]
     for i, p_layer in enumerate(params["layers"]):
         layer_cache = {key: t[i] for key, t in layers.items()}
+        x = constrain(x, "decode_x")
         if cfg.encoder_decoder:
             x = L.dec_layer_decode(p_layer, x, cache["enc_out"], layer_cache,
                                    slot_pos, pos, cfg)
         else:
             x = L.layer_decode(p_layer, x, layer_cache, slot_pos, pos, cfg,
                                positions)
+        x = constrain(x, "decode_x")
     logits = _logits(params, cfg, x, head)
     cache["pos"] = pos + 1
     return cache, logits

@@ -12,7 +12,9 @@ for dc and dh, 1e-4 for the weight gradients, whose sums run over B*Z rows.
 The attention kernels (B4, B5) are held at the reference's bars
 (``tests/test_kernels.py``): 2e-4 in f32, 2e-2 in bf16 (the output is
 rounded to bf16; the plain version computes in f32 from the same bf16
-inputs). The selective scan (B6) is held at the reference's 5e-4
+inputs); B5's log-sum-exp within 1e-5 of the largest |lse| of its plain
+version (f32 sums in another order), -1e30 exactly on an empty lane.
+The selective scan (B6) is held at the reference's 5e-4
 (``tests/test_kernels.py:78``), and two calls must give the same bits;
 B6's gated entry too, its bf16 output against the plain version's f32
 value within 5e-4 plus half a bf16 ulp (2^-8 of the value), the rounding
@@ -428,6 +430,46 @@ def test_decode_attention_kernel_matches_plain_version(
     want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,h,kv,hd,fills,window,roll", [
+    # qwen3-4b's 4-lane cache as served; a lane with no valid slot among
+    # filled ones; a windowed, rolled cache; every lane empty; W = 1
+    (4, 4096, 32, 8, 128, (2303, 1100, 600, 503), None, None),
+    (3, 300, 32, 8, 128, (0, 120, 300), None, None),
+    (2, 256, 32, 8, 128, (256, 40), 96, (900, None)),
+    (4, 64, 25, 5, 64, (0, 50, 10, 1), 40, (100, None, None, None)),
+    (2, 64, 8, 8, 64, (0, 0), None, None),
+    (2, 1, 4, 1, 16, (1, 0), None, None),
+])
+def test_decode_attention_lse_matches_plain_version(
+        cuda_device, b, w, h, kv, hd, fills, window, roll, dtype):
+    """B5 asked for its log-sum-exp: the output the same bits as without;
+    the lse (B, H) f32 against ``decode_attention_lse_torch`` (1e-5 of the
+    largest |lse|: f32 sums in another order), -1e30 exactly on a lane
+    with no valid slot, never -inf or NaN."""
+    kc, vc, slot_pos, pos = _cache(b, w, kv, hd, fills, dtype, cuda_device,
+                                   rolling_from=roll, seed=w + hd)
+    q = torch.randn(b, h, hd, generator=torch.Generator().manual_seed(4)
+                    ).to(cuda_device, dtype)
+    build.reset_launch_counts()
+    out = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    got, lse = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window,
+                                    with_lse=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 2
+    assert torch.equal(got, out)
+    want = ref.decode_attention_lse_torch(q, kc, slot_pos, pos,
+                                          window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert bool(torch.isfinite(lse).all())
+    empty = want <= -1e29
+    assert torch.equal(lse[empty], want[empty])
+    if not bool(empty.all()):
+        scale = float(want[~empty].abs().max())
+        torch.testing.assert_close(lse[~empty], want[~empty], rtol=0,
+                                   atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [

@@ -265,15 +265,52 @@ def test_train_step_with_adafactor_and_microbatches_matches_reference():
                                    err_msg=key)
 
 
-def test_steps_take_one_device_only():
-    cfg = configs.get_reduced_config("olmo-1b")
-    one, two = mock.Mock(), mock.Mock()
-    one.size.return_value, two.size.return_value = 1, 2
-    steps.build_train_step(cfg, one)
-    for build in (steps.build_train_step, steps.build_prefill,
-                  steps.build_decode_step):
-        with pytest.raises(NotImplementedError, match="2 devices"):
-            build(cfg, two)
+def _fake_world(n):
+    """PyTorch's fake process group of ``n`` ranks: meshes and placements
+    build, and nothing runs a collective."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return dist
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2])
+def test_a_mesh_of_two_builds_all_three_steps(model_parallel):
+    """A ("data", "model") mesh of 2 builds the train step, prefill and
+    decode step, each holding the specs it places its inputs by; a mesh
+    without the cell's shape is refused."""
+    dist = _fake_world(2)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model_parallel, device="cpu")
+        assert tuple(mesh.shape) == (2 // model_parallel, model_parallel)
+        cfg = configs.get_reduced_config("qwen3-4b")
+        for kind in ("train", "prefill", "decode"):
+            shape = configs.ShapeConfig(kind, seq_len=16, global_batch=4,
+                                        kind=kind)
+            step = steps.build_for_shape(cfg, mesh, shape)
+            specs = step.in_specs[0]
+            assert specs["embed"] == ("model", "data")
+            assert specs["layers/0/attn/wq"] == ("data", "model")
+        with pytest.raises(ValueError, match="ShapeConfig"):
+            steps.build_decode_step(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_host_mesh_rejects_a_world_that_does_not_divide():
+    """The twin of ``tests/test_fleet.py``'s: a ValueError naming both
+    numbers, on a world of 3."""
+    dist = _fake_world(3)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        with pytest.raises(ValueError, match=r"3 available device\(s\)"):
+            make_host_mesh(model_parallel=2, device="cpu")
+        with pytest.raises(ValueError, match="model_parallel=0"):
+            make_host_mesh(model_parallel=0, device="cpu")
+        assert tuple(make_host_mesh(3, device="cpu").shape) == (1, 3)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_prefill_and_decode_steps_wrap_the_model():
