@@ -307,6 +307,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -317,6 +318,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the kernels' torch.library ops (registered when repro_torch.kernels is
+# imported): every kernel-against-plain comparison of B4-B6b calls them
+LIB = torch.ops.repro_torch
 D = 256
 ATOL = 2e-5          # f32 sums over d=256, scaled by C=10 through tanh
 GAP = 1e-4           # index checks only on rows separated by more than this
@@ -2621,6 +2625,196 @@ def drive_fleet_data_parallel(card, m, arr, single, single_ms,
     return report, {"fleet": counts, "data_parallel": dp_counts}
 
 
+# -- phase 14: the dry run (launch/dryrun.py) on the card's machine ----------
+
+# the production cells traced on fake CUDA tensors, each in a process of its
+# own (a fake world of 256 or 512 ranks), with the kernel ops each must show
+DRYRUN_CELLS = (
+    ("olmo-1b", "train_4k", "single", ("flash_attention_lse",)),
+    ("qwen3-4b", "decode_32k", "single", ("decode_attention",)),
+    ("falcon-mamba-7b", "prefill_32k", "single", ("mamba_scan_gated",)),
+    ("mixtral-8x7b", "train_4k", "single", ("flash_attention_lse",)),
+    ("olmo-1b", "train_4k", "multi", ("flash_attention_lse",)))
+DRYRUN_TIMEOUT_S = 130
+DRYRUN_PEAK_TOL = 0.10    # predicted peak against the card's, relative
+DRYRUN_TIMED_STEPS = 5    # the real step's p50, after two warm-ups
+
+
+def _dryrun_proc(out, args, device):
+    """``python -m repro_torch.launch.dryrun`` with ``args``, writing its
+    cells to ``out`` and its output beside it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    log = open(out.with_suffix(".log"), "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--device", device, "--out", str(out)],
+        env=env, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def _dryrun_results(procs, deadline):
+    """The cells each process wrote, after it exits (killed at
+    ``deadline``); a process that failed or wrote no ``ok`` cell fails the
+    phase with its log's tail."""
+    cells = {}
+    for label, (proc, log, out) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        tail = out.with_suffix(".log").read_text()[-3000:]
+        check(proc.returncode == 0 and out.exists(),
+              f"dry run {label} exited {proc.returncode}:\n{tail}")
+        cells[label] = json.loads(out.read_text())
+    return cells
+
+
+def dryrun_against_card(m, device="cuda"):
+    """14 (b), the card's side: olmo-1b ``CONFIG`` (remat "full", Adam) at
+    phase 12b's shape on the (1, 1) mesh of phase 6e's world of one: two
+    steps, then one counted by the dry run's counter with the peak memory
+    statistics reset before it, then DRYRUN_TIMED_STEPS timed. The peak is
+    ``max_memory_allocated`` less what was allocated before the step's
+    parameters, optimizer state and batch were made."""
+    from repro_torch.roofline.trace import DeviceCounter, kernel_ops
+    cfg = m.get_config(TRAIN_LM_ARCH)
+    knobs = m.steps.TrainKnobs()
+    shape = m.ShapeConfig("train_4k", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
+    mesh = m.launch_mesh.make_host_mesh(1, device=device)
+    step = m.steps.build_train_step(cfg, mesh, knobs, shape)
+    pspecs, ospecs, bspecs = step.in_specs
+    _, opt_init, _ = m.steps.make_optimizer(cfg, knobs)
+    _sync(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED), device=device)
+    opt = m.steps.place(opt_init(m.named_leaves(params)), ospecs, mesh)
+    params = m.steps.place(params, pspecs, mesh)
+    pipe = m.SyntheticTokens(cfg.vocab_size, TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+                             seed=LM_SEED)
+    batch = m.steps.place({k: torch.from_numpy(v).to(device)
+                           for k, v in next(pipe).items()}, bspecs, mesh)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    counter = DeviceCounter()
+    m.build.reset_launch_counts()
+    with counter:
+        counter.hold((params, opt, batch))
+        params, opt, _ = step(params, opt, batch)
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated() - base
+    launched = dict(m.build.LAUNCHES)
+    times = []
+    for _ in range(DRYRUN_TIMED_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"flops": counter.flops, "bytes": counter.bytes,
+           "counted_peak_bytes": counter.peak_bytes,
+           "max_memory_allocated_bytes": peak, "base_bytes": base,
+           "kernel_ops": kernel_ops(counter), "launches": launched,
+           "step_ms": times, "step_p50_ms": float(np.median(times))}
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_dryrun(m, card, device="cuda", cells=DRYRUN_CELLS):
+    """Phase 14: ``launch/dryrun.py`` on the card's machine. Each in a
+    process of its own and all at once: the production ``cells`` on fake
+    tensors of ``device`` (nothing launched, each ``ok``, its kernel ops
+    present) and olmo-1b's 8 x 1024 step on a fake world of one; while they
+    trace on the host, the card's side of the check
+    (:func:`dryrun_against_card`; its step times are taken beside them).
+    The trace's FLOPs must equal the card step's, exactly; its predicted
+    peak be within DRYRUN_PEAK_TOL of the card's; its roofline bound (H100
+    datasheet figures) no more than the card step's p50. Returns (report,
+    the card step's launches)."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for arch, shape, mesh, _ in cells:
+        label = f"{arch} {shape} {mesh}"
+        out = out_dir / f"{arch}_{shape}_{mesh}.json"
+        out.unlink(missing_ok=True)
+        proc, log = _dryrun_proc(out, ["--arch", arch, "--shape", shape,
+                                       "--mesh", mesh], device)
+        procs[label] = (proc, log, out)
+    out = out_dir / "against_card.json"
+    out.unlink(missing_ok=True)
+    proc, log = _dryrun_proc(out, [
+        "--arch", TRAIN_LM_ARCH, "--shape", "train_4k", "--mesh", "one",
+        "--batch", str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ)], device)
+    procs["against_card"] = (proc, log, out)
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    card_side = dryrun_against_card(m, device)
+    print(f"dry run, the card's step: {json.dumps(card_side)}", flush=True)
+    results = _dryrun_results(procs, deadline)
+    report = {"card": card, "cells": {}}
+    for arch, shape, mesh, kernels in cells:
+        cell, = results[f"{arch} {shape} {mesh}"]
+        ok = cell["status"] == "ok"
+        check(ok, f"dry run {arch} {shape} {mesh}: "
+              f"{cell.get('error') or cell.get('reason')}")
+        if not ok:  # reached only where check records rather than raises
+            continue
+        check(cell["kernel_launches"] == 0 and all(
+            cell["kernel_ops"].get(k, 0) > 0 for k in kernels),
+              f"dry run {arch} {shape} {mesh}: kernel ops "
+              f"{cell['kernel_ops']}, launches {cell['kernel_launches']}")
+        report["cells"][f"{arch} {shape} {mesh}"] = {k: cell[k] for k in (
+            "chips", "num_layers", "hlo_flops_per_device",
+            "hlo_bytes_per_device", "wire_bytes_per_device",
+            "collective_ops", "terms", "memory_analysis",
+            "peak_bytes_per_device", "kernel_ops", "compile_seconds",
+            "lower_seconds", "model_flops", "collective_breakdown",
+            "largest_collectives")}
+    trace, = results["against_card"]
+    check(trace["status"] == "ok", f"dry run at 8 x 1024 on a world of one: "
+          f"{trace.get('error')}")
+    if trace["status"] != "ok":
+        return report, card_side["launches"]
+    predicted = trace["peak_bytes_per_device"]
+    measured = card_side["max_memory_allocated_bytes"]
+    peak_err = abs(predicted - measured) / measured
+    bound_ms = trace["terms"]["bound_s"] * 1e3
+    report["against_card"] = {
+        "trace_flops": trace["hlo_flops_per_device"],
+        "card_flops": card_side["flops"],
+        "trace_bytes": trace["hlo_bytes_per_device"],
+        "card_bytes": card_side["bytes"],
+        "predicted_peak_bytes": predicted, "card_peak_bytes": measured,
+        "card_counted_peak_bytes": card_side["counted_peak_bytes"],
+        "peak_rel_err": peak_err, "bound_ms": bound_ms,
+        "dominant": trace["terms"]["dominant"], "terms": trace["terms"],
+        "card_step_p50_ms": card_side["step_p50_ms"],
+        "card_step_ms": card_side["step_ms"],
+        "trace_seconds": trace["compile_seconds"],
+        "trace_kernel_ops": trace["kernel_ops"],
+        "card_kernel_ops": card_side["kernel_ops"]}
+    check(trace["hlo_flops_per_device"] == card_side["flops"],
+          f"the dry run's FLOPs {trace['hlo_flops_per_device']} are not the "
+          f"card step's {card_side['flops']}")
+    check(peak_err <= DRYRUN_PEAK_TOL, f"the dry run's peak {predicted} is "
+          f"{peak_err:.3f} off the card's {measured}")
+    check(bound_ms <= card_side["step_p50_ms"], f"the roofline bound "
+          f"{bound_ms:.1f} ms exceeds the measured step "
+          f"{card_side['step_p50_ms']:.1f} ms")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"dry run: {json.dumps(report)}", flush=True)
+    return report, card_side["launches"]
+
+
 # -- phase 13: timing ------------------------------------------------------
 
 
@@ -2712,11 +2906,15 @@ def _row(name, line, kern, plain, flops, nbytes, launches, err, shape, *,
          source="policy_score.cu", replaces="policy_score.py", library=None,
          peak=F32_FLOPS, reps=25, inner=20):
     """One kernel's entry of the ``{"kernels": [...]}`` line, timed in the
-    order plain, kernel, kernel, plain (then the library call, if any)."""
-    plain_a = time_ms(plain, reps, inner)
+    order plain, kernel, kernel, plain (then the library call, if any). The
+    plain versions, a yardstick, take a fifth of the repetitions (at least
+    two): the slow ones are host-bound loops, and each repetition waits
+    behind a sleep twice their host time."""
+    plain_reps = max(2, reps // 5)
+    plain_a = time_ms(plain, plain_reps, inner)
     kern_a = time_ms(kern, reps, inner)
     kern_b = time_ms(kern, reps, inner)
-    plain_b = time_ms(plain, reps, inner)
+    plain_b = time_ms(plain, plain_reps, inner)
     library_ms = time_ms(library, reps, inner) if library else None
     bound_ms, bound_by = bound(flops, nbytes, peak)
     return {
@@ -2732,11 +2930,9 @@ def _row(name, line, kern, plain, flops, nbytes, launches, err, shape, *,
     }
 
 
-def _head_counts(c, h):
+def _head_shape(c, h):
     b, q, d = c.shape
-    z = h.shape[1]
-    in_bytes = 4 * (b * q * d + b * z * d + 2 * d * d) + 4 * b * q
-    return b, q, z, d, in_bytes
+    return b, q, h.shape[1], d
 
 
 def policy_head_split(ops, policy_score, enc, enc_train):
@@ -2766,10 +2962,10 @@ def policy_head_split(ops, policy_score, enc, enc_train):
     return split
 
 
-def _b1_unfolded_ms(b, q, z, d, in_bytes):
+def _b1_unfolded_ms(b, q, z, d):
     """B1's bound by its first design's work (py = h Wpy recomputed)."""
-    return bound(2 * b * (q * d * d + z * d * d + z * q * d),
-                 in_bytes + 4 * b * z * q)[0]
+    from repro_torch.kernels.counts import policy_score_counts
+    return bound(*policy_score_counts(b, q, z, d, folded=False))[0]
 
 
 SHAPE_ROW_KEYS = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ms_runs",
@@ -2793,23 +2989,23 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
     trainer's shapes, where B1 and B2 are timed too, under
     ``temporal_shapes``. ``launches``: {kernel: {path: count}} from the
     main-path runs."""
+    from repro_torch.kernels import counts
     c, h, wx, wy, mask = enc[3:]
-    b, q, z, d, in_bytes = _head_counts(c, h)
+    b, q, z, d = _head_shape(c, h)
     k = 1
-    b3_flops = 2 * b * (q * d * d + d * d * q + z * d * q)
     shape = f"B={b} Q={q} Z={z} d={d}"
     rows = [
         _row("policy_score", 51,
              lambda: ops.policy_score(c, h, wx, wy, mask),
              lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-             b3_flops, in_bytes + 4 * b * z * q, launches["policy_score"],
-             errs["policy_score"], shape),
+             *counts.policy_score_counts(b, q, z, d),
+             launches["policy_score"], errs["policy_score"], shape),
         _row("policy_score_decode", 180,
              lambda: ops.policy_score_decode(c, h, wx, wy, mask, k=k,
                                              normalize=False),
              lambda: ref.policy_score_decode_torch(c, h, wx, wy, mask, 10.0,
                                                    k, False),
-             b3_flops, in_bytes + 8 * b * z * k,
+             *counts.policy_score_decode_counts(b, q, z, d, k),
              launches["policy_score_decode"], errs["policy_score_decode"],
              shape + f" K={k}"),
     ]
@@ -2818,33 +3014,33 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
                                                    normalize=True),
                    lambda: ref.policy_score_decode_torch(c, h, wx, wy, mask,
                                                          10.0, q, True),
-                   b3_flops, in_bytes + 8 * b * z * q, {}, None,
-                   shape + f" K={q} normalized")
+                   *counts.policy_score_decode_counts(b, q, z, d, q), {},
+                   None, shape + f" K={q} normalized")
     rows[1]["sampled"] = {k_: sampled[k_] for k_ in SHAPE_ROW_KEYS}
     if rollout_case is not None:
         # B1 and B3 as the rollout engine calls them: one launch a round
         # for B = 256 instances of Q = 100 edges
         c, h, wx, wy, mask = rollout_case[4:]
-        b, q, z, d, in_bytes = _head_counts(c, h)
-        flops = 2 * b * (q * d * d + d * d * q + z * d * q)
+        b, q, z, d = _head_shape(c, h)
         shape = f"B={b} Q={q} Z={z} d={d}"
-        for i, (kern, plain, out_bytes, tag) in enumerate((
+        for i, (kern, plain, work, tag) in enumerate((
                 (lambda: ops.policy_score(c, h, wx, wy, mask),
                  lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-                 4 * b * z * q, ""),
+                 counts.policy_score_counts(b, q, z, d), ""),
                 (lambda: ops.policy_score_decode(c, h, wx, wy, mask, k=1,
                                                  normalize=True),
                  lambda: ref.policy_score_decode_torch(c, h, wx, wy, mask,
                                                        10.0, 1, True),
-                 8 * b * z, " K=1 normalized"))):
-            row = _row(rows[i]["name"], 0, kern, plain, flops,
-                       in_bytes + out_bytes, {}, None, shape + tag)
+                 counts.policy_score_decode_counts(b, q, z, d, 1),
+                 " K=1 normalized"))):
+            row = _row(rows[i]["name"], 0, kern, plain, *work, {}, None,
+                       shape + tag)
             rows[i]["rollout_shape"] = {k_: row[k_] for k_ in SHAPE_ROW_KEYS}
-    rows[0]["bound_ms_unfolded"] = _b1_unfolded_ms(b, q, z, d, in_bytes)
+    rows[0]["bound_ms_unfolded"] = _b1_unfolded_ms(b, q, z, d)
 
     # the training shape: B1 forward, then B2 on its output
     c, h, wx, wy, mask = enc_train[3:]
-    b, q, z, d, in_bytes = _head_counts(c, h)
+    b, q, z, d = _head_shape(c, h)
     maskf = mask.to(torch.float32)
     out = ops.policy_score(c, h, wx, wy, mask)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(12)
@@ -2853,22 +3049,18 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
     b1_train = _row("policy_score", 51,
                     lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf),
                     lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-                    2 * b * (q * d * d + d * d * q + z * d * q),
-                    in_bytes + 4 * b * z * q, {}, None, shape)
+                    *counts.policy_score_counts(b, q, z, d), {}, None, shape)
     rows[0]["train_shape"] = {k_: b1_train[k_] for k_ in SHAPE_ROW_KEYS}
-    rows[0]["train_shape"]["bound_ms_unfolded"] = _b1_unfolded_ms(
-        b, q, z, d, in_bytes)
-    b2_flops = 2 * b * (6 * q * d * d + 3 * z * q * d)
-    b2_bytes = in_bytes + 8 * b * z * q + 4 * (b * q * d + b * z * d + 2 * d * d)
+    rows[0]["train_shape"]["bound_ms_unfolded"] = _b1_unfolded_ms(b, q, z, d)
     rows.append(_row(
         "policy_score_bwd", 65,
         lambda: policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy, maskf),
         lambda: ref.policy_score_bwd_torch(g, out, c, h, wx, wy, maskf),
-        b2_flops, b2_bytes, launches["policy_score_bwd"],
-        errs["policy_score_bwd"], shape))
+        *counts.policy_score_bwd_counts(b, q, z, d),
+        launches["policy_score_bwd"], errs["policy_score_bwd"], shape))
     rows[-1]["max_rel_err"] = errs["policy_score_bwd_rel"]
-    rows[-1]["bound_ms_unfolded"] = bound(
-        2 * b * (3 * q * d * d + 3 * z * d * d + 3 * z * q * d), b2_bytes)[0]
+    rows[-1]["bound_ms_unfolded"] = bound(*counts.policy_score_bwd_counts(
+        b, q, z, d, folded=False))[0]
     rows[0]["temporal_shapes"], rows[-1]["temporal_shapes"] = [], []
     for _, b, q, z, c, h, wx, wy, mask in temporal:
         b1, b2 = _head_pair_rows(ops, ref, policy_score, c, h, wx, wy, mask)
@@ -2880,25 +3072,22 @@ def timings(ops, ref, policy_score, enc, enc_train, launches, errs,
 def _head_pair_rows(ops, ref, policy_score, c, h, wx, wy, mask):
     """B1 and then B2 on B1's output at one shape, each timed beside its
     plain version and bounded by its fold's operations (timings)."""
-    b, q, z, d, in_bytes = _head_counts(c, h)
+    from repro_torch.kernels import counts
+    b, q, z, d = _head_shape(c, h)
     maskf = mask.to(torch.float32)
     shape = f"B={b} Q={q} Z={z} d={d}"
     b1 = _row("policy_score", 51,
               lambda: policy_score.policy_score_cuda(c, h, wx, wy, maskf),
               lambda: ref.policy_score_torch(c, h, wx, wy, mask),
-              2 * b * (q * d * d + d * d * q + z * d * q),
-              in_bytes + 4 * b * z * q, {}, None, shape)
+              *counts.policy_score_counts(b, q, z, d), {}, None, shape)
     out = ops.policy_score(c, h, wx, wy, mask)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(12)
                     ).cuda()
-    b2_bytes = in_bytes + 8 * b * z * q + 4 * (b * q * d + b * z * d
-                                               + 2 * d * d)
     b2 = _row("policy_score_bwd", 65,
               lambda: policy_score.policy_score_bwd_cuda(g, out, c, h, wx, wy,
                                                          maskf),
               lambda: ref.policy_score_bwd_torch(g, out, c, h, wx, wy, maskf),
-              2 * b * (6 * q * d * d + 3 * z * q * d), b2_bytes, {}, None,
-              shape)
+              *counts.policy_score_bwd_counts(b, q, z, d), {}, None, shape)
     return ({k: b1[k] for k in SHAPE_ROW_KEYS},
             {k: b2[k] for k in SHAPE_ROW_KEYS})
 
@@ -3067,7 +3256,7 @@ def compare_attention(ops, ref, errs):
     return report
 
 
-def compare_cross_attention(ops, ref, fa, attention, errs):
+def compare_cross_attention(ops, ref, attention, errs):
     """Whisper's attention shapes on the card, against the plain versions:
     B4 non-causal at Sq in WHISPER_CROSS_SQ against Sk in WHISPER_CROSS_SK
     (the decoder's cross attention over the frames), 8 utterances, bf16
@@ -3090,8 +3279,7 @@ def compare_cross_attention(ops, ref, fa, attention, errs):
                 where = (b, sq, sk, h, hd, str(dtype))
                 q = torch.randn(b, sq, h, hd, generator=gen).to("cuda", dtype)
                 got = ops.flash_attention(q, k, v, causal=False)
-                again, lse = fa.flash_attention_cuda(q, k, v, causal=False,
-                                                     with_lse=True)
+                again, lse = LIB.flash_attention_lse(q, k, v, False, None)
                 want = ref.flash_attention_torch(q, k, v, causal=False)
                 want_lse = ref.flash_attention_lse_torch(q, k, causal=False)
                 err, excess = _attn_err(got, want, dtype)
@@ -3793,7 +3981,7 @@ def _train_lm_argv(device, steps=None, *extra, arch=TRAIN_LM_ARCH):
             device, *extra]
 
 
-def compare_training_attention(ops, ref, fa, device="cuda"):
+def compare_training_attention(ops, ref, device="cuda"):
     """(a) B4's lse against its plain version (LSE_TOL of max |lse|), the
     output with the lse store the same bits as without it; (b) the
     gradients of ``FlashAttention`` (B4 forward, the pair-scan backward)
@@ -3806,11 +3994,9 @@ def compare_training_attention(ops, ref, fa, device="cuda"):
         where = (b, s, h, kv, hd, str(dtype), causal, window)
         q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
             device, dtype) for n in (h, kv, kv, h))
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, with_lse=True)
-        out2, lse2 = fa.flash_attention_cuda(q, k, v, causal=causal,
-                                             window=window, with_lse=True)
-        bare = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        out, lse = LIB.flash_attention_lse(q, k, v, causal, window)
+        out2, lse2 = LIB.flash_attention_lse(q, k, v, causal, window)
+        bare = LIB.flash_attention(q, k, v, causal, window)
         want = ref.flash_attention_lse_torch(q, k, causal=causal,
                                              window=window)
         lse_err = float((lse - want).abs().max())
@@ -4081,7 +4267,7 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     ``training_resume``. Returns (summary, launches of (c))."""
     t_phase = time.perf_counter()
     out = {"card": card}
-    out["attention"] = compare_training_attention(m.ops, m.ref, m.fa, device)
+    out["attention"] = compare_training_attention(m.ops, m.ref, device)
     print(f"lm training attention: {json.dumps(out['attention'])}",
           flush=True)
 
@@ -4170,8 +4356,8 @@ TRAIN_SSM_KERNEL_KINDS = (("B4", ("flash_fwd",)), ("B6", ("scan_chunked",)),
                           ("B6b", ("scan_bwd",))) + TRAIN_KERNEL_KINDS[1:]
 
 
-def compare_scan_backward(ms, ref, device="cuda"):
-    """(a) B6b (``ms.mamba_scan_gated_bwd_cuda``, from the chunk states B6
+def compare_scan_backward(ref, device="cuda"):
+    """(a) B6b (the op ``mamba_scan_gated_bwd``, from the chunk states B6
     stores) against its plain version on the same inputs at
     SCAN_BWD_CASES: every gradient within SCAN_BWD_TOL of its largest
     |entry|, the same bits on two calls; B6's output and h_last the same
@@ -4185,12 +4371,12 @@ def compare_scan_backward(ms, ref, device="cuda"):
         dh = torch.randn(b, d, n, generator=gen).to(device) if seeded else None
         where = f"B6b at {(b, s, d, n)}, z {str(zdtype)[6:]}, " + (
             "dh_last seeded" if seeded else "dh_last zero")
-        out, h, states = ms.mamba_scan_gated_cuda(*args, z, with_states=True)
-        bare, bare_h = ms.mamba_scan_gated_cuda(*args, z)
+        out, h, states = LIB.mamba_scan_gated_states(*args, z)
+        bare, bare_h = LIB.mamba_scan_gated(*args, z)
         check(torch.equal(out, bare) and torch.equal(h, bare_h),
               f"{where}: B6's output changes with the state store")
-        got = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
-        again = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh)
+        got = LIB.mamba_scan_gated_bwd(*args, z, states, dout, dh)
+        again = LIB.mamba_scan_gated_bwd(*args, z, states, dout, dh)
         want = ref.mamba_scan_gated_bwd_torch(*args, z, dout, dh)
         torch.cuda.synchronize()
         row = {"B": b, "S": s, "d": d, "N": n, "z": str(zdtype),
@@ -4287,7 +4473,7 @@ def drive_ssm_training(m, card, device="cuda"):
     {path: launches of (b) and (c)})."""
     t_phase = time.perf_counter()
     out = {"card": card}
-    out["scan_backward"] = compare_scan_backward(m.ms, m.ref, device)
+    out["scan_backward"] = compare_scan_backward(m.ref, device)
     print(f"ssm training scan backward: {json.dumps(out['scan_backward'])}",
           flush=True)
     counts = {}
@@ -5133,17 +5319,19 @@ def _timed_err(kern, plain, where):
     return err
 
 
-def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None,
-               *, sk=None, causal=True):
+def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, *,
+               with_lse=False, sk=None, causal=True):
     """B4 at (b, s, h, kv, hd) bf16, causal with ``window`` (or, with
     ``causal`` False, every column: whisper's encoder, and with ``sk`` its
     cross attention over ``sk`` keys), held against its plain version on
     the inputs it is timed on, beside that version, SDPA and its bound:
     the (row, column) pairs the mask keeps on the bf16 tensor cores
-    against q, k, v read and o written. With the wrapper module ``fa`` the
-    kernel is timed storing its log-sum-exp too, as training launches it
-    (the bound then counts the lse written)."""
+    against q, k, v read and o written. With ``with_lse`` the kernel is
+    timed storing its log-sum-exp too, as training launches it (the bound
+    then counts the lse written)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import counts
     sk = s if sk is None else sk
     q = torch.randn(b, s, h, hd, generator=gen).to("cuda", torch.bfloat16)
     k, v = (torch.randn(b, sk, kv, hd, generator=gen).to("cuda",
@@ -5151,24 +5339,19 @@ def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None,
             for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = None
-    if causal:
-        w = s if window is None else min(window, s)
-        pairs = b * (w * (w + 1) // 2 + (s - w) * w)
-        if w < s:  # SDPA takes a window only as a mask
-            i = torch.arange(s, device="cuda")
-            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - w)
-    else:
-        pairs = b * s * sk
+    if causal and window is not None and window < s:
+        # SDPA takes a window only as a mask
+        i = torch.arange(s, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
     shape = (f"B={b} S={s}" + (f" Sk={sk}" if sk != s else "")
              + f" H={h} KV={kv} hd={hd} bf16"
              + (" causal" if causal else " non-causal")
              + (f" window {window}" if window else "")
-             + (" with lse" if fa else ""))
+             + (" with lse" if with_lse else ""))
 
     def kern():
-        if fa is not None:
-            return fa.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, with_lse=True)[0]
+        if with_lse:
+            return LIB.flash_attention_lse(q, k, v, causal, window)[0]
         return ops.flash_attention(q, k, v, causal=causal, window=window)
 
     def plain():
@@ -5176,9 +5359,10 @@ def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None,
                                          window=window)
 
     err = _timed_err(kern, plain, f"flash_attention at {shape}")
-    lse_bytes = 4 * b * h * s if fa is not None else 0
-    return _row("flash_attention", 26, kern, plain, 4 * h * hd * pairs,
-                2 * (2 * b * s * h * hd + 2 * b * sk * kv * hd) + lse_bytes,
+    return _row("flash_attention", 26, kern, plain,
+                *counts.flash_attention_counts(
+                    b, s, sk, h, kv, hd, causal=causal, window=window,
+                    with_lse=with_lse),
                 launches, err, shape,
                 source="flash_attention.cu", replaces="flash_attention.py",
                 library=lambda: F.scaled_dot_product_attention(
@@ -5187,7 +5371,7 @@ def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, fa=None,
                 peak=BF16_FLOPS, reps=10, inner=5)
 
 
-def _flash_backward_row(attention, fa, gen, b, s, h, kv, hd, chunk):
+def _flash_backward_row(attention, gen, b, s, h, kv, hd, chunk):
     """The training attention's backward (the pair-scan ``flash_bwd`` over
     ``chunk``-row blocks, plain PyTorch) at (b, s, h, kv, hd) bf16 causal,
     beside PyTorch's ``scaled_dot_product_attention`` backward on the same
@@ -5198,7 +5382,7 @@ def _flash_backward_row(attention, fa, gen, b, s, h, kv, hd, chunk):
     import torch.nn.functional as F
     q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
         "cuda", torch.bfloat16) for n in (h, kv, kv, h))
-    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    out, lse = LIB.flash_attention_lse(q, k, v, True, None)
 
     def pair_scan():
         return attention.flash_bwd(q, k, v, out, lse, dout, chunk=chunk)
@@ -5237,6 +5421,8 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches,
     beside B5 without it (without, with, with, without), with its bound
     (the lse written added)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import counts
     kc, vc, slot_pos, pos = cache
     b, w, kv, hd = kc.shape
     qd = torch.randn(b, h, hd, generator=gen).to("cuda", torch.bfloat16)
@@ -5263,8 +5449,8 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches,
 
     err = _timed_err(kern, plain, f"decode_attention at {shape}")
     row = _row(
-        "decode_attention", 25, kern, plain, 4 * h * hd * n_valid,
-        2 * n_valid * kv * hd * 2 + 2 * 2 * b * h * hd + 4 * b * w + 4 * b,
+        "decode_attention", 25, kern, plain,
+        *counts.decode_attention_counts(b, w, h, kv, hd, n_valid=n_valid),
         launches, err, shape,
         source="decode_attention.cu", replaces="decode_attention.py",
         library=lambda: F.scaled_dot_product_attention(
@@ -5283,9 +5469,9 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches,
             "ms": min(runs[1:3]), "ms_without": min(runs[0], runs[3]),
             "ms_runs": runs[1:3], "ms_without_runs": [runs[0], runs[3]],
             "lse_max_abs_err": lse_err,
-            "bound_ms": bound(4 * h * hd * n_valid, 2 * n_valid * kv * hd
-                              * 2 + 2 * 2 * b * h * hd + 4 * b * w + 4 * b
-                              + 4 * b * h, BF16_FLOPS)[0]}
+            "bound_ms": bound(*counts.decode_attention_counts(
+                b, w, h, kv, hd, n_valid=n_valid, with_lse=True),
+                BF16_FLOPS)[0]}
     row["split_plan"] = da.split_plan(
         w, b, kv, torch.cuda.get_device_properties(0).multi_processor_count)
     row["split_sweep"] = []
@@ -5300,7 +5486,37 @@ def _decode_row(ops, ref, da, gen, cache, h, window, launches,
     return row
 
 
-def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
+def op_host_cost(ops, da, gen, cache, h, calls=200, runs=5):
+    """Host µs per call of B5 over ``cache`` with ``h`` query heads: the
+    torch.library op, the wrapper it dispatches to called directly, and
+    ``ops.decode_attention``, the model's call; each the sorted means of
+    ``runs`` runs of ``calls`` calls, in turns, the card synchronised
+    between runs only."""
+    kc, vc, slot_pos, pos = cache
+    q = torch.randn(kc.shape[0], h, kc.shape[-1], generator=gen).to(
+        "cuda", kc.dtype)
+    paths = {
+        "op": lambda: LIB.decode_attention(q, kc, vc, slot_pos, pos, None),
+        "wrapper": lambda: da.decode_attention_cuda(q, kc, vc, slot_pos,
+                                                    pos),
+        "ops.decode_attention": lambda: ops.decode_attention(
+            q, kc, vc, slot_pos, pos)}
+    out = {k: [] for k in paths}
+    for fn in paths.values():
+        for _ in range(20):
+            fn()
+    for _ in range(runs):
+        for label, fn in paths.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out[label].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def attention_timings(ops, ref, da, cache, launches, errs, attention,
                       vlm_cache):
     """B4 and B5 at the main paths' shapes, each held against its plain
     version on the inputs it is timed on (that error is the row's
@@ -5311,7 +5527,9 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
     hymba-1.5b's (1, 2048, 25, 5, 64) with its 2048 window; B5 at the
     4-lane qwen3-4b edge's batch cache after serving (``edge_cache``:
     W=4096, 8 KV heads, 32 query heads, its slot positions; random q), and
-    at hymba's rolled 4-lane cache (HYMBA_CACHE). The hymba readings go
+    at hymba's rolled 4-lane cache (HYMBA_CACHE); B5's host µs a call
+    through its op, its wrapper and ``ops`` (:func:`op_host_cost`) under
+    ``host_us_per_call``. The hymba readings go
     into each row under ``hymba_shape``; B4 storing its lse at olmo-1b's
     training shape (8, 1024, 16, 16, 128) under ``training_shape``, and the
     pair-scan backward there beside SDPA's under ``training_backward``.
@@ -5326,13 +5544,14 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
     hymba = _flash_row(ops, ref, gen, 1, 2048, 25, 5, 64, 2048, {})
     b4["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS}
     shape = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, 16, 16, 128)
-    train = _flash_row(ops, ref, gen, *shape, None, {}, fa=fa)
+    train = _flash_row(ops, ref, gen, *shape, None, {}, with_lse=True)
     b4["training_shape"] = {k: train[k] for k in SHAPE_KEYS}
-    b4["training_backward"] = _flash_backward_row(attention, fa, gen,
+    b4["training_backward"] = _flash_backward_row(attention, gen,
                                                   *shape, 512)
     b4["compare_max_abs_err"] = errs["flash_attention"]
     b5 = _decode_row(ops, ref, da, gen, cache, 32, None,
                      launches["decode_attention"], with_lse=True)
+    b5["host_us_per_call"] = op_host_cost(ops, da, gen, cache, 32)
     b, w, h, kv, hd, dtype, fills, roll, window = HYMBA_CACHE
     hymba = _decode_row(ops, ref, da, gen, _slot_cache(
         gen, b, w, kv, hd, dtype, fills, roll), h, window, {})
@@ -5364,7 +5583,8 @@ def attention_timings(ops, ref, da, cache, launches, errs, fa, attention,
                 {}, sk=WHISPER_FRAMES, causal=False)),
             ("cross_training", _flash_row(
                 ops, ref, gen, WHISPER_TRAIN_BATCH, WHISPER_SLOTS, 6, 6, 64,
-                None, {}, fa=fa, sk=WHISPER_FRAMES, causal=False)))}
+                None, {}, with_lse=True, sk=WHISPER_FRAMES,
+                causal=False)))}
     kc, vc = (torch.randn(WHISPER_BATCH, WHISPER_FRAMES, 6, 64,
                           generator=gen).to("cuda", torch.bfloat16)
               for _ in range(2))
@@ -5396,6 +5616,7 @@ def scan_timing(ops, ref, args, gated, launches, errs):
     operations per (t, c, n). No single
     PyTorch call computes a selective scan, so no library time. The plain
     versions are Python loops of S steps, so few repetitions."""
+    from repro_torch.kernels import counts
     u, _, _, _, a = args
     b, s, d = u.shape
     n = a.shape[-1]
@@ -5419,15 +5640,13 @@ def scan_timing(ops, ref, args, gated, launches, errs):
     del got, again, want
     row = _row("mamba_scan", 21, lambda: ops.mamba_scan_gated(*gargs, z),
                lambda: ref.mamba_scan_gated_torch(*gargs, z),
-               (8 * n + 9) * b * s * d,
-               b * s * d * (4 + 4 + 2 + 2) + 4 * (2 * b * s * n + d * n
-                                                  + 2 * d + b * d * n),
+               *counts.mamba_scan_gated_counts(b, s, d, n),
                launches, err, f"B={b} S={s} d={d} N={n} f32, z and out bf16",
                source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
                inner=2)
     bare = _row("mamba_scan", 21, lambda: ops.mamba_scan(*args),
-                lambda: ref.mamba_scan_torch(*args), 8 * b * s * d * n,
-                4 * (3 * b * s * d + 2 * b * s * n + d * n + b * d * n), {},
+                lambda: ref.mamba_scan_torch(*args),
+                *counts.mamba_scan_counts(b, s, d, n), {},
                 bare_err, f"B={b} S={s} d={d} N={n} f32",
                 source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
                 inner=2)
@@ -5437,7 +5656,7 @@ def scan_timing(ops, ref, args, gated, launches, errs):
     return row
 
 
-def scan_bwd_timing(ms, ref, launches, errs):
+def scan_bwd_timing(ref, launches, errs):
     """B6b's row at hymba-1.5b's training shape (B=8, S=1024, d=3200,
     N=16; z and dout bf16, z a strided view, dh_last none, as the SSM block
     trains), from the chunk states B6 stores there, held against its plain
@@ -5459,15 +5678,16 @@ def scan_bwd_timing(ms, ref, launches, errs):
     its states at the same shape, as training launches it, held against
     its plain version there as compare_scan holds it, for B6's row under
     ``training_shape``."""
+    from repro_torch.kernels import counts
     gen = torch.Generator().manual_seed(47)
     b, s, d, n = TRAIN_LM_BATCH, TRAIN_LM_SEQ, 3200, 16
     args, uz = _gated_inputs(gen, b, s, d, n)
     z = uz[..., d:]
     dout = torch.randn(b, s, d, generator=gen).to("cuda", torch.bfloat16)
-    _, _, states = ms.mamba_scan_gated_cuda(*args, z, with_states=True)
+    _, _, states = LIB.mamba_scan_gated_states(*args, z)
     where = f"timed B6b at {(b, s, d, n)}"
-    got = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout)
-    again = ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout)
+    got = LIB.mamba_scan_gated_bwd(*args, z, states, dout, None)
+    again = LIB.mamba_scan_gated_bwd(*args, z, states, dout, None)
     want = ref.mamba_scan_gated_bwd_torch(*args, z, dout)
     torch.cuda.synchronize()
     check(all(map(torch.equal, got, again)), f"{where}: two calls differ")
@@ -5480,7 +5700,7 @@ def scan_bwd_timing(ms, ref, launches, errs):
         err, err_rel = max(err, diff), max(err_rel, rel)
     del got, again, want
     where = f"timed mamba_scan_gated with states at {(b, s, d, n)}"
-    got, want = (ms.mamba_scan_gated_cuda(*args, z, with_states=True),
+    got, want = (LIB.mamba_scan_gated_states(*args, z),
                  ref.mamba_scan_gated_torch(*args, z.float()))
     torch.cuda.synchronize()
     states_err = max(_within("out", got[0], want[0], SCAN_TOL, where,
@@ -5489,31 +5709,27 @@ def scan_bwd_timing(ms, ref, launches, errs):
     del got, want
     chunks = states.shape[1]
     row = _row("mamba_scan_bwd", "59-120",
-               lambda: ms.mamba_scan_gated_bwd_cuda(*args, z, states, dout),
+               lambda: LIB.mamba_scan_gated_bwd(*args, z, states, dout, None),
                lambda: ref.mamba_scan_gated_bwd_torch(*args, z, dout),
-               15 * b * s * d * n + 30 * b * s * d,
-               b * s * d * 22 + b * s * n * 16 + 4 * b * chunks * d * n
-               + 4 * 2 * (d * n + 2 * d), launches, err,
+               *counts.mamba_scan_gated_bwd_counts(b, s, d, n, chunks),
+               launches, err,
                f"B={b} S={s} d={d} N={n} f32, z and dout bf16",
                source="mamba_scan_bwd.cu", replaces="models/ssm.py", reps=3,
                inner=1)
     row["replaces_note"] = ("no TPU kernel: the reference differentiates its "
                             "jnp scan and tail with jax.grad")
     fd = 8192  # falcon-mamba-7b's d_inner, its training shape's bound
-    fm_ms, fm_by = bound(15 * b * s * fd * n + 30 * b * s * fd,
-                         b * s * fd * 22 + b * s * n * 16
-                         + 4 * b * chunks * fd * n + 4 * 2 * (fd * n + 2 * fd))
+    fm_ms, fm_by = bound(*counts.mamba_scan_gated_bwd_counts(b, s, fd, n,
+                                                             chunks))
     row["falcon_mamba_shape"] = {"shape": f"B={b} S={s} d={fd} N={n}",
                                  "bound_ms": fm_ms, "bound_by": fm_by}
     row["max_err_of_largest"] = err_rel
     row["compare_max_abs_err"] = errs["mamba_scan_bwd"]
     states_row = _row(
         "mamba_scan", 21,
-        lambda: ms.mamba_scan_gated_cuda(*args, z, with_states=True),
+        lambda: LIB.mamba_scan_gated_states(*args, z),
         lambda: ref.mamba_scan_gated_torch(*args, z),
-        (8 * n + 9) * b * s * d,
-        b * s * d * 12 + 4 * (2 * b * s * n + d * n + 2 * d + b * d * n
-                              + b * chunks * d * n),
+        *counts.mamba_scan_gated_counts(b, s, d, n, chunks=chunks),
         {}, states_err,
         f"B={b} S={s} d={d} N={n} f32, z and out bf16, states stored",
         source="mamba_scan.cu", replaces="mamba_scan.py", reps=3, inner=1)
@@ -5538,8 +5754,6 @@ def main() -> int:
     from repro_torch.kernels import build, ops, policy_score, ref
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.models import attention as lm_attention
     from repro_torch.models import lm, moe
     from repro_torch.nn import named_leaves, param_count
@@ -5633,7 +5847,7 @@ def main() -> int:
     print(f"compare attention: max_abs_err flash "
           f"{errs['flash_attention']}, decode {errs['decode_attention']} "
           f"over {len(attn_cases)} cases", flush=True)
-    whisper_attn = compare_cross_attention(ops, ref, fa, lm_attention, errs)
+    whisper_attn = compare_cross_attention(ops, ref, lm_attention, errs)
     print(f"compare whisper attention: {json.dumps(whisper_attn)}",
           flush=True)
     scan_cases, scan_args, gated_args = compare_scan(ops, ref, errs)
@@ -5800,7 +6014,7 @@ def main() -> int:
     # log-sum-exp in every layer's forward and recompute, the pair-scan
     # backward, Adam; the kernel path against the plain one; a resume
     lm_training, counts = drive_lm_training(types.SimpleNamespace(
-        ops=ops, ref=ref, fa=fa, build=build, lm=lm, steps=launch_steps,
+        ops=ops, ref=ref, build=build, lm=lm, steps=launch_steps,
         attention=lm_attention, launch_train=launch_train,
         checkpoint=checkpoint, get_config=get_config,
         SyntheticTokens=SyntheticTokens, named_leaves=named_leaves), card)
@@ -5813,7 +6027,7 @@ def main() -> int:
     # layer's forward and recompute, B6b in its backward; the kernel path
     # against the plain one
     ssm_training, counts = drive_ssm_training(types.SimpleNamespace(
-        ops=ops, ref=ref, ms=ms, build=build, lm=lm, steps=launch_steps,
+        ops=ops, ref=ref, build=build, lm=lm, steps=launch_steps,
         attention=lm_attention, launch_train=launch_train,
         get_config=get_config, SyntheticTokens=SyntheticTokens,
         named_leaves=named_leaves), card)
@@ -5884,13 +6098,23 @@ def main() -> int:
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
                       rollout_inputs[0], temporal_inputs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs,
-                                 fa, lm_attention, vlm_cache)
+                                 lm_attention, vlm_cache)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
-        ms, ref, launches["mamba_scan_bwd"], errs)
+        ref, launches["mamba_scan_bwd"], errs)
     kernels.append(b6b)
     stamp("13")
+
+    # phase 14: the dry run on fake CUDA tensors, five production cells
+    # and olmo-1b's step on a world of one held against the same step on
+    # the card
+    dryrun, counts = drive_dryrun(types.SimpleNamespace(
+        build=build, lm=lm, steps=launch_steps, launch_mesh=launch_mesh,
+        get_config=get_config, SyntheticTokens=SyntheticTokens,
+        ShapeConfig=ShapeConfig, named_leaves=named_leaves), card)
+    record("dryrun_against_card", counts)
+    stamp("14")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5908,6 +6132,7 @@ def main() -> int:
         "moe_lm": moe_lm, "vlm_lm": vlm_lm,
         "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
         "moe_lm_training": moe_training, "sharded_lm": sharded_lm,
+        "dryrun": dryrun,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -6030,6 +6255,13 @@ def main() -> int:
                                      for k in ("prefill_ms", "step_p50_ms")}
                              for label in ("meshless", "sharded")},
                           "phase_s": sharded_lm["phase_s"]},
+                      "dryrun": {
+                          "against_card": {k: dryrun["against_card"][k] for k
+                                           in ("trace_flops", "card_flops",
+                                               "predicted_peak_bytes",
+                                               "card_peak_bytes", "bound_ms",
+                                               "card_step_p50_ms")},
+                          "phase_s": dryrun["phase_s"]},
                       "rollout": {backend: {
                           k: r[k] for k in ("rollout_wall_ms", "ms_per_round",
                                             "request_rounds_per_s",

@@ -11,19 +11,28 @@ sequence-sharded cache combines ranks with it). The source's header note
 says what bounds it on the H100 and what its design does about that.
 
 :func:`decode_attention_cuda` takes CUDA tensors only; its plain version is
-:func:`repro_torch.kernels.ref.decode_attention_torch`, and
-:func:`repro_torch.kernels.ops.decode_attention` chooses between the two by
-the tensors' device.
+:func:`repro_torch.kernels.ref.decode_attention_torch`. Both are the
+kernels of two ``torch.library`` ops, ``repro_torch::decode_attention`` and
+``repro_torch::decode_attention_lse`` (with the log-sum-exp), dispatched
+by the tensors' device, with fake implementations and
+:func:`repro_torch.kernels.counts.decode_attention_counts`'s FLOP formula
+(a filled cache: the slots' validity is data); as for B4
+(:mod:`~repro_torch.kernels.flash_attention`).
+:func:`repro_torch.kernels.ops.decode_attention` calls them.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
                                        raise_on)
+from repro_torch.kernels.counts import decode_attention_counts
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
                                                  check_vector_loads,
                                                  window_arg)
@@ -149,3 +158,66 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
     raise_on(err, lib, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return (out, lse) if with_lse else out
+
+
+# -- the torch.library ops ---------------------------------------------------
+
+
+# The ops' CPU kernels: the plain versions, their outputs laid out as the
+# kernel lays its own (contiguous).
+
+def _plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           slot_pos: torch.Tensor, pos: torch.Tensor,
+           window: Optional[int]) -> torch.Tensor:
+    return ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
+                                      window=window).contiguous()
+
+
+def _plain_lse(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               slot_pos: torch.Tensor, pos: torch.Tensor,
+               window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    return (_plain(q, k_cache, v_cache, slot_pos, pos, window),
+            ref.decode_attention_lse_torch(q, k_cache, slot_pos, pos,
+                                           window=window).contiguous())
+
+
+decode_attention_op = torch.library.custom_op(
+    "repro_torch::decode_attention", _plain, mutates_args=(),
+    device_types="cpu")
+decode_attention_lse_op = torch.library.custom_op(
+    "repro_torch::decode_attention_lse", _plain_lse, mutates_args=(),
+    device_types="cpu")
+
+
+@decode_attention_op.register_kernel("cuda")
+def _cuda(q, k_cache, v_cache, slot_pos, pos, window):
+    return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
+                                 window=window)
+
+
+@decode_attention_lse_op.register_kernel("cuda")
+def _cuda_lse(q, k_cache, v_cache, slot_pos, pos, window):
+    return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
+                                 window=window, with_lse=True)
+
+
+@decode_attention_op.register_fake
+def _fake(q, k_cache, v_cache, slot_pos, pos, window):
+    return q.new_empty(q.shape)
+
+
+@decode_attention_lse_op.register_fake
+def _fake_lse(q, k_cache, v_cache, slot_pos, pos, window):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _flops(q_shape, k_shape, v_shape, slot_shape, pos_shape, window=None,
+           *_, **__) -> int:
+    b, h, hd = q_shape
+    return decode_attention_counts(b, k_shape[1], h, k_shape[2], hd,
+                                   window=window)[0]
+
+
+register_flop_formula([torch.ops.repro_torch.decode_attention,
+                       torch.ops.repro_torch.decode_attention_lse])(_flops)

@@ -13,19 +13,28 @@ residual of the training attention's backward; without it (serving) the
 kernel stores nothing more, and the output is the same bits either way.
 
 :func:`flash_attention_cuda` takes CUDA tensors only; its plain version is
-:func:`repro_torch.kernels.ref.flash_attention_torch`, and
-:func:`repro_torch.kernels.ops.flash_attention` chooses between the two by
-the tensors' device.
+:func:`repro_torch.kernels.ref.flash_attention_torch`. Both are the kernels
+of two ``torch.library`` ops, ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_lse`` (with the log-sum-exp): the
+dispatcher runs the CUDA one on CUDA tensors and the plain one on CPU
+tensors, and a fake implementation gives the outputs' shapes, dtypes and
+strides, so that the op traces under fake tensors without a launch.
+Each op's FLOP formula is :func:`repro_torch.kernels.counts.flash_attention_counts`'s.
+:func:`repro_torch.kernels.ops.flash_attention` calls them.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
                                        raise_on)
+from repro_torch.kernels.counts import flash_attention_counts
 
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
@@ -102,3 +111,64 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
     raise_on(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return (out, lse) if with_lse else out
+
+
+# -- the torch.library ops ---------------------------------------------------
+
+
+# The ops' CPU kernels: the plain versions, their outputs laid out as the
+# kernel lays its own (contiguous).
+
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int]) -> torch.Tensor:
+    return ref.flash_attention_torch(q, k, v, causal=causal,
+                                     window=window).contiguous()
+
+
+def _plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: Optional[int]
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (_plain(q, k, v, causal, window),
+            ref.flash_attention_lse_torch(q, k, causal=causal,
+                                          window=window).contiguous())
+
+
+flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _plain, mutates_args=(),
+    device_types="cpu")
+flash_attention_lse_op = torch.library.custom_op(
+    "repro_torch::flash_attention_lse", _plain_lse, mutates_args=(),
+    device_types="cpu")
+
+
+@flash_attention_op.register_kernel("cuda")
+def _cuda(q, k, v, causal, window):
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_lse_op.register_kernel("cuda")
+def _cuda_lse(q, k, v, causal, window):
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                with_lse=True)
+
+
+@flash_attention_op.register_fake
+def _fake(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+@flash_attention_lse_op.register_fake
+def _fake_lse(q, k, v, causal, window):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def _flops(q_shape, k_shape, v_shape, causal=True, window=None, *_,
+           **__) -> int:
+    b, s, h, hd = q_shape
+    return flash_attention_counts(b, s, k_shape[1], h, k_shape[2], hd,
+                                  causal=causal, window=window)[0]
+
+
+register_flop_formula([torch.ops.repro_torch.flash_attention,
+                       torch.ops.repro_torch.flash_attention_lse])(_flops)

@@ -17,20 +17,37 @@ state entering each of its chunks, from which :func:`mamba_scan_gated_bwd_cuda`
 (B6b, ``csrc/mamba_scan_bwd.cu``; plain version
 :func:`repro_torch.kernels.ref.mamba_scan_gated_bwd_torch`; counted into
 ``LAUNCHES["mamba_scan_bwd"]``) forms the gradients.
-:mod:`repro_torch.kernels.ops` chooses between each entry and its plain
-version by the tensors' device.
+
+Each entry and its plain version are the kernels of a ``torch.library`` op
+(``repro_torch::mamba_scan``, ``mamba_scan_gated``,
+``mamba_scan_gated_states`` (with the chunk states) and
+``mamba_scan_gated_bwd``), dispatched by the tensors' device, with fake
+implementations and the FLOP formulas of
+:mod:`repro_torch.kernels.counts`, as for B4
+(:mod:`~repro_torch.kernels.flash_attention`).
+:mod:`repro_torch.kernels.ops` calls them.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.build import (LAUNCHES, check_device, check_layout,
                                        check_tensor, load, raise_on)
+from repro_torch.kernels.counts import (mamba_scan_counts,
+                                        mamba_scan_gated_bwd_counts,
+                                        mamba_scan_gated_counts)
 
 #: The largest state width N the kernel takes.
 MAX_STATE = 32
+#: The steps of one chunk of B6's walk, whose entering states B6's gated
+#: entry stores for B6b (the kernels' ``corais_mamba_scan_chunk`` and
+#: ``corais_mamba_scan_bwd_chunk``, checked at each launch that uses them).
+STATE_CHUNK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -121,6 +138,12 @@ def _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
     return dev
 
 
+def _check_chunk(chunk: int, source: str) -> None:
+    if chunk != STATE_CHUNK:
+        raise RuntimeError(f"{source} walks chunks of {chunk} steps; the "
+                           f"chunk states are laid out for {STATE_CHUNK}")
+
+
 def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
                           with_states=False):
     """B6 with the SSM block's prologue and epilogue: dt = softplus(dt_raw +
@@ -142,9 +165,9 @@ def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=dev)
     states = None
     if with_states:
-        chunk = lib.corais_mamba_scan_chunk()
-        states = torch.empty((b, -(-s // chunk), d, n), dtype=torch.float32,
-                             device=dev)
+        _check_chunk(lib.corais_mamba_scan_chunk(), "mamba_scan.cu")
+        states = torch.empty((b, -(-s // STATE_CHUNK), d, n),
+                             dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.corais_mamba_scan_gated(
             u.data_ptr(), dt_raw.data_ptr(), dt_bias.data_ptr(),
@@ -170,9 +193,9 @@ def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     lib = load("mamba_scan_bwd.cu", _BWD_SIGNATURES)
-    chunk = lib.corais_mamba_scan_bwd_chunk()
-    check_tensor("states", states, (b, -(-s // chunk), d, n), torch.float32,
-                 dev)
+    _check_chunk(lib.corais_mamba_scan_bwd_chunk(), "mamba_scan_bwd.cu")
+    check_tensor("states", states, (b, -(-s // STATE_CHUNK), d, n),
+                 torch.float32, dev)
     check_tensor("dout", dout, (b, s, d), z.dtype, dev)
     if dh_last is not None:
         check_tensor("dh_last", dh_last, (b, d, n), torch.float32, dev)
@@ -200,3 +223,115 @@ def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     LAUNCHES["mamba_scan_bwd"] += 1
     return (du, ddt, dbp.sum(0), dBp.sum(1), dCp.sum(1), dAp.sum(0),
             dDp.sum(0), dz)
+
+
+# -- the torch.library ops ---------------------------------------------------
+
+# The ops' CPU kernels: the plain versions, their outputs laid out as the
+# kernels lay their own (contiguous).
+
+_T = torch.Tensor
+
+
+def _contiguous(outs):
+    return tuple(t.contiguous() for t in outs)
+
+
+def _plain(u: _T, dt: _T, B_mat: _T, C_mat: _T, A: _T) -> tuple[_T, _T]:
+    return _contiguous(ref.mamba_scan_torch(u, dt, B_mat, C_mat, A))
+
+
+def _plain_gated(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T, C_mat: _T,
+                 A: _T, D: _T, z: _T) -> tuple[_T, _T]:
+    return _contiguous(ref.mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat,
+                                                  C_mat, A, D, z))
+
+
+def _plain_gated_states(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T,
+                        C_mat: _T, A: _T, D: _T, z: _T
+                        ) -> tuple[_T, _T, _T]:
+    return _contiguous(ref.mamba_scan_gated_torch(
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, chunk=STATE_CHUNK))
+
+
+def _plain_gated_bwd(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T, C_mat: _T,
+                     A: _T, D: _T, z: _T, states: _T, dout: _T,
+                     dh_last: Optional[_T]
+                     ) -> tuple[_T, _T, _T, _T, _T, _T, _T, _T]:
+    """The plain backward recomputes the states; ``states`` is unused."""
+    return _contiguous(ref.mamba_scan_gated_bwd_torch(
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, dout, dh_last))
+
+
+def _op(name, fn):
+    return torch.library.custom_op(f"repro_torch::{name}", fn,
+                                   mutates_args=(), device_types="cpu")
+
+
+mamba_scan_op = _op("mamba_scan", _plain)
+mamba_scan_gated_op = _op("mamba_scan_gated", _plain_gated)
+mamba_scan_gated_states_op = _op("mamba_scan_gated_states",
+                                 _plain_gated_states)
+mamba_scan_gated_bwd_op = _op("mamba_scan_gated_bwd", _plain_gated_bwd)
+mamba_scan_op.register_kernel("cuda")(mamba_scan_cuda)
+mamba_scan_gated_op.register_kernel("cuda")(mamba_scan_gated_cuda)
+mamba_scan_gated_bwd_op.register_kernel("cuda")(mamba_scan_gated_bwd_cuda)
+
+
+@mamba_scan_gated_states_op.register_kernel("cuda")
+def _cuda_gated_states(*args):
+    return mamba_scan_gated_cuda(*args, with_states=True)
+
+
+def _f32(x, shape):
+    return x.new_empty(shape, dtype=torch.float32)
+
+
+@mamba_scan_op.register_fake
+def _fake(u, dt, B_mat, C_mat, A):
+    b, _, d = u.shape
+    return _f32(u, u.shape), _f32(u, (b, d, A.shape[-1]))
+
+
+@mamba_scan_gated_op.register_fake
+def _fake_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    b, _, d = u.shape
+    return z.new_empty(u.shape), _f32(u, (b, d, A.shape[-1]))
+
+
+@mamba_scan_gated_states_op.register_fake
+def _fake_gated_states(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+    b, s, d = u.shape
+    n = A.shape[-1]
+    return (z.new_empty(u.shape), _f32(u, (b, d, n)),
+            _f32(u, (b, (s + STATE_CHUNK - 1) // STATE_CHUNK, d, n)))
+
+
+@mamba_scan_gated_bwd_op.register_fake
+def _fake_gated_bwd(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, states, dout,
+                    dh_last):
+    return (_f32(u, u.shape), _f32(u, u.shape), _f32(u, dt_bias.shape),
+            _f32(u, B_mat.shape), _f32(u, C_mat.shape), _f32(u, A.shape),
+            _f32(u, D.shape), z.new_empty(u.shape))
+
+
+def _bsdn(u_shape, A_shape):
+    b, s, d = u_shape
+    return b, s, d, A_shape[-1]
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _flops(u, dt, B_mat, C_mat, A, *_, **__) -> int:
+    return mamba_scan_counts(*_bsdn(u, A))[0]
+
+
+@register_flop_formula([torch.ops.repro_torch.mamba_scan_gated,
+                        torch.ops.repro_torch.mamba_scan_gated_states])
+def _flops_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, *_, **__) -> int:
+    return mamba_scan_gated_counts(*_bsdn(u, A))[0]
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_gated_bwd)
+def _flops_gated_bwd(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, states,
+                     *_, **__) -> int:
+    return mamba_scan_gated_bwd_counts(*_bsdn(u, A), states[1])[0]

@@ -4,9 +4,14 @@ A CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.policy_score` for B1-B3,
 :mod:`~repro_torch.kernels.flash_attention` for B4,
 :mod:`~repro_torch.kernels.decode_attention` for B5,
-:mod:`~repro_torch.kernels.mamba_scan` for B6, bare and gated); if the
-build or the launch fails, the call raises. A CPU tensor runs the plain PyTorch version
-(:mod:`repro_torch.kernels.ref`). Nothing falls back from one to the other.
+:mod:`~repro_torch.kernels.mamba_scan` for B6, bare and gated, and B6b);
+if the build or the launch fails, the call raises. A CPU tensor runs the
+plain PyTorch version (:mod:`repro_torch.kernels.ref`). Nothing falls back
+from one to the other. B4-B6b are ``torch.library`` ops
+(``torch.ops.repro_torch.*``), so the dispatcher chooses by the tensors'
+device, and a fake tensor runs the op's fake implementation: the LM's
+steps trace under ``FakeTensorMode`` (:mod:`repro_torch.launch.dryrun`)
+with neither a launch nor a build. B1-B3 choose by :func:`_device_type`.
 The policy-head wrappers accept any leading batch shape, as the
 reference's ``ops`` do; the attention and scan wrappers take the reference
 kernels' layouts.
@@ -43,12 +48,10 @@ from torch.autograd.function import once_differentiable
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.kernels import decode_attention as _b5
+from repro_torch.kernels import flash_attention as _b4
+from repro_torch.kernels import mamba_scan as _b6
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
-                                            mamba_scan_gated_bwd_cuda,
-                                            mamba_scan_gated_cuda)
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
                                               policy_score_cuda,
                                               policy_score_decode_cuda)
@@ -128,31 +131,20 @@ def policy_score_decode(c_emb, h_emb, w_px, w_py, edge_mask, *,
 class FlashAttention(torch.autograd.Function):
     """B4 with the reference's flash backward (``_flash`` and its
     ``custom_vjp``, ``repro/models/attention.py:89-233``). The forward is
-    B4 on a CUDA tensor and its plain version on a CPU tensor; when a
-    gradient is wanted (``train``) it also computes the rows' log-sum-exp
-    and saves (q, k, v, out, lse), otherwise it saves nothing and B4
-    stores no lse, as serving needs. The backward is the pair-scan over
+    the op ``flash_attention`` (B4 on a CUDA tensor, its plain version on
+    a CPU tensor); when a gradient is wanted (``train``) it is
+    ``flash_attention_lse``, which also gives the rows' log-sum-exp, and
+    it saves (q, k, v, out, lse), otherwise it saves nothing and B4 stores
+    no lse, as serving needs. The backward is the pair-scan over
     ``chunk``-sized blocks in plain PyTorch on either device
     (:func:`repro_torch.models.attention.flash_bwd`): the reference's is
     pure jnp, with no Pallas kernel behind it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, train):
-        cuda = _device_type(q) == "cuda"
         if not train:
-            if cuda:
-                return flash_attention_cuda(q, k, v, causal=causal,
-                                            window=window)
-            return ref.flash_attention_torch(q, k, v, causal=causal,
-                                             window=window)
-        if cuda:
-            out, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                            window=window, with_lse=True)
-        else:
-            out = ref.flash_attention_torch(q, k, v, causal=causal,
-                                            window=window)
-            lse = ref.flash_attention_lse_torch(q, k, causal=causal,
-                                                window=window)
+            return _b4.flash_attention_op(q, k, v, causal, window)
+        out, lse = _b4.flash_attention_lse_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
         return out
@@ -171,33 +163,27 @@ class FlashAttention(torch.autograd.Function):
 
 
 class MambaScanGated(torch.autograd.Function):
-    """B6's gated entry with its backward B6b. The forward is B6 on a CUDA
-    tensor and its plain version on a CPU tensor; when a gradient is wanted
-    (``train``) it saves the inputs, and on the card B6 also writes the
-    state entering each of its chunks, which are saved too; otherwise it
-    saves nothing and B6 stores no states, as serving needs. The backward
-    takes the gradients of ``out`` and ``h_last`` (either may be unused)
-    and is B6b on the card, :func:`ref.mamba_scan_gated_bwd_torch` on the
-    CPU. The reference's gradient is ``jax.grad`` of its jnp chunked scan
-    and tail (``repro/models/ssm.py:59-120``): it has no Pallas kernel
-    behind it."""
+    """B6's gated entry with its backward B6b. The forward is the op
+    ``mamba_scan_gated`` (B6 on a CUDA tensor, its plain version on a CPU
+    tensor); when a gradient is wanted (``train``) it is
+    ``mamba_scan_gated_states``, which also gives the state entering each
+    chunk of B6's walk, and it saves the inputs and those states;
+    otherwise it saves nothing and B6 stores no states, as serving needs.
+    The backward takes the gradients of ``out`` and ``h_last`` (either may
+    be unused) and is the op ``mamba_scan_gated_bwd``: B6b on the card,
+    :func:`ref.mamba_scan_gated_bwd_torch` (which recomputes the states)
+    on the CPU. The reference's gradient is ``jax.grad`` of its jnp
+    chunked scan and tail (``repro/models/ssm.py:59-120``): it has no
+    Pallas kernel behind it."""
 
     @staticmethod
     def forward(ctx, u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, train):
-        cuda = _device_type(u) == "cuda"
-        states = None
-        if cuda and train:
-            out, h_last, states = mamba_scan_gated_cuda(
-                u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, with_states=True)
-        elif cuda:
-            out, h_last = mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat,
-                                                C_mat, A, D, z)
-        else:
-            out, h_last = ref.mamba_scan_gated_torch(u, dt_raw, dt_bias,
-                                                     B_mat, C_mat, A, D, z)
+        args = (u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
         if train:
-            ctx.save_for_backward(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
-                                  states)
+            out, h_last, states = _b6.mamba_scan_gated_states_op(*args)
+            ctx.save_for_backward(*args, states)
+        else:
+            out, h_last = _b6.mamba_scan_gated_op(*args)
         ctx.set_materialize_grads(False)
         return out, h_last
 
@@ -208,11 +194,8 @@ class MambaScanGated(torch.autograd.Function):
         z = args[-1]
         if dout is None:
             dout = torch.zeros(z.shape, dtype=z.dtype, device=z.device)
-        if _device_type(z) == "cuda":
-            grads = mamba_scan_gated_bwd_cuda(*args, states,
-                                              dout.contiguous(), dh_last)
-        else:
-            grads = ref.mamba_scan_gated_bwd_torch(*args, dout, dh_last)
+        grads = _b6.mamba_scan_gated_bwd_op(*args, states, dout.contiguous(),
+                                            dh_last)
         return (*grads, None)
 
 
@@ -238,10 +221,11 @@ def missing_backward(kernel: str) -> RuntimeError:
         "under torch.no_grad()")
 
 
-def _no_card_backward(kernel: str, *tensors) -> None:
-    """Raise for CUDA inputs that need a gradient: the kernel has no
-    backward, and its output would be cut off from autograd."""
-    if _wants_grad(*tensors):
+def _no_card_backward(kernel: str, x) -> None:
+    """Raise for a CUDA input (``x``'s device) where a gradient is wanted:
+    the kernel has no backward, and its output would be cut off from
+    autograd."""
+    if _device_type(x) == "cuda":
         raise missing_backward(kernel)
 
 
@@ -338,19 +322,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
 
 
 def _decode_local(q, k_cache, v_cache, slot_pos, pos, window, with_lse):
-    if _device_type(q) == "cpu":
+    args = (q, k_cache, v_cache, slot_pos, pos, window)
+    if _wants_grad(q, k_cache, v_cache):
+        _no_card_backward("B5", q)
+        # on the CPU, the plain version: differentiable by autograd
         o = ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
                                        window=window)
         if not with_lse:
             return o
         return o, ref.decode_attention_lse_torch(q, k_cache, slot_pos, pos,
                                                  window=window)
-    _no_card_backward("B5", q, k_cache, v_cache)
     if with_lse:
-        return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
-                                     window=window, with_lse=True)
-    return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
-                                 window=window)
+        return _b5.decode_attention_lse_op(*args)
+    return _b5.decode_attention_op(*args)
 
 
 #: where B5's inputs keep their roles: q (B, H, hd), the caches (B, W, KV,
@@ -384,11 +368,12 @@ def mamba_scan(u, dt, B_mat, C_mat, A):
     """B6: the mamba-1 selective scan from a zero state, u, dt (B, S, d),
     B_mat, C_mat (B, S, N), A (d, N), f32 -> (y (B, S, d), h_last
     (B, d, N)), any S. Off the training path: on the card it has no
-    backward (the SSM block trains through :func:`mamba_scan_gated`)."""
-    if _device_type(u) == "cpu":
+    backward (the SSM block trains through :func:`mamba_scan_gated`); on
+    the CPU a gradient goes through the plain version."""
+    if _wants_grad(u, dt, B_mat, C_mat, A):
+        _no_card_backward("B6", u)
         return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A)
-    _no_card_backward("B6", u, dt, B_mat, C_mat, A)
-    return mamba_scan_cuda(u, dt, B_mat, C_mat, A)
+    return _b6.mamba_scan_op(u, dt, B_mat, C_mat, A)
 
 
 def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):

@@ -212,11 +212,13 @@ def decode_attention_lse_torch(q, k_cache, slot_pos, pos, *, window=None):
     return torch.logsumexp(sc, dim=-1).reshape(q.shape[:2])
 
 
-def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None):
+def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None, chunk=None):
     """Plain version of B6, twin of ``ref.mamba_scan_ref``
     (``repro/kernels/ref.py:46``): a sequential loop over S in f32, from
     ``h0`` (B, d, N) or zeros. u, dt: (B, S, d); B_mat, C_mat: (B, S, N);
-    A: (d, N). Returns (y (B, S, d) f32, h_last (B, d, N) f32).
+    A: (d, N). Returns (y (B, S, d) f32, h_last (B, d, N) f32), and with
+    ``chunk`` also the state entering each ``chunk`` steps, (B, ceil(S /
+    chunk), d, N) f32, what B6's gated entry stores for B6b.
 
     The reference discretises all S steps up front, a (B, S, d, N) tensor;
     here each step's ``exp(dt * A)`` and ``dt * B * u`` are formed inside
@@ -227,25 +229,36 @@ def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None):
     h = (torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
     ys = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
+    if chunk is not None:
+        states = torch.empty((b, -(-s // chunk), d, n), dtype=torch.float32,
+                             device=u.device)
     for t in range(s):
+        if chunk is not None and t % chunk == 0:
+            states[:, t // chunk] = h
         dt_t = dt[:, t, :, None]
         dbu = dt_t * B_mat[:, t, None, :] * u[:, t, :, None]
         h = torch.exp(dt_t * A) * h + dbu
         ys[:, t] = (h * C_mat[:, t, None, :]).sum(-1)
-    return ys, h
+    return (ys, h) if chunk is None else (ys, h, states)
 
 
-def mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+def mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                           chunk=None):
     """Plain version of B6's gated entry: the tail of the reference's
     ``ssm_apply`` (``repro/models/ssm.py:114-120``) as its own ops, in its
     order: dt = softplus(dt_raw + dt_bias), :func:`mamba_scan_torch`,
     y + D*u, times silu(z) in f32, cast to z's dtype. Returns (out (B, S, d)
-    in z's dtype, h_last (B, d, N) f32)."""
+    in z's dtype, h_last (B, d, N) f32), and with ``chunk`` also the states
+    entering each chunk (:func:`mamba_scan_torch`)."""
     dt = F.softplus(dt_raw + dt_bias)
-    y, h_last = mamba_scan_torch(u, dt, B_mat, C_mat, A)
+    if chunk is None:  # the scan's call as callers that wrap it expect it
+        y, h_last, *states = mamba_scan_torch(u, dt, B_mat, C_mat, A)
+    else:
+        y, h_last, *states = mamba_scan_torch(u, dt, B_mat, C_mat, A,
+                                              chunk=chunk)
     y = y + D * u
     y = y * F.silu(z.float())
-    return y.to(z.dtype), h_last
+    return (y.to(z.dtype), h_last, *states)
 
 
 def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,

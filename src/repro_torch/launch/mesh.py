@@ -14,10 +14,18 @@ world; otherwise it starts a world of one on a ``FileStore`` in a temporary
 directory, so no TCP port is opened for the rendezvous. A CUDA mesh needs
 NCCL: without it, or on a group that runs another backend, it raises
 rather than carry CUDA tensors over gloo.
+
+:func:`make_production_mesh` is the dry run's: the reference's 256-chip
+pod, or two of them, over a fake world of that many ranks in this one
+process (PyTorch's fake process group: collectives return at once and move
+nothing), for steps traced on fake tensors
+(:mod:`repro_torch.launch.dryrun`). It cannot share a process with a real
+world.
 """
 from __future__ import annotations
 
 import atexit
+import math
 import os
 import shutil
 import tempfile
@@ -28,7 +36,11 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import resolve_device
 
-__all__ = ["make_host_mesh", "make_fleet_mesh", "mesh_axis"]
+__all__ = ["make_host_mesh", "make_fleet_mesh", "make_production_mesh",
+           "make_fake_mesh", "mesh_axis"]
+
+#: The fake world's backend name (``torch.testing``'s fake process group).
+FAKE_BACKEND = "fake"
 
 
 def _backend_for(device: torch.device) -> str:
@@ -75,6 +87,46 @@ def _world(device: torch.device) -> int:
     return dist.get_world_size()
 
 
+def _fake_world(n: int) -> None:
+    """A fake world of ``n`` ranks, this process rank 0; an earlier fake
+    world of another size is replaced. Raises when a real process group
+    runs."""
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if str(dist.get_backend()) != FAKE_BACKEND:
+            raise RuntimeError(
+                f"a {dist.get_backend()!r} process group runs in this "
+                "process; the dry run's fake world needs a process of its "
+                "own (python -m repro_torch.launch.dryrun)")
+        if dist.get_world_size() == n:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0,
+                            world_size=n)
+
+
+def make_fake_mesh(shape: tuple, axes: tuple, *, device=None):
+    """A mesh of ``shape`` with ``axes`` over a fake world of as many ranks
+    (the module's docstring). ``device`` names the ranks' device type
+    (CUDA unless ``"cpu"``); nothing runs on it."""
+    device = resolve_device(device)
+    n = math.prod(shape)
+    _fake_world(n)
+    return DeviceMesh(device.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16x16 = 256 ranks per pod, ("data", "model"); multi-pod = 2 pods =
+    512 ranks, ("pod", "data", "model"), over a fake world
+    (:func:`make_fake_mesh`)."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"),
+                              device=device)
+    return make_fake_mesh((16, 16), ("data", "model"), device=device)
+
+
 def make_host_mesh(model_parallel: int = 1,
                    axis_names: tuple[str, str] = ("data", "model"), *,
                    device=None):
@@ -93,7 +145,8 @@ def make_host_mesh(model_parallel: int = 1,
                       mesh_dim_names=tuple(axis_names))
 
 
-def make_fleet_mesh(num_shards: int | None = None, *, device=None):
+def make_fleet_mesh(num_shards: int | None = None, *, dry_run: bool = False,
+                    device=None):
     """1-D ``("fleet",)`` mesh for fleet-sharded rollouts
     (:mod:`repro_torch.serving.fleet`) and the data-parallel temporal
     trainer.
@@ -101,7 +154,13 @@ def make_fleet_mesh(num_shards: int | None = None, *, device=None):
     Every rank lands on the fleet axis (``num_shards=None``), or the first
     ``num_shards`` ranks do (scaling curves); a rank outside such a subset
     builds the mesh too (its groups are made collectively) but takes no
-    part in it."""
+    part in it. With ``dry_run=True`` the 256-rank
+    :func:`make_production_mesh` pod is flattened onto one fleet axis
+    (its fake world)."""
+    if dry_run:
+        prod = make_production_mesh(device=device)
+        return DeviceMesh(prod.device_type, prod.mesh.reshape(-1),
+                          mesh_dim_names=("fleet",))
     device = resolve_device(device)
     n = _world(device)
     if num_shards is None:

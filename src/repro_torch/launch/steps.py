@@ -328,3 +328,18 @@ def build_for_shape(cfg: ModelConfig, mesh, shape: ShapeConfig,
     if shape.kind == "prefill":
         return build_prefill(cfg, mesh, shape)
     return build_decode_step(cfg, mesh, shape)
+
+
+def lowering_inputs(cfg: ModelConfig, shape: ShapeConfig,
+                    knobs: TrainKnobs = TrainKnobs()):
+    """The argument tuple of :func:`build_for_shape`'s step for ``shape``'s
+    kind, as ``meta`` tensors (shapes and dtypes, no storage): train ->
+    (params, opt_state, batch); prefill -> (params, batch); decode ->
+    (params, cache, batch)."""
+    params_shapes, opt_shapes = param_and_opt_shapes(cfg, knobs)
+    io = input_specs(cfg, shape)
+    if shape.kind == "train":
+        return (params_shapes, opt_shapes, io["batch"])
+    if shape.kind == "prefill":
+        return (params_shapes, io["batch"])
+    return (params_shapes, io["cache"], io["batch"])

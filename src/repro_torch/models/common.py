@@ -11,8 +11,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.nn.layers import nonparametric_layernorm
 
 
@@ -160,11 +162,22 @@ def sinusoidal_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # to True), where the reference's ``conv_general_dilated`` is exact f32.
 
 
+#: where the conv's tensors keep their batch and channels
+_CONV_IN, _CONV_CH = {"batch": 0, "channels": 2}, {"channels": 0}
+
+
 def causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """u: (B, S, C); w: (C, K); b: (C,). Causal depthwise 1-D conv:
     ``out[t, c] = sum_k u[t - K + 1 + k, c] * w[c, k] + b[c]``, with zeros
-    before the start."""
+    before the start. On a mesh (a DTensor u) it runs on each rank's block
+    of lanes and channels (``ops.run_on_blocks``, counted under "conv"
+    where the time axis must first be brought whole): it mixes neither."""
+    if isinstance(u, DTensor):
+        return ops.run_on_blocks(
+            "conv", causal_depthwise_conv, u.device_mesh,
+            ops.mesh_roles(u, _CONV_IN),
+            [(u, _CONV_IN), (w, _CONV_CH), (b, _CONV_CH)], _CONV_IN)
     k = w.shape[-1]
     s = u.shape[1]
     pad = torch.nn.functional.pad(u, (0, 0, k - 1, 0))

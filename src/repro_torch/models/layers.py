@@ -20,7 +20,7 @@ from repro_torch.models.common import (dense, norm_apply, norm_init,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_apply, ssm_decode_step, ssm_init
 from repro_torch.nn.module import normal_init
-from repro_torch.sharding.ctx import current
+from repro_torch.sharding.ctx import current, split_heads
 
 
 # ---------------------------------------------------------------------------
@@ -46,11 +46,10 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
-    b, s = x.shape[0], x.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"]).reshape(b, s, h, hd)
-    k = dense(x, p["wk"]).reshape(b, s, kv, hd)
-    v = dense(x, p["wv"]).reshape(b, s, kv, hd)
+    q = split_heads(dense(x, p["wq"]), h, hd)
+    k = split_heads(dense(x, p["wk"]), kv, hd)
+    v = split_heads(dense(x, p["wv"]), kv, hd)
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
         k = rms_head_norm(p["k_norm"], k)
@@ -124,9 +123,9 @@ def cross_attn_forward(p, x, enc_out, cfg: ModelConfig):
     D)."""
     b, s = x.shape[0], x.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"]).reshape(b, s, h, hd)
-    k = dense(enc_out, p["wk"]).reshape(b, enc_out.shape[1], kv, hd)
-    v = dense(enc_out, p["wv"]).reshape(b, enc_out.shape[1], kv, hd)
+    q = split_heads(dense(x, p["wq"]), h, hd)
+    k = split_heads(dense(enc_out, p["wk"]), kv, hd)
+    v = split_heads(dense(enc_out, p["wv"]), kv, hd)
     if s == 1:
         out = attn_lib.cross_decode_attention(q, k, v)
     else:

@@ -56,7 +56,7 @@ from repro_torch.models.common import (norm_apply, norm_init,
                                        sinusoidal_positions, take_rows)
 from repro_torch.models.ssm import ssm_state_shapes
 from repro_torch.nn.module import normal_init
-from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.ctx import constrain, redistribute
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -288,6 +288,11 @@ def train_loss(params, batch, cfg: ModelConfig, dp_groups: int = 1):
     mask = (labels >= 0).float()
     tokens = mask.sum()
     loss = (nll * mask).sum() / torch.clamp(tokens, min=1.0)
+    if isinstance(aux, DTensor):
+        # a mean over the ranks' dispatch groups, pending (Partial "avg"):
+        # reduced first, since some releases cannot add it to the loss's
+        # pending sum
+        aux = redistribute(aux, (), "aux_loss")
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
 

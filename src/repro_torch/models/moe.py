@@ -37,8 +37,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.nn.module import normal_init
 
 
@@ -125,29 +127,75 @@ def slots(idx: torch.Tensor, e: int, cap: int):
     return pos, pos < cap
 
 
+def _rows(idx, pos, cap: int):
+    """Each entry's row in the (E * G * cap) buffer: expert-major, group
+    g's slots at ``g * cap``. idx (G, N, k), pos (G, N * k)."""
+    g = idx.shape[0]
+    group = torch.arange(g, device=idx.device)[:, None]
+    return (idx.reshape(g, -1) * g + group) * cap + torch.clamp(pos,
+                                                                max=cap - 1)
+
+
+def _dispatch(x, idx, e: int, cap: int):
+    """The capacity dispatch of G groups: (buf (E, G * cap, D), pos, keep)
+    for x (G, N, D) and its chosen experts idx (G, N, k)."""
+    g, n, d = x.shape
+    k = idx.shape[-1]
+    pos, keep = slots(idx, e, cap)
+    row = _rows(idx, pos, cap)
+    # (E, G * cap) rows and one scratch row past them for dropped entries
+    buf = x.new_zeros(e * g * cap + 1, d)
+    buf[torch.where(keep, row, e * g * cap).reshape(-1)] = (
+        x[:, :, None].expand(g, n, k, d).reshape(g * n * k, d))
+    return buf[:-1].view(e, g * cap, d), pos, keep
+
+
+def _combine(out, idx, pos, keep, gates, cap: int):
+    """Each token's gate-weighted sum of its kept entries' rows of the
+    experts' output ``out`` (E, G * cap, D): (G, N, D)."""
+    g, n, k = idx.shape
+    d = out.shape[-1]
+    w = keep.to(out.dtype) * gates.reshape(g, n * k).to(out.dtype)
+    rows = out.reshape(-1, d)[_rows(idx, pos, cap)]
+    return (rows * w[..., None]).view(g, n, k, d).sum(2)
+
+
+#: where the dispatch's tensors keep their groups: x, idx, gates, pos and
+#: keep on their first axis, the buffer on its second
+_GROUPS, _BUF = {"groups": 0}, {"groups": 1}
+
+
 def _dispatch_ffn(x: torch.Tensor, p, cfg: ModelConfig):
     """Capacity dispatch + expert FFN + combine of G groups at once, each
-    group dispatched alone. x: (G, N, D) -> (y (G, N, D), aux (G,))."""
+    group dispatched alone. x: (G, N, D) -> (y (G, N, D), aux (G,)).
+
+    On a mesh (DTensors) the dispatch and the combine run on each rank's
+    groups (``ops.run_on_blocks``, counted under "moe" where the groups
+    must first be brought to the axes that split them): both work group
+    by group, and the indexed store has no DTensor sharding rule on every
+    release."""
     g, n, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = _capacity(n, cfg)
 
     logits, idx, gates = route(x, p["router"], k)
-    flat_e = idx.reshape(g, n * k)
-    pos, keep = slots(idx, e, cap)
-    group = torch.arange(g, device=x.device)[:, None]
-    row = (flat_e * g + group) * cap + torch.clamp(pos, max=cap - 1)
-
-    # (E, G * cap) rows and one scratch row past them for dropped entries
-    buf = x.new_zeros(e * g * cap + 1, d)
-    buf[torch.where(keep, row, e * g * cap).reshape(-1)] = (
-        x[:, :, None].expand(g, n, k, d).reshape(g * n * k, d))
-    buf = buf[:-1].view(e, g * cap, d)
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        roles = ops.mesh_roles(x, _GROUPS)
+        buf, pos, keep = ops.run_on_blocks(
+            "moe", lambda *a: _dispatch(*a, e, cap), mesh, roles,
+            [(x, _GROUPS), (idx, _GROUPS)], (_BUF, _GROUPS, _GROUPS))
+    else:
+        buf, pos, keep = _dispatch(x, idx, e, cap)
     h = F.silu(_bmm(buf, p["wg"])) * _bmm(buf, p["wu"])
-    out = _bmm(h, p["wo"]).view(e * g * cap, d)
-
-    w = keep.to(x.dtype) * gates.reshape(g, n * k).to(x.dtype)
-    y = (out[row] * w[..., None]).view(g, n, k, d).sum(2)
+    out = _bmm(h, p["wo"])
+    if isinstance(out, DTensor):
+        y = ops.run_on_blocks(
+            "moe", lambda *a: _combine(*a, cap), mesh, roles,
+            [(out, _BUF), (idx, _GROUPS), (pos, _GROUPS), (keep, _GROUPS),
+             (gates, _GROUPS)], _GROUPS)
+    else:
+        y = _combine(out, idx, pos, keep, gates, cap)
     return y, _aux(logits, idx, e, k, 1)
 
 

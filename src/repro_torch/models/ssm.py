@@ -29,12 +29,14 @@ from repro_torch.models.common import (causal_depthwise_conv, conv_step,
 from repro_torch.nn.module import normal_init, uniform_init
 
 
-def _check_scan_dtype(cfg: ModelConfig) -> None:
+def check_scan_dtype(cfg: ModelConfig) -> None:
+    """Refuse a scan dtype other than f32 (the reference's
+    ``ssm_scan_dtype``; only its dry-run variants set it)."""
     if cfg.ssm_scan_dtype != "float32":
         raise NotImplementedError(
             f"ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not ported: the scan "
-            "(kernel B6) runs in f32; a reduced-precision scan waits for the "
-            "dry-run tooling of ROADMAP A12")
+            "(kernel B6) runs in f32, and no configuration needs a "
+            "reduced-precision one")
 
 
 def ssm_init(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -100,7 +102,7 @@ def ssm_apply(p, x, cfg: ModelConfig):
     """Full-sequence mamba block. x: (B, S, D) -> (out (B, S, D) in x's
     dtype, state {"h": (B, d, N), "conv": (B, K-1, d)}), the state in
     :func:`ssm_decode_step`'s format so prefill hands over to decode."""
-    _check_scan_dtype(cfg)
+    check_scan_dtype(cfg)
     k = cfg.ssm_conv
     uz = dense(x, p["in_proj"])
     u_raw, z = uz.chunk(2, dim=-1)

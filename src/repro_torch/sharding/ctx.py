@@ -19,12 +19,12 @@ import dataclasses
 import threading
 from typing import Optional
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.sharding.specs import placements
 
 __all__ = ["ShardCtx", "current", "use_sharding", "constrain",
-           "REDISTRIBUTES"]
+           "split_heads", "REDISTRIBUTES"]
 
 _TLS = threading.local()
 
@@ -105,3 +105,20 @@ def constrain(x, kind: str):
             f"constrain({kind!r}) inside a sharding context got a plain "
             f"{type(x).__name__}: the activation left the mesh")
     return redistribute(x, _spec_for(kind, ctx, x.ndim), kind)
+
+
+def split_heads(x, n: int, hd: int):
+    """``x`` (..., n * hd) as (..., n, hd). A DTensor whose last dimension
+    a mesh axis splits into parts that are not whole heads (the axis size
+    does not divide ``n``: qwen3-4b's 8 KV heads on a 16-wide ``model``
+    axis) is brought whole on that axis first, counted under "heads"."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        mesh = x.device_mesh
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                     and n % mesh.size(i) else p
+                     for i, p in enumerate(x.placements))
+        if want != tuple(x.placements):
+            REDISTRIBUTES["heads"] += 1
+            x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-1], n, hd)

@@ -46,6 +46,8 @@ from repro.optim import adafactor_init as j_adafactor_init
 from repro_torch import configs
 from repro_torch.checkpoint import (Checkpointer, load_lm_train_state,
                                     load_reference_lm_params, lm_train_tree)
+from repro_torch.kernels import decode_attention as b5
+from repro_torch.kernels import mamba_scan as b6
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import steps
 from repro_torch.launch import train as launch_train
@@ -421,22 +423,28 @@ def test_port_checkpoint_resumes_in_the_reference(tmp_path, capsys):
 # -- no silent detach -------------------------------------------------------
 
 
-def _on_card(monkeypatch, launched):
-    """``ops`` dispatching as for CUDA tensors, with the CUDA entries
-    replaced by recorders that return their plain versions' outputs (and,
-    where B6's chunk states are asked for, a stand-in)."""
+def _on_card(monkeypatch, request, launched):
+    """``ops`` taking the tensors as CUDA ones (the gradient refusals), and
+    the ops' kernels on these CPU tensors replaced by recorders, named
+    after the CUDA entry each op launches on the card, that return their
+    plain versions' outputs (and, where B6's chunk states are asked for, a
+    stand-in); the plain kernels are registered back afterwards."""
     monkeypatch.setattr(ops, "_device_type", lambda t: "cuda")
-    for name, plain in (("decode_attention_cuda", ref.decode_attention_torch),
-                        ("mamba_scan_cuda", ref.mamba_scan_torch),
-                        ("mamba_scan_gated_cuda",
-                         ref.mamba_scan_gated_torch)):
-        def entry(*args, _name=name, _plain=plain, with_states=False,
-                  **kwargs):
+    for op, name, kernel, plain in (
+            (b5.decode_attention_op, "decode_attention_cuda", b5._plain,
+             b5._plain),
+            (b6.mamba_scan_op, "mamba_scan_cuda", b6._plain, b6._plain),
+            (b6.mamba_scan_gated_op, "mamba_scan_gated_cuda",
+             b6._plain_gated, b6._plain_gated),
+            (b6.mamba_scan_gated_states_op, "mamba_scan_gated_cuda",
+             b6._plain_gated_states, b6._plain_gated)):
+        def entry(*args, _name=name, _plain=plain, _states=kernel != plain):
             launched.append(_name)
-            with torch.no_grad():  # a kernel's output has no grad_fn
-                out = _plain(*args, **kwargs)
-            return (*out, torch.zeros(())) if with_states else out
-        monkeypatch.setattr(ops, name, entry)
+            out = _plain(*args)
+            return (*out, torch.zeros(())) if _states else out
+        op.register_kernel("cpu")(entry)
+        request.addfinalizer(
+            lambda op=op, kernel=kernel: op.register_kernel("cpu")(kernel))
 
 
 def _b5_b6_inputs(requires_grad):
@@ -462,12 +470,13 @@ def _b5_b6_inputs(requires_grad):
 
 @pytest.mark.parametrize("name", ["decode_attention", "mamba_scan",
                                   "mamba_scan_gated"])
-def test_b5_b6_never_return_a_detached_kernel_output(monkeypatch, name):
+def test_b5_b6_never_return_a_detached_kernel_output(monkeypatch, request,
+                                                    name):
     """On CUDA inputs that need a gradient, B5 and B6's bare entry raise;
     B6's gated entry launches and returns an output on the graph of
     ``MambaScanGated``, whose backward is B6b."""
     launched = []
-    _on_card(monkeypatch, launched)
+    _on_card(monkeypatch, request, launched)
     if name == "mamba_scan_gated":
         out, _ = _b5_b6_inputs(True)[name]()
         assert type(out.grad_fn).__name__ == "MambaScanGatedBackward"
