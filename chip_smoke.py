@@ -140,7 +140,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    phi warm-up of eight prefills per edge (256-2560 tokens), after which
    each edge's phi must have accepted a fit (a flat history fits a = 0,
    as where the host's launches bound the prefill), greedy
-   dispatch of 18 requests (256-2560 prompt tokens, 32
+   dispatch of 18 requests (256-2560 prompt tokens, 16
    generated each) over ``snapshot_instance``; all must be served, the
    4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
    per admission, B5 36 times per decode step and B6 never; the plain
@@ -208,7 +208,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     1e-4 of its largest entry);
 12d. mixtral-8x7b (``drive_moe_lm``): ``CONFIG`` cut to 24 of its 32
     layers (35.1 B parameters, bf16, random weights from the seed), served
-    with phase 8's flow and sizes but 16 generated tokens a request, then
+    with phase 8's flow and sizes (16 generated tokens a request), then
     one 4500-token request on a fourth edge with 8192 slots a lane, whose
     cache must be the rolling one: B4 24 times per admission, B5 24 times
     per decode step, B6 never, no plain version reached; a profiled
@@ -269,6 +269,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
     its plain version (the reference's local body) and B5's; step p50 and
     host ms beside the meshless path's, DTensor's host cost a step and the
     redistributions a step makes; the launches go under ``sharded_lm``;
+15. (run after 12h, before 13, whose kernels line counts its launches)
+    elastic restart and the example twins (``drive_elastic``): (a)
+    ``repro_torch.launch.elastic.run_phase`` at olmo-1b ``CONFIG`` (bf16)
+    cut to 2 of its 16 layers with the reference's elastic batch of 8 x 32
+    tokens and Adam at 1e-3, each phase a subprocess of this script
+    (``--elastic-child``) on a (1, 1) NCCL mesh of its own: phase A 4 steps
+    from the seed and a checkpoint (~3.4 GB under the git-ignored
+    ``build/chip_smoke_elastic/``), phase B restoring it in a fresh
+    process (every leaf the saved bits) and 4 more steps, and a third
+    process, beside phase B (phase A runs alone), 8 steps without a
+    break: the 8 losses and every parameter and
+    Adam slot of the final checkpoints the same bits; B4 twice per layer a
+    step, no other kernel, no plain version of B4-B6 or of B4's and B5's
+    lse; (b) phase A's checkpoint restored onto 4 gloo CPU ranks on a
+    (2, 2) mesh (subprocesses with no card in view, one thread each,
+    420 s, started beside phase A, restoring beside phase B): each rank's
+    blocks its spec's slice of
+    the file bit for bit, one step's loss finite, the same on every rank
+    and within 1e-2 relative of phase B's first (the reading printed
+    beside the bar); (c) the four example twins in process at their
+    reference defaults (quickstart, workload_replay, train_lm,
+    serve_multi_edge), each ending on its own line, B1, B2, B4 and B5
+    launched and no plain version reached, after phase B; prints
+    the checkpoint's bytes, the save (gather + write) and restore (read +
+    place) seconds and the step p50 before and after the restore beside
+    the card's name and power limit; the launches go under ``elastic``
+    (phases A and B) and ``examples``;
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -294,7 +321,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
     and phases 12d's to 12h's (``moe_lm_serving``, ``vlm_lm``,
     ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``,
-    ``sharded_lm``) included;
+    ``sharded_lm``) and phase 15's (``elastic``, ``examples``; every row
+    names both, 0 where the path does not launch it) included;
     B1 and B2 also timed at the temporal shapes, under
     ``temporal_shapes``).
 
@@ -308,6 +336,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -340,7 +369,7 @@ ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 LM_ARCH = "qwen3-4b"   # the LM each edge serves, full width, bf16
 LM_MAX_SEQ = 4096      # KV-cache slots per lane
 LM_REQUESTS = 18       # dispatched requests (examples/serve_multi_edge.py)
-LM_GEN = 32            # generated tokens per dispatched request
+LM_GEN = 16            # generated tokens per dispatched request
 LM_WARM = 100_000      # request ids of the phi warm-up start here
 # phi warm-up prompts (the example's sizes times 32)
 PHI_PROMPTS = tuple(32 * n for n in (8, 16, 32, 48, 64, 80, 24, 40))
@@ -375,7 +404,7 @@ MIXTRAL_CACHE = (4, 4096, 32, 8, 128, torch.bfloat16, (0, 0, 1500, 0),
                  (404, 4097, None, 1), 4096)
 # phase 12d: mixtral-8x7b CONFIG cut to 24 of its 32 layers (24 x 2.90 GB
 # of bf16 weights, with the embedding, lm_head and each edge's f32 head
-# about 72 GB of the card's 80), served with phase 8's flow and sizes but
+# about 72 GB of the card's 80), served with phase 8's flow and sizes,
 # MOE_GEN generated tokens a request (the decode steps are what the phase's
 # time is taken from); one MOE_LONG_PROMPT-token request on a fourth edge
 # with MOE_LONG_MAX_SEQ slots a lane takes the rolling cache
@@ -5293,6 +5322,397 @@ def drive_sharded_lm(m, card, device="cuda"):
     return out, counts
 
 
+# -- phase 15: elastic restart and the examples' twins ----------------------
+
+ELASTIC_ARCH = "olmo-1b"
+# olmo-1b CONFIG (bf16) cut to 2 of its 16 layers: ~0.34 B parameters, so a
+# checkpoint (bf16 weights, f32 Adam moments) is ~3.4 GB under the
+# git-ignored build/ (~12 GB at 16 layers)
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 4          # phase A's, then phase B's; the run without a
+#                            break takes both at once
+ELASTIC_CPU_MESH = (2, 2)  # (b): the card's checkpoint on 4 gloo CPU ranks
+# (b)'s first step against phase B's first loss on the card, relative: the
+# CPU forms bf16 products in f32 and rounds once, over two devices' blocks
+ELASTIC_CPU_LOSS_TOL = 1e-2
+ELASTIC_CPU_THREADS = 1    # a rank's threads: 4 ranks beside phase B on
+#                            the card host's 8 cores (2 each ran slower)
+ELASTIC_CARD_TIMEOUT_S = 300
+ELASTIC_CPU_TIMEOUT_S = 420
+ELASTIC_GROUP_TIMEOUT_S = 300
+# each example twin at its reference defaults, and the start of the line
+# it must end on
+EXAMPLES = (("quickstart", "  CoRaiS(256)      makespan="),
+            ("workload_replay", "OK"),
+            ("train_lm", "OK: checkpoint/restart training converged"),
+            ("serve_multi_edge", "OK: more capable edges absorbed more load"))
+
+
+def _elastic_config(scale: str):
+    """Phase 15's model: olmo-1b ``CONFIG`` cut to ELASTIC_LAYERS layers,
+    or (a CPU rehearsal) its reduced config."""
+    from repro_torch.configs import get_config, get_reduced_config
+    if scale == "reduced":
+        return get_reduced_config(ELASTIC_ARCH)
+    return dataclasses.replace(get_config(ELASTIC_ARCH),
+                               num_layers=ELASTIC_LAYERS)
+
+
+def _elastic_blocks_off(run: dict, directory: str) -> list:
+    """The leaves of a restored run whose local block is not its spec's
+    slice of the checkpoint in ``directory`` bit for bit, the slice cut
+    by hand (equal parts of each dimension over its entry's axes)."""
+    from repro_torch.checkpoint.convert import (read_reference_checkpoint,
+                                                reference_tensor)
+    from repro_torch.nn import named_leaves
+    mesh = run["mesh"]
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    flat = read_reference_checkpoint(directory)
+    specs = named_leaves({"params": run["pspecs"], "opt_state": run["ospecs"]})
+    bad = []
+    for path, x in named_leaves({"params": run["params"],
+                                 "opt_state": run["opt_state"]}).items():
+        parts = path.split("/")
+        if "layers" in parts:
+            i = parts.index("layers")
+            want = reference_tensor(flat["/".join(
+                parts[:i + 1] + parts[i + 2:])])[int(parts[i + 1])]
+        else:
+            want = reference_tensor(flat[path])
+        for dim, entry in enumerate(specs[path]):
+            if entry is None:
+                continue
+            parts_n, index = 1, 0
+            for a in ((entry,) if isinstance(entry, str) else entry):
+                parts_n *= sizes[a]
+                index = index * sizes[a] + coord[a]
+            n = want.shape[dim] // parts_n
+            want = want.narrow(dim, index * n, n)
+        local = x.to_local().cpu()
+        if local.dtype != want.dtype or not torch.equal(local, want):
+            bad.append(path)
+    return bad
+
+
+def _elastic_card_phase(job: dict) -> dict:
+    """A card child of phase 15 (a): ``elastic.run_phase`` on a (1, 1)
+    mesh over a world of one (NCCL on the card), the launch counters set
+    to 0 before and read after, every plain version of B4-B6 and of B4's
+    and B5's lse refused; a restored run's leaves held to the file."""
+    from unittest import mock
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import elastic
+    device = job["device"]
+    cfg = _elastic_config(job["scale"])
+    checked = {}
+    real = elastic.restore_phase
+
+    def restore_and_check(*args, **kwargs):
+        latest = Checkpointer(job["ckpt"]).latest_step()
+        run = real(*args, **kwargs)
+        if run["restored"]:
+            checked["restored_off"] = _elastic_blocks_off(
+                run, os.path.join(job["ckpt"], f"step_{latest:010d}"))
+        return run
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    # a CPU rehearsal runs the plain versions, which the card must not reach
+    guard = (_plain_guard_lse(ref, ops) if device == "cuda"
+             else contextlib.nullcontext())
+    build.reset_launch_counts()
+    with mock.patch.object(elastic, "restore_phase", restore_and_check), \
+            guard:
+        run = elastic.run_phase(job["phase"], (1, 1), job["steps"],
+                                job["ckpt"], ELASTIC_ARCH, cfg=cfg,
+                                device=device)
+    counts = dict(build.LAUNCHES)
+    out = {k: run[k] for k in ("losses", "step_ms", "restore_s", "save_s",
+                               "start", "restored")}
+    out.update(checked, counts=counts, layers=cfg.num_layers,
+               backend=str(torch.distributed.get_backend()))
+    if device == "cuda":
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _elastic_cpu_rank(job: dict) -> dict:
+    """A rank of phase 15 (b): once phase A's checkpoint is in its view,
+    restored onto a (2, 2) mesh of gloo CPU ranks, each rank's blocks held
+    to the file, then one step of the elastic step."""
+    from repro_torch.launch import elastic
+    cfg = _elastic_config(job["scale"])
+    deadline = time.monotonic() + ELASTIC_CPU_TIMEOUT_S
+    while not os.path.exists(os.path.join(job["ckpt"], "LATEST")):
+        check(time.monotonic() < deadline, "phase A's checkpoint never came")
+        time.sleep(0.2)
+    run = elastic.restore_phase(ELASTIC_CPU_MESH, job["ckpt"], ELASTIC_ARCH,
+                                cfg=cfg, device="cpu")
+    off = _elastic_blocks_off(run, os.path.join(
+        job["ckpt"], f"step_{run['start']:010d}"))
+    batch = {k: torch.from_numpy(v) for k, v in next(run["pipe"]).items()}
+    t0 = time.perf_counter()
+    _, _, loss = elastic.make_step(run)(run["params"], run["opt_state"],
+                                        batch)
+    return {"blocks_off": off, "loss": float(loss), "start": run["start"],
+            "restore_s": run["restore_s"],
+            "step_s": time.perf_counter() - t0}
+
+
+def elastic_child(job: dict) -> int:
+    """``python chip_smoke.py --elastic-child JOB``: one process of phase
+    15, its result written to ``job["out"]``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import torch.distributed as dist
+    if job["kind"] == "card":
+        out = _elastic_card_phase(job)
+    else:
+        torch.set_num_threads(job["threads"])
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(job["store"], job["world"]),
+            rank=job["rank"], world_size=job["world"],
+            timeout=datetime.timedelta(seconds=ELASTIC_GROUP_TIMEOUT_S))
+        try:
+            out = _elastic_cpu_rank(job)
+        finally:
+            dist.destroy_process_group()
+    Path(job["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def _elastic_spawn(job: dict, log: Path, env=None):
+    with open(log, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--elastic-child",
+             json.dumps(job)], stdout=f, stderr=subprocess.STDOUT,
+            env=env)
+
+
+def _elastic_join(procs: dict, timeout: float) -> list:
+    """Wait for {log: process} within ``timeout`` s (all killed after it);
+    each must exit 0. Returns their results, read from ``<log>.json``."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs.values():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+        check(False, f"phase 15's children did not finish within "
+              f"{timeout} s: {[str(k) for k in procs]}")
+    for log, p in procs.items():
+        check(p.returncode == 0, f"{log.name} exited {p.returncode}:\n"
+              f"{log.read_text()[-4000:]}")
+    return [json.loads(log.with_suffix(".json").read_text())
+            for log in procs]
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def _same_bits(a: Path, b: Path, convert) -> list:
+    """The leaves of two checkpoints whose bytes differ."""
+    x, y = (convert.read_reference_checkpoint(str(d)) for d in (a, b))
+    if set(x) != set(y):
+        return sorted(set(x) ^ set(y))
+    return [k for k in x if x[k].dtype != y[k].dtype
+            or x[k].tobytes() != y[k].tobytes()]
+
+
+def drive_examples(m, device="cuda") -> tuple:
+    """Phase 15 (c): the four example twins in process at their reference
+    defaults (train_lm's checkpoints under the git-ignored build/), every
+    plain version of B1-B6 refused, the launch counters set to 0 before
+    and read after; each must end on its own line. Returns (report,
+    launches)."""
+    import io
+    argv = {"train_lm": ["--ckpt", str(ROOT / "build" /
+                                       "chip_smoke_train_lm")]}
+    out = {}
+    m.build.reset_launch_counts()
+    with contextlib.ExitStack() as guard:
+        if device == "cuda":  # a CPU rehearsal runs the plain versions
+            for patch in _plain_guard(m.ref, m.ops) + _plain_head_guard(
+                    m.ref):
+                guard.enter_context(patch)
+        for name, last in EXAMPLES:
+            args = list(argv.get(name, []))
+            if name != "workload_replay":
+                args += ["--device", device]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                getattr(m.examples, name).main(args)
+            lines = buf.getvalue().splitlines()
+            out[name] = {"argv": args, "wall_s": time.perf_counter() - t0,
+                         "last_line": lines[-1]}
+            print(f"example {name} ({out[name]['wall_s']:.1f} s): "
+                  f"{lines[-1]}", flush=True)
+            check(lines[-1].startswith(last), f"the {name} twin ended on "
+                  f"{lines[-1]!r}, not its own line {last!r}")
+    counts = dict(m.build.LAUNCHES)
+    if device == "cuda":
+        for name in ("policy_score", "policy_score_bwd", "flash_attention",
+                     "decode_attention"):
+            check(counts[name] > 0, f"the examples launched {name} "
+                  f"{counts[name]} times")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm", ignore_errors=True)
+    out["launches"] = counts
+    return out, counts
+
+
+def _elastic_launch(base: Path, name: str, phase: str, steps: int,
+                    ckpt: Path, device: str, scale: str) -> dict:
+    """A card child of phase 15 (a), started: {log: process}."""
+    log = base / f"{name}.log"
+    job = {"kind": "card", "phase": phase, "steps": steps, "ckpt": str(ckpt),
+           "device": device, "scale": scale,
+           "out": str(log.with_suffix(".json"))}
+    return {log: _elastic_spawn(job, log)}
+
+
+def drive_elastic(m, card, device="cuda", scale="full") -> tuple:
+    """Phase 15: (a) the elastic restart at olmo-1b's widths on the card:
+    phase A (ELASTIC_STEPS steps from the seed, then a checkpoint) and
+    phase B (restored onto a fresh (1, 1) mesh, every leaf the saved bits,
+    then ELASTIC_STEPS more), each a subprocess of its own, phase A alone
+    on the card, and a third, beside phase B, that takes all the steps
+    without a break: the same losses and the same final parameters and
+    Adam slots, bit for bit; B4 twice per layer a step on both phases, no
+    plain version reached; (b) phase A's checkpoint restored onto 4 gloo
+    CPU ranks on a (2, 2) mesh (started beside phase A, restoring beside
+    phase B): each rank's blocks the file's, one step's loss within
+    ELASTIC_CPU_LOSS_TOL of phase B's first; (c) the example twins in this
+    process (:func:`drive_examples`) after phase B. Returns
+    (report, {"elastic": phases A and B's launches, "examples": ...})."""
+    t_phase = time.perf_counter()
+    base = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    ab, whole, view = base / "ab", base / "whole", base / "cpu_view"
+    started = {}
+    try:
+        # (b)'s ranks start beside phase A, so that their start-up overlaps
+        # it, and wait for phase A's checkpoint in a view of their own
+        # (phase B moves the real LATEST on); no card in their view
+        view.mkdir()
+        cpu_env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                       OMP_NUM_THREADS=str(ELASTIC_CPU_THREADS))
+        world = math.prod(ELASTIC_CPU_MESH)
+        ranks = {}
+        for r in range(world):
+            log = base / f"cpu_rank{r}.log"
+            ranks[log] = _elastic_spawn(
+                {"kind": "cpu", "rank": r, "world": world,
+                 "threads": ELASTIC_CPU_THREADS,
+                 "store": str(base / "cpu_store"), "ckpt": str(view),
+                 "scale": scale, "out": str(log.with_suffix(".json"))},
+                log, cpu_env)
+        started.update(ranks)
+        first = _elastic_launch(base, "phase_A", "A", ELASTIC_STEPS, ab,
+                                device, scale)
+        started.update(first)
+        (a,) = _elastic_join(first, ELASTIC_CARD_TIMEOUT_S)
+        stages = {"A": time.perf_counter() - t_phase}
+        step_a = ab / f"step_{ELASTIC_STEPS:010d}"
+        ckpt_bytes = _dir_bytes(step_a)
+        (view / step_a.name).symlink_to(step_a)
+        (view / "LATEST.tmp").write_text(str(ELASTIC_STEPS))
+        os.replace(view / "LATEST.tmp", view / "LATEST")
+        # phase B, the run without a break and (b)'s ranks share the card's
+        # host; the examples follow phase B, beside the other two
+        later = _elastic_launch(base, "phase_B", "B", ELASTIC_STEPS, ab,
+                                device, scale)
+        third = _elastic_launch(base, "whole", "A", 2 * ELASTIC_STEPS, whole,
+                                device, scale)
+        started.update(later)
+        started.update(third)
+        (b,) = _elastic_join(later, ELASTIC_CARD_TIMEOUT_S)
+        stages["B"] = time.perf_counter() - t_phase - stages["A"]
+        examples, example_counts = drive_examples(m, device)
+        (w,) = _elastic_join(third, ELASTIC_CARD_TIMEOUT_S)
+        cpu = _elastic_join(ranks, ELASTIC_CPU_TIMEOUT_S)
+        stages["rest"] = (time.perf_counter() - t_phase - stages["A"]
+                          - stages["B"])
+    finally:
+        for p in started.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    check(not a["restored"] and a["start"] == 0 and b["restored"]
+          and b["start"] == ELASTIC_STEPS and b["restored_off"] == [],
+          f"phase B did not restore phase A's checkpoint bit for bit: "
+          f"start {b['start']}, leaves differing {b.get('restored_off')}")
+    if device == "cuda":
+        for label, r in (("A", a), ("B", b), ("whole", w)):
+            want = 2 * r["layers"] * len(r["losses"])
+            others = {k: v for k, v in r["counts"].items()
+                      if v and k != "flash_attention"}
+            check(r["counts"]["flash_attention"] == want and not others
+                  and "nccl" in r["backend"].lower(), f"elastic {label} "
+                  f"launched {r['counts']} on {r['backend']}, not B4 "
+                  f"{want} times (twice per layer a step) over NCCL")
+    check(a["losses"] + b["losses"] == w["losses"]
+          and all(math.isfinite(x) for x in w["losses"]),
+          f"phase A then B gave losses {a['losses']} + {b['losses']}, the "
+          f"run without a break {w['losses']}")
+    final = f"step_{2 * ELASTIC_STEPS:010d}"
+    differ = _same_bits(ab / final, whole / final, m.convert)
+    check(not differ, f"after phase B, {len(differ)} leaves differ from the "
+          f"run without a break: {differ[:4]}")
+    losses = [r["loss"] for r in cpu]
+    cpu_err = abs(losses[0] - b["losses"][0]) / abs(b["losses"][0])
+    check(all(r["blocks_off"] == [] and r["start"] == ELASTIC_STEPS
+              for r in cpu) and len(set(losses)) == 1
+          and math.isfinite(losses[0]) and cpu_err <= ELASTIC_CPU_LOSS_TOL,
+          f"the {ELASTIC_CPU_MESH} CPU restore: blocks differing "
+          f"{[r['blocks_off'][:3] for r in cpu]}, losses {losses} against "
+          f"phase B's first {b['losses'][0]} (relative {cpu_err}, bar "
+          f"{ELASTIC_CPU_LOSS_TOL})")
+    report = {
+        "card": card, "arch": ELASTIC_ARCH, "layers": a["layers"],
+        "steps": ELASTIC_STEPS, "checkpoint_bytes": ckpt_bytes,
+        "save_s": a["save_s"], "restore_s": b["restore_s"],
+        # p50 of steps 1-3: a process's first step warms its libraries
+        "step_p50_ms_before_restore": float(np.median(a["step_ms"][1:])),
+        "step_p50_ms_after_restore": float(np.median(b["step_ms"][1:])),
+        "step_ms": {"A": a["step_ms"], "B": b["step_ms"]},
+        "losses": w["losses"],
+        "max_memory_allocated_bytes": {
+            k: r.get("max_memory_allocated_bytes") for k, r in
+            (("A", a), ("B", b), ("whole", w))},
+        "cpu_restore": {"mesh": ELASTIC_CPU_MESH, "loss": losses[0],
+                        "phase_b_first_loss": b["losses"][0],
+                        "rel_err": cpu_err, "bar": ELASTIC_CPU_LOSS_TOL,
+                        "restore_s": [r["restore_s"] for r in cpu],
+                        "step_s": [r["step_s"] for r in cpu]},
+        "examples": examples, "stages_s": stages}
+    print(f"elastic: checkpoint {ckpt_bytes} B, save {a['save_s']:.2f} s "
+          f"(gather + write), restore {b['restore_s']:.2f} s (read + place), "
+          f"step p50 {report['step_p50_ms_before_restore']:.1f} ms before "
+          f"the restore, {report['step_p50_ms_after_restore']:.1f} ms after "
+          f"(phase B beside the run without a break and (b)'s {world} CPU "
+          f"ranks); {card}", flush=True)
+    print(f"elastic (2, 2) CPU restore: loss {losses[0]:.6f} against phase "
+          f"B's first {b['losses'][0]:.6f}, relative {cpu_err:.3e} (bar "
+          f"{ELASTIC_CPU_LOSS_TOL})", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    counts = {k: a["counts"].get(k, 0) + b["counts"].get(k, 0)
+              for k in a["counts"]}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"elastic phase: {report['phase_s']:.1f} s (A {stages['A']:.1f}, "
+          f"B {stages['B']:.1f}, the rest {stages['rest']:.1f})", flush=True)
+    return report, {"elastic": counts, "examples": example_counts}
+
+
 def edge_cache(edge):
     """Layer 0's K and V, the slot positions and positions of ``edge``'s
     batch cache, copied so that they outlive the model."""
@@ -5770,6 +6190,10 @@ def main() -> int:
     from repro_torch.serving import fastpath as fpm
     from repro_torch.serving import topology
     from repro_torch.sharding import ctx as sharding_ctx
+    from repro_torch.examples import quickstart as ex_quickstart
+    from repro_torch.examples import serve_multi_edge as ex_serve_multi_edge
+    from repro_torch.examples import train_lm as ex_train_lm
+    from repro_torch.examples import workload_replay as ex_workload_replay
 
     t_run = time.perf_counter()
 
@@ -6091,6 +6515,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("12h")
 
+    # phase 15 (before 13, whose kernels line counts its launches): the
+    # elastic restart of olmo-1b's widths across subprocesses on the card,
+    # its checkpoint on a (2, 2) world of CPU ranks, the example twins
+    phase15, counts = drive_elastic(types.SimpleNamespace(
+        build=build, ops=ops, ref=ref, convert=checkpoint.convert,
+        examples=types.SimpleNamespace(
+            quickstart=ex_quickstart, workload_replay=ex_workload_replay,
+            train_lm=ex_train_lm, serve_multi_edge=ex_serve_multi_edge)),
+        card)
+    for path, c in counts.items():
+        record(path, c)
+    torch.cuda.empty_cache()
+    stamp("15")
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
@@ -6104,6 +6542,9 @@ def main() -> int:
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
         ref, launches["mamba_scan_bwd"], errs)
     kernels.append(b6b)
+    for row in kernels:  # every row names phase 15's paths, 0 where unused
+        for path in ("elastic", "examples"):
+            row["launches_by_path"].setdefault(path, 0)
     stamp("13")
 
     # phase 14: the dry run on fake CUDA tensors, five production cells
@@ -6132,7 +6573,7 @@ def main() -> int:
         "moe_lm": moe_lm, "vlm_lm": vlm_lm,
         "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
         "moe_lm_training": moe_training, "sharded_lm": sharded_lm,
-        "dryrun": dryrun,
+        "dryrun": dryrun, "elastic": phase15,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -6255,6 +6696,14 @@ def main() -> int:
                                      for k in ("prefill_ms", "step_p50_ms")}
                              for label in ("meshless", "sharded")},
                           "phase_s": sharded_lm["phase_s"]},
+                      "elastic": {k: phase15[k] for k in (
+                          "checkpoint_bytes", "save_s", "restore_s",
+                          "step_p50_ms_before_restore",
+                          "step_p50_ms_after_restore", "cpu_restore",
+                          "phase_s")}
+                      | {"examples_s": {k: v["wall_s"] for k, v in
+                                        phase15["examples"].items()
+                                        if k != "launches"}},
                       "dryrun": {
                           "against_card": {k: dryrun["against_card"][k] for k
                                            in ("trace_flops", "card_flops",
@@ -6308,4 +6757,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-child"]:
+        sys.exit(elastic_child(json.loads(sys.argv[2])))
     sys.exit(main())

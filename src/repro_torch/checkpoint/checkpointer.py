@@ -11,6 +11,17 @@ policy trained by the port loads into the reference with its
 Writes go to ``<dir>.tmp`` and are renamed into place, so a reader never
 sees half a checkpoint; :class:`Checkpointer` writes on a background
 thread, as the reference's does.
+
+In a world of several ranks (``torch.distributed``) rank 0 alone writes.
+A tree holding DTensors is saved by every rank with its own blocks: each
+DTensor leaf is gathered whole (a collective, leaf by leaf in path order)
+and ``wait()`` holds every rank until the write has landed; a plain tree
+may be saved by rank 0 alone. ``restore_latest(template, specs=, mesh=)``
+is the
+counterpart of the reference's ``restore_latest(template, shardings)``:
+every rank reads the same full arrays and keeps its own block on any mesh
+that fits, so a run resumes on another world size (elastic restart,
+:mod:`repro_torch.launch.elastic`).
 """
 from __future__ import annotations
 
@@ -22,13 +33,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpoint.convert import (BF16_BITS, host_array,
                                             load_reference_params,
                                             read_reference_checkpoint,
-                                            split_prefix)
+                                            split_prefix, unstack_leaves)
 from repro_torch.nn.module import named_leaves as flatten_tree
 from repro_torch.nn.module import param_tree, state_tree
+from repro_torch.sharding.specs import placements
 
 
 def train_tree(policy, opt_state: Optional[dict] = None) -> dict:
@@ -82,8 +96,9 @@ def load_train_state(policy, flat: dict) -> Optional[dict]:
 
 
 def _host_copy(tree):
-    """The tree with every tensor copied to host numpy, so a save can go on
-    while the caller updates its tensors in place."""
+    """The tree with every tensor copied to host numpy (a DTensor gathered
+    whole first), so a save can go on while the caller updates its tensors
+    in place."""
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -91,12 +106,35 @@ def _host_copy(tree):
     return np.array(tree)
 
 
+def _world() -> int:
+    """The ranks of the default process group; 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rebuild(template, leaf, prefix: str = ""):
+    """``template``'s structure (nested dicts and lists) with each leaf
+    replaced by ``leaf(path)``."""
+    if isinstance(template, dict):
+        return {k: _rebuild(v, leaf, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in template.items()}
+    if isinstance(template, list):
+        return [_rebuild(v, leaf, f"{prefix}/{i}")
+                for i, v in enumerate(template)]
+    return leaf(prefix)
+
+
 class Checkpointer:
     """Keep-K periodic checkpoints under ``root/step_XXXXXXXXXX`` with a
     ``LATEST`` pointer file. With ``async_save`` (the default, as in the
     reference) ``save`` copies the tree to host numpy and writes it on a
     background thread; a second ``save`` waits for the first, and
-    ``wait()`` joins before the checkpoint is read or the process exits."""
+    ``wait()`` joins before the checkpoint is read or the process exits.
+
+    In a world of several ranks rank 0 alone writes. A tree holding
+    DTensors is saved by every rank (the gather of a sharded leaf is a
+    collective), and ``wait()`` after it joins rank 0's write and then
+    holds every rank until it has landed; a failed write raises on every
+    rank, the error itself on rank 0."""
 
     def __init__(self, root: str, every: int = 100, keep: int = 3,
                  async_save: bool = True):
@@ -106,6 +144,7 @@ class Checkpointer:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._unsynced = False  # a save the other ranks have not waited on
         os.makedirs(root, exist_ok=True)
 
     def should_save(self, step: int) -> bool:
@@ -116,7 +155,15 @@ class Checkpointer:
 
     def save(self, step: int, tree, extras: Optional[dict] = None) -> None:
         self.wait()
+        writer = not dist.is_initialized() or dist.get_rank() == 0
+        # a tree holding DTensors is saved by every rank (its gathers are
+        # collectives); wait() then holds them until rank 0's write lands
+        collective = _world() > 1 and any(
+            isinstance(x, DTensor) for x in flatten_tree(tree).values())
+        if not (writer or collective):
+            return
         host_tree = _host_copy(tree)
+        self._unsynced = collective
 
         def work():
             save_pytree(host_tree, self._dir(step), extras)
@@ -132,20 +179,40 @@ class Checkpointer:
             except BaseException as e:  # raised again by wait()
                 self._error = e
 
-        if self.async_save:
+        if writer and self.async_save:
             self._thread = threading.Thread(target=background, daemon=True)
             self._thread.start()
-        else:
-            work()
+        elif writer:
+            background()
+        if not self.async_save:
+            self.wait()  # raises a failed write, in a world on every rank
 
     def wait(self) -> None:
-        """Join the save in flight, if any; raise what it raised."""
+        """Join the save in flight, if any; raise what it raised. After a
+        save of DTensors in a world of several ranks, every rank must call
+        it: it holds them until rank 0's write has landed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._unsynced:
+            self._unsynced = False
+            failed = self._sync_failure()
+            if failed and self._error is None:
+                raise RuntimeError(f"rank 0 failed to write the checkpoint "
+                                   f"under {self.root}")
         if self._error is not None:
             error, self._error = self._error, None
             raise error
+
+    def _sync_failure(self) -> bool:
+        """Whether rank 0's write failed, agreed by every rank (one
+        all-reduce, on the card under NCCL)."""
+        device = "cpu"
+        if "nccl" in str(dist.get_backend()).lower():
+            device = torch.device("cuda", torch.cuda.current_device())
+        flag = torch.tensor([int(self._error is not None)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def latest_step(self) -> Optional[int]:
         path = os.path.join(self.root, "LATEST")
@@ -154,10 +221,23 @@ class Checkpointer:
         with open(path) as f:
             return int(f.read().strip())
 
-    def restore_latest(self) -> Optional[dict]:
-        """{"step", "tree": {"/"-path: ndarray}, "extras"} of the latest
-        checkpoint, or None when there is none. Waits for this
-        checkpointer's save in flight first."""
+    def restore_latest(self, template=None, *, specs=None,
+                       mesh=None) -> Optional[dict]:
+        """{"step", "tree", "extras"} of the latest checkpoint, or None when
+        there is none. Waits for this checkpointer's save in flight first.
+
+        Without a template the tree is {"/"-path: ndarray}, the file's
+        leaves. With one (a tree of the port's tensors, ``meta`` ones
+        included, e.g. ``{"params", "opt_state"}`` from
+        ``launch.steps.param_and_opt_shapes``), the tree has its structure:
+        each leaf a CPU tensor in the file's dtype, a layer's row of the
+        file's stacked leaf (``convert.unstack_leaves``; ``KeyError`` for a
+        missing leaf, ``ValueError`` for a shape mismatch). With ``specs``
+        (a matching tree of {path: spec} dicts, e.g. ``{"params":
+        param_specs(...), "opt_state": opt_state_specs(...)}``) and
+        ``mesh``, each leaf is a DTensor on its spec's placements on
+        ``mesh``'s device: every rank reads the same full arrays and keeps
+        its own block; nothing is sent."""
         self.wait()
         step = self.latest_step()
         if step is None:
@@ -165,7 +245,23 @@ class Checkpointer:
         directory = self._dir(step)
         with open(os.path.join(directory, "manifest.json")) as f:
             extras = json.load(f).get("extras", {})
-        return {"step": step, "tree": read_reference_checkpoint(directory),
+        tree = read_reference_checkpoint(directory)
+        if template is None:
+            return {"step": step, "tree": tree, "extras": extras}
+        values = unstack_leaves(flatten_tree(template), tree)
+        del tree
+        if specs is None:
+            return {"step": step, "tree": _rebuild(template, values.pop),
+                    "extras": extras}
+        flat_specs = flatten_tree(specs)
+        device = torch.device(mesh.device_type)
+
+        def placed(path):  # one leaf on the device at a time
+            return distribute_tensor(
+                values.pop(path).to(device), mesh,
+                placements(flat_specs[path], mesh), src_data_rank=None)
+
+        return {"step": step, "tree": _rebuild(template, placed),
                 "extras": extras}
 
     def _gc(self) -> None:

@@ -12,7 +12,11 @@ them onto the port's per-layer leaves. An LM training checkpoint
 (``{"params", "opt_state"}``, Adam's or Adafactor's state keyed as the
 params) is written in that stacked layout by :func:`lm_train_tree` and
 read back by :func:`load_lm_train_state`, so either package resumes the
-other's ``train lm`` run.
+other's ``train lm`` run. A sharded leaf (a DTensor) is gathered whole
+before its host copy: a collective, so every rank of its mesh makes the
+same calls in the same order. :func:`unstack_leaves` lays a
+checkpoint's stacked leaves out on a template of the port's per-layer
+leaves (``Checkpointer.restore_latest(template)``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import re
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.nn.module import named_leaves, param_tree, state_tree
 
@@ -93,10 +98,17 @@ def reference_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a DTensor gathered whole on every rank of its mesh
+    (``full_tensor()``, a collective: every rank calls it)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def host_array(t: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``t`` as the reference's checkpoints store it:
-    bf16 as its bits in ``|V2``."""
-    t = t.detach().cpu()
+    """A host numpy copy of ``t`` (a DTensor gathered whole first, on every
+    rank: :func:`whole`) as the reference's checkpoints store it: bf16 as
+    its bits in ``|V2``."""
+    t = whole(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_BITS).copy()
     return t.numpy().copy()
@@ -133,9 +145,37 @@ def lm_param_groups(params: dict) -> dict[str, list[torch.Tensor]]:
 
 def stack_layers(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """{port "/"-path: tensor} -> {reference path: tensor}, each layer leaf
-    stacked in layer order (:func:`_layer_groups`)."""
+    stacked in layer order (:func:`_layer_groups`). DTensors stack on each
+    rank's blocks into a DTensor, gathered only when copied to the host
+    (:func:`host_array`)."""
     return {k: torch.stack(ts) if stacked else ts[0]
             for k, (stacked, ts) in _layer_groups(flat).items()}
+
+
+def unstack_leaves(template: dict, flat: dict) -> dict[str, torch.Tensor]:
+    """{port path: CPU tensor} for each leaf of ``template`` ({port path:
+    tensor of any device, ``meta`` included}) from a checkpoint's leaves
+    ({reference path: array}, layers stacked, f32 or bf16 in the file's
+    dtype): row i of a stacked leaf for layer i's (views of one copy of
+    the file's array, not of the array itself). Raises ``KeyError`` for
+    a leaf the checkpoint lacks and ``ValueError`` for a shape that
+    differs; the checkpoint's other leaves are left, as the reference's
+    ``restore_pytree`` leaves them."""
+    out = {}
+    for key, (stacked, paths) in _layer_groups(
+            {p: p for p in template}).items():
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        src = reference_tensor(flat[key])
+        want = tuple(template[paths[0]].shape)
+        if stacked:
+            want = (len(paths), *want)
+        if tuple(src.shape) != want:
+            raise ValueError(f"shape mismatch for leaf {key!r}: checkpoint "
+                             f"{tuple(src.shape)}, port {want}")
+        for i, path in enumerate(paths):
+            out[path] = src[i] if stacked else src
+    return out
 
 
 def unstack_into(targets: dict[str, torch.Tensor], flat: dict) -> None:
@@ -149,16 +189,9 @@ def unstack_into(targets: dict[str, torch.Tensor], flat: dict) -> None:
     if missing or extra:
         raise KeyError(f"checkpoint leaves do not match the port's: missing "
                        f"{missing}, unexpected {extra}")
-    for key, (stacked, tensors) in groups.items():
-        src = reference_tensor(flat[key])
-        want = ((len(tensors), *tensors[0].shape) if stacked
-                else tuple(tensors[0].shape))
-        if tuple(src.shape) != tuple(want):
-            raise ValueError(f"shape mismatch for leaf {key!r}: checkpoint "
-                             f"{tuple(src.shape)}, port {tuple(want)}")
-        with torch.no_grad():
-            for i, t in enumerate(tensors):
-                t.copy_(src[i] if stacked else src)
+    with torch.no_grad():
+        for path, value in unstack_leaves(targets, flat).items():
+            targets[path].copy_(value)
 
 
 def load_reference_lm_params(params: dict, flat: dict) -> None:
