@@ -296,6 +296,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
     place) seconds and the step p50 before and after the restore beside
     the card's name and power limit; the launches go under ``elastic``
     (phases A and B) and ``examples``;
+16. (run after 15, before 13) the paper's evaluation
+    (``drive_paper``, ``repro_torch/paper/``) in a temporary cache under
+    the git-ignored ``build/chip_smoke_paper/``: the static policy trained
+    ``PAPER_BATCHES`` batches (B1 and B2 exactly once a batch), then the
+    same getter call again, a cache hit with the same bits; Table II at
+    5x50 (4 instances, ILS 0.25 s, CoRaiS(100)), Table III at 10x100 (2
+    instances), Table IV's LB, WP and HA (20 sampled decisions each), Fig.
+    7 at 1, 10 and 100 samples and the scenario sweep on uniform_iid,
+    chaos-rolling-failure and cloud-cache-churn over the event-driven
+    greedy, local and corais columns and the batched greedy, local,
+    corais and corais-temporal ones (the temporal policy trained 4
+    batches), every plain version refused; B1 and B2 on the first inputs
+    of each shape that this run gave them (d = 128) against their plain
+    versions, at ATOL and BWD_TOL; then Tables II and III and the
+    sweep's deterministic columns on the CPU with the same cached policy:
+    the Local and Random(n) costs and every field of the heuristic cells
+    but the host clock's equal the CPU's to 1e-5; the card's greedy
+    decisions behind each CoRaiS(greedy) row and batched-corais cell are
+    the CPU's, or first differ at a CPU top-2 gap of at most GAP (a
+    near-tie, printed, and that row or cell not compared), and those
+    decided alike equal the CPU's to 1e-5, one row and one cell at least;
+    every row finite, the ILS row's gap exactly 1; prints each row, Table IV's outcomes and CoRaiS(greedy)'s microseconds a
+    decision at 5x50, 10x100 and 15x150 beside the card's name and power
+    limit; the launches go under ``paper``;
 13. print the device time per launch of B1 (the serving and training
     shapes), B3 (K = 1 and the sampled path's K = Q = 100) and B2
     (``launch_split``, a torch.profiler trace); then
@@ -322,7 +346,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     and phases 12d's to 12h's (``moe_lm_serving``, ``vlm_lm``,
     ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``,
     ``sharded_lm``) and phase 15's (``elastic``, ``examples``; every row
-    names both, 0 where the path does not launch it) included;
+    names both, 0 where the path does not launch it) and phase 16's
+    (``paper``, likewise) included;
     B1 and B2 also timed at the temporal shapes, under
     ``temporal_shapes``).
 
@@ -2850,8 +2875,11 @@ def drive_dryrun(m, card, device="cuda", cells=DRYRUN_CELLS):
 def time_ms(fn, reps=25, inner=20):
     """Median device time of one call, CUDA events around ``inner`` calls.
     A sleep kernel queued first keeps the card busy while the host enqueues
-    the calls, so host overhead does not leak into the device time."""
-    for _ in range(3):
+    the calls, so host overhead does not leak into the device time. The
+    warm-up takes min(3, inner) calls (the slow plain versions time one or
+    two a repetition), and the sleep is sized from one short sleep's rate
+    to 2.5 times the host's time for ``inner`` calls."""
+    for _ in range(min(3, inner)):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2866,9 +2894,10 @@ def time_ms(fn, reps=25, inner=20):
         torch.cuda._sleep(cycles)
         b.record()
         torch.cuda.synchronize()
-        if a.elapsed_time(b) > 2 * host_ms:
+        slept = a.elapsed_time(b)
+        if slept > 2 * host_ms:
             break
-        cycles *= 2
+        cycles = max(2 * cycles, int(cycles * 2.5 * host_ms / slept))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -5713,6 +5742,399 @@ def drive_elastic(m, card, device="cuda", scale="full") -> tuple:
     return report, {"elastic": counts, "examples": example_counts}
 
 
+# -- phase 16: the paper's evaluation (repro_torch/paper) ------------------
+
+# The twins of the paper's table and figure scripts at cut sizes, in a
+# temporary cache under the git-ignored build/: the static policy trained
+# PAPER_BATCHES batches (the scripts' 800), then loaded again; Table II at
+# 5x50, Table III at 10x100, Table IV, Fig. 7 and the scenario sweep.
+PAPER_BATCHES = 100
+PAPER_TEMPORAL_BATCHES = 4
+PAPER_INSTANCES = 4
+PAPER_TEST_INSTANCES = 2
+PAPER_REF_BUDGET = 0.25   # ILS seconds an instance (the scripts' 1 and 2)
+PAPER_TRIALS = 20         # Table IV's sampled decisions a kind
+PAPER_SAMPLES = (1, 10, 100)
+PAPER_SCALES = ((5, 50), (10, 100), (15, 150))
+PAPER_SCENARIOS = ("uniform_iid", "chaos-rolling-failure",
+                   "cloud-cache-churn")
+PAPER_BACKENDS = ("greedy", "local", "corais", "batched-greedy",
+                  "batched-local", "batched-corais", "batched-corais-temporal")
+# the deterministic columns, held against the same twin on the CPU
+PAPER_CPU_BACKENDS = ("greedy", "local", "batched-greedy", "batched-local",
+                      "batched-corais")
+PAPER_GATED_ROWS = ("/Local", "/Random(", "/CoRaiS(greedy)")
+PAPER_TIMING = ("wall_s", "decision_mean_s", "decision_p95_s",
+                "decision_max_s", "scheduler_decision_s")
+PAPER_TOL = 1e-5
+# B1's and B2's wrappers in ops, whose calls on the main path phase 16
+# records: the inputs of the first call at each shape are held against
+# the plain versions after the run
+PAPER_HEAD_WRAPPERS = (("policy_score", "policy_score_cuda"),
+                       ("policy_score_bwd", "policy_score_bwd_cuda"))
+
+
+def _record_head_inputs(ops, seen):
+    """Patches of B1's and B2's wrappers in ``ops`` that count their calls
+    in ``seen["calls"]`` and keep a copy of the inputs of the first call at
+    each input shape in ``seen[kernel]``: the shapes and the inputs that
+    the main path gives each kernel."""
+    from unittest import mock
+    patches = []
+    for kernel, attr in PAPER_HEAD_WRAPPERS:
+        def fn(*args, _kernel=kernel, _wrapped=getattr(ops, attr), **kw):
+            seen["calls"][_kernel] += 1
+            key = tuple(tuple(a.shape) for a in args)
+            if key not in seen[_kernel]:
+                seen[_kernel][key] = ([a.clone() for a in args], kw)
+            return _wrapped(*args, **kw)
+        patches.append(mock.patch.object(ops, attr, fn))
+    return patches
+
+
+def paper_head_parity(m, seen, errs):
+    """B1 and B2 on the inputs that phase 16's main path gave them, first
+    call at each shape (d = POLICY_DIM: the static training's (32, 5, 50),
+    the temporal training's, B = 1 at each evaluation scale and round
+    width), against their plain versions: B1 within ATOL, B2 within
+    BWD_TOL of each output's largest entry, each the same bits twice.
+    Folds the largest errors into ``errs``; returns a row per shape."""
+    report = []
+    for key, ((c, h, wx, wy, maskf), kw) in seen["policy_score"].items():
+        got = m.policy_score.policy_score_cuda(c, h, wx, wy, maskf, **kw)
+        again = m.policy_score.policy_score_cuda(c, h, wx, wy, maskf, **kw)
+        want = m.ref.policy_score_torch(c, h, wx, wy, maskf > 0.5,
+                                        kw.get("tanh_clip", 10.0))
+        where = f"phase 16's B1 input {key}"
+        check(torch.equal(got, again), f"{where}: two calls differ")
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= ATOL,
+              f"{where}: err {err} > {ATOL}")
+        errs["policy_score"] = max(errs["policy_score"], err)
+        report.append({"kernel": "policy_score", "shape": key[:2],
+                       "max_abs_err": err})
+    for key, (args, kw) in seen["policy_score_bwd"].items():
+        got = m.policy_score.policy_score_bwd_cuda(*args, **kw)
+        again = m.policy_score.policy_score_bwd_cuda(*args, **kw)
+        want = m.ref.policy_score_bwd_torch(*args, **kw)
+        row = {"kernel": "policy_score_bwd", "shape": key[2:4]}
+        for name, x, y, w in zip(BWD_TOL, got, again, want):
+            where = f"phase 16's B2 input {key}, {name}"
+            check(torch.equal(x, y), f"{where}: two calls differ")
+            abs_err = float((x - w).abs().max())
+            rel = abs_err / max(float(w.abs().max()), 1e-30)
+            check(bool(torch.isfinite(x).all()) and rel <= BWD_TOL[name],
+                  f"{where}: relative err {rel} > {BWD_TOL[name]}")
+            errs["policy_score_bwd"] = max(errs["policy_score_bwd"], abs_err)
+            errs["policy_score_bwd_rel"] = max(errs["policy_score_bwd_rel"],
+                                               rel)
+            row[f"{name}_rel_err"] = rel
+        report.append(row)
+    torch.cuda.synchronize()
+    return report
+
+
+def _decision_recorder(inference, gaps):
+    """Patches of the decision path and a log {label: {"assign": [...],
+    "gap": [...]}}: every greedy decision through the materialized head
+    (Tables II's and III's CoRaiS(greedy), the sweep's batched-corais)
+    appends its assignment, -1 on padded requests, under the label last
+    passed to ``mark`` (none while the label is None); with ``gaps`` also
+    the least gap between the two best valid edges of any real request."""
+    from unittest import mock
+    log, at, inst_of = {}, [None], [None]
+    decide, decode = inference.policy_decide, inference.greedy_decode
+
+    def mark(label):
+        at[0] = label
+        if label is not None:
+            log.setdefault(label, {"assign": [], "gap": []})
+
+    def policy_decide(policy, inst, *args, **kw):
+        inst_of[0] = inst
+        return decide(policy, inst, *args, **kw)
+
+    def greedy_decode(log_probs):
+        assign = decode(log_probs)
+        if at[0] is None:
+            return assign
+        inst = inst_of[0]
+        real = inst["req_mask"].bool()
+        log[at[0]]["assign"].append(torch.where(real, assign, -1))
+        if gaps:
+            valid = inst["edge_mask"].bool()[..., None, :]
+            top = log_probs.masked_fill(~valid, -math.inf).topk(
+                2, dim=-1).values
+            gap = (top[..., 0] - top[..., 1])[real]
+            log[at[0]]["gap"].append(float(gap.min()) if gap.numel()
+                                     else math.inf)
+        return assign
+
+    return log, mark, [
+        mock.patch.object(inference, "policy_decide", policy_decide),
+        mock.patch.object(inference, "greedy_decode", greedy_decode)]
+
+
+def _divergence(card, cpu):
+    """None where the card's greedy decisions under a label are the CPU's,
+    else (index of the first that differs, the CPU's top-2 gap there)."""
+    for i, (a, b) in enumerate(zip(card["assign"], cpu["assign"])):
+        if not torch.equal(a.cpu(), b):
+            return i, cpu["gap"][i]
+    check(len(card["assign"]) == len(cpu["assign"]), f"{len(card['assign'])}"
+          f" greedy decisions on the card, {len(cpu['assign'])} on the CPU")
+    return None
+
+
+def _paper_rows(rows):
+    """{row name: {field: value}} of the scripts' CSV rows, the time apart
+    under ``us``."""
+    out = {}
+    for row in rows:
+        name, us, derived = row.split(",")
+        out[name] = {k: float(v) for k, v in
+                     (kv.split("=") for kv in derived.split(";"))}
+        out[name]["us"] = float(us)
+    return out
+
+
+def _paper_run(m, device, mark, full=True):
+    """The twins at phase 16's sizes on ``device`` with the cached static
+    policy. ``full=False``: only the deterministic parts (Tables II and
+    III, the sweep's ``PAPER_CPU_BACKENDS``). ``mark(label)`` is called
+    before each table (``table2``, ``table3``) and each sweep cell
+    (``sweep/<scenario>/<backend>``), ``mark(None)`` before the rest."""
+    mark("table2")
+    out = {"rows": _paper_rows(m.table2.run(
+        5, 50, PAPER_INSTANCES, PAPER_BATCHES, ref_budget=PAPER_REF_BUDGET,
+        sample_ns=(100,), verbose=False, device=device))}
+    mark("table3")
+    out["rows"].update(_paper_rows(m.table3.run(
+        test_scales=((10, 100),), n_instances=PAPER_TEST_INSTANCES,
+        batches=PAPER_BATCHES, ref_budget=PAPER_REF_BUDGET, verbose=False,
+        device=device)))
+    mark(None)
+    if full:
+        policy, _ = m.common.get_trained_policy(5, 50, PAPER_BATCHES,
+                                                verbose=False, device=device)
+        out["table4"] = {}
+        for kind in m.table4.KINDS:
+            ereqn, lcost = m.table4.run(kind, policy, trials=PAPER_TRIALS)
+            out["table4"][kind] = {"EReqN": ereqn.tolist(),
+                                   "LCost": lcost.tolist()}
+        out["fig7"] = _paper_rows(m.fig7.run(
+            10, 100, PAPER_TEST_INSTANCES, PAPER_BATCHES, PAPER_SAMPLES,
+            ref_budget=PAPER_REF_BUDGET, verbose=False, device=device))
+        # CoRaiS(greedy)'s time a decision as Table II takes it, at the
+        # three scales of Tables II and III, after one warm-up decision
+        out["greedy_us"] = {}
+        for en, rn in PAPER_SCALES:
+            decide = m.evaluate._policy_method(policy, "greedy", 0, seed=0)
+            insts = m.common.eval_instances(en, rn, PAPER_INSTANCES)
+            decide(insts[0])
+            out["greedy_us"][f"{en}x{rn}"] = 1e6 * float(np.mean(
+                [decide(inst)[1] for inst in insts]))
+    # a sweep a cell (each cell is computed alone in a sweep too), the
+    # temporal column at its own training budget
+    out["sweep"] = {name: {} for name in PAPER_SCENARIOS}
+    for name in PAPER_SCENARIOS:
+        for backend in PAPER_BACKENDS if full else PAPER_CPU_BACKENDS:
+            mark(f"sweep/{name}/{backend}")
+            out["sweep"][name][backend] = m.sweep.run_sweep(
+                [name], [backend], batches=PAPER_TEMPORAL_BATCHES
+                if backend == "batched-corais-temporal" else PAPER_BATCHES,
+                verbose=False, device=device)["results"][name][backend]
+    mark(None)
+    return out
+
+
+def _paper_cell_errors(got, want, where):
+    """The fields of two sweep cells that differ (the host clock's apart):
+    integers and strings exactly, floats beyond PAPER_TOL relative."""
+    bad = []
+    for k, w in want.items():
+        g = got[k]
+        if k in PAPER_TIMING:
+            continue
+        if isinstance(w, dict):
+            bad += _paper_cell_errors(g, w, f"{where}/{k}")
+        elif isinstance(w, float):
+            if not abs(g - w) <= PAPER_TOL * max(abs(w), 1e-6):
+                bad.append(f"{where}/{k}: {g!r} against {w!r}")
+        elif g != w:
+            bad.append(f"{where}/{k}: {g!r} against {w!r}")
+    return bad
+
+
+def drive_paper(m, card, errs, device="cuda"):
+    """Phase 16: the paper's evaluation (``repro_torch.paper``) in a
+    temporary cache root: ``get_trained_policy(5, 50, PAPER_BATCHES)``
+    (B1 and B2 once a batch), then the same call again, a cache hit with
+    the same bits; Table II at 5x50, Table III at 10x100, Table IV's LB, WP
+    and HA, Fig. 7 and the scenario sweep over PAPER_SCENARIOS x
+    PAPER_BACKENDS (the temporal policy trained PAPER_TEMPORAL_BATCHES
+    batches) on the card, every plain version refused; then Tables II and
+    III and the sweep's deterministic columns on the CPU with the same
+    cached policy. Gates: B1 and B2 on the inputs the card's run gave them
+    equal their plain versions (``paper_head_parity``); Local and Random(n)
+    costs and the heuristic sweep cells equal the CPU's to PAPER_TOL; the
+    greedy decisions behind each CoRaiS(greedy) row and batched-corais
+    cell are the CPU's, or first differ where the CPU's top-2 gap is at
+    most GAP (a near-tie: that row or cell is then not compared), and the
+    rows and cells decided alike equal the CPU's to PAPER_TOL, one of each
+    at least; every row finite; the ILS row's gap exactly 1; B1 and B2
+    launched. The card's CoRaiS(greedy) times include the recorder's copy
+    of each decision. Returns (report, launches)."""
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_paper"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    results, m.common.RESULTS = m.common.RESULTS, str(root)
+    seen = {"calls": {k: 0 for k, _ in PAPER_HEAD_WRAPPERS},
+            **{k: {} for k, _ in PAPER_HEAD_WRAPPERS}}
+    card_log, card_mark, card_patches = _decision_recorder(m.inference,
+                                                           gaps=False)
+    cpu_log, cpu_mark, cpu_patches = _decision_recorder(m.inference,
+                                                        gaps=True)
+    try:
+        m.build.reset_launch_counts()
+        with contextlib.ExitStack() as guard:
+            if device == "cuda":  # a CPU rehearsal runs the plain versions
+                for patch in (_plain_guard(m.ref, m.ops)
+                              + _plain_head_guard(m.ref)
+                              + _record_head_inputs(m.ops, seen)):
+                    guard.enter_context(patch)
+            t0 = time.perf_counter()
+            policy, _ = m.common.get_trained_policy(
+                5, 50, PAPER_BATCHES, verbose=False, device=device)
+            train_s = time.perf_counter() - t0
+            trained = dict(m.build.LAUNCHES)
+            t0 = time.perf_counter()
+            again, _ = m.common.get_trained_policy(
+                5, 50, PAPER_BATCHES, verbose=False, device=device)
+            load_s = time.perf_counter() - t0
+            check(_tree_equal(policy.state_dict(), again.state_dict()),
+                  "the cached static policy did not reload bit for bit")
+            check(dict(m.build.LAUNCHES) == trained,
+                  "loading the cached policy launched a kernel")
+            del policy, again
+            for patch in card_patches:
+                guard.enter_context(patch)
+            card_run = _paper_run(m, device, card_mark)
+        counts = dict(m.build.LAUNCHES)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as recording:
+            for patch in cpu_patches:
+                recording.enter_context(patch)
+            cpu_run = _paper_run(m, "cpu", cpu_mark, full=False)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        m.common.RESULTS = results
+    head = []
+    if device == "cuda":
+        for name in ("policy_score", "policy_score_bwd"):
+            check(trained[name] == PAPER_BATCHES, f"the static training "
+                  f"launched {name} {trained[name]} times, not once a batch")
+            check(counts[name] > trained[name], f"the paper's evaluation "
+                  f"launched {name} {counts[name] - trained[name]} times")
+            check(seen["calls"][name] == counts[name], f"{name}: "
+                  f"{counts[name]} launches, {seen['calls'][name]} recorded")
+        head = paper_head_parity(m, seen, errs)
+    print(f"paper: B1 and B2 against their plain versions at the main "
+          f"path's {len(head)} shapes: {json.dumps(head)}", flush=True)
+    gaps = {label: min(r["gap"]) for label, r in cpu_log.items()
+            if r["gap"]}
+    print(f"paper: least top-2 gap of the CPU's greedy decisions "
+          f"{json.dumps(gaps)}", flush=True)
+    near_ties, gated = [], {"rows": 0, "cells": 0}
+
+    def decided_alike(label, what, kind):
+        """Whether the greedy decisions under ``label`` are the CPU's;
+        fails where they first differ above the gap."""
+        div = _divergence(card_log[label], cpu_log[label])
+        if div is None:
+            gated[kind] += 1
+            return True
+        check(div[1] <= GAP, f"{what}: greedy decision {div[0]} differs "
+              f"from the CPU's at a top-2 gap of {div[1]} > {GAP}")
+        near_ties.append(f"{what}: decision {div[0]} at a top-2 gap of "
+                         f"{div[1]}")
+        return False
+
+    rows = card_run["rows"]
+    check(list(rows) == list(cpu_run["rows"]), "the card's rows are not the "
+          "CPU's")
+    for name, fields in rows.items():
+        check(all(math.isfinite(v) for v in fields.values()),
+              f"{name}: {fields}")
+        if "/ILS(" in name:
+            check(fields["gap"] == 1.0, f"{name}'s gap is {fields['gap']}")
+        if any(tag in name for tag in PAPER_GATED_ROWS):
+            if "/CoRaiS(" in name and not decided_alike(
+                    name.split("/")[0], name, "rows"):
+                continue
+            want = cpu_run["rows"][name]["cost"]
+            check(abs(fields["cost"] - want) <= PAPER_TOL * abs(want),
+                  f"{name}: cost {fields['cost']} on the card, {want} on "
+                  f"the CPU")
+    for kind, r in card_run["table4"].items():
+        check(all(math.isfinite(v) for v in r["EReqN"] + r["LCost"])
+              and abs(sum(r["EReqN"]) - 50) < 1e-9, f"table4 {kind}: {r}")
+    for name, fields in card_run["fig7"].items():
+        check(all(math.isfinite(v) for v in fields.values()),
+              f"{name}: {fields}")
+    sweep = card_run["sweep"]
+    bad = []
+    for name in PAPER_SCENARIOS:
+        for backend in PAPER_BACKENDS:
+            cell = sweep[name][backend]
+            check(cell["completed"] > 0 and math.isfinite(
+                cell["mean_response"]), f"sweep {name} {backend}: {cell}")
+        for backend in PAPER_CPU_BACKENDS:
+            if backend == "batched-corais" and not decided_alike(
+                    f"sweep/{name}/{backend}", f"{name}/{backend}", "cells"):
+                continue
+            bad += _paper_cell_errors(sweep[name][backend],
+                                      cpu_run["sweep"][name][backend],
+                                      f"{name}/{backend}")
+    check(not bad, f"sweep cells differ from the CPU's: {bad[:8]}")
+    if near_ties:
+        print(f"paper: not held against the CPU, a near-tie: {near_ties}",
+              flush=True)
+    check(gated["rows"] > 0 and gated["cells"] > 0, f"no CoRaiS(greedy) "
+          f"row or no batched-corais cell decided as on the CPU: "
+          f"{near_ties}")
+
+    report = {"train_s": train_s, "load_s": load_s, "cpu_s": cpu_s,
+              "launches_training": trained, "card": card_run,
+              "cpu_rows": cpu_run["rows"], "head_parity": head,
+              "top2_gaps": gaps, "near_ties": near_ties}
+    for name, fields in rows.items():
+        print(f"paper {name}: gap {fields['gap']:.4f} cost "
+              f"{fields['cost']:.4f} ({fields['us']:.1f} us a call)",
+              flush=True)
+    for kind, r in card_run["table4"].items():
+        print(f"paper table4 {kind}: EReqN "
+              f"{[round(v, 2) for v in r['EReqN']]} LCost "
+              f"{[round(v, 3) for v in r['LCost']]}", flush=True)
+    for name, fields in card_run["fig7"].items():
+        print(f"paper {name}: gap {fields['gap']:.4f} ({fields['us']:.1f} us"
+              f" a decode)", flush=True)
+    for name, cells in sweep.items():
+        print(f"paper sweep {name}: " + ", ".join(
+            f"{b} {c['completed']}/{c['submitted']} mean "
+            f"{c['mean_response']:.3f}" for b, c in cells.items()),
+            flush=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"paper: CoRaiS(greedy) us a decision "
+          f"{json.dumps(card_run['greedy_us'])}; static training "
+          f"{PAPER_BATCHES} batches {train_s:.1f} s, reload {load_s:.2f} s, "
+          f"the CPU's rows {cpu_s:.1f} s; phase {report['phase_s']:.1f} s; "
+          f"{card}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return report, counts
+
+
 def edge_cache(edge):
     """Layer 0's K and V, the slot positions and positions of ``edge``'s
     batch cache, copied so that they outlive the model."""
@@ -6194,6 +6616,11 @@ def main() -> int:
     from repro_torch.examples import serve_multi_edge as ex_serve_multi_edge
     from repro_torch.examples import train_lm as ex_train_lm
     from repro_torch.examples import workload_replay as ex_workload_replay
+    from repro_torch.core import evaluate, inference
+    from repro_torch.paper import common as paper_common
+    from repro_torch.paper import fig7_sampling, scenario_sweep
+    from repro_torch.paper import table2_conventional, table3_generalization
+    from repro_torch.paper import table4_characteristics
 
     t_run = time.perf_counter()
 
@@ -6529,6 +6956,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("15")
 
+    # phase 16 (before 13 too): the paper's evaluation, the twins of the
+    # table and figure scripts through B1 and B2, against the CPU
+    paper, counts = drive_paper(types.SimpleNamespace(
+        build=build, ops=ops, ref=ref, policy_score=policy_score,
+        common=paper_common, evaluate=evaluate, inference=inference,
+        table2=table2_conventional, table3=table3_generalization,
+        table4=table4_characteristics, fig7=fig7_sampling,
+        sweep=scenario_sweep), card, errs)
+    record("paper", counts)
+    torch.cuda.empty_cache()
+    stamp("16")
+
     # phase 13: the policy head's device time per launch; every kernel timed
     # beside its plain version; the kernels line
     head_split = policy_head_split(ops, policy_score, enc, enc_train)
@@ -6542,8 +6981,8 @@ def main() -> int:
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
         ref, launches["mamba_scan_bwd"], errs)
     kernels.append(b6b)
-    for row in kernels:  # every row names phase 15's paths, 0 where unused
-        for path in ("elastic", "examples"):
+    for row in kernels:  # every row names phases 15's and 16's paths
+        for path in ("elastic", "examples", "paper"):
             row["launches_by_path"].setdefault(path, 0)
     stamp("13")
 
@@ -6573,7 +7012,7 @@ def main() -> int:
         "moe_lm": moe_lm, "vlm_lm": vlm_lm,
         "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
         "moe_lm_training": moe_training, "sharded_lm": sharded_lm,
-        "dryrun": dryrun, "elastic": phase15,
+        "dryrun": dryrun, "elastic": phase15, "paper": paper,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -6704,6 +7143,12 @@ def main() -> int:
                       | {"examples_s": {k: v["wall_s"] for k, v in
                                         phase15["examples"].items()
                                         if k != "launches"}},
+                      "paper": {
+                          "rows": {k: {f: v[f] for f in ("gap", "cost")}
+                                   for k, v in paper["card"]["rows"].items()},
+                          "greedy_us": paper["card"]["greedy_us"],
+                          "train_s": paper["train_s"],
+                          "phase_s": paper["phase_s"]},
                       "dryrun": {
                           "against_card": {k: dryrun["against_card"][k] for k
                                            in ("trace_flops", "card_flops",
