@@ -192,8 +192,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     backward of B6's gated entry, from the chunk states B6 stores, against
     its plain version (every gradient within 1e-4 of its largest entry in
     f32, 2^-6 for dz in bf16) at hymba-1.5b's (8, 1024, 3200, 16) and
-    falcon-mamba-7b's (8, 1024, 8192, 16) training shapes, a ragged S = 65
-    and N = 4, z in bf16 and f32, dh_last zero and seeded, some dt_raw
+    falcon-mamba-7b's (8, 1024, 8192, 16) training shapes, a ragged S = 65,
+    N = 4, and N = 32 over three chunks with d = 200 off B6b's blocks, z
+    in bf16 and f32, dh_last zero and seeded, some dt_raw
     above softplus's threshold; the same bits twice; B6's output the same
     bits with the state store and without; (b) ``launch.train lm --arch
     hymba-1.5b --scale full`` (32 layers, d = 1600, bf16, remat "full") for
@@ -339,7 +340,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     B5 on its frames' slot map, B6's gated
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape, and storing its chunk states at
-    hymba-1.5b's training shape, and B6b there) beside their bounds, and
+    hymba-1.5b's training shape, and B6b there and at falcon-mamba-7b's
+    training shape) beside their bounds, and
     print the ``{"kernels": [...]}`` line (seven rows, each with its
     launches on every main path above, the rollout's, temporal training's,
     the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
@@ -4396,13 +4398,16 @@ TRAIN_SSM_LAYERS = 8
 TRAIN_SSM_PARITY_BATCH = 2
 # (a): B6b against its plain version, (B, S, d, N, z dtype, dh_last seeded,
 # some dt_raw above softplus's threshold): hymba-1.5b's and
-# falcon-mamba-7b's training shapes, a ragged S = 65 in f32 and bf16, N = 4
+# falcon-mamba-7b's training shapes, a ragged S = 65 in f32 and bf16, N = 4,
+# and N = 32 over three chunks, d = 200 off B6b's 16-channel blocks and
+# its 128-channel clusters
 SCAN_BWD_CASES = (
     (8, 1024, 3200, 16, torch.bfloat16, False, False),
     (8, 1024, 8192, 16, torch.bfloat16, True, False),
     (2, 65, 200, 16, torch.float32, True, True),
     (2, 65, 200, 16, torch.bfloat16, False, True),
     (1, 37, 200, 4, torch.float32, True, True),
+    (2, 300, 200, 32, torch.float32, True, True),
 )
 # of each gradient's largest |entry|: f32 sums in another order (the
 # exponentials, the softplus and the SiLU the kernels' short forms); dz in
@@ -6498,31 +6503,26 @@ def scan_timing(ops, ref, args, gated, launches, errs):
     return row
 
 
-def scan_bwd_timing(ref, launches, errs):
-    """B6b's row at hymba-1.5b's training shape (B=8, S=1024, d=3200,
-    N=16; z and dout bf16, z a strided view, dh_last none, as the SSM block
-    trains), from the chunk states B6 stores there, held against its plain
-    version on the inputs it times (the row's ``max_abs_err``, the largest
-    |kernel - plain| over the eight gradients, and ``max_err_of_largest``,
-    the largest such error against its gradient's largest |entry|;
-    ``compare_max_abs_err`` is compare_scan_backward's), beside
-    that version and its bound: u and dt_raw f32, z and dout bf16 read,
-    du and d dt_raw f32 and dz bf16 written, 22 bytes per (t, c); B and C
-    read and dB and dC written, 16 bytes per (t, n); the chunk states read;
-    A, D, dt_bias read and their gradients written once; 15 f32 operations
-    per (t, c, n) (the state's recompute, the adjoint and the five sums,
-    the exponential counted as one) and 30 per (t, c) (softplus, SiLU and
-    their derivatives). The timed call is the wrapper, the launch and the
-    ``torch.sum`` of its partials. No PyTorch call computes the scan's
-    gradient, so no library time. B6b at falcon-mamba-7b's width is read
-    from phase 12c's profiled step; its bound there, by the same count, is
-    under ``falcon_mamba_shape``. Also returns B6's gated entry storing
-    its states at the same shape, as training launches it, held against
-    its plain version there as compare_scan holds it, for B6's row under
-    ``training_shape``."""
+# B6b's d at the SSM training shapes (B=8, S=1024, N=16): hymba-1.5b's
+# d_inner (the row's own shape) and falcon-mamba-7b's
+SCAN_BWD_TIMED_D = {"hymba": 3200, "falcon_mamba": 8192}
+
+
+def _scan_bwd_row(ref, gen, d, launches, *, with_states=False,
+                  time_plain=True):
+    """B6b's row at (TRAIN_LM_BATCH, TRAIN_LM_SEQ, d, 16), z and dout bf16
+    (z a strided view, dh_last none, as the SSM block trains), from the
+    chunk states B6 stores there, held against its plain version on the
+    inputs it times (the largest |kernel - plain| over the eight
+    gradients, and that error against its gradient's largest |entry|, each
+    within SCAN_BWD_TOL; the same bits twice), timed through the wrapper
+    with the torch.sum of its partials. With ``with_states`` also B6's
+    gated entry storing its states there, held as compare_scan holds it.
+    Without ``time_plain`` the plain version (a Python loop of S steps, a
+    second a call at falcon-mamba's width) is run once, to hold the kernel
+    against, and not timed: the row's plain_ms is None."""
     from repro_torch.kernels import counts
-    gen = torch.Generator().manual_seed(47)
-    b, s, d, n = TRAIN_LM_BATCH, TRAIN_LM_SEQ, 3200, 16
+    b, s, n = TRAIN_LM_BATCH, TRAIN_LM_SEQ, 16
     args, uz = _gated_inputs(gen, b, s, d, n)
     z = uz[..., d:]
     dout = torch.randn(b, s, d, generator=gen).to("cuda", torch.bfloat16)
@@ -6541,42 +6541,72 @@ def scan_bwd_timing(ref, launches, errs):
               "largest entry")
         err, err_rel = max(err, diff), max(err_rel, rel)
     del got, again, want
-    where = f"timed mamba_scan_gated with states at {(b, s, d, n)}"
-    got, want = (LIB.mamba_scan_gated_states(*args, z),
-                 ref.mamba_scan_gated_torch(*args, z.float()))
-    torch.cuda.synchronize()
-    states_err = max(_within("out", got[0], want[0], SCAN_TOL, where,
-                             BF16_HALF_ULP),
-                     _within("h_last", got[1], want[1], SCAN_TOL, where))
-    del got, want
+    states_row = None
     chunks = states.shape[1]
-    row = _row("mamba_scan_bwd", "59-120",
-               lambda: LIB.mamba_scan_gated_bwd(*args, z, states, dout, None),
-               lambda: ref.mamba_scan_gated_bwd_torch(*args, z, dout),
-               *counts.mamba_scan_gated_bwd_counts(b, s, d, n, chunks),
-               launches, err,
-               f"B={b} S={s} d={d} N={n} f32, z and dout bf16",
-               source="mamba_scan_bwd.cu", replaces="models/ssm.py", reps=3,
-               inner=1)
-    row["replaces_note"] = ("no TPU kernel: the reference differentiates its "
-                            "jnp scan and tail with jax.grad")
-    fd = 8192  # falcon-mamba-7b's d_inner, its training shape's bound
-    fm_ms, fm_by = bound(*counts.mamba_scan_gated_bwd_counts(b, s, fd, n,
-                                                             chunks))
-    row["falcon_mamba_shape"] = {"shape": f"B={b} S={s} d={fd} N={n}",
-                                 "bound_ms": fm_ms, "bound_by": fm_by}
+    if with_states:
+        where = f"timed mamba_scan_gated with states at {(b, s, d, n)}"
+        got, want = (LIB.mamba_scan_gated_states(*args, z),
+                     ref.mamba_scan_gated_torch(*args, z.float()))
+        torch.cuda.synchronize()
+        states_err = max(_within("out", got[0], want[0], SCAN_TOL, where,
+                                 BF16_HALF_ULP),
+                         _within("h_last", got[1], want[1], SCAN_TOL, where))
+        del got, want
+        states_row = _row(
+            "mamba_scan", 21,
+            lambda: LIB.mamba_scan_gated_states(*args, z),
+            lambda: ref.mamba_scan_gated_torch(*args, z),
+            *counts.mamba_scan_gated_counts(b, s, d, n, chunks=chunks),
+            {}, states_err,
+            f"B={b} S={s} d={d} N={n} f32, z and out bf16, states stored",
+            source="mamba_scan.cu", replaces="mamba_scan.py", reps=3,
+            inner=1)
+    kern = lambda: LIB.mamba_scan_gated_bwd(*args, z, states, dout, None)
+    work = counts.mamba_scan_gated_bwd_counts(b, s, d, n, chunks)
+    shape = f"B={b} S={s} d={d} N={n} f32, z and dout bf16"
+    if time_plain:
+        row = _row("mamba_scan_bwd", "59-120", kern,
+                   lambda: ref.mamba_scan_gated_bwd_torch(*args, z, dout),
+                   *work, launches, err, shape, source="mamba_scan_bwd.cu",
+                   replaces="models/ssm.py", reps=3, inner=1)
+    else:
+        runs = [time_ms(kern, 5, 2), time_ms(kern, 5, 2)]
+        bound_ms, bound_by = bound(*work)
+        row = {"shape": shape, "max_abs_err": err, "ms": min(runs),
+               "plain_ms": None, "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "ms_runs": runs, "plain_ms_runs": []}
     row["max_err_of_largest"] = err_rel
-    row["compare_max_abs_err"] = errs["mamba_scan_bwd"]
-    states_row = _row(
-        "mamba_scan", 21,
-        lambda: LIB.mamba_scan_gated_states(*args, z),
-        lambda: ref.mamba_scan_gated_torch(*args, z),
-        *counts.mamba_scan_gated_counts(b, s, d, n, chunks=chunks),
-        {}, states_err,
-        f"B={b} S={s} d={d} N={n} f32, z and out bf16, states stored",
-        source="mamba_scan.cu", replaces="mamba_scan.py", reps=3, inner=1)
     del args, uz, z, dout, states
     torch.cuda.empty_cache()
+    return row, states_row
+
+
+def scan_bwd_timing(ref, launches, errs):
+    """B6b's row at hymba-1.5b's training shape (B=8, S=1024, d=3200,
+    N=16) (``_scan_bwd_row``), beside its plain version and its bound: u
+    and dt_raw f32, z and dout bf16 read, du and d dt_raw f32 and dz bf16
+    written, 22 bytes per (t, c); B and C read and dB and dC written, 16
+    bytes per (t, n); the chunk states read; A, D, dt_bias read and their
+    gradients written once; 15 f32 operations per (t, c, n) (the state's
+    recompute, the adjoint and the five sums, the exponential counted as
+    one) and 30 per (t, c) (softplus, SiLU and their derivatives). No
+    PyTorch call computes the scan's gradient, so no library time.
+    ``compare_max_abs_err`` is compare_scan_backward's largest error. The
+    same at falcon-mamba-7b's training shape (d=8192), its plain version
+    held against but not timed, under ``falcon_mamba_shape``. Also
+    returns B6's gated entry storing its states at hymba's shape, as
+    training launches it, held against its plain version there as
+    compare_scan holds it, for B6's row under ``training_shape``."""
+    gen = torch.Generator().manual_seed(47)
+    row, states_row = _scan_bwd_row(ref, gen, SCAN_BWD_TIMED_D["hymba"],
+                                    launches, with_states=True)
+    row["replaces_note"] = ("no TPU kernel: the reference differentiates its "
+                            "jnp scan and tail with jax.grad")
+    fm, _ = _scan_bwd_row(ref, gen, SCAN_BWD_TIMED_D["falcon_mamba"], {},
+                          time_plain=False)
+    row["falcon_mamba_shape"] = {k: fm[k] for k in SHAPE_KEYS
+                                 + ("max_err_of_largest",)}
+    row["compare_max_abs_err"] = errs["mamba_scan_bwd"]
     return row, {k: states_row[k] for k in SHAPE_KEYS}
 
 

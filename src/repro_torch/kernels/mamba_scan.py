@@ -60,7 +60,7 @@ _BWD_SIGNATURES = {
     "corais_mamba_scan_gated_bwd": ([_P] * 8 + [ctypes.c_longlong, _I]
                                     + [_P] * 11 + [_I] * 5 + [_P]),
     "corais_mamba_scan_bwd_chunk": [],
-    "corais_mamba_scan_bwd_block_channels": [_I],
+    "corais_mamba_scan_bwd_block_channels": [],
 }
 
 
@@ -186,10 +186,11 @@ def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     """B6b: the gradients of :func:`mamba_scan_gated_cuda`'s (out, h_last)
     with respect to all eight inputs, from its inputs, the chunk states it
     saved (``with_states``), dout (B, S, d) in z's dtype and dh_last (B, d,
-    N) f32 or None (zero). One launch; the per-block partials of dB, dC,
-    dA, dD and d dt_bias are added here with ``torch.sum``, in a fixed
-    order. Returns (du, d dt_raw, d dt_bias, dB, dC, dA, dD, dz), f32 but
-    dz in z's dtype."""
+    N) f32 or None (zero). One launch; its partials (dB and dC one per
+    cluster of blocks, ``corais_mamba_scan_bwd_block_channels`` channels
+    each; dA, dD and d dt_bias one per batch row) are added here with
+    ``torch.sum``, in a fixed order. Returns (du, d dt_raw, d dt_bias, dB,
+    dC, dA, dD, dz), f32 but dz in z's dtype."""
     b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     lib = load("mamba_scan_bwd.cu", _BWD_SIGNATURES)
@@ -199,7 +200,7 @@ def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     check_tensor("dout", dout, (b, s, d), z.dtype, dev)
     if dh_last is not None:
         check_tensor("dh_last", dh_last, (b, d, n), torch.float32, dev)
-    nblk = -(-d // lib.corais_mamba_scan_bwd_block_channels(n))
+    nblk = -(-d // lib.corais_mamba_scan_bwd_block_channels())
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty((b, s, d), **f32)
     ddt = torch.empty((b, s, d), **f32)

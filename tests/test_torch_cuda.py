@@ -899,9 +899,11 @@ def test_mamba_scan_gated_wrapper_rejects_bad_inputs(cuda_device):
         mamba_scan_gated_cuda(u.cpu(), dt_raw, bias, bm, cm, a, dskip, z)
 
 
-# B6b's shapes: the gated test's, a ragged S past two chunks of 128, and
-# S = 1
-SCAN_BWD_SHAPES = SCAN_SHAPES + [(2, 300, 96, 16), (2, 1, 40, 16)]
+# B6b's shapes: the gated test's, a ragged S past two chunks of 128, S = 1,
+# and N = 32 over three chunks with d = 200 off B6b's 16-channel blocks and
+# its 128-channel clusters
+SCAN_BWD_SHAPES = SCAN_SHAPES + [(2, 300, 96, 16), (2, 1, 40, 16),
+                                 (2, 300, 200, 32)]
 
 
 @pytest.mark.parametrize("seeded", [False, True])
