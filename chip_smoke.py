@@ -57,10 +57,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    policy width, B1 forward and B2 backward once per round of every update:
    (a) the host loop at ``TemporalRLConfig()``'s defaults (``PolicyConfig()``,
    Q = 5, 12 rounds of 0.25 s, 16 slots a round, B = 16, uniform_iid);
-   (b) the same on device episodes, two epochs of 8 updates; (c) the
+   (b) the same on device episodes, two epochs of 4 updates; (c) the
    resilient trainer's config (chaos-rolling-failure, the admit head,
    64 slots a round, SLO 3 s with penalty 10, dispatch frozen, B = 8) on
-   device episodes; (d) three updates on 16 of 6b's 256 instances (Q =
+   device episodes; (d) two updates on 16 of 6b's 256 instances (Q =
    100) with 6b's arrivals. On each path B1 and B2 launch 12 times per
    update and nothing else of the head, no plain head is reached, every
    metric is finite, requests complete and the parameters move (on (c)
@@ -140,7 +140,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    phi warm-up of eight prefills per edge (256-2560 tokens), after which
    each edge's phi must have accepted a fit (a flat history fits a = 0,
    as where the host's launches bound the prefill), greedy
-   dispatch of 18 requests (256-2560 prompt tokens, 16
+   dispatch of 18 requests (256-2560 prompt tokens, 8
    generated each) over ``snapshot_instance``; all must be served, the
    4-lane edge get no fewer than the 1-lane edge, and B4 launch 36 times
    per admission, B5 36 times per decode step and B6 never; the plain
@@ -176,10 +176,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bf16 and f32, qwen3-4b's GQA heads and a ragged S = 65, causal and
     windowed, every reading the same bits twice; (c) ``launch.train lm
     --arch olmo-1b --scale full`` (16 layers, d = 2048, bf16, remat
-    "full", random weights from the seed) for 12 steps of 8 x 1024
+    "full", random weights from the seed) for 8 steps of 8 x 1024
     tokens in process: losses and grad norms finite, the last three steps'
     mean below step 0's, B4 exactly 32 times a step, B5 and B6 never, no
-    plain version of B4-B6 reached; step wall p50/p95 over steps 2-11,
+    plain version of B4-B6 reached; step wall p50/p95 over steps 2-7,
     tokens/s, peak memory and one profiled step (device ms by kind and by
     piece: the pair-scan backward, the clip, Adam); (d) olmo-1b's widths
     at 2 layers in f32, ``train_loss`` through the kernel path against the
@@ -198,7 +198,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     above softplus's threshold; the same bits twice; B6's output the same
     bits with the state store and without; (b) ``launch.train lm --arch
     hymba-1.5b --scale full`` (32 layers, d = 1600, bf16, remat "full") for
-    12 steps of 8 x 1024 tokens in process: losses and grad norms finite,
+    8 steps of 8 x 1024 tokens in process: losses and grad norms finite,
     the last three steps' mean below step 0's, per step B6 64, B6b 32 and
     B4 64 launches, B5 none, no plain version of B4-B6 or B6b reached; step
     p50/p95, tokens/s, peak memory and a profiled step (device ms by kind:
@@ -209,7 +209,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     1e-4 of its largest entry);
 12d. mixtral-8x7b (``drive_moe_lm``): ``CONFIG`` cut to 24 of its 32
     layers (35.1 B parameters, bf16, random weights from the seed), served
-    with phase 8's flow and sizes (16 generated tokens a request), then
+    with phase 8's flow and sizes (8 generated tokens a request), then
     one 4500-token request on a fourth edge with 8192 slots a lane, whose
     cache must be the rolling one: B4 24 times per admission, B5 24 times
     per decode step, B6 never, no plain version reached; a profiled
@@ -238,7 +238,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     frames), B6 never, no plain version reached; prefill ms, step p50/p95,
     a profiled prefill and 5 steps; kernel vs plain at full depth over the
     prefill and 16 teacher-forced steps (f32 1e-3, bf16 0.1 of the largest
-    |logit|); ``build_train_step`` (Adam, remat "full") for 12 steps of 16
+    |logit|); ``build_train_step`` (Adam, remat "full") for 8 steps of 16
     utterances x (1,500 frames, 448 tokens): losses and grad norms finite,
     the loss falling, B4 24 times a step, step p50/p95, utterances/s, peak
     memory, a profiled step; in f32 at full width ``train_loss`` through
@@ -246,7 +246,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     1e-4 of its largest entry);
 12g. MoE training (``drive_moe_training``): ``launch.train lm --arch
     mixtral-8x7b --scale full`` cut to 2 of its 32 layers (3.2 B
-    parameters) for 12 steps of 8 x 1024 tokens: losses, aux losses and
+    parameters) for 8 steps of 8 x 1024 tokens: losses, aux losses and
     grad norms finite, the loss falling, B4 4 times a step, B5 and B6
     never, no plain version reached; step p50/p95, tokens/s, peak memory,
     a profiled step with the MoE layer's pieces; three steps run twice
@@ -270,7 +270,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
     its plain version (the reference's local body) and B5's; step p50 and
     host ms beside the meshless path's, DTensor's host cost a step and the
     redistributions a step makes; the launches go under ``sharded_lm``;
-15. (run after 12h, before 13, whose kernels line counts its launches)
+12i. the reference's configurations the port once refused
+    (``drive_refused_configs``): (a) B4 with the logit cap in bf16 at
+    qwen3-4b's 2048-token prefill and in f32 with its lse at olmo-1b's
+    training shape, B5 with the cap and its lse over phase 10's 4-lane
+    qwen3-4b cache, q scaled so that the scores reach several times the
+    cap: against the capped plain versions at ATTN_TOL and LSE_TOL, the
+    cap moving each result beyond those bars, the same bits twice; each
+    timed capped beside uncapped, with the capped plain version's and
+    ``flex_attention``'s (a tanh ``score_mod``) times; (b) qwen3-4b
+    ``CONFIG`` with Gemma 2's cap of 50 (``attn_logit_softcap``) serving
+    3 requests of 2048 tokens, 16 generated each, through one 3-lane
+    ``LMEdgeBackend`` edge: B4 once per layer an admission, B5 once per
+    layer a decode step, no plain version reached; (c) olmo-1b at 2
+    layers in f32 with a cap of 0.5: loss and gradients through B4 and
+    the capped ``flash_bwd`` against the plain path, the cap moving the
+    projections' gradients; (d) B6's bare and gated entries with the
+    bf16 state at falcon-mamba's and hymba's prefill shapes and B6b with
+    it at hymba's training shape against their plain versions with it
+    (1e-2 of the largest |entry|), h_last and the chunk states bf16
+    values, the same bits twice, the f32 state's output elsewhere; B6
+    and B6b timed with the bf16 state beside the f32 one; (e)
+    falcon-mamba-7b ``CONFIG`` with ``ssm_scan_dtype="bfloat16"``: a
+    2048-token prefill (B6 once per layer, the states bf16 values) and 16
+    decode steps, then ``launch.train lm`` at 8 layers for 2 steps (B6
+    twice and B6b once per layer a step), the losses within 1e-2 of
+    phase 12c's f32 run's, no plain version reached; the launches go
+    under ``softcap_lm_serving``, ``bf16_scan_lm_serving`` and
+    ``bf16_scan_lm_training``;
+15. (run after 12i, before 13, whose kernels line counts its launches)
     elastic restart and the example twins (``drive_elastic``): (a)
     ``repro_torch.launch.elastic.run_phase`` at olmo-1b ``CONFIG`` (bf16)
     cut to 2 of its 16 layers with the reference's elastic batch of 8 x 32
@@ -341,13 +369,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry (the one the main paths launch) and its bare entry at
     falcon-mamba's prefill shape, and storing its chunk states at
     hymba-1.5b's training shape, and B6b there and at falcon-mamba-7b's
-    training shape) beside their bounds, and
+    training shape) beside their bounds, with phase 12i's capped and
+    bf16-state readings under ``softcap`` (B4, B5) and ``bf16_state``
+    (B6, B6b), and
     print the ``{"kernels": [...]}`` line (seven rows, each with its
     launches on every main path above, the rollout's, temporal training's,
     the serving host side's, phase 6e's (``fleet``, ``data_parallel``)
     and phases 12d's to 12h's (``moe_lm_serving``, ``vlm_lm``,
     ``whisper_lm_serving``, ``whisper_lm_training``, ``moe_lm_training``,
-    ``sharded_lm``) and phase 15's (``elastic``, ``examples``; every row
+    ``sharded_lm``), phase 12i's and phase 15's (``elastic``,
+    ``examples``; every row
     names both, 0 where the path does not launch it) and phase 16's
     (``paper``, likewise) included;
     B1 and B2 also timed at the temporal shapes, under
@@ -383,6 +414,7 @@ GAP = 1e-4           # index checks only on rows separated by more than this
 F32_FLOPS = 67e12    # H100 SXM f32 (non-tensor) peak, NVIDIA data sheet
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth, NVIDIA data sheet
 ROUNDS = 40          # measured decisions per bucket
+TIME_REPS = 7        # CUDA-event runs a kernel's time is the median of
 TRAIN_STEPS = 22     # full-width training steps; the first two are warm-up
 TRAIN_WARMUP = 2
 # B2 tolerances, relative to each output's largest entry: dc and dh sum
@@ -396,7 +428,8 @@ ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 LM_ARCH = "qwen3-4b"   # the LM each edge serves, full width, bf16
 LM_MAX_SEQ = 4096      # KV-cache slots per lane
 LM_REQUESTS = 18       # dispatched requests (examples/serve_multi_edge.py)
-LM_GEN = 16            # generated tokens per dispatched request
+LM_GEN = 8             # generated tokens per dispatched request (32, then
+#                        16 before, cut for the smoke's time)
 LM_WARM = 100_000      # request ids of the phi warm-up start here
 # phi warm-up prompts (the example's sizes times 32)
 PHI_PROMPTS = tuple(32 * n for n in (8, 16, 32, 48, 64, 80, 24, 40))
@@ -437,7 +470,7 @@ MIXTRAL_CACHE = (4, 4096, 32, 8, 128, torch.bfloat16, (0, 0, 1500, 0),
 # with MOE_LONG_MAX_SEQ slots a lane takes the rolling cache
 MOE_ARCH = "mixtral-8x7b"
 MOE_LAYERS = 24
-MOE_GEN = 16
+MOE_GEN = 8
 MOE_LONG_PROMPT = 4500
 MOE_LONG_MAX_SEQ = 8192
 # kernel vs plain at full width, bf16; then at the widths with
@@ -548,12 +581,12 @@ PARITY_TOL = 1e-4      # floats, card against CPU (ROADMAP "How parity is held")
 # warm-up), path (b) two epochs of TEMPORAL_EPOCH_LEN updates on device
 # episodes, path (c) the resilient config's epochs, path (d) updates on 16
 # of 6b's 256 instances; B1 and B2 also at the trainer's (B, Q, Z) shapes
-TEMPORAL_HOST_UPDATES = 6
-TEMPORAL_EPOCH_LEN = 8
-TEMPORAL_CHAOS_EPOCH_LEN = 4
+TEMPORAL_HOST_UPDATES = 4
+TEMPORAL_EPOCH_LEN = 4
+TEMPORAL_CHAOS_EPOCH_LEN = 2
 TEMPORAL_EPOCHS = 2
 TEMPORAL_SCALE_BATCH = 16
-TEMPORAL_SCALE_UPDATES = 3
+TEMPORAL_SCALE_UPDATES = 2
 TEMPORAL_PROFILE_UPDATES = 2
 TEMPORAL_SHAPES = ((16, 5, 16), (8, 5, 64))
 # the device samplers' laws on the card: batch, and the band in standard
@@ -2685,15 +2718,32 @@ def drive_fleet_data_parallel(card, m, arr, single, single_ms,
 
 # the production cells traced on fake CUDA tensors, each in a process of its
 # own (a fake world of 256 or 512 ranks), with the kernel ops each must show
+# (arch, shape, mesh, kernel ops that must be traced, variant, layers or
+# None for the config's): mixtral-8x7b's cell at 16 of its 32 layers, for
+# the smoke's time (its trace took ~62 s at 32; the dry run's FLOPs and
+# bytes are linear in depth, tests/test_torch_dryrun.py)
 DRYRUN_CELLS = (
-    ("olmo-1b", "train_4k", "single", ("flash_attention_lse",)),
-    ("qwen3-4b", "decode_32k", "single", ("decode_attention",)),
-    ("falcon-mamba-7b", "prefill_32k", "single", ("mamba_scan_gated",)),
-    ("mixtral-8x7b", "train_4k", "single", ("flash_attention_lse",)),
-    ("olmo-1b", "train_4k", "multi", ("flash_attention_lse",)))
+    ("olmo-1b", "train_4k", "single", ("flash_attention_lse",), "baseline",
+     None),
+    ("qwen3-4b", "decode_32k", "single", ("decode_attention",), "baseline",
+     None),
+    ("falcon-mamba-7b", "prefill_32k", "single", ("mamba_scan_gated",),
+     "baseline", None),
+    ("falcon-mamba-7b", "prefill_32k", "single", ("mamba_scan_gated",),
+     "ssm-bf16", None),
+    ("mixtral-8x7b", "train_4k", "single", ("flash_attention_lse",),
+     "baseline", 16),
+    ("olmo-1b", "train_4k", "multi", ("flash_attention_lse",), "baseline",
+     None))
 DRYRUN_TIMEOUT_S = 130
 DRYRUN_PEAK_TOL = 0.10    # predicted peak against the card's, relative
 DRYRUN_TIMED_STEPS = 5    # the real step's p50, after two warm-ups
+
+
+def _dryrun_label(arch, shape, mesh, variant):
+    """A cell's name: "arch shape mesh", and its variant unless baseline."""
+    return " ".join((arch, shape, mesh) + (
+        (variant,) if variant != "baseline" else ()))
 
 
 def _dryrun_proc(out, args, device):
@@ -2799,12 +2849,14 @@ def drive_dryrun(m, card, device="cuda", cells=DRYRUN_CELLS):
     out_dir = ROOT / "chiprun_out" / "dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for arch, shape, mesh, _ in cells:
-        label = f"{arch} {shape} {mesh}"
-        out = out_dir / f"{arch}_{shape}_{mesh}.json"
+    for arch, shape, mesh, _, variant, layers in cells:
+        label = _dryrun_label(arch, shape, mesh, variant)
+        out = out_dir / f"{label.replace(' ', '_')}.json"
         out.unlink(missing_ok=True)
+        depth = [] if layers is None else ["--layers", str(layers)]
         proc, log = _dryrun_proc(out, ["--arch", arch, "--shape", shape,
-                                       "--mesh", mesh], device)
+                                       "--mesh", mesh, "--variant", variant,
+                                       *depth], device)
         procs[label] = (proc, log, out)
     out = out_dir / "against_card.json"
     out.unlink(missing_ok=True)
@@ -2817,18 +2869,19 @@ def drive_dryrun(m, card, device="cuda", cells=DRYRUN_CELLS):
     print(f"dry run, the card's step: {json.dumps(card_side)}", flush=True)
     results = _dryrun_results(procs, deadline)
     report = {"card": card, "cells": {}}
-    for arch, shape, mesh, kernels in cells:
-        cell, = results[f"{arch} {shape} {mesh}"]
+    for arch, shape, mesh, kernels, variant, _ in cells:
+        label = _dryrun_label(arch, shape, mesh, variant)
+        cell, = results[label]
         ok = cell["status"] == "ok"
-        check(ok, f"dry run {arch} {shape} {mesh}: "
+        check(ok, f"dry run {label}: "
               f"{cell.get('error') or cell.get('reason')}")
         if not ok:  # reached only where check records rather than raises
             continue
         check(cell["kernel_launches"] == 0 and all(
             cell["kernel_ops"].get(k, 0) > 0 for k in kernels),
-              f"dry run {arch} {shape} {mesh}: kernel ops "
+              f"dry run {label}: kernel ops "
               f"{cell['kernel_ops']}, launches {cell['kernel_launches']}")
-        report["cells"][f"{arch} {shape} {mesh}"] = {k: cell[k] for k in (
+        report["cells"][label] = {k: cell[k] for k in (
             "chips", "num_layers", "hlo_flops_per_device",
             "hlo_bytes_per_device", "wire_bytes_per_device",
             "collective_ops", "terms", "memory_analysis",
@@ -2874,7 +2927,7 @@ def drive_dryrun(m, card, device="cuda", cells=DRYRUN_CELLS):
 # -- phase 13: timing ------------------------------------------------------
 
 
-def time_ms(fn, reps=25, inner=20):
+def time_ms(fn, reps=TIME_REPS, inner=20):
     """Median device time of one call, CUDA events around ``inner`` calls.
     A sleep kernel queued first keeps the card busy while the host enqueues
     the calls, so host overhead does not leak into the device time. The
@@ -2912,6 +2965,21 @@ def time_ms(fn, reps=25, inner=20):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def once_ms(fn):
+    """Device ms of one call after one warm-up call, CUDA events around it:
+    the time of a plain version that is a host-bound Python loop (seconds
+    a call), a yardstick that a sleep and repetitions would only lengthen."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def launch_split(fn, n=20):
@@ -2964,18 +3032,26 @@ def bound(flops, nbytes, peak=F32_FLOPS):
 
 def _row(name, line, kern, plain, flops, nbytes, launches, err, shape, *,
          source="policy_score.cu", replaces="policy_score.py", library=None,
-         peak=F32_FLOPS, reps=25, inner=20):
+         peak=F32_FLOPS, reps=TIME_REPS, inner=20, plain_once=False):
     """One kernel's entry of the ``{"kernels": [...]}`` line, timed in the
     order plain, kernel, kernel, plain (then the library call, if any). The
     plain versions, a yardstick, take a fifth of the repetitions (at least
-    two): the slow ones are host-bound loops, and each repetition waits
-    behind a sleep twice their host time."""
+    two); with ``plain_once`` (the host-bound loops of the scans, seconds a
+    call) one call each (:func:`once_ms`). Prints the seconds the row
+    took."""
+    t_row = time.perf_counter()
     plain_reps = max(2, reps // 5)
-    plain_a = time_ms(plain, plain_reps, inner)
+
+    def plain_ms():
+        return once_ms(plain) if plain_once else time_ms(plain, plain_reps,
+                                                         inner)
+    plain_a = plain_ms()
     kern_a = time_ms(kern, reps, inner)
     kern_b = time_ms(kern, reps, inner)
-    plain_b = time_ms(plain, plain_reps, inner)
+    plain_b = plain_ms()
     library_ms = time_ms(library, reps, inner) if library else None
+    print(f"  timed {name} at {shape}: {time.perf_counter() - t_row:.1f} s",
+          flush=True)
     bound_ms, bound_by = bound(flops, nbytes, peak)
     return {
         "name": name, "route": "cuda",
@@ -3912,14 +3988,16 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
             for patch in (
                     mock.patch.object(ops, "flash_attention",
                                       lambda q, k, v, *, causal, window,
-                                      chunk: ref.flash_attention_torch(
+                                      chunk, softcap=0.0:
+                                      ref.flash_attention_torch(
                                           q, k, v, causal=causal,
-                                          window=window)),
+                                          window=window, softcap=softcap)),
                     mock.patch.object(ops, "decode_attention",
-                                      lambda q, kc, vc, sp, pos, *, window:
+                                      lambda q, kc, vc, sp, pos, *, window,
+                                      softcap=0.0:
                                       ref.decode_attention_torch(
                                           q, kc, vc, sp, pos,
-                                          window=window)),
+                                          window=window, softcap=softcap)),
                     mock.patch.object(ops, "mamba_scan",
                                       ref.mamba_scan_torch),
                     mock.patch.object(ops, "mamba_scan_gated",
@@ -3999,8 +4077,8 @@ def lm_kernel_vs_plain(cfg, params, lm, ops, ref, prompt_len=1500,
 TRAIN_LM_ARCH = "olmo-1b"
 TRAIN_LM_BATCH = 8
 TRAIN_LM_SEQ = 1024
-TRAIN_LM_STEPS = 12
-TRAIN_LM_TIMED = 2       # steps 2-11 are timed; 0-1 warm the allocator
+TRAIN_LM_STEPS = 8
+TRAIN_LM_TIMED = 2       # steps 2-7 are timed; 0-1 warm the allocator
 TRAIN_LM_LAYERS = 2      # (d) and (e): olmo-1b's widths at 2 layers
 TRAIN_LM_CKPT_AT = 3     # (e): a checkpoint after step 3, of 6
 TRAIN_LM_RESUME_TOL = 1e-3
@@ -4184,9 +4262,9 @@ def train_loss_vs_plain(m, ref, cfg, params, batch, want, routes=None):
     (reported, barred at GAP)."""
     from unittest import mock
 
-    def plain(q, k, v, *, causal=True, window=None, chunk=512):
+    def plain(q, k, v, *, causal=True, window=None, chunk=512, softcap=0.0):
         return ref.flash_attention_torch(q, k, v, causal=causal,
-                                         window=window)
+                                         window=window, softcap=softcap)
 
     m.build.reset_launch_counts()
     with contextlib.ExitStack() as stack:
@@ -4322,7 +4400,7 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     and read just after: every loss and grad norm finite, the last three
     steps' mean loss below step 0's, B4 exactly twice per layer per step
     (forward and recompute), B5 and B6 never, no plain version of B4-B6
-    reached; the step wall p50 and p95 over steps 2-11, tokens/s, the peak
+    reached; the step wall p50 and p95 over steps 2-7, tokens/s, the peak
     memory, one profiled step; (d) ``training_kernel_vs_plain``; (e)
     ``training_resume``. Returns (summary, launches of (c))."""
     t_phase = time.perf_counter()
@@ -4470,7 +4548,7 @@ def _train_family(m, arch, want, layers=None, device="cuda", *,
     before and read just after, with every plain version of B4-B6 and B6b
     refused: losses and grad norms finite, the last three steps' mean below
     step 0's, each kernel's launches per step ``want[kernel]`` and B5 none;
-    step wall p50/p95 over steps 2-11, tokens/s, peak memory, one profiled
+    step wall p50/p95 over steps 2-7, tokens/s, peak memory, one profiled
     step (``kinds`` and ``ranges`` as :func:`profile_training` takes them);
     the MoE load-balance losses finite too. Returns (summary, launches)."""
     from unittest import mock
@@ -4880,7 +4958,7 @@ def whisper_training(m, cfg, device="cuda"):
     counters set to 0 just before: losses and grad norms finite, the last
     three steps' mean below step 0's, B4 twice per attention a step
     (forward and recompute: 2 x (4 + 2 x 4) = 24), B5 and B6 never; step
-    p50/p95 over steps 2-11, utterances/s, peak memory and one profiled
+    p50/p95 over steps 2-7, utterances/s, peak memory and one profiled
     step. Returns (report, launches)."""
     tcfg = dataclasses.replace(cfg, num_microbatches=1, optimizer="adam")
     knobs = m.steps.TrainKnobs(lr=3e-4, grad_clip=1.0)
@@ -5353,6 +5431,522 @@ def drive_sharded_lm(m, card, device="cuda"):
         counts[k] = counts.get(k, 0) + v
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"sharded lm phase: {out['phase_s']:.1f} s", flush=True)
+    return out, counts
+
+
+# -- phase 12i: the reference's refused configurations (the soft cap, the ---
+# -- bf16 scan state) ---------------------------------------------------------
+
+#: (a) the kernels' cap, with inputs scaled so that the scores reach several
+#: times it; (b) Gemma 2's published attention cap, served at qwen3-4b's
+#: full width; (c) a cap that olmo-1b's scores at its initialisation (of
+#: order 1 at 2 layers) exceed
+SOFTCAP_KERNEL = 1.0
+SOFTCAP_SERVE = 50.0
+SOFTCAP_TRAIN = 0.5
+SOFTCAP_SCALE = 4.0     # q's scale in (a): scores of order 4 x the cap
+SOFTCAP_REQUESTS = 3    # (b): requests of SOFTCAP_PROMPT tokens,
+SOFTCAP_GEN = 16        # SOFTCAP_GEN generated each
+SOFTCAP_PROMPT = 2048
+SOFTCAP_TRAIN_BATCH = 2
+# (d) B6 (gated and bare) and B6b with the bf16 state against their plain
+# versions with it, of the largest |entry| (of each gradient's, for B6b):
+# the kernels round where the plain versions round (ref._bf16_chunks), so
+# an f32 ulp between their exponentials or sums moves a value to the
+# neighbouring bf16 one now and then; B6b's 8-step segments round its
+# recomputed states at other points than B6's 16-step ones (measured on the
+# CPU through the designs: at most 5.2e-4 and 2.7e-3)
+SCAN_BF16_BAR = 1e-2
+SCAN_BF16_CASES = ((1, 2048, 8192, 16), (4, 1000, 3200, 16))
+SCAN_BF16_BWD_SHAPE = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, 3200, 16)
+# (e) falcon-mamba-7b CONFIG with the bf16 scan: a prefill, decode steps,
+# and BF16_SCAN_TRAIN_STEPS training steps at TRAIN_SSM_LAYERS layers whose
+# losses are held against phase 12c's f32 run (the same seed, batch and
+# weights) within BF16_SCAN_LOSS_BAR relative
+BF16_SCAN_PROMPT = 2048
+BF16_SCAN_DECODE = 16
+BF16_SCAN_TRAIN_STEPS = 2
+BF16_SCAN_LOSS_BAR = 1e-2
+
+
+def _excess(got, want, tol):
+    """The largest excess of |got - want| over allclose(atol = rtol =
+    ``tol``); at most 0 where they are close."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff - tol - tol * want.float().abs()).max())
+
+
+def _of_largest(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _flex_ms(q, k, v, cap, causal=True):
+    """The library's time for the capped attention: ``flex_attention``
+    with a tanh ``score_mod`` (and a causal ``mask_mod``), uncompiled, on
+    (B, H, S, hd) copies; None and the reason where it does not run."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def tanh_cap(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        mask = None
+        if causal:
+            mask = create_block_mask(
+                lambda b, h, q_idx, kv_idx: kv_idx <= q_idx, None, None,
+                q.shape[1], k.shape[1], device=q.device)
+
+        def call():
+            return flex_attention(qt, kt, vt, score_mod=tanh_cap,
+                                  block_mask=mask, enable_gqa=True)
+        return time_ms(call, reps=3, inner=2), None
+    except Exception as exc:  # timed only: the port never calls it
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+
+
+def _pair_ms(base, variant, reps, inner):
+    """(variant ms, base ms, runs): CUDA-event medians in the order base,
+    variant, variant, base; each the lesser of its two runs."""
+    runs = [time_ms(f, reps, inner) for f in (base, variant, variant, base)]
+    return min(runs[1:3]), min(runs[0], runs[3]), runs
+
+
+def compare_softcap(m, qwen3_cache, errs):
+    """(a) B4 and B5 with the cap against their capped plain versions on the
+    card, at ``ATTN_TOL`` (outputs) and ``LSE_TOL`` (log-sum-exps, of the
+    largest |lse|); the capped result must differ from the uncapped one
+    beyond those bars, and two calls give the same bits. B4 in bf16 at
+    qwen3-4b's prefill (1, 2048, 32, 8, 128) causal, B4 with its lse in
+    f32 at olmo-1b's training shape (8, 1024, 16, 16, 128), B5 with its
+    lse over phase 10's 4-lane qwen3-4b cache; q scaled by SOFTCAP_SCALE.
+    Each timed capped beside uncapped (uncapped, capped, capped,
+    uncapped), with its plain version's and ``flex_attention``'s capped
+    times and the bound (the product count: the tanh is not counted).
+    Returns {"B4", "B4_training", "B5"} rows."""
+    from repro_torch.kernels import counts
+    ops, ref = m.ops, m.ref
+    gen = torch.Generator().manual_seed(53)
+    cap = SOFTCAP_KERNEL
+    out = {}
+
+    def attn_row(kern, unc, plain, plain_unc, dtype, flops, nbytes, where,
+                 lse_pair=None, peak=BF16_FLOPS, reps=10, inner=5):
+        got, again, want, want_unc = kern(), kern(), plain(), plain_unc()
+        torch.cuda.synchronize()
+        err, excess = _attn_err(got, want, dtype)
+        check(bool(torch.isfinite(got).all()) and excess <= ATTN_TOL[dtype],
+              f"{where}: capped err {err} beyond allclose({ATTN_TOL[dtype]})")
+        check(torch.equal(got, again), f"{where}: two calls differ")
+        moved = _attn_err(want_unc, want, dtype)[1]
+        check(moved > ATTN_TOL[dtype], f"{where}: the cap moved the output "
+              f"by only {moved} beyond the bar")
+        row = {"shape": where, "softcap": cap, "max_abs_err": err,
+               "cap_moved_excess": moved}
+        if lse_pair is not None:
+            lse, wlse, wlse_unc = lse_pair()
+            scale = float(wlse.abs().max())
+            lerr = float((lse - wlse).abs().max())
+            lmoved = float((wlse_unc - wlse).abs().max())
+            check(lerr <= LSE_TOL * scale, f"{where}: lse err {lerr} beyond "
+                  f"{LSE_TOL} of {scale}")
+            check(lmoved > LSE_TOL * scale, f"{where}: the cap moved the lse "
+                  f"by only {lmoved}")
+            row.update(lse_max_abs_err=lerr, lse_cap_moved=lmoved)
+        del got, again, want, want_unc
+        row["ms"], row["ms_uncapped"], row["ms_runs"] = _pair_ms(
+            unc, kern, reps, inner)
+        row["plain_ms"] = once_ms(plain)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peak)
+        return row
+
+    # B4, bf16, qwen3-4b's prefill
+    b, s, h, kv, hd = 1, SOFTCAP_PROMPT, 32, 8, 128
+    q = (SOFTCAP_SCALE * torch.randn(b, s, h, hd, generator=gen)).to(
+        "cuda", torch.bfloat16)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+            for _ in range(2))
+    where = f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal, cap {cap}"
+    out["B4"] = attn_row(
+        lambda: ops.flash_attention(q, k, v, softcap=cap),
+        lambda: ops.flash_attention(q, k, v),
+        lambda: ref.flash_attention_torch(q, k, v, softcap=cap),
+        lambda: ref.flash_attention_torch(q, k, v), torch.bfloat16,
+        *counts.flash_attention_counts(b, s, s, h, kv, hd), where)
+    out["B4"]["library_ms"], out["B4"]["library_note"] = _flex_ms(q, k, v,
+                                                                  cap)
+    errs["flash_attention_softcap"] = out["B4"]["max_abs_err"]
+    del q, k, v
+    # B4 with its lse, f32, olmo-1b's training shape
+    b, s, h, kv, hd = TRAIN_LM_BATCH, TRAIN_LM_SEQ, 16, 16, 128
+    q = SOFTCAP_SCALE * torch.randn(b, s, h, hd, generator=gen).cuda()
+    k, v = (torch.randn(b, s, kv, hd, generator=gen).cuda()
+            for _ in range(2))
+    where = f"B={b} S={s} H={h} KV={kv} hd={hd} f32 causal with lse, " \
+            f"cap {cap}"
+    out["B4_training"] = attn_row(
+        lambda: LIB.flash_attention_lse(q, k, v, True, None, cap)[0],
+        lambda: LIB.flash_attention_lse(q, k, v, True, None)[0],
+        lambda: ref.flash_attention_torch(q, k, v, softcap=cap),
+        lambda: ref.flash_attention_torch(q, k, v), torch.float32,
+        *counts.flash_attention_counts(b, s, s, h, kv, hd, itemsize=4,
+                                       with_lse=True), where,
+        lse_pair=lambda: (
+            LIB.flash_attention_lse(q, k, v, True, None, cap)[1],
+            ref.flash_attention_lse_torch(q, k, softcap=cap),
+            ref.flash_attention_lse_torch(q, k)),
+        peak=F32_FLOPS, reps=5, inner=2)
+    del q, k, v
+    # B5 over qwen3-4b's served 4-lane cache
+    kc, vc, slot_pos, pos = qwen3_cache
+    b, w, kv, hd = kc.shape
+    h = 32
+    qd = (SOFTCAP_SCALE * torch.randn(b, h, hd, generator=gen)).to(
+        "cuda", kc.dtype)
+    valid = int(((slot_pos >= 0) & (slot_pos <= pos[:, None])).sum())
+    where = f"B={b} W={w} H={h} KV={kv} hd={hd} bf16, {valid} valid " \
+            f"slots, cap {cap}"
+    out["B5"] = attn_row(
+        lambda: ops.decode_attention(qd, kc, vc, slot_pos, pos, softcap=cap),
+        lambda: ops.decode_attention(qd, kc, vc, slot_pos, pos),
+        lambda: ref.decode_attention_torch(qd, kc, vc, slot_pos, pos,
+                                           softcap=cap),
+        lambda: ref.decode_attention_torch(qd, kc, vc, slot_pos, pos),
+        kc.dtype, *counts.decode_attention_counts(b, w, h, kv, hd,
+                                                  n_valid=valid,
+                                                  with_lse=True), where,
+        lse_pair=lambda: (
+            ops.decode_attention(qd, kc, vc, slot_pos, pos, softcap=cap,
+                                 with_lse=True)[1],
+            ref.decode_attention_lse_torch(qd, kc, slot_pos, pos,
+                                           softcap=cap),
+            ref.decode_attention_lse_torch(qd, kc, slot_pos, pos)),
+        reps=25, inner=20)
+    out["B5"]["library_ms"], out["B5"]["library_note"] = None, (
+        "flex_attention takes no per-lane slot map; the masked SDPA is "
+        "uncapped")
+    errs["decode_attention_softcap"] = out["B5"]["max_abs_err"]
+    return out
+
+
+def serve_softcap(m):
+    """(b) qwen3-4b ``CONFIG`` at full width with ``attn_logit_softcap`` =
+    SOFTCAP_SERVE (``dataclasses.replace``), random bf16 weights from the
+    seed: one ``LMEdgeBackend`` edge of SOFTCAP_REQUESTS lanes serves as
+    many requests of SOFTCAP_PROMPT tokens, SOFTCAP_GEN generated each, the
+    launch counters set to 0 just before and read just after, every plain
+    version refused: B4 once per layer an admission, B5 once per layer a
+    decode step, each request its tokens. Returns (summary, launches)."""
+    cfg = dataclasses.replace(m.get_config(LM_ARCH),
+                              attn_logit_softcap=SOFTCAP_SERVE)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    edge = m.batching.LMEdgeBackend(cfg, params, lanes=SOFTCAP_REQUESTS,
+                                    max_seq=SOFTCAP_PROMPT + SOFTCAP_GEN,
+                                    seed=0)
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops):
+        guard.enter_context(patch)
+    torch.cuda.synchronize()
+    with guard:
+        m.build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for rid in range(SOFTCAP_REQUESTS):
+            edge.submit(rid, SOFTCAP_PROMPT, gen_len=SOFTCAP_GEN)
+        decode_steps = 0
+        while edge._queue or any(s.remaining for s in edge._lane_states):
+            decode_steps += bool(edge.step())
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {k: m.build.LAUNCHES[k] for k in (
+            "flash_attention", "decode_attention", "mamba_scan")}
+    admissions = len(edge.phi._xs)
+    check(edge.finished == {r: SOFTCAP_GEN
+                            for r in range(SOFTCAP_REQUESTS)},
+          f"capped qwen3-4b finished {edge.finished}")
+    want = {"flash_attention": cfg.num_layers * admissions,
+            "decode_attention": cfg.num_layers * decode_steps,
+            "mamba_scan": 0}
+    check(launches == want, f"capped qwen3-4b launched {launches}, want "
+          f"{want} ({admissions} admissions, {decode_steps} decode steps)")
+    summary = {"arch": cfg.name, "softcap": cfg.attn_logit_softcap,
+               "layers": cfg.num_layers, "dtype": cfg.dtype,
+               "requests": SOFTCAP_REQUESTS, "prompt": SOFTCAP_PROMPT,
+               "gen_len": SOFTCAP_GEN, "admissions": admissions,
+               "decode_steps": decode_steps, "launches": launches,
+               "serve_s": serve_s,
+               "prefill_ms": [y * 1e3 for y in edge.phi._ys]}
+    del edge, params
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def train_softcap(m):
+    """(c) olmo-1b's widths at TRAIN_LM_LAYERS layers in f32 with the cap
+    SOFTCAP_TRAIN: ``train_loss`` and its gradients through B4 (with its
+    lse) and ``flash_bwd`` against the plain path (``train_loss_vs_plain``:
+    TRAIN_LOSS_TOL, and TRAIN_GRAD_TOL, which is ATTN_BWD_TOL's f32 bar);
+    the capped gradients of the attention's projections must differ from
+    the uncapped ones beyond TRAIN_GRAD_TOL (at the initialisation the
+    loss itself hardly feels the attention)."""
+    cfg = dataclasses.replace(m.get_config(TRAIN_LM_ARCH),
+                              num_layers=TRAIN_LM_LAYERS, dtype="float32",
+                              attn_logit_softcap=SOFTCAP_TRAIN)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    pipe = m.SyntheticTokens(cfg.vocab_size, SOFTCAP_TRAIN_BATCH,
+                             TRAIN_LM_SEQ, seed=1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
+    want = {"flash_attention": 2 * TRAIN_LM_LAYERS, "mamba_scan": 0,
+            "mamba_scan_bwd": 0}
+    out = train_loss_vs_plain(m, m.ref, cfg, params, batch, want)
+    _, _, capped = _loss_aux_grads(m, params, batch, cfg)
+    uncapped_loss, _, uncapped = _loss_aux_grads(
+        m, params, batch, dataclasses.replace(cfg, attn_logit_softcap=0.0))
+    moved = {}
+    for key in ("layers/0/attn/wq", "layers/0/attn/wk"):
+        moved[key] = _of_largest(capped[key], uncapped[key])
+        check(moved[key] > TRAIN_GRAD_TOL, f"the cap moved olmo-1b's "
+              f"{key} gradient by only {moved[key]} of its largest entry")
+    out.update(softcap=SOFTCAP_TRAIN, uncapped_loss=uncapped_loss,
+               cap_moved_grad=moved)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_values(t):
+    return bool(torch.equal(t.to(torch.bfloat16).float(), t))
+
+
+def compare_scan_bf16(m, errs):
+    """(d) B6, bare and gated, with the bf16 state at SCAN_BF16_CASES
+    (falcon-mamba's and hymba's prefill shapes) and B6b with it at hymba's
+    training shape, each against its plain version with the flag:
+    SCAN_BF16_BAR of the largest |entry| (each gradient's), h_last and the
+    chunk states bf16 values only, two calls the same bits, and the f32
+    state's kernel output (B6b: dA) outside the f32 bars (SCAN_TOL,
+    SCAN_BWD_TOL).
+    Times B6's gated entry at falcon-mamba's prefill shape and B6b at
+    hymba's training shape with the bf16 state beside the f32 one (f32,
+    bf16, bf16, f32), with the plain versions' times and the bounds (the
+    bytes and operations of the f32 rows: the state's layout does not
+    change). Returns {"B6": [...], "B6_timing", "B6b"}."""
+    from repro_torch.kernels import counts
+    ref = m.ref
+    gen = torch.Generator().manual_seed(59)
+    rows = []
+    for b, s, d, n in SCAN_BF16_CASES:
+        where = f"bf16-state B6 at {(b, s, d, n)}"
+        args = _scan_inputs(gen, b, s, d, n)
+        y, h = LIB.mamba_scan(*args, True)
+        y2, h2 = LIB.mamba_scan(*args, True)
+        y32, _ = LIB.mamba_scan(*args)
+        wy, wh = ref.mamba_scan_torch(*args, bf16_state=True)
+        torch.cuda.synchronize()
+        row = {"B": b, "S": s, "d": d, "N": n,
+               "bare_y": _of_largest(y, wy), "bare_h_last": _of_largest(h,
+                                                                       wh)}
+        check(max(row["bare_y"], row["bare_h_last"]) <= SCAN_BF16_BAR
+              and _bf16_values(h) and torch.equal(y, y2)
+              and torch.equal(h, h2), f"{where} (bare): {row}")
+        row["bare_vs_f32_excess"] = _excess(y, y32, SCAN_TOL)
+        check(row["bare_vs_f32_excess"] > 0, f"{where}: the bf16 state's y "
+              "is within the f32 bar of the f32 state's")
+        del args, y, y2, y32, wy, wh, h, h2
+        gargs, uz = _gated_inputs(gen, b, s, d, n)
+        z = uz[..., d:]
+        out, gh, states = LIB.mamba_scan_gated_states(*gargs, z, True)
+        again = LIB.mamba_scan_gated_states(*gargs, z, True)
+        out32, _ = LIB.mamba_scan_gated(*gargs, z)
+        want, wgh, wstates = ref.mamba_scan_gated_torch(
+            *gargs, z.float(), chunk=m.b6.STATE_CHUNK, bf16_state=True)
+        torch.cuda.synchronize()
+        row.update(gated_out=_of_largest(out, want),
+                   gated_h_last=_of_largest(gh, wgh),
+                   gated_states=_of_largest(states, wstates),
+                   gated_vs_f32_excess=_excess(out, out32, SCAN_TOL))
+        check(max(row["gated_out"], row["gated_h_last"],
+                  row["gated_states"]) <= SCAN_BF16_BAR
+              and _bf16_values(gh) and _bf16_values(states)
+              and all(map(torch.equal, (out, gh, states), again))
+              and row["gated_vs_f32_excess"] > 0, f"{where} (gated): {row}")
+        rows.append(row)
+        errs["mamba_scan_bf16"] = max(errs.get("mamba_scan_bf16", 0.0),
+                                      row["bare_y"], row["gated_out"])
+        if (b, s, d, n) == SCAN_BF16_CASES[0]:
+            timing = {"shape": f"B={b} S={s} d={d} N={n} f32, z and out "
+                               "bf16, bf16 state"}
+            timing["ms"], timing["ms_f32_state"], timing["ms_runs"] = \
+                _pair_ms(lambda: LIB.mamba_scan_gated(*gargs, z),
+                         lambda: LIB.mamba_scan_gated(*gargs, z, True), 5, 2)
+            timing["plain_ms"] = once_ms(lambda: ref.mamba_scan_gated_torch(
+                *gargs, z, bf16_state=True))
+            timing["bound_ms"], timing["bound_by"] = bound(
+                *counts.mamba_scan_gated_counts(b, s, d, n))
+            timing["max_abs_err"] = float((out.float() - want).abs().max())
+        del gargs, uz, z, out, gh, states, again, out32, want, wgh, wstates
+        torch.cuda.empty_cache()
+    # B6b at hymba's training shape
+    b, s, d, n = SCAN_BF16_BWD_SHAPE
+    where = f"bf16-state B6b at {(b, s, d, n)}"
+    args, uz = _gated_inputs(gen, b, s, d, n)
+    z = uz[..., d:]
+    dout = torch.randn(b, s, d, generator=gen).to("cuda", torch.bfloat16)
+    _, _, states = LIB.mamba_scan_gated_states(*args, z, True)
+    got = LIB.mamba_scan_gated_bwd(*args, z, states, dout, None, True)
+    again = LIB.mamba_scan_gated_bwd(*args, z, states, dout, None, True)
+    want = ref.mamba_scan_gated_bwd_torch(*args, z, dout, bf16_state=True)
+    torch.cuda.synchronize()
+    bwd = {"shape": f"B={b} S={s} d={d} N={n} f32, z and dout bf16, bf16 "
+                    "state"}
+    for name, g, a, w in zip(SCAN_BWD_NAMES, got, again, want):
+        bwd[name] = _of_largest(g, w)
+        check(bwd[name] <= SCAN_BF16_BAR and torch.equal(g, a),
+              f"{where}: {name} {bwd[name]} of its largest entry, or two "
+              "calls differ")
+    bwd["max_err_of_largest"] = max(bwd[name] for name in SCAN_BWD_NAMES)
+    _, _, states32 = LIB.mamba_scan_gated_states(*args, z)
+    got32 = LIB.mamba_scan_gated_bwd(*args, z, states32, dout, None)
+    bwd["dA_vs_f32_excess"] = _excess(got[5], got32[5],
+                                      SCAN_BWD_TOL[torch.float32])
+    check(bwd["dA_vs_f32_excess"] > 0, f"{where}: the bf16 state's dA is "
+          "within the f32 bar of the f32 state's")
+    del got, again, want, got32
+    bwd["ms"], bwd["ms_f32_state"], bwd["ms_runs"] = _pair_ms(
+        lambda: LIB.mamba_scan_gated_bwd(*args, z, states32, dout, None),
+        lambda: LIB.mamba_scan_gated_bwd(*args, z, states, dout, None, True),
+        3, 1)
+    bwd["plain_ms"] = once_ms(lambda: ref.mamba_scan_gated_bwd_torch(
+        *args, z, dout, bf16_state=True))
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        *counts.mamba_scan_gated_bwd_counts(b, s, d, n, states.shape[1]))
+    errs["mamba_scan_bwd_bf16"] = bwd["max_err_of_largest"]
+    del args, uz, z, dout, states, states32
+    torch.cuda.empty_cache()
+    return {"B6": rows, "B6_timing": timing, "B6b": bwd}
+
+
+def bf16_scan_lm(m, f32_losses):
+    """(e) falcon-mamba-7b ``CONFIG`` (64 layers, bf16) with
+    ``ssm_scan_dtype="bfloat16"``, random weights from the seed, every
+    plain version and B6's bare entry refused: a BF16_SCAN_PROMPT-token
+    prefill (B6's gated entry once per layer; the SSM states bf16 values)
+    and BF16_SCAN_DECODE greedy decode steps (the reference's f32 decode
+    step, no kernel), logits finite; then ``launch.train lm`` at
+    TRAIN_SSM_LAYERS layers for BF16_SCAN_TRAIN_STEPS steps (B6 twice and
+    B6b once per layer a step), losses finite and within
+    BF16_SCAN_LOSS_BAR relative of ``f32_losses``, phase 12c's f32 run's
+    first steps. Returns (summary, {path: launches})."""
+    from unittest import mock
+    cfg = dataclasses.replace(m.get_config(TRAIN_SSM_ARCH),
+                              ssm_scan_dtype="bfloat16")
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops) + [
+            _refuse(m.ref, n, "the plain") for n in (
+                "flash_attention_lse_torch", "mamba_scan_gated_bwd_torch")]:
+        guard.enter_context(patch)
+    params = m.lm.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(LM_SEED))
+    rng = np.random.default_rng(LM_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, BF16_SCAN_PROMPT)).astype(np.int32)).cuda()
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "ssm_scan_dtype": cfg.ssm_scan_dtype, "prompt": BF16_SCAN_PROMPT,
+           "decode_steps": BF16_SCAN_DECODE}
+    counts = {}
+    with guard:
+        m.build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = m.lm.prefill(params, {"tokens": tokens}, cfg,
+                                     max_seq=BF16_SCAN_PROMPT
+                                     + BF16_SCAN_DECODE)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        h_bf16 = _bf16_values(cache["layers"]["h"])
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(BF16_SCAN_DECODE):
+            tok = logits.argmax(-1).to(torch.int32)
+            cache, logits = m.lm.decode_step(params, cache, {"token": tok},
+                                             cfg)
+            finite = finite and bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        counts["bf16_scan_lm_serving"] = dict(m.build.LAUNCHES)
+        out["serve_s"] = time.perf_counter() - t0
+    launched = counts["bf16_scan_lm_serving"]
+    check(launched["mamba_scan"] == cfg.num_layers
+          and launched["mamba_scan_bwd"] == 0 and finite and h_bf16,
+          f"bf16-scan falcon-mamba-7b: launches {launched} (want B6 "
+          f"{cfg.num_layers}), logits finite {finite}, states bf16 {h_bf16}")
+    del cache, logits, params, tokens
+    torch.cuda.empty_cache()
+    real = m.launch_train.get_config
+    guard = contextlib.ExitStack()
+    for patch in _plain_guard(m.ref, m.ops) + [
+            _refuse(m.ref, n, "the plain") for n in (
+                "flash_attention_lse_torch", "mamba_scan_gated_bwd_torch")]:
+        guard.enter_context(patch)
+    guard.enter_context(mock.patch.object(
+        m.launch_train, "get_config", lambda a: dataclasses.replace(
+            real(a), num_layers=TRAIN_SSM_LAYERS,
+            ssm_scan_dtype="bfloat16")))
+    with guard:
+        m.build.reset_launch_counts()
+        run = m.launch_train.main(_train_lm_argv(
+            "cuda", BF16_SCAN_TRAIN_STEPS, arch=TRAIN_SSM_ARCH))
+        counts["bf16_scan_lm_training"] = dict(m.build.LAUNCHES)
+    check(run["cfg"].ssm_scan_dtype == "bfloat16", "the training run did "
+          "not take the bf16 scan")
+    losses = run["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)]
+    launched = counts["bf16_scan_lm_training"]
+    steps = BF16_SCAN_TRAIN_STEPS
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and max(rel) <= BF16_SCAN_LOSS_BAR
+          and launched["mamba_scan"] == 2 * TRAIN_SSM_LAYERS * steps
+          and launched["mamba_scan_bwd"] == TRAIN_SSM_LAYERS * steps,
+          f"bf16-scan falcon-mamba-7b training: losses {losses} against the "
+          f"f32 run's {f32_losses} (relative {rel}, bar "
+          f"{BF16_SCAN_LOSS_BAR}), launches {launched}")
+    out["training"] = {"layers": TRAIN_SSM_LAYERS, "losses": losses,
+                       "f32_losses": list(f32_losses), "rel_err": rel,
+                       "bar": BF16_SCAN_LOSS_BAR, "step_ms": run["step_ms"],
+                       "launches": launched}
+    del run
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def drive_refused_configs(m, card, qwen3_cache, f32_losses):
+    """Phase 12i: the reference's configurations the port refused, on the
+    card. (a) ``compare_softcap``; (b) ``serve_softcap``; (c)
+    ``train_softcap``; (d) ``compare_scan_bf16``; (e) ``bf16_scan_lm``.
+    Returns (report, {path: launches of (b) and (e)}, the timing rows)."""
+    t_phase = time.perf_counter()
+    errs = {}
+    out = {"card": card}
+    out["softcap_kernels"] = compare_softcap(m, qwen3_cache, errs)
+    print(f"softcap kernels: {json.dumps(out['softcap_kernels'])}",
+          flush=True)
+    out["softcap_serving"], served = serve_softcap(m)
+    print(f"softcap serving: {json.dumps(out['softcap_serving'])}",
+          flush=True)
+    out["softcap_training"] = train_softcap(m)
+    print(f"softcap training: {json.dumps(out['softcap_training'])}",
+          flush=True)
+    out["bf16_scan_kernels"] = compare_scan_bf16(m, errs)
+    print(f"bf16 scan kernels: {json.dumps(out['bf16_scan_kernels'])}",
+          flush=True)
+    out["bf16_scan_lm"], counts = bf16_scan_lm(m, f32_losses)
+    print(f"bf16 scan lm: {json.dumps(out['bf16_scan_lm'])}", flush=True)
+    counts["softcap_lm_serving"] = served
+    out["errs"] = errs
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"refused configurations phase: {out['phase_s']:.1f} s", flush=True)
     return out, counts
 
 
@@ -6490,13 +7084,13 @@ def scan_timing(ops, ref, args, gated, launches, errs):
                *counts.mamba_scan_gated_counts(b, s, d, n),
                launches, err, f"B={b} S={s} d={d} N={n} f32, z and out bf16",
                source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
-               inner=2)
+               inner=2, plain_once=True)
     bare = _row("mamba_scan", 21, lambda: ops.mamba_scan(*args),
                 lambda: ref.mamba_scan_torch(*args),
                 *counts.mamba_scan_counts(b, s, d, n), {},
                 bare_err, f"B={b} S={s} d={d} N={n} f32",
                 source="mamba_scan.cu", replaces="mamba_scan.py", reps=5,
-                inner=2)
+                inner=2, plain_once=True)
     row["compare_max_abs_err"] = errs["mamba_scan_gated"]
     row["bare"] = {k: bare[k] for k in SHAPE_KEYS}
     row["bare"]["compare_max_abs_err"] = errs["mamba_scan"]
@@ -6560,7 +7154,7 @@ def _scan_bwd_row(ref, gen, d, launches, *, with_states=False,
             {}, states_err,
             f"B={b} S={s} d={d} N={n} f32, z and out bf16, states stored",
             source="mamba_scan.cu", replaces="mamba_scan.py", reps=3,
-            inner=1)
+            inner=1, plain_once=True)
     kern = lambda: LIB.mamba_scan_gated_bwd(*args, z, states, dout, None)
     work = counts.mamba_scan_gated_bwd_counts(b, s, d, n, chunks)
     shape = f"B={b} S={s} d={d} N={n} f32, z and dout bf16"
@@ -6568,7 +7162,8 @@ def _scan_bwd_row(ref, gen, d, launches, *, with_states=False,
         row = _row("mamba_scan_bwd", "59-120", kern,
                    lambda: ref.mamba_scan_gated_bwd_torch(*args, z, dout),
                    *work, launches, err, shape, source="mamba_scan_bwd.cu",
-                   replaces="models/ssm.py", reps=3, inner=1)
+                   replaces="models/ssm.py", reps=3, inner=1,
+                   plain_once=True)
     else:
         runs = [time_ms(kern, 5, 2), time_ms(kern, 5, 2)]
         bound_ms, bound_by = bound(*work)
@@ -6972,6 +7567,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("12h")
 
+    # phase 12i: the reference's configurations the port refused: the soft
+    # cap through B4 and B5 (qwen3-4b served with Gemma 2's cap, olmo-1b's
+    # loss and gradients), the bf16 scan state through B6 and B6b
+    # (falcon-mamba-7b prefilled, decoded and trained)
+    from repro_torch.kernels import mamba_scan as b6
+    refused, counts = drive_refused_configs(types.SimpleNamespace(
+        ops=ops, ref=ref, build=build, lm=lm, b6=b6, batching=batching,
+        get_config=get_config, launch_train=launch_train,
+        SyntheticTokens=SyntheticTokens, named_leaves=named_leaves), card,
+        qwen3_cache, ssm_training["ssm"]["losses"][:BF16_SCAN_TRAIN_STEPS])
+    for path, c in counts.items():
+        record(path, c)
+    torch.cuda.empty_cache()
+    stamp("12i")
+
     # phase 15 (before 13, whose kernels line counts its launches): the
     # elastic restart of olmo-1b's widths across subprocesses on the card,
     # its checkpoint on a (2, 2) world of CPU ranks, the example twins
@@ -7011,14 +7621,27 @@ def main() -> int:
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
         ref, launches["mamba_scan_bwd"], errs)
     kernels.append(b6b)
+    # phase 12i's capped and bf16-state readings beside their kernels' rows
+    rows = {row["name"]: row for row in kernels
+            if row["name"] in ("flash_attention", "decode_attention",
+                               "mamba_scan", "mamba_scan_bwd")}
+    capped = refused["softcap_kernels"]
+    rows["flash_attention"]["softcap"] = dict(
+        capped["B4"], training_shape=capped["B4_training"])
+    rows["decode_attention"]["softcap"] = capped["B5"]
+    scans = refused["bf16_scan_kernels"]
+    rows["mamba_scan"]["bf16_state"] = dict(scans["B6_timing"],
+                                            compare=scans["B6"])
+    rows["mamba_scan_bwd"]["bf16_state"] = scans["B6b"]
     for row in kernels:  # every row names phases 15's and 16's paths
         for path in ("elastic", "examples", "paper"):
             row["launches_by_path"].setdefault(path, 0)
     stamp("13")
 
-    # phase 14: the dry run on fake CUDA tensors, five production cells
-    # and olmo-1b's step on a world of one held against the same step on
-    # the card
+    # phase 14: the dry run on fake CUDA tensors, six production cells
+    # (falcon-mamba-7b's with and without ssm-bf16, mixtral-8x7b's at 16
+    # layers) and olmo-1b's step on a world of one held against the same
+    # step on the card
     dryrun, counts = drive_dryrun(types.SimpleNamespace(
         build=build, lm=lm, steps=launch_steps, launch_mesh=launch_mesh,
         get_config=get_config, SyntheticTokens=SyntheticTokens,
@@ -7043,6 +7666,7 @@ def main() -> int:
         "compare_whisper_attention": whisper_attn, "whisper_lm": whisper_lm,
         "moe_lm_training": moe_training, "sharded_lm": sharded_lm,
         "dryrun": dryrun, "elastic": phase15, "paper": paper,
+        "refused_configs": refused,
         "engine_parity": eng_parity, "rollout": rollout,
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
@@ -7179,6 +7803,18 @@ def main() -> int:
                           "greedy_us": paper["card"]["greedy_us"],
                           "train_s": paper["train_s"],
                           "phase_s": paper["phase_s"]},
+                      "refused_configs": {
+                          "softcap_ms": {k: [r["ms"], r["ms_uncapped"]]
+                                         for k, r in refused[
+                                             "softcap_kernels"].items()},
+                          "bf16_state_ms": {
+                              "B6": [scans["B6_timing"]["ms"],
+                                     scans["B6_timing"]["ms_f32_state"]],
+                              "B6b": [scans["B6b"]["ms"],
+                                      scans["B6b"]["ms_f32_state"]]},
+                          "bf16_scan_losses": refused["bf16_scan_lm"][
+                              "training"]["losses"],
+                          "phase_s": refused["phase_s"]},
                       "dryrun": {
                           "against_card": {k: dryrun["against_card"][k] for k
                                            in ("trace_flops", "card_flops",

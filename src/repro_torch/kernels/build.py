@@ -27,7 +27,8 @@ SOURCES = ("policy_score.cu", "flash_attention.cu", "decode_attention.cu",
            "mamba_scan.cu", "mamba_scan_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")  # a source's kernels optimized in parallel
 
 #: Launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"policy_score": 0, "policy_score_bwd": 0, "policy_score_decode": 0,

@@ -56,6 +56,14 @@
 // that such a block weighs exactly 0 beside a block with a valid slot and
 // the blocks of an all-empty lane weigh alike. A null lse writes nothing;
 // the output is the same either way.
+//
+// Logit soft-capping (the reference's `logit_softcap`,
+// models/attention.py:32-35, :331): with a cap above 0 each valid slot's
+// scaled score s becomes cap * tanh(s / cap) (CUDA's accurate tanhf, 2 ulp;
+// the kernel is bound by its cache reads, not by the scores) before its
+// split's max, so every split's partial softmax, the combine and the lse
+// are those of the capped scores. The cap is a template flag: the uncapped
+// kernel is compiled as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,14 +138,15 @@ size_t smem_bytes(int G, int hd, int tps, int elem) {
          sizeof(int) * (size_t)tps + (size_t)tps * kBW;
 }
 
-template <typename T>
+template <typename T, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 decode_split(const T* __restrict__ q, const T* __restrict__ kc,
              const T* __restrict__ vc, const int* __restrict__ slot_pos,
              const int* __restrict__ pos, T* __restrict__ o,
              float* __restrict__ lse, float* __restrict__ part,
              int* __restrict__ counters, int W,
-             int H, int KV, int hd, int window, float scale, int tps) {
+             int H, int KV, int hd, int window, float scale, float cap,
+             int tps) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
   __shared__ int last;  // this block combines its pair's splits
@@ -253,6 +262,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kc,
           }
         }
         s = ((d[0] + d[1]) + (d[2] + d[3])) * scale;
+        if (kCap) s = cap * tanhf(s / cap);
       }
       ps[g * kBW + r] = s;
     }
@@ -390,23 +400,37 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kc,
   if (tid == 0) counters[pair] = 0;  // ready for the next launch
 }
 
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const int* slot_pos,
-           const int* pos, void* o, float* lse, float* part, int* counters,
-           int B, int W,
-           int H, int KV, int hd, int window, float scale, int splits,
-           int tps, cudaStream_t stream) {
+template <typename T, bool kCap>
+int launch_plan(const void* q, const void* kc, const void* vc,
+                const int* slot_pos, const int* pos, void* o, float* lse,
+                float* part, int* counters, int B, int W, int H, int KV,
+                int hd, int window, float scale, float cap, int splits,
+                int tps, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KV, hd, tps, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_split<T, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(splits, KV, B);
-  decode_split<T><<<grid, kThreads, smem, stream>>>(
+  decode_split<T, kCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), slot_pos, pos, static_cast<T*>(o), lse,
-      part, counters, W, H, KV, hd, window, scale, tps);
+      part, counters, W, H, KV, hd, window, scale, cap, tps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* kc, const void* vc, const int* slot_pos,
+           const int* pos, void* o, float* lse, float* part, int* counters,
+           int B, int W, int H, int KV, int hd, int window, float scale,
+           float cap, int splits, int tps, cudaStream_t stream) {
+  return cap > 0.f
+             ? launch_plan<T, true>(q, kc, vc, slot_pos, pos, o, lse, part,
+                                    counters, B, W, H, KV, hd, window, scale,
+                                    cap, splits, tps, stream)
+             : launch_plan<T, false>(q, kc, vc, slot_pos, pos, o, lse, part,
+                                     counters, B, W, H, KV, hd, window,
+                                     scale, cap, splits, tps, stream);
 }
 
 }  // namespace
@@ -420,18 +444,20 @@ extern "C" {
 // 64-slot tiles (tps <= 64) covering W, none empty. part: f32 scratch of
 // B * KV * splits * (G * hd + 2 * G) elements, 16-byte aligned; counters:
 // B * KV int32, all 0 (each launch leaves them 0). lse: (B, H) f32, each
-// row's log-sum-exp of its masked scores, or null for none. Returns the
-// first CUDA error of the launch (0 when it was accepted).
+// row's log-sum-exp of its masked scores, or null for none. softcap > 0
+// caps the scaled scores at softcap * tanh(s / softcap); 0 means no cap.
+// Returns the first CUDA error of the launch (0 when it was accepted).
 int corais_decode_attention(const void* q, const void* k_cache,
                             const void* v_cache, const void* slot_pos,
                             const void* pos, void* o, void* part,
                             void* counters, void* lse, int B, int W, int H,
                             int KV,
-                            int hd, int window, float scale, int splits,
-                            int tps, int is_bf16, void* stream) {
+                            int hd, int window, float scale, float softcap,
+                            int splits, int tps, int is_bf16, void* stream) {
   const int vec = is_bf16 ? 8 : 4;  // elements per 16-byte load
   if (B < 1 || W < 1 || KV < 1 || H % KV != 0 || hd < 1 || hd > kMaxHd ||
-      hd % vec != 0 || H / KV * hd > kMaxGHd || splits < 1 || tps < 1 ||
+      hd % vec != 0 || H / KV * hd > kMaxGHd || !(softcap >= 0.f) ||
+      splits < 1 || tps < 1 ||
       tps > kMaxTilesPerSplit || (long)(splits - 1) * tps * kBW >= W ||
       (long)splits * tps * kBW < W ||
       reinterpret_cast<size_t>(k_cache) % 16 != 0 ||
@@ -447,9 +473,10 @@ int corais_decode_attention(const void* q, const void* k_cache,
   return is_bf16
              ? launch<__nv_bfloat16>(q, k_cache, v_cache, sp, ps, o, ls, pt,
                                      cn, B, W, H, KV, hd, window, scale,
-                                     splits, tps, st)
+                                     softcap, splits, tps, st)
              : launch<float>(q, k_cache, v_cache, sp, ps, o, ls, pt, cn, B, W,
-                             H, KV, hd, window, scale, splits, tps, st);
+                             H, KV, hd, window, scale, softcap, splits, tps,
+                             st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -23,6 +23,17 @@
 // sum l, (B, H, Sq) f32: the residual the training attention's backward
 // (the reference's pair-scan `_flash_bwd`, models/attention.py:166) takes.
 // A null lse pointer writes nothing; `o` is the same either way.
+// Logit soft-capping (the reference's `logit_softcap`,
+// models/attention.py:32-35, :134): with a cap above 0 every scaled score s
+// becomes cap * tanh(s / cap) before the mask and the running max, so the
+// softmax and the lse are those of the capped scores. Both plans take the
+// cap as a template flag: the uncapped kernels are compiled as before, with
+// no test of the cap in their tile loops. Both use CUDA's accurate tanhf
+// (2 ulp): tanh.approx.f32's relative error of ~2^-11 becomes an absolute
+// error of up to ~cap * 2^-11 on a score (0.025 at Gemma 2's cap of 50),
+// a 2.5 % error in a softmax weight, beyond the bf16 bar (ATTN_TOL, 2e-2),
+// and the bf16 plan is bound by its tensor-core products, not by the
+// score epilogue.
 // Unlike the Pallas kernel, which needs S % 128 == 0 and one S for queries
 // and keys, it takes any Sq and Sk: rows past Sq are not stored and columns
 // past Sk are masked.
@@ -104,12 +115,12 @@ size_t smem_bytes(int hd) {
                                   kBQ * (kBK + 1) + 3 * kBQ);
 }
 
-template <typename T>
+template <typename T, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o,
           float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd,
-          int causal, int window, float scale) {
+          int causal, int window, float scale, float cap) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;  // odd row stride: row-parallel reads hit distinct banks
   float* qs = smem;
@@ -215,8 +226,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         bool ok = col < Sk;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && col > row - window;
-        ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            ok ? sc[i][j] * scale : kNegInf;
+        float s = sc[i][j] * scale;
+        if (kCap) s = cap * tanhf(s / cap);
+        ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = ok ? s : kNegInf;
       }
     }
     __syncthreads();
@@ -290,19 +302,21 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <bool kCap>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-               int causal, int window, float scale, cudaStream_t stream) {
+               int causal, int window, float scale, float cap,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<float, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd<float><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<float, kCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
-      KV, hd, causal, window, scale);
+      KV, hd, causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -399,12 +413,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
              float* __restrict__ lse, int Sq, int Sk, int H, int KV,
-             int causal, int window, float scale) {
+             int causal, int window, float scale, float cap) {
   using L = Tile<HD>;
   constexpr int kKSteps = HD / 16;  // k16 steps of Q K^T
   constexpr int kDTiles = HD / 8;   // n8 tiles of the output
@@ -419,6 +433,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row group, column pair
+  const float inv_cap = kCap ? 1.f / cap : 0.f;
 
   const long q_stride = (long)H * HD;
   const long kv_stride = (long)KV * HD;
@@ -492,7 +507,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // scale; masks only on tiles that cut the diagonal, window or end of Sk
+    // scale and cap every score; masks only on tiles that cut the
+    // diagonal, window or end of Sk
     const int k0 = j * kBK;
     const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kBQ - 1 - window);
@@ -501,6 +517,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float s = sc[nt][e] * scale;
+        if (kCap) s = cap * tanhf(s * inv_cap);
         if (edge) {
           const int col = k0 + nt * 8 + 2 * tq + (e & 1);
           const int row = row0 + (e / 2) * 8;
@@ -604,35 +621,48 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
-              int window, float scale, cudaStream_t stream) {
+template <int HD, bool kCap>
+int launch_tc_plan(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Sq, int Sk, int H, int KV,
+                   int causal, int window, float scale, float cap,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (1 + 2 * kStages) * Tile<HD>::kElems;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc<HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
-  flash_fwd_tc<HD><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_tc<HD, kCap><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
-      KV, causal, window, scale);
+      KV, causal, window, scale, cap);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+              int window, float scale, float cap, cudaStream_t stream) {
+  return cap > 0.f
+             ? launch_tc_plan<HD, true>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                        causal, window, scale, cap, stream)
+             : launch_tc_plan<HD, false>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                         causal, window, scale, cap, stream);
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Sk, int H, int KV, int hd,
-                int causal, int window, float scale, cudaStream_t st) {
+                int causal, int window, float scale, float cap,
+                cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 48: return launch_tc<48>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 80: return launch_tc<80>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 96: return launch_tc<96>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 112: return launch_tc<112>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, st);
+    case 16: return launch_tc<16>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 32: return launch_tc<32>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 48: return launch_tc<48>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 64: return launch_tc<64>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 80: return launch_tc<80>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 96: return launch_tc<96>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 112: return launch_tc<112>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, S, Sk, H, KV, causal, window, scale, cap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -648,14 +678,17 @@ extern "C" {
 // q, o: (B, S, H, hd); k, v: (B, Sk, KV, hd); contiguous, all f32 or all
 // bf16 (is_bf16). f32: hd <= 128 a multiple of 4, k and v 16-byte aligned.
 // bf16: hd <= 128 a multiple of 16, q, k, v and o 16-byte aligned.
-// window <= 0 means no window. lse: (B, H, S) f32, or null for none.
-// Returns the first CUDA error of the launch (0 when it was accepted).
+// window <= 0 means no window. softcap > 0 caps the scaled scores at
+// softcap * tanh(s / softcap); 0 means no cap. lse: (B, H, S) f32, or null
+// for none. Returns the first CUDA error of the launch (0 when it was
+// accepted).
 int corais_flash_attention(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int S, int Sk, int H,
                            int KV, int hd, int causal, int window,
-                           float scale, int is_bf16, void* stream) {
+                           float scale, float softcap, int is_bf16,
+                           void* stream) {
   if (B < 1 || S < 1 || Sk < 1 || KV < 1 || H % KV != 0 || hd < 1 ||
-      hd > kMaxHd ||
+      hd > kMaxHd || !(softcap >= 0.f) ||
       !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -663,11 +696,15 @@ int corais_flash_attention(const void* q, const void* k, const void* v,
     if (hd % 16 != 0 || !aligned16(q) || !aligned16(o))
       return (int)cudaErrorInvalidValue;
     return launch_bf16(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H,
-                       KV, hd, causal, window, scale, st);
+                       KV, hd, causal, window, scale, softcap, st);
   }
   if (hd % 4 != 0) return (int)cudaErrorInvalidValue;
-  return launch_f32(q, k, v, o, static_cast<float*>(lse), B, S, Sk, H, KV,
-                    hd, causal, window, scale, st);
+  float* ls = static_cast<float*>(lse);
+  return softcap > 0.f
+             ? launch_f32<true>(q, k, v, o, ls, B, S, Sk, H, KV, hd, causal,
+                                window, scale, softcap, st)
+             : launch_f32<false>(q, k, v, o, ls, B, S, Sk, H, KV, hd, causal,
+                                 window, scale, softcap, st);
 }
 
 const char* corais_cuda_error_string(int err) {

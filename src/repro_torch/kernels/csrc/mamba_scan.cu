@@ -77,6 +77,25 @@
 // * Plan. (P, SEG, U) = (kSegments, kSegLen, kUnroll) = (8, 16, 4), the
 //   fastest of a sweep on the card (tools/b6_ablation.py compiles copies
 //   of this file at other plans; PERF.md section 6).
+//
+// The bf16 state (the reference's ssm_scan_dtype="bfloat16",
+// src/repro/models/ssm.py:74-87, a flag of every entry): exp(dt * A) and
+// dt * u * B are rounded to bf16 where they are formed (ea, eb), the state
+// entering each segment (the cross-segment composition applied to the
+// carry) and the state after every step of a segment's walk are rounded to
+// bf16 (__float2bfloat16_rn), so the carry between chunks, the chunk
+// states and h_last hold bf16 values in their f32 layout; y is summed in
+// f32 from those states. A segment's decay is the product of its rounded
+// exp(dt * A), as the reference multiplies its bf16 decays (where dt * A
+// is near 0 they round to 1: no decay), not exp(A * sum dt). The
+// segments' (decay, value) pairs and their scan stay f32: the reference's
+// tree-ordered bf16 scan rounds at other points anyway, and no twin
+// matches it bit for bit. A state rounded once per step of a sequential
+// walk would drift by several % from these (bf16 drops the small values
+// added to a large state); the walk restarts from the composition every
+// segment. The plain version (ref.mamba_scan_torch's bf16_state) rounds at
+// these points, at this plan. The flag is a template parameter: the f32
+// kernels are compiled as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -204,6 +223,12 @@ __device__ __forceinline__ float softplus(float x) {
 // silu(z) = z / (1 + exp(-z)), exp and the divide approximate (2 ulp each)
 __device__ __forceinline__ float silu(float z) {
   return __fdividef(z, 1.f + ex2(-z * kLog2e));
+}
+
+// x, or (R) x rounded to the nearest bf16 value: the bf16 state
+template <bool R>
+__device__ __forceinline__ float rnd(float x) {
+  return R ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -367,7 +392,7 @@ __device__ void write_out(const Params& p, const char* st, long row, int rows,
   }
 }
 
-template <int P, int SEG, int U, int NP, int EPI>
+template <int P, int SEG, int U, int NP, int EPI, bool R>
 __global__ void __launch_bounds__(kTC * P,
                                   (Layout<P, SEG, U, NP, EPI>::kMinBlocks))
     scan_chunked(Params p) {
@@ -446,7 +471,9 @@ __global__ void __launch_bounds__(kTC * P,
       const float a2 = a2s[c * NP + n];
       const float hc = hs[c * NP + n];
       float ea[SEG], eb[SEG];
-      float ac = ex2(sdv * a2);  // the segment's decay, one exponential
+      // the segment's decay, one exponential (or, R, the product of its
+      // rounded decays)
+      float ac = R ? 1.f : ex2(sdv * a2);
       float bc = 0.f;
       // this segment's (decay, value) pair
 #pragma unroll
@@ -455,8 +482,9 @@ __global__ void __launch_bounds__(kTC * P,
         const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          ea[i + j] = ex2(dv[i + j] * a2);
-          eb[i + j] = duv[i + j] * bv[j];
+          ea[i + j] = rnd<R>(ex2(dv[i + j] * a2));
+          eb[i + j] = rnd<R>(duv[i + j] * bv[j]);
+          if (R) ac *= ea[i + j];
           bc = fmaf(ea[i + j], bc, eb[i + j]);
         }
       }
@@ -473,14 +501,14 @@ __global__ void __launch_bounds__(kTC * P,
       // the state entering this segment: the exclusive prefix on the carry
       const float ae = __shfl_up_sync(kFull, ac, 1, P);
       const float be = __shfl_up_sync(kFull, bc, 1, P);
-      float h = s == 0 ? hc : fmaf(ae, hc, be);
+      float h = s == 0 ? hc : rnd<R>(fmaf(ae, hc, be));
 #pragma unroll
       for (int i = 0; i < SEG; i += 4) {
         const float4 cq = *reinterpret_cast<const float4*>(cseg + n * SEG + i);
         const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          h = fmaf(ea[i + j], h, eb[i + j]);
+          h = rnd<R>(fmaf(ea[i + j], h, eb[i + j]));
           yv[i + j] = fmaf(h, cv[j], yv[i + j]);
         }
       }
@@ -503,10 +531,10 @@ __global__ void __launch_bounds__(kTC * P,
   }
 }
 
-template <int P, int SEG, int U, int NP, int EPI>
+template <int P, int SEG, int U, int NP, int EPI, bool R>
 int launch(const Params& p, int B, cudaStream_t stream) {
   using L = Layout<P, SEG, U, NP, EPI>;
-  auto kern = scan_chunked<P, SEG, U, NP, EPI>;
+  auto kern = scan_chunked<P, SEG, U, NP, EPI, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -516,18 +544,26 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 // the plan at NP = the power of two >= N
-template <int EPI>
-int launch_plan(const Params& p, int B, int log2_np, cudaStream_t st) {
+template <int EPI, bool R>
+int launch_states(const Params& p, int B, int log2_np, cudaStream_t st) {
   constexpr int P = kSegments, SEG = kSegLen, U = kUnroll;
   switch (log2_np) {
-    case 0: return launch<P, SEG, U, 1, EPI>(p, B, st);
-    case 1: return launch<P, SEG, U, 2, EPI>(p, B, st);
-    case 2: return launch<P, SEG, U, 4, EPI>(p, B, st);
-    case 3: return launch<P, SEG, U, 8, EPI>(p, B, st);
-    case 4: return launch<P, SEG, U, 16, EPI>(p, B, st);
-    case 5: return launch<P, SEG, U, 32, EPI>(p, B, st);
+    case 0: return launch<P, SEG, U, 1, EPI, R>(p, B, st);
+    case 1: return launch<P, SEG, U, 2, EPI, R>(p, B, st);
+    case 2: return launch<P, SEG, U, 4, EPI, R>(p, B, st);
+    case 3: return launch<P, SEG, U, 8, EPI, R>(p, B, st);
+    case 4: return launch<P, SEG, U, 16, EPI, R>(p, B, st);
+    case 5: return launch<P, SEG, U, 32, EPI, R>(p, B, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the f32 state, or (bf16_state) the bf16 one
+template <int EPI>
+int launch_plan(const Params& p, int B, int log2_np, int bf16_state,
+                cudaStream_t st) {
+  return bf16_state ? launch_states<EPI, true>(p, B, log2_np, st)
+                    : launch_states<EPI, false>(p, B, log2_np, st);
 }
 
 bool aligned(const void* ptr, int bytes) {
@@ -568,15 +604,17 @@ bool bad_shape(int B, int S, int d, int N) {
 extern "C" {
 
 // The bare scan. u, dt, y: (B, S, d); Bm, Cm: (B, S, N); A: (d, N);
-// h_last: (B, d, N); all f32, contiguous, on one card. Returns the first
+// h_last: (B, d, N); all f32, contiguous, on one card. bf16_state = 1
+// carries the state in bf16 (the file's header note). Returns the first
 // CUDA error of the launch (0 when accepted).
 int corais_mamba_scan(const void* u, const void* dt, const void* Bm,
                       const void* Cm, const void* A, void* y, void* h_last,
-                      int B, int S, int d, int N, void* stream) {
+                      int B, int S, int d, int N, int bf16_state,
+                      void* stream) {
   if (bad_shape(B, S, d, N)) return (int)cudaErrorInvalidValue;
   Params p = make_params(u, dt, Bm, Cm, A, y, h_last, S, d, N);
   p.vec_y = aligned(y, 16) && d % 4 == 0;
-  return launch_plan<kBare>(p, B, log2_states(N),
+  return launch_plan<kBare>(p, B, log2_states(N), bf16_state,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -588,13 +626,15 @@ int corais_mamba_scan(const void* u, const void* dt, const void* Bm,
 // dtype; h_last: (B, d, N) f32; states: null, or (B, ceil(S / chunk), d,
 // N) f32 (chunk = corais_mamba_scan_chunk()) to receive the state entering
 // each chunk, which the backward (mamba_scan_bwd.cu) starts from. out and
-// h_last are the same bits with states or without.
+// h_last are the same bits with states or without. bf16_state = 1 carries
+// the state in bf16 (the file's header note).
 int corais_mamba_scan_gated(const void* u, const void* dt_raw,
                             const void* dt_bias, const void* Bm,
                             const void* Cm, const void* A, const void* D,
                             const void* z, long long z_row, int z_bf16,
                             void* out, void* h_last, void* states, int B,
-                            int S, int d, int N, void* stream) {
+                            int S, int d, int N, int bf16_state,
+                            void* stream) {
   if (bad_shape(B, S, d, N) || z_row < d) return (int)cudaErrorInvalidValue;
   Params p = make_params(u, dt_raw, Bm, Cm, A, out, h_last, S, d, N);
   p.states = static_cast<float*>(states);
@@ -607,8 +647,8 @@ int corais_mamba_scan_gated(const void* u, const void* dt_raw,
   p.vec_y = aligned(out, 4 * esize) && d % 4 == 0;
   const int lg = log2_states(N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return z_bf16 ? launch_plan<kGatedBF16>(p, B, lg, st)
-                : launch_plan<kGatedF32>(p, B, lg, st);
+  return z_bf16 ? launch_plan<kGatedBF16>(p, B, lg, bf16_state, st)
+                : launch_plan<kGatedF32>(p, B, lg, bf16_state, st);
 }
 
 // Steps between the saved chunk states.

@@ -25,6 +25,17 @@
 //   d dt_bias = sum d dt_raw.
 // Its plain version is ref.mamba_scan_gated_bwd_torch.
 //
+// The bf16 state (the reference's ssm_scan_dtype="bfloat16", a flag of the
+// entry, as of B6's): the states are recomputed with the forward's
+// roundings (mamba_scan.cu's header note): a_t = exp(dt_t * A) and
+// dt_t * u_t * B_t rounded to bf16 where they are formed, a segment's
+// decay the product of its a_t, the state entering each segment and after
+// each step of its walk rounded to bf16; a_t is that bf16 value wherever
+// the formulas above read it. The gradient arithmetic stays f32. Its
+// segments are 8 steps, B6's 16, so its recomputed states round at other
+// points inside a chunk than B6's (each chunk starts from B6's state). The flag is a template parameter: the f32 kernels
+// are compiled as before.
+//
 // What bounds it. At hymba-1.5b's training shape (B=8, S=1024, d=3200,
 // N=16) it reads u, dt_raw (f32), z and dout (bf16) and writes du, d dt_raw
 // (f32) and dz (bf16), 22 bytes per (t, c), beside B, C, the chunk states
@@ -261,6 +272,12 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdividef(1.f, 1.f + ex2(-x * kLog2e));
 }
 
+// x, or (R) x rounded to the nearest bf16 value: the bf16 state
+template <bool R>
+__device__ __forceinline__ float rnd(float x) {
+  return R ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -402,7 +419,7 @@ __device__ void write_chunk(const Params& p, const float* st, int b, int t0,
   }
 }
 
-template <class P, typename Z>
+template <class P, typename Z, bool R>
 __global__ void __cluster_dims__(P::kCluster, 1, 1)
     __launch_bounds__(P::kThreads, P::kMinBlocks) scan_bwd(Params p) {
   constexpr int C = P::kChannels, W = P::kWarps, U = P::kStates;
@@ -538,8 +555,9 @@ __global__ void __cluster_dims__(P::kCluster, 1, 1)
         gin[v] = gc[cn];
         bseg[v] = bt + s * segbc + (n0 + v) * kSegLen;
         cseg[v] = ct + s * segbc + (n0 + v) * kSegLen;
-        // the segment's decay, one exponential
-        ac[v] = ex2(sdv * a2[v]);
+        // the segment's decay, one exponential (or, R, the product of its
+        // rounded decays, formed below)
+        ac[v] = R ? 1.f : ex2(sdv * a2[v]);
       }
       // the segment's (decay, value) pairs: h forward from 0, the adjoint
       // backward from 0; exp(dt * A) once per (t, c, n)
@@ -554,8 +572,10 @@ __global__ void __cluster_dims__(P::kCluster, 1, 1)
           const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            ea[v][i + j] = ex2(dv[i + j] * a2[v]);
-            hb[v] = fmaf(ea[v][i + j], hb[v], duv[i + j] * bv[j]);
+            ea[v][i + j] = rnd<R>(ex2(dv[i + j] * a2[v]));
+            if (R) ac[v] *= ea[v][i + j];
+            hb[v] = fmaf(ea[v][i + j], hb[v],
+                         rnd<R>(duv[i + j] * bv[j]));
           }
         }
       }
@@ -598,7 +618,7 @@ __global__ void __cluster_dims__(P::kCluster, 1, 1)
       float hin[UG], x[UG], gout[UG];
 #pragma unroll
       for (int v = 0; v < UG; ++v) {
-        const float hout = seg_up(fmaf(ah[v], h0[v], hb[v]), 1);
+        const float hout = seg_up(rnd<R>(fmaf(ah[v], h0[v], hb[v])), 1);
         gout[v] = fmaf(ag[v], gin[v], gb[v]);
         const float gnext = seg_down(gout[v], 1);
         hin[v] = s == 0 ? h0[v] : hout;
@@ -622,7 +642,8 @@ __global__ void __cluster_dims__(P::kCluster, 1, 1)
           const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            h = fmaf(ea[v][i + j], h, duv[i + j] * bv[j]);
+            h = rnd<R>(
+                fmaf(ea[v][i + j], h, rnd<R>(duv[i + j] * bv[j])));
             hv[v][i + j] = h;
             s3[i + j] = fmaf(h, cv[j], s3[i + j]);
           }
@@ -741,10 +762,10 @@ __global__ void __cluster_dims__(P::kCluster, 1, 1)
   }
 }
 
-template <class P, typename Z>
+template <class P, typename Z, bool R>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const size_t bytes = Layout<P, Z>(p.N).bytes();
-  auto kern = scan_bwd<P, Z>;
+  auto kern = scan_bwd<P, Z, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -754,13 +775,20 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 // Wide where its shared memory fits, else Narrow
-template <typename Z>
-int launch_plan(const Params& p, int B, cudaStream_t stream) {
+template <typename Z, bool R>
+int launch_states(const Params& p, int B, cudaStream_t stream) {
   if (Layout<Wide, Z>(p.N).bytes() <= kMaxSmem)
-    return launch<Wide, Z>(p, B, stream);
+    return launch<Wide, Z, R>(p, B, stream);
   if (Layout<Narrow, Z>(p.N).bytes() <= kMaxSmem)
-    return launch<Narrow, Z>(p, B, stream);
+    return launch<Narrow, Z, R>(p, B, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// the f32 state, or (bf16_state) the bf16 one
+template <typename Z>
+int launch_plan(const Params& p, int B, int bf16_state, cudaStream_t stream) {
+  return bf16_state ? launch_states<Z, true>(p, B, stream)
+                    : launch_states<Z, false>(p, B, stream);
 }
 
 bool aligned(const void* ptr, int bytes) {
@@ -787,14 +815,16 @@ int corais_mamba_scan_bwd_block_channels() {
 // saved chunk states; dh_last: (B, d, N) f32 or null. Writes du, ddt: (B,
 // S, d) f32; dz: (B, S, d) in z's dtype; the partials dBp, dCp: (B, nblk,
 // S, N), dAp: (B, d, N), dDp, dbp: (B, d), all f32. All contiguous, on one
-// card. Returns the first CUDA error of the launch (0 when accepted).
+// card. bf16_state = 1 recomputes the forward's bf16 states (the file's
+// header note). Returns the first CUDA error of the launch (0 when
+// accepted).
 int corais_mamba_scan_gated_bwd(
     const void* u, const void* dt_raw, const void* dt_bias, const void* Bm,
     const void* Cm, const void* A, const void* D, const void* z,
     long long z_row, int z_bf16, const void* dout, const void* states,
     const void* dh_last, void* du, void* ddt, void* dz, void* dBp, void* dCp,
     void* dAp, void* dDp, void* dbp, int B, int S, int d, int N, int nblk,
-    void* stream) {
+    int bf16_state, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || d < 1 || N < 1 || N > kMaxState ||
       z_row < d || nblk != (d + kPartial - 1) / kPartial)
     return (int)cudaErrorInvalidValue;
@@ -831,8 +861,8 @@ int corais_mamba_scan_gated_bwd(
   p.vec_out = aligned(du, 16) && aligned(ddt, 16) && aligned(dz, 4 * esize) &&
               d % 4 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return z_bf16 ? launch_plan<__nv_bfloat16>(p, B, st)
-                : launch_plan<float>(p, B, st);
+  return z_bf16 ? launch_plan<__nv_bfloat16>(p, B, bf16_state, st)
+                : launch_plan<float>(p, B, bf16_state, st);
 }
 
 const char* corais_cuda_error_string(int err) {

@@ -7,7 +7,9 @@ query heads of a KV head sharing each cache read, slot validity from
 blocks (split-W flash-decode) and combines their partial softmaxes in the
 same launch; :func:`split_plan` chooses the splits. With ``with_lse`` it
 also writes each row's log-sum-exp (the flash-decode over a
-sequence-sharded cache combines ranks with it). The source's header note
+sequence-sharded cache combines ranks with it). A ``softcap`` above 0 caps
+the scaled scores as B4 does (the reference's ``logit_softcap``). The
+source's header note
 says what bounds it on the H100 and what its design does about that.
 
 :func:`decode_attention_cuda` takes CUDA tensors only; its plain version is
@@ -35,7 +37,7 @@ from repro_torch.kernels.build import (LAUNCHES, check_tensor, load,
 from repro_torch.kernels.counts import decode_attention_counts
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
                                                  check_vector_loads,
-                                                 window_arg)
+                                                 softcap_arg, window_arg)
 
 #: G * hd: the query heads of one KV head times the head width.
 MAX_GROUP_WIDTH = 2048
@@ -53,7 +55,7 @@ MIN_BLOCKS_PER_SM = 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"corais_decode_attention":
-               [_P] * 9 + [_I] * 6 + [_F] + [_I] * 3 + [_P]}
+               [_P] * 9 + [_I] * 6 + [_F, _F] + [_I] * 3 + [_P]}
 _COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -104,16 +106,19 @@ def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
-                          plan=None, with_lse=False):
+                          plan=None, with_lse=False, softcap: float = 0.0):
     """B5: q (B, H, hd); k_cache, v_cache (B, W, KV, hd), all f32 or all
     bf16, 16-byte aligned; slot_pos (B, W) int32 (-1 = empty); pos (B,)
     int32; contiguous, on one card; H a multiple of KV, hd <= 128 and a
     multiple of 8 (bf16) or 4 (f32), (H / KV) * hd <= 2048. ``plan``,
     (splits, tiles per split), replaces :func:`split_plan`'s choice (see
-    :func:`check_plan`). Returns (B, H, hd) in q's dtype, and with
-    ``with_lse`` also each (lane, head)'s log-sum-exp of its masked scores,
-    (B, H) f32 (-1e30 for a lane with no valid slot)."""
+    :func:`check_plan`). ``softcap`` above 0 caps the scaled scores at
+    ``softcap * tanh(s / softcap)`` before the mask (0: none). Returns (B,
+    H, hd) in q's dtype, and with ``with_lse`` also each (lane, head)'s
+    log-sum-exp of its capped, masked scores, (B, H) f32 (-1e30 for a lane
+    with no valid slot)."""
     win = window_arg(window)
+    cap = softcap_arg(softcap)
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError("q must be (B, H, hd) and the caches (B, W, KV, hd)")
     b, h, hd = q.shape
@@ -153,8 +158,8 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
             slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), counters.data_ptr(),
             None if lse is None else lse.data_ptr(), b, w, h, kv, hd, win,
-            1.0 / math.sqrt(hd), splits, per, int(q.dtype == torch.bfloat16),
-            stream)
+            1.0 / math.sqrt(hd), cap, splits, per,
+            int(q.dtype == torch.bfloat16), stream)
     raise_on(err, lib, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return (out, lse) if with_lse else out
@@ -168,17 +173,20 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos, *, window=None,
 
 def _plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            slot_pos: torch.Tensor, pos: torch.Tensor,
-           window: Optional[int]) -> torch.Tensor:
+           window: Optional[int], softcap: float = 0.0) -> torch.Tensor:
     return ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
-                                      window=window).contiguous()
+                                      window=window,
+                                      softcap=softcap).contiguous()
 
 
 def _plain_lse(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                slot_pos: torch.Tensor, pos: torch.Tensor,
-               window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
-    return (_plain(q, k_cache, v_cache, slot_pos, pos, window),
+               window: Optional[int], softcap: float = 0.0
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (_plain(q, k_cache, v_cache, slot_pos, pos, window, softcap),
             ref.decode_attention_lse_torch(q, k_cache, slot_pos, pos,
-                                           window=window).contiguous())
+                                           window=window,
+                                           softcap=softcap).contiguous())
 
 
 decode_attention_op = torch.library.custom_op(
@@ -190,30 +198,33 @@ decode_attention_lse_op = torch.library.custom_op(
 
 
 @decode_attention_op.register_kernel("cuda")
-def _cuda(q, k_cache, v_cache, slot_pos, pos, window):
+def _cuda(q, k_cache, v_cache, slot_pos, pos, window, softcap=0.0):
     return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
-                                 window=window)
+                                 window=window, softcap=softcap)
 
 
 @decode_attention_lse_op.register_kernel("cuda")
-def _cuda_lse(q, k_cache, v_cache, slot_pos, pos, window):
+def _cuda_lse(q, k_cache, v_cache, slot_pos, pos, window, softcap=0.0):
     return decode_attention_cuda(q, k_cache, v_cache, slot_pos, pos,
-                                 window=window, with_lse=True)
+                                 window=window, with_lse=True,
+                                 softcap=softcap)
 
 
 @decode_attention_op.register_fake
-def _fake(q, k_cache, v_cache, slot_pos, pos, window):
+def _fake(q, k_cache, v_cache, slot_pos, pos, window, softcap=0.0):
     return q.new_empty(q.shape)
 
 
 @decode_attention_lse_op.register_fake
-def _fake_lse(q, k_cache, v_cache, slot_pos, pos, window):
+def _fake_lse(q, k_cache, v_cache, slot_pos, pos, window, softcap=0.0):
     return (q.new_empty(q.shape),
             q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 def _flops(q_shape, k_shape, v_shape, slot_shape, pos_shape, window=None,
            *_, **__) -> int:
+    """The two products of every slot of a filled cache; a cap's tanh per
+    score is not counted (one per 4 * hd product operations)."""
     b, h, hd = q_shape
     return decode_attention_counts(b, k_shape[1], h, k_shape[2], hd,
                                    window=window)[0]

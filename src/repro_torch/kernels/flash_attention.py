@@ -11,6 +11,9 @@ bounds it on the H100 and what its design does about that. With
 ``with_lse`` it also writes each row's log-sum-exp (B, H, Sq) f32, the
 residual of the training attention's backward; without it (serving) the
 kernel stores nothing more, and the output is the same bits either way.
+A ``softcap`` above 0 caps every scaled score at ``softcap * tanh(s /
+softcap)`` before the mask (the reference's ``logit_softcap``); 0 is no
+cap, and the kernel is then the uncapped one.
 
 :func:`flash_attention_cuda` takes CUDA tensors only; its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_torch`. Both are the kernels
@@ -42,7 +45,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 BF16_HEAD_DIM_MULTIPLE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"corais_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _P]}
+_SIGNATURES = {"corais_flash_attention":
+               [_P] * 5 + [_I] * 8 + [_F, _F, _I, _P]}
 
 
 def check_vector_loads(hd: int, dtype, **tensors) -> None:
@@ -56,6 +60,14 @@ def check_vector_loads(hd: int, dtype, **tensors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def softcap_arg(softcap) -> float:
+    """The C interface's cap: a finite value of at least 0 (0 = none)."""
+    cap = float(softcap)
+    if not (math.isfinite(cap) and cap >= 0.0):
+        raise ValueError(f"softcap must be finite and >= 0, got {softcap}")
+    return cap
+
+
 def window_arg(window) -> int:
     """The C interface's window: a positive width, or -1 for none."""
     if window is None:
@@ -66,15 +78,17 @@ def window_arg(window) -> int:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
-                         with_lse: bool = False):
+                         with_lse: bool = False, softcap: float = 0.0):
     """B4: q (B, Sq, H, hd); k, v (B, Sk, KV, hd), H a multiple of KV,
     hd <= 128 and a multiple of 16 (bf16) or 4 (f32), all f32 or all bf16,
     contiguous, k and v (and q in bf16) 16-byte aligned, on one card. The
     causal and window masks compare the query row with the key column from
     the top left (``col <= row``), as the reference's model attention
-    does. Returns (B, Sq, H, hd) in q's dtype, and with ``with_lse`` also
-    the rows' log-sum-exp (B, H, Sq) f32."""
+    does. ``softcap`` above 0 caps the scaled scores (0: none). Returns (B,
+    Sq, H, hd) in q's dtype, and with ``with_lse`` also the rows'
+    log-sum-exp (B, H, Sq) f32, of the capped, masked scores."""
     win = window_arg(window)
+    cap = softcap_arg(softcap)
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError("q must be (B, Sq, H, hd) and k, v (B, Sk, KV, hd)")
     b, s, h, hd = q.shape
@@ -106,7 +120,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
         err = lib.corais_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, s, sk, h, kv, hd,
-            int(bool(causal)), win, 1.0 / math.sqrt(hd),
+            int(bool(causal)), win, 1.0 / math.sqrt(hd), cap,
             int(q.dtype == torch.bfloat16), stream)
     raise_on(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -120,17 +134,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
 # kernel lays its own (contiguous).
 
 def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           window: Optional[int]) -> torch.Tensor:
-    return ref.flash_attention_torch(q, k, v, causal=causal,
-                                     window=window).contiguous()
+           window: Optional[int], softcap: float = 0.0) -> torch.Tensor:
+    return ref.flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     softcap=softcap).contiguous()
 
 
 def _plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool, window: Optional[int]
+               causal: bool, window: Optional[int], softcap: float = 0.0
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    return (_plain(q, k, v, causal, window),
-            ref.flash_attention_lse_torch(q, k, causal=causal,
-                                          window=window).contiguous())
+    return (_plain(q, k, v, causal, window, softcap),
+            ref.flash_attention_lse_torch(q, k, causal=causal, window=window,
+                                          softcap=softcap).contiguous())
 
 
 flash_attention_op = torch.library.custom_op(
@@ -142,29 +156,32 @@ flash_attention_lse_op = torch.library.custom_op(
 
 
 @flash_attention_op.register_kernel("cuda")
-def _cuda(q, k, v, causal, window):
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+def _cuda(q, k, v, causal, window, softcap=0.0):
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
 
 
 @flash_attention_lse_op.register_kernel("cuda")
-def _cuda_lse(q, k, v, causal, window):
+def _cuda_lse(q, k, v, causal, window, softcap=0.0):
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                with_lse=True)
+                                with_lse=True, softcap=softcap)
 
 
 @flash_attention_op.register_fake
-def _fake(q, k, v, causal, window):
+def _fake(q, k, v, causal, window, softcap=0.0):
     return q.new_empty(q.shape)
 
 
 @flash_attention_lse_op.register_fake
-def _fake_lse(q, k, v, causal, window):
+def _fake_lse(q, k, v, causal, window, softcap=0.0):
     b, s, h, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
 
 
 def _flops(q_shape, k_shape, v_shape, causal=True, window=None, *_,
            **__) -> int:
+    """The two products of the kept pairs; a cap's tanh per score is not
+    counted (one per 4 * hd product operations)."""
     b, s, h, hd = q_shape
     return flash_attention_counts(b, s, k_shape[1], h, k_shape[2], hd,
                                   causal=causal, window=window)[0]

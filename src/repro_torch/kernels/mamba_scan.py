@@ -16,7 +16,10 @@ before the scan and the D skip and SiLU gate after it (plain version
 state entering each of its chunks, from which :func:`mamba_scan_gated_bwd_cuda`
 (B6b, ``csrc/mamba_scan_bwd.cu``; plain version
 :func:`repro_torch.kernels.ref.mamba_scan_gated_bwd_torch`; counted into
-``LAUNCHES["mamba_scan_bwd"]``) forms the gradients.
+``LAUNCHES["mamba_scan_bwd"]``) forms the gradients. Every entry takes
+``bf16_state`` (the reference's ``ssm_scan_dtype="bfloat16"``): the state
+is carried in bf16 (the source's header note; the plain versions take the
+same flag), and B6b recomputes it so.
 
 Each entry and its plain version are the kernels of a ``torch.library`` op
 (``repro_torch::mamba_scan``, ``mamba_scan_gated``,
@@ -51,14 +54,14 @@ STATE_CHUNK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "corais_mamba_scan": [_P] * 7 + [_I] * 4 + [_P],
+    "corais_mamba_scan": [_P] * 7 + [_I] * 5 + [_P],
     "corais_mamba_scan_gated": ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 3
-                                + [_I] * 4 + [_P]),
+                                + [_I] * 5 + [_P]),
     "corais_mamba_scan_chunk": [],
 }
 _BWD_SIGNATURES = {
     "corais_mamba_scan_gated_bwd": ([_P] * 8 + [ctypes.c_longlong, _I]
-                                    + [_P] * 11 + [_I] * 5 + [_P]),
+                                    + [_P] * 11 + [_I] * 6 + [_P]),
     "corais_mamba_scan_bwd_chunk": [],
     "corais_mamba_scan_bwd_block_channels": [],
 }
@@ -81,10 +84,11 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
+def mamba_scan_cuda(u, dt, B_mat, C_mat, A, bf16_state=False):
     """B6: u, dt (B, S, d); B_mat, C_mat (B, S, N); A (d, N); all f32,
     contiguous, on one card; B <= 65535, 1 <= N <= 32. Returns
-    (y (B, S, d), h_last (B, d, N)), f32, from a zero state."""
+    (y (B, S, d), h_last (B, d, N)), f32, from a zero state; with
+    ``bf16_state`` the state carried in bf16."""
     b, s, d, n = _shape(u, B_mat, A)
     dev = u.device
     check_tensor("u", u, (b, s, d), torch.float32, dev)
@@ -99,7 +103,7 @@ def mamba_scan_cuda(u, dt, B_mat, C_mat, A):
         err = lib.corais_mamba_scan(
             u.data_ptr(), dt.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
             A.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, d, n,
-            _stream(dev))
+            int(bool(bf16_state)), _stream(dev))
     raise_on(err, lib, "mamba_scan")
     LAUNCHES["mamba_scan"] += 1
     return y, h_last
@@ -144,8 +148,8 @@ def _check_chunk(chunk: int, source: str) -> None:
                            f"chunk states are laid out for {STATE_CHUNK}")
 
 
-def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
-                          with_states=False):
+def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                          bf16_state=False, *, with_states=False):
     """B6 with the SSM block's prologue and epilogue: dt = softplus(dt_raw +
     dt_bias) (F.softplus: x above 20 stays x), the scan from a zero state,
     then (y + D*u) * silu(z), stored once in z's dtype.
@@ -157,7 +161,9 @@ def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
     (out (B, S, d) in z's dtype, h_last (B, d, N) f32), and with
     ``with_states`` also the state entering each chunk of the kernel's walk,
     (B, ceil(S / chunk), d, N) f32, what :func:`mamba_scan_gated_bwd_cuda`
-    starts from; out and h_last are the same bits either way."""
+    starts from; out and h_last are the same bits either way. With
+    ``bf16_state`` the state is carried in bf16, and h_last and the chunk
+    states hold bf16 values."""
     b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     lib = load("mamba_scan.cu", _SIGNATURES)
@@ -175,22 +181,24 @@ def mamba_scan_gated_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, *,
             z.data_ptr(), z.stride(1), int(z.dtype == torch.bfloat16),
             out.data_ptr(), h_last.data_ptr(),
             None if states is None else states.data_ptr(), b, s, d, n,
-            _stream(dev))
+            int(bool(bf16_state)), _stream(dev))
     raise_on(err, lib, "mamba_scan_gated")
     LAUNCHES["mamba_scan"] += 1
     return (out, h_last) if states is None else (out, h_last, states)
 
 
 def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
-                              states, dout, dh_last=None):
+                              states, dout, dh_last=None, bf16_state=False):
     """B6b: the gradients of :func:`mamba_scan_gated_cuda`'s (out, h_last)
     with respect to all eight inputs, from its inputs, the chunk states it
     saved (``with_states``), dout (B, S, d) in z's dtype and dh_last (B, d,
     N) f32 or None (zero). One launch; its partials (dB and dC one per
     cluster of blocks, ``corais_mamba_scan_bwd_block_channels`` channels
     each; dA, dD and d dt_bias one per batch row) are added here with
-    ``torch.sum``, in a fixed order. Returns (du, d dt_raw, d dt_bias, dB,
-    dC, dA, dD, dz), f32 but dz in z's dtype."""
+    ``torch.sum``, in a fixed order. ``bf16_state`` recomputes the states
+    as the bf16 forward forms them (the gradients stay f32 arithmetic).
+    Returns (du, d dt_raw, d dt_bias, dB, dC, dA, dD, dz), f32 but dz in
+    z's dtype."""
     b, s, d, n = _check_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     dev = _gated_device(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     lib = load("mamba_scan_bwd.cu", _BWD_SIGNATURES)
@@ -219,7 +227,7 @@ def mamba_scan_gated_bwd_cuda(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
             None if dh_last is None else dh_last.data_ptr(), du.data_ptr(),
             ddt.data_ptr(), dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
             dAp.data_ptr(), dDp.data_ptr(), dbp.data_ptr(), b, s, d, n, nblk,
-            _stream(dev))
+            int(bool(bf16_state)), _stream(dev))
     raise_on(err, lib, "mamba_scan_gated_bwd")
     LAUNCHES["mamba_scan_bwd"] += 1
     return (du, ddt, dbp.sum(0), dBp.sum(1), dCp.sum(1), dAp.sum(0),
@@ -238,30 +246,35 @@ def _contiguous(outs):
     return tuple(t.contiguous() for t in outs)
 
 
-def _plain(u: _T, dt: _T, B_mat: _T, C_mat: _T, A: _T) -> tuple[_T, _T]:
-    return _contiguous(ref.mamba_scan_torch(u, dt, B_mat, C_mat, A))
+def _plain(u: _T, dt: _T, B_mat: _T, C_mat: _T, A: _T,
+           bf16_state: bool = False) -> tuple[_T, _T]:
+    return _contiguous(ref.mamba_scan_torch(u, dt, B_mat, C_mat, A,
+                                            bf16_state=bf16_state))
 
 
 def _plain_gated(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T, C_mat: _T,
-                 A: _T, D: _T, z: _T) -> tuple[_T, _T]:
-    return _contiguous(ref.mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat,
-                                                  C_mat, A, D, z))
+                 A: _T, D: _T, z: _T, bf16_state: bool = False
+                 ) -> tuple[_T, _T]:
+    return _contiguous(ref.mamba_scan_gated_torch(
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, bf16_state=bf16_state))
 
 
 def _plain_gated_states(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T,
-                        C_mat: _T, A: _T, D: _T, z: _T
-                        ) -> tuple[_T, _T, _T]:
+                        C_mat: _T, A: _T, D: _T, z: _T,
+                        bf16_state: bool = False) -> tuple[_T, _T, _T]:
     return _contiguous(ref.mamba_scan_gated_torch(
-        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, chunk=STATE_CHUNK))
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, chunk=STATE_CHUNK,
+        bf16_state=bf16_state))
 
 
 def _plain_gated_bwd(u: _T, dt_raw: _T, dt_bias: _T, B_mat: _T, C_mat: _T,
                      A: _T, D: _T, z: _T, states: _T, dout: _T,
-                     dh_last: Optional[_T]
+                     dh_last: Optional[_T], bf16_state: bool = False
                      ) -> tuple[_T, _T, _T, _T, _T, _T, _T, _T]:
     """The plain backward recomputes the states; ``states`` is unused."""
     return _contiguous(ref.mamba_scan_gated_bwd_torch(
-        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, dout, dh_last))
+        u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, dout, dh_last,
+        bf16_state=bf16_state))
 
 
 def _op(name, fn):
@@ -280,8 +293,8 @@ mamba_scan_gated_bwd_op.register_kernel("cuda")(mamba_scan_gated_bwd_cuda)
 
 
 @mamba_scan_gated_states_op.register_kernel("cuda")
-def _cuda_gated_states(*args):
-    return mamba_scan_gated_cuda(*args, with_states=True)
+def _cuda_gated_states(*args, **kwargs):
+    return mamba_scan_gated_cuda(*args, **kwargs, with_states=True)
 
 
 def _f32(x, shape):
@@ -289,19 +302,20 @@ def _f32(x, shape):
 
 
 @mamba_scan_op.register_fake
-def _fake(u, dt, B_mat, C_mat, A):
+def _fake(u, dt, B_mat, C_mat, A, bf16_state=False):
     b, _, d = u.shape
     return _f32(u, u.shape), _f32(u, (b, d, A.shape[-1]))
 
 
 @mamba_scan_gated_op.register_fake
-def _fake_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+def _fake_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, bf16_state=False):
     b, _, d = u.shape
     return z.new_empty(u.shape), _f32(u, (b, d, A.shape[-1]))
 
 
 @mamba_scan_gated_states_op.register_fake
-def _fake_gated_states(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+def _fake_gated_states(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                       bf16_state=False):
     b, s, d = u.shape
     n = A.shape[-1]
     return (z.new_empty(u.shape), _f32(u, (b, d, n)),
@@ -310,7 +324,7 @@ def _fake_gated_states(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
 
 @mamba_scan_gated_bwd_op.register_fake
 def _fake_gated_bwd(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, states, dout,
-                    dh_last):
+                    dh_last, bf16_state=False):
     return (_f32(u, u.shape), _f32(u, u.shape), _f32(u, dt_bias.shape),
             _f32(u, B_mat.shape), _f32(u, C_mat.shape), _f32(u, A.shape),
             _f32(u, D.shape), z.new_empty(u.shape))

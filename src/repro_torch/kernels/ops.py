@@ -138,15 +138,18 @@ class FlashAttention(torch.autograd.Function):
     no lse, as serving needs. The backward is the pair-scan over
     ``chunk``-sized blocks in plain PyTorch on either device
     (:func:`repro_torch.models.attention.flash_bwd`): the reference's is
-    pure jnp, with no Pallas kernel behind it."""
+    pure jnp, with no Pallas kernel behind it. A ``softcap`` above 0 caps
+    the scores in both (saved for the backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, chunk, train):
+    def forward(ctx, q, k, v, causal, window, chunk, train, softcap):
         if not train:
-            return _b4.flash_attention_op(q, k, v, causal, window)
-        out, lse = _b4.flash_attention_lse_op(q, k, v, causal, window)
+            return _b4.flash_attention_op(q, k, v, causal, window, softcap)
+        out, lse = _b4.flash_attention_lse_op(q, k, v, causal, window,
+                                              softcap)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
+        ctx.softcap = softcap
         return out
 
     @staticmethod
@@ -158,8 +161,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention.flash_bwd(q, k, v, out, lse, dout,
                                          chunk=ctx.chunk, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None, None, None
 
 
 class MambaScanGated(torch.autograd.Function):
@@ -174,16 +178,20 @@ class MambaScanGated(torch.autograd.Function):
     :func:`ref.mamba_scan_gated_bwd_torch` (which recomputes the states)
     on the CPU. The reference's gradient is ``jax.grad`` of its jnp
     chunked scan and tail (``repro/models/ssm.py:59-120``): it has no
-    Pallas kernel behind it."""
+    Pallas kernel behind it. ``bf16_state`` carries the state in bf16 in
+    both (saved for the backward)."""
 
     @staticmethod
-    def forward(ctx, u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, train):
+    def forward(ctx, u, dt_raw, dt_bias, B_mat, C_mat, A, D, z, train,
+                bf16_state):
         args = (u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
         if train:
-            out, h_last, states = _b6.mamba_scan_gated_states_op(*args)
+            out, h_last, states = _b6.mamba_scan_gated_states_op(*args,
+                                                                 bf16_state)
             ctx.save_for_backward(*args, states)
         else:
-            out, h_last = _b6.mamba_scan_gated_op(*args)
+            out, h_last = _b6.mamba_scan_gated_op(*args, bf16_state)
+        ctx.bf16_state = bf16_state
         ctx.set_materialize_grads(False)
         return out, h_last
 
@@ -195,8 +203,8 @@ class MambaScanGated(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros(z.shape, dtype=z.dtype, device=z.device)
         grads = _b6.mamba_scan_gated_bwd_op(*args, states, dout.contiguous(),
-                                            dh_last)
-        return (*grads, None)
+                                            dh_last, ctx.bf16_state)
+        return (*grads, None, None)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -301,17 +309,19 @@ def _heads_ok(h: int, kv: int):
     return lambda role, n: role != "heads" or (h % n == 0 and kv % n == 0)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
+def flash_attention(q, k, v, *, causal=True, window=None, chunk=512,
+                    softcap=0.0):
     """B4: GQA flash attention, q (B, Sq, H, hd), k, v (B, Sk, KV, hd) ->
-    (B, Sq, H, hd) in q's dtype, any Sq and Sk; differentiable through
-    :class:`FlashAttention`, whose backward runs the pair-scan over
-    ``chunk``-sized blocks. DTensors: the batch and the heads may be split
-    (the module's docstring)."""
+    (B, Sq, H, hd) in q's dtype, any Sq and Sk, the scaled scores capped
+    at ``softcap * tanh(s / softcap)`` where ``softcap`` is above 0;
+    differentiable through :class:`FlashAttention`, whose backward runs the
+    pair-scan over ``chunk``-sized blocks. DTensors: the batch and the
+    heads may be split (the module's docstring)."""
     train = _wants_grad(q, k, v)
 
     def run(q, k, v):
         return FlashAttention.apply(q, k, v, bool(causal), window, int(chunk),
-                                    train)
+                                    train, float(softcap))
 
     if not isinstance(q, DTensor):
         return run(q, k, v)
@@ -321,17 +331,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512):
                          [(q, dims), (k, dims), (v, dims)], dims)
 
 
-def _decode_local(q, k_cache, v_cache, slot_pos, pos, window, with_lse):
-    args = (q, k_cache, v_cache, slot_pos, pos, window)
+def _decode_local(q, k_cache, v_cache, slot_pos, pos, window, with_lse,
+                  softcap=0.0):
+    args = (q, k_cache, v_cache, slot_pos, pos, window, float(softcap))
     if _wants_grad(q, k_cache, v_cache):
         _no_card_backward("B5", q)
         # on the CPU, the plain version: differentiable by autograd
         o = ref.decode_attention_torch(q, k_cache, v_cache, slot_pos, pos,
-                                       window=window)
+                                       window=window, softcap=softcap)
         if not with_lse:
             return o
         return o, ref.decode_attention_lse_torch(q, k_cache, slot_pos, pos,
-                                                 window=window)
+                                                 window=window,
+                                                 softcap=softcap)
     if with_lse:
         return _b5.decode_attention_lse_op(*args)
     return _b5.decode_attention_op(*args)
@@ -346,48 +358,54 @@ _B5_POS = {"batch": 0}
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window=None,
-                     with_lse=False):
+                     with_lse=False, softcap=0.0):
     """B5: one query token per sequence, q (B, H, hd), over a rolling cache
-    (B, W, KV, hd) with slot positions (B, W) and query positions (B,);
-    with ``with_lse`` also each (lane, head)'s log-sum-exp of its masked
-    scores (B, H) f32. DTensors: the batch and the heads may be split; a
-    cache split on its slot axis is brought whole to each rank first
-    (counted), as B5 reads all of a lane's slots."""
+    (B, W, KV, hd) with slot positions (B, W) and query positions (B,),
+    the scaled scores capped where ``softcap`` is above 0; with
+    ``with_lse`` also each (lane, head)'s log-sum-exp of its masked scores
+    (B, H) f32. DTensors: the batch and the heads may be split; a cache
+    split on its slot axis is brought whole to each rank first (counted),
+    as B5 reads all of a lane's slots."""
     if not isinstance(q, DTensor):
         return _decode_local(q, k_cache, v_cache, slot_pos, pos, window,
-                             with_lse)
+                             with_lse, softcap)
     roles = mesh_roles(q, _B5_Q, _heads_ok(q.shape[1], k_cache.shape[2]))
     outs = (_B5_Q, {"batch": 0, "heads": 1}) if with_lse else _B5_Q
     return run_on_blocks(
-        "B5", lambda *a: _decode_local(*a, window, with_lse), q.device_mesh,
+        "B5", lambda *a: _decode_local(*a, window, with_lse, softcap),
+        q.device_mesh,
         roles, [(q, _B5_Q), (k_cache, _B5_CACHE), (v_cache, _B5_CACHE),
                 (slot_pos, _B5_SLOTS), (pos, _B5_POS)], outs)
 
 
-def mamba_scan(u, dt, B_mat, C_mat, A):
+def mamba_scan(u, dt, B_mat, C_mat, A, bf16_state=False):
     """B6: the mamba-1 selective scan from a zero state, u, dt (B, S, d),
     B_mat, C_mat (B, S, N), A (d, N), f32 -> (y (B, S, d), h_last
-    (B, d, N)), any S. Off the training path: on the card it has no
-    backward (the SSM block trains through :func:`mamba_scan_gated`); on
-    the CPU a gradient goes through the plain version."""
+    (B, d, N)), any S; ``bf16_state`` carries the state in bf16. Off the
+    training path: on the card it has no backward (the SSM block trains
+    through :func:`mamba_scan_gated`); on the CPU a gradient goes through
+    the plain version."""
     if _wants_grad(u, dt, B_mat, C_mat, A):
         _no_card_backward("B6", u)
-        return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A)
-    return _b6.mamba_scan_op(u, dt, B_mat, C_mat, A)
+        return ref.mamba_scan_torch(u, dt, B_mat, C_mat, A,
+                                    bf16_state=bf16_state)
+    return _b6.mamba_scan_op(u, dt, B_mat, C_mat, A, bool(bf16_state))
 
 
-def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z):
+def mamba_scan_gated(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
+                     bf16_state=False):
     """B6's gated entry, the SSM block's tail: dt = softplus(dt_raw +
     dt_bias), the scan from a zero state, then (y + D*u) * silu(z) in z's
     dtype. u, dt_raw (B, S, d), B_mat, C_mat (B, S, N), A (d, N), dt_bias,
     D (d,) f32; z (B, S, d) bf16 or f32 with a unit last stride ->
     (out (B, S, d), h_last (B, d, N) f32), differentiable with respect to
-    all eight inputs through :class:`MambaScanGated`. DTensors: the batch
-    and d_inner may be split (d_inner where u splits it)."""
+    all eight inputs through :class:`MambaScanGated`; ``bf16_state``
+    carries the scan's state in bf16. DTensors: the batch and d_inner may
+    be split (d_inner where u splits it)."""
     train = _wants_grad(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
 
     def run(*args):
-        return MambaScanGated.apply(*args, train)
+        return MambaScanGated.apply(*args, train, bool(bf16_state))
 
     args = (u, dt_raw, dt_bias, B_mat, C_mat, A, D, z)
     if not isinstance(u, DTensor):

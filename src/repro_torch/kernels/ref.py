@@ -18,6 +18,15 @@ in f32; :func:`mamba_scan_gated_torch` is that of B6's gated entry, the SSM
 block's softplus, scan, D skip, SiLU gate and cast as plain ops, and
 :func:`mamba_scan_gated_bwd_torch` that of its backward B6b.
 
+Two options of the reference's model code are options here too. The
+attention twins take ``softcap`` (the reference's ``logit_softcap``): a
+cap above 0 replaces each scaled score s by ``cap * tanh(s / cap)`` before
+the mask. The scan twins take ``bf16_state`` (the reference's
+``ssm_scan_dtype="bfloat16"``, ``repro/models/ssm.py:74-87``): exp(dt*A)
+and dt*B*u are formed in f32 and rounded to bf16 and the state is carried
+in bf16, rounded where B6 rounds it (:func:`_bf16_chunks`); y is formed in
+f32 from that state.
+
 Decode contract (shared with the CUDA kernel, ``policy_score.cu``):
 
 * top-k ties go to the lowest edge index (stable sort; ``torch.topk``
@@ -140,14 +149,22 @@ def policy_score_decode_torch(c_emb, h_emb, w_px, w_py, edge_mask,
 NEG_INF = -1e30
 
 
-def _masked_scores(q, k, causal, window):
-    """The scaled scores (B, KV, G, Sq, Sk) in f32, masked at -1e30; the
-    causal and window masks compare row and column from the top left, as
-    the reference's model attention does at Sq != Sk."""
+def _softcap(sc, softcap: float):
+    """``softcap * tanh(sc / softcap)`` for a cap above 0, else ``sc``: the
+    reference's ``_softcap`` (``repro/models/attention.py:32-35``)."""
+    return softcap * torch.tanh(sc / softcap) if softcap > 0 else sc
+
+
+def _masked_scores(q, k, causal, window, softcap=0.0):
+    """The scaled scores (B, KV, G, Sq, Sk) in f32, capped (``softcap``
+    above 0) and masked at -1e30; the causal and window masks compare row
+    and column from the top left, as the reference's model attention does
+    at Sq != Sk."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd).float()
     sc = torch.einsum("bqkgd,bmkd->bkgqm", qg, k.float()) / math.sqrt(hd)
+    sc = _softcap(sc, softcap)
     qi = torch.arange(s, device=q.device)[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
@@ -158,33 +175,36 @@ def _masked_scores(q, k, causal, window):
     return torch.where(mask, sc, NEG_INF)
 
 
-def flash_attention_torch(q, k, v, *, causal=True, window=None):
+def flash_attention_torch(q, k, v, *, causal=True, window=None, softcap=0.0):
     """Plain version of B4, twin of ``ref.flash_attention_ref``
     (``repro/kernels/ref.py:10``) with keys of a length of their own, as
-    the reference's model attention takes them. q: (B, Sq, H, hd); k, v:
-    (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
+    the reference's model attention takes them, and its logit cap. q: (B,
+    Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
     b, s, h, hd = q.shape
-    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
+    p = torch.softmax(_masked_scores(q, k, causal, window, softcap), dim=-1)
     o = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
     return o.reshape(b, s, h, hd).to(q.dtype)
 
 
-def flash_attention_lse_torch(q, k, *, causal=True, window=None):
+def flash_attention_lse_torch(q, k, *, causal=True, window=None,
+                              softcap=0.0):
     """Plain version of B4's log-sum-exp output: each row's logsumexp of
-    the same masked scores as :func:`flash_attention_torch`, (B, H, Sq)
-    f32."""
+    the same capped, masked scores as :func:`flash_attention_torch`, (B, H,
+    Sq) f32."""
     b, s, h, _ = q.shape
-    lse = torch.logsumexp(_masked_scores(q, k, causal, window), dim=-1)
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window, softcap),
+                          dim=-1)
     return lse.reshape(b, h, s)
 
 
-def _decode_scores(q, k_cache, slot_pos, pos, window):
+def _decode_scores(q, k_cache, slot_pos, pos, window, softcap=0.0):
     """(B, KV, G, W) f32 scores of one query row per lane against its
-    cache, invalid slots at -1e30."""
+    cache, capped (``softcap`` above 0), invalid slots at -1e30."""
     b, w, kv, hd = k_cache.shape
     h = q.shape[1]
     qg = q.reshape(b, kv, h // kv, hd).float()
     sc = torch.einsum("bkgd,bmkd->bkgm", qg, k_cache.float()) / math.sqrt(hd)
+    sc = _softcap(sc, softcap)
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
     if window is not None:
         valid &= slot_pos > (pos[:, None] - window)
@@ -192,27 +212,122 @@ def _decode_scores(q, k_cache, slot_pos, pos, window):
 
 
 def decode_attention_torch(q, k_cache, v_cache, slot_pos, pos, *,
-                           window=None):
+                           window=None, softcap=0.0):
     """Plain version of B5, twin of ``ref.decode_attention_ref``
-    (``repro/kernels/ref.py:30``). q: (B, H, hd); k/v_cache: (B, W, KV, hd);
-    slot_pos: (B, W) absolute position per slot (-1 = empty); pos: (B,)
-    -> (B, H, hd) in q's dtype."""
-    p = torch.softmax(_decode_scores(q, k_cache, slot_pos, pos, window),
-                      dim=-1)
+    (``repro/kernels/ref.py:30``) with the reference's logit cap. q: (B, H,
+    hd); k/v_cache: (B, W, KV, hd); slot_pos: (B, W) absolute position per
+    slot (-1 = empty); pos: (B,) -> (B, H, hd) in q's dtype."""
+    p = torch.softmax(_decode_scores(q, k_cache, slot_pos, pos, window,
+                                     softcap), dim=-1)
     o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
     return o.reshape(q.shape).to(q.dtype)
 
 
-def decode_attention_lse_torch(q, k_cache, slot_pos, pos, *, window=None):
+def decode_attention_lse_torch(q, k_cache, slot_pos, pos, *, window=None,
+                               softcap=0.0):
     """Plain version of B5's log-sum-exp output: each (lane, head)'s
-    ``torch.logsumexp`` of the same masked scores as
+    ``torch.logsumexp`` of the same capped, masked scores as
     :func:`decode_attention_torch`, (B, H) f32; a lane with no valid slot
     gives the log-sum-exp of W scores of -1e30."""
-    sc = _decode_scores(q, k_cache, slot_pos, pos, window)
+    sc = _decode_scores(q, k_cache, slot_pos, pos, window, softcap)
     return torch.logsumexp(sc, dim=-1).reshape(q.shape[:2])
 
 
-def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None, chunk=None):
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 value (ties to even), kept f32."""
+    return x.to(torch.bfloat16).float()
+
+
+#: B6's plan (``csrc/mamba_scan.cu``'s kSegments, kSegLen): a chunk of
+#: BF16_SEGMENTS segments of BF16_SEG_LEN steps, where the bf16 state is
+#: rounded
+BF16_SEGMENTS, BF16_SEG_LEN = 8, 16
+
+
+def _bf16_chunks(u, dt, B_mat, A, h):
+    """The selective scan with the bf16 state, at B6's rounding points, from
+    ``h`` (B, d, N), bf16 values in f32. Yields, for each chunk of
+    BF16_SEGMENTS * BF16_SEG_LEN steps in order, (t0, rows, a, hs, h):
+    the chunk's first step, its steps, exp(dt*A) rounded to bf16 and the
+    state after each step, both (B, rows, d, N), and the state it hands on
+    (B, d, N), all f32 holding bf16 values.
+
+    Within a chunk, as B6 computes it: a = bf16(exp(dt*A)) and b =
+    bf16(dt*B*u) per step; each segment of BF16_SEG_LEN steps composes its
+    (decay, value) pair in f32 (the decay the product of its a, as the
+    reference multiplies its bf16 decays); an inclusive Hillis-Steele
+    combine over the segments in f32; the state entering a segment is the
+    exclusive prefix applied to the chunk's entering state, rounded to
+    bf16; then each step's ``a*h + b`` is rounded to bf16. One rounding of
+    the state per step of a sequential walk would drift by several % where
+    the decays round to 1 (dt near 1e-3): bf16 drops the small b's added
+    to a large h; this walk restarts from the composition every segment.
+    Rows past S in the last chunk are identity steps: the state handed on
+    is the last segment's, which there starts from the composition, as
+    B6's h_last does."""
+    b, s, d = u.shape
+    n = A.shape[-1]
+    p, seg = BF16_SEGMENTS, BF16_SEG_LEN
+    chunk = p * seg
+    for t0 in range(0, s, chunk):
+        rows = min(chunk, s - t0)
+
+        def tile(x):
+            out = x.new_zeros((b, chunk) + tuple(x.shape[2:]))
+            out[:, :rows] = x[:, t0:t0 + rows]
+            return out
+
+        dd, uu, bb = tile(dt), tile(u), tile(B_mat)
+        ea = bf16_round(torch.exp(dd[..., None] * A)).reshape(b, p, seg, d,
+                                                                n)
+        eb = bf16_round(dd[..., None] * bb[:, :, None, :]
+                        * uu[..., None]).reshape(b, p, seg, d, n)
+        ac = ea[:, :, 0]
+        bc = eb[:, :, 0]
+        for i in range(1, seg):
+            ac = ac * ea[:, :, i]
+            bc = ea[:, :, i] * bc + eb[:, :, i]
+        off = 1
+        while off < p:  # the inclusive combine, lowest segment first
+            bc = torch.cat([bc[:, :off],
+                            ac[:, off:] * bc[:, :-off] + bc[:, off:]], 1)
+            ac = torch.cat([ac[:, :off], ac[:, off:] * ac[:, :-off]], 1)
+            off *= 2
+        x = torch.cat([h[:, None], bf16_round(ac[:, :-1] * h[:, None]
+                                              + bc[:, :-1])], 1)
+        hs = torch.empty((b, p, seg, d, n), dtype=torch.float32,
+                         device=u.device)
+        for i in range(seg):
+            x = bf16_round(ea[:, :, i] * x + eb[:, :, i])
+            hs[:, :, i] = x
+        h = x[:, p - 1]
+        yield (t0, rows, ea.reshape(b, chunk, d, n)[:, :rows],
+               hs.reshape(b, chunk, d, n)[:, :rows], h)
+
+
+def _bf16_scan(u, dt, B_mat, C_mat, A, h0, chunk):
+    """:func:`mamba_scan_torch` with ``bf16_state``: (y, h_last) or, with
+    ``chunk``, also the state entering each ``chunk`` steps."""
+    b, s, d = u.shape
+    n = A.shape[-1]
+    h = (torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+         if h0 is None else bf16_round(h0.float()))
+    ys = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
+    if chunk is not None:
+        states = torch.empty((b, -(-s // chunk), d, n), dtype=torch.float32,
+                             device=u.device)
+    for t0, rows, _, hs, h_end in _bf16_chunks(u, dt, B_mat, A, h):
+        if chunk is not None:
+            for t in range(t0, t0 + rows):
+                if t % chunk == 0:
+                    states[:, t // chunk] = h if t == t0 else hs[:, t - t0 - 1]
+        ys[:, t0:t0 + rows] = (hs * C_mat[:, t0:t0 + rows, None, :]).sum(-1)
+        h = h_end
+    return (ys, h) if chunk is None else (ys, h, states)
+
+
+def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None, chunk=None,
+                     bf16_state=False):
     """Plain version of B6, twin of ``ref.mamba_scan_ref``
     (``repro/kernels/ref.py:46``): a sequential loop over S in f32, from
     ``h0`` (B, d, N) or zeros. u, dt: (B, S, d); B_mat, C_mat: (B, S, N);
@@ -222,10 +337,15 @@ def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None, chunk=None):
 
     The reference discretises all S steps up front, a (B, S, d, N) tensor;
     here each step's ``exp(dt * A)`` and ``dt * B * u`` are formed inside
-    the loop, with the same elementwise roundings."""
+    the loop, with the same elementwise roundings. With ``bf16_state``
+    both are rounded to bf16 and the state (``h0`` too) is carried in
+    bf16, rounded where B6 rounds it (:func:`_bf16_chunks`); h_last and
+    the chunk states hold those bf16 values in f32."""
     b, s, d = u.shape
     n = A.shape[-1]
     u, dt, B_mat, C_mat, A = (t.float() for t in (u, dt, B_mat, C_mat, A))
+    if bf16_state:
+        return _bf16_scan(u, dt, B_mat, C_mat, A, h0, chunk)
     h = (torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
     ys = torch.empty((b, s, d), dtype=torch.float32, device=u.device)
@@ -243,26 +363,28 @@ def mamba_scan_torch(u, dt, B_mat, C_mat, A, h0=None, chunk=None):
 
 
 def mamba_scan_gated_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
-                           chunk=None):
+                           chunk=None, bf16_state=False):
     """Plain version of B6's gated entry: the tail of the reference's
     ``ssm_apply`` (``repro/models/ssm.py:114-120``) as its own ops, in its
     order: dt = softplus(dt_raw + dt_bias), :func:`mamba_scan_torch`,
     y + D*u, times silu(z) in f32, cast to z's dtype. Returns (out (B, S, d)
     in z's dtype, h_last (B, d, N) f32), and with ``chunk`` also the states
-    entering each chunk (:func:`mamba_scan_torch`)."""
+    entering each chunk (:func:`mamba_scan_torch`, whose ``bf16_state`` it
+    passes on: the skip and the gate stay f32)."""
     dt = F.softplus(dt_raw + dt_bias)
-    if chunk is None:  # the scan's call as callers that wrap it expect it
-        y, h_last, *states = mamba_scan_torch(u, dt, B_mat, C_mat, A)
-    else:
-        y, h_last, *states = mamba_scan_torch(u, dt, B_mat, C_mat, A,
-                                              chunk=chunk)
+    # the scan's call names only the options set, as callers that wrap it
+    # expect it
+    kw = {} if chunk is None else {"chunk": chunk}
+    if bf16_state:
+        kw["bf16_state"] = True
+    y, h_last, *states = mamba_scan_torch(u, dt, B_mat, C_mat, A, **kw)
     y = y + D * u
     y = y * F.silu(z.float())
     return (y.to(z.dtype), h_last, *states)
 
 
 def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
-                               dout, dh_last=None):
+                               dout, dh_last=None, bf16_state=False):
     """Plain version of B6b, the backward of B6's gated entry
     (:func:`mamba_scan_gated_torch`), written out as a reverse loop over S
     in f32, not autograd. dout (B, S, d) is the gradient of ``out`` (in z's
@@ -278,7 +400,11 @@ def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     dA += g_t dt_t a_t h_{t-1}; dt_raw's gradient is ddt times softplus's
     derivative, F.softplus's rule: 1 where dt_raw + dt_bias is above 20,
     else its sigmoid. Returns (du, d dt_raw, d dt_bias, dB, dC, dA, dD, dz),
-    f32 but dz in z's dtype."""
+    f32 but dz in z's dtype.
+
+    With ``bf16_state`` the states are recomputed as the bf16 forward forms
+    them (:func:`_bf16_chunks`), and a_t is exp(dt_t A) rounded to bf16
+    wherever the formulas above read it; the arithmetic stays f32."""
     b, s, d = u.shape
     n = A.shape[-1]
     u, dt_raw, B_mat, C_mat, A = (t.float() for t in (u, dt_raw, B_mat,
@@ -287,7 +413,12 @@ def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     dt = F.softplus(x)
     hs = torch.empty((b, s, d, n), dtype=torch.float32, device=u.device)
     h = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
-    for t in range(s):
+    if bf16_state:
+        decay = torch.empty_like(hs)
+        for t0, rows, a, h_steps, _ in _bf16_chunks(u, dt, B_mat, A, h):
+            decay[:, t0:t0 + rows] = a
+            hs[:, t0:t0 + rows] = h_steps
+    for t in range(0 if bf16_state else s):
         dt_t = dt[:, t, :, None]
         h = torch.exp(dt_t * A) * h + dt_t * B_mat[:, t, None, :] * u[:, t, :,
                                                                       None]
@@ -308,7 +439,7 @@ def mamba_scan_gated_bwd_torch(u, dt_raw, dt_bias, B_mat, C_mat, A, D, z,
     for t in range(s - 1, -1, -1):
         dt_t = dt[:, t, :, None]
         g = g + C_mat[:, t, None, :] * dy[:, t, :, None]
-        a = torch.exp(dt_t * A)
+        a = decay[:, t] if bf16_state else torch.exp(dt_t * A)
         q = g * a * (hs[:, t - 1] if t else zero)
         gb = (g * B_mat[:, t, None, :]).sum(-1)
         du[:, t] = dt[:, t] * gb

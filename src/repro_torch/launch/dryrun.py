@@ -55,7 +55,6 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.steps import TrainKnobs, build_for_shape, lowering_inputs
-from repro_torch.models.ssm import check_scan_dtype
 from repro_torch.roofline.analysis import analyze_trace
 from repro_torch.roofline.trace import DeviceCounter, kernel_ops, patched
 from repro_torch.sharding import specs as S
@@ -98,8 +97,10 @@ MESHES = {"single": ((16, 16), ("data", "model")),
 
 def apply_variant(cfg, knobs: TrainKnobs, variant: str):
     """``cfg`` and ``knobs`` with ``variant``'s overrides. Raises for an
-    unknown component, and for a configuration the port refuses
-    (``ssm-bf16``: the scan runs in f32 only)."""
+    unknown component. ``ssm-bf16`` runs the scan with its state in bf16
+    (B6 and B6b's flag); its memory term does not move, as B6 never writes
+    the (B, c, d, N) tensors that the reference's XLA scan materializes
+    and bf16 halves."""
     if variant in ("", "baseline"):
         return cfg, knobs
     for part in variant.split("+"):
@@ -110,7 +111,6 @@ def apply_variant(cfg, knobs: TrainKnobs, variant: str):
         else:
             raise KeyError(f"unknown variant component {part!r}; known: "
                            f"{sorted(CFG_VARIANTS) + sorted(KNOB_VARIANTS)}")
-    check_scan_dtype(cfg)
     return cfg, knobs
 
 

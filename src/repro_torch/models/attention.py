@@ -22,8 +22,13 @@ with its log-sum-exp on each rank's block of slots, the blocks combined in
 f32 with the reference's three collectives. :func:`write_slot` writes a
 decode step's new row into a cache split that way.
 
-Not ported: logit soft-capping (no config sets it, and neither Pallas
-kernel has it).
+Logit soft-capping (``logit_softcap``, the reference's ``_softcap``,
+``repro/models/attention.py:32-35``): a cap above 0 replaces each scaled
+score s by ``cap * tanh(s / cap)`` before the mask, in every path here:
+inside B4 and B5 on the card, in their plain versions on the CPU, and in
+:func:`flash_bwd`, whose ``ds`` carries the factor ``1 - tanh^2(s /
+cap)``. The layers pass ``cfg.attn_logit_softcap`` to self attention;
+cross attention stays uncapped, as the reference's.
 """
 from __future__ import annotations
 
@@ -41,19 +46,13 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.sharding.ctx import current
 
 
-def _no_softcap(logit_softcap: float) -> None:
-    if logit_softcap:
-        raise NotImplementedError(
-            "logit soft-capping is not ported: no config sets it and neither "
-            "attention kernel (B4, B5) implements it")
-
-
 def naive_attention(q, k, v, *, causal=True, window=None, logit_softcap=0.0):
     """Reference O(S^2)-memory attention in plain PyTorch, f32 math (B4's
     plain version, on any device). q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)
-    -> (B, Sq, H, hd) in q's dtype."""
-    _no_softcap(logit_softcap)
-    return ref.flash_attention_torch(q, k, v, causal=causal, window=window)
+    -> (B, Sq, H, hd) in q's dtype; ``logit_softcap`` above 0 caps the
+    scaled scores."""
+    return ref.flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     softcap=logit_softcap)
 
 
 def _block_pairs(nq: int, nk: int, window_chunks, causal: bool):
@@ -85,7 +84,7 @@ def _needs_mask(causal, window, kv_len, nk, ck) -> bool:
 
 
 def flash_bwd(q, k, v, out, lse, dout, *, chunk: int, causal: bool = True,
-              window=None):
+              window=None, softcap: float = 0.0):
     """The reference's flash backward (``_flash_bwd``,
     ``repro/models/attention.py:166-233``) in plain PyTorch: from the
     forward's residuals q (B, Sq, H, hd), k, v (B, Sk, KV, hd), out (B, Sq,
@@ -95,8 +94,10 @@ def flash_bwd(q, k, v, out, lse, dout, *, chunk: int, causal: bool = True,
     As the reference (``flash_attention``, ``:236-257``): ``chunk`` capped
     at Sq, q zero-padded by Sq and k, v by Sk to the chunk grid, columns at
     or past Sk masked (``kv_len``), one pass over :func:`_block_pairs`,
-    scores in f32 masked at -1e30, ``delta = rowsum(dO * O)``, ``p = exp(s
-    - lse)``, ``ds = p * (dp - delta)`` masked to 0, the scale on dq and
+    scores in f32 capped (``softcap`` above 0: ``cap * tanh(s_raw / cap)``
+    of the scaled score s_raw) and masked at -1e30, ``delta = rowsum(dO *
+    O)``, ``p = exp(s - lse)``, ``ds = p * (dp - delta)``, times ``1 -
+    tanh^2(s_raw / cap)`` under a cap, masked to 0, the scale on dq and
     dk, and dq, dk, dv summed in f32. A causal block pair past the keys'
     last block (Sq > Sk) is fully masked and skipped: the reference visits
     it on a clamped index and adds zeros. The blocks are held as (B, KV,
@@ -135,6 +136,9 @@ def flash_bwd(q, k, v, out, lse, dout, *, chunk: int, causal: bool = True,
             continue
         qi, kj, vj, do_i = qg[:, :, i], kg[:, :, j], vg[:, :, j], dog[:, :, i]
         sc = (qi @ kj.transpose(-1, -2)) * scale  # (B, KV, chunk*G, chunk)
+        if softcap > 0:
+            th = torch.tanh(sc / softcap)
+            sc = softcap * th
         if masked:
             mask = _block_mask(i, j, chunk, chunk, causal, window, sk,
                                q.device).repeat_interleave(g, dim=0)
@@ -143,6 +147,8 @@ def flash_bwd(q, k, v, out, lse, dout, *, chunk: int, causal: bool = True,
         dv[:, :, j] += p.transpose(-1, -2) @ do_i
         dp = do_i @ vj.transpose(-1, -2)
         ds = p * (dp - delta[:, :, i, :, None])
+        if softcap > 0:
+            ds = ds * (1.0 - torch.square(th))
         if masked:
             ds = torch.where(mask, ds, 0.0)
         dq[:, :, i] += (ds @ kj) * scale
@@ -160,11 +166,11 @@ def flash_attention(q, k, v, *, chunk: int = 512, causal: bool = True,
                     window=None, logit_softcap: float = 0.0):
     """Full-sequence (prefill and training) attention through B4. q:
     (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H a multiple of KV, any Sq and
-    Sk (the masks aligned at the top left). Its gradient is
-    :func:`flash_bwd` over ``chunk``-row blocks."""
-    _no_softcap(logit_softcap)
+    Sk (the masks aligned at the top left); ``logit_softcap`` above 0
+    caps the scaled scores. Its gradient is :func:`flash_bwd` over
+    ``chunk``-row blocks."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               chunk=chunk)
+                               chunk=chunk, softcap=logit_softcap)
 
 
 def cross_decode_attention(q, k, v):
@@ -194,10 +200,10 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
     """Single-token attention against a (possibly rolling) KV cache, through
     B5. q: (B, H, hd); k_cache, v_cache: (B, W, KV, hd); cache_positions:
     (B, W) int32, the absolute position in each slot (-1 = empty); pos:
-    (B,) int32, the query token's absolute position."""
-    _no_softcap(logit_softcap)
+    (B,) int32, the query token's absolute position. ``logit_softcap``
+    above 0 caps the scaled scores."""
     return ops.decode_attention(q, k_cache, v_cache, cache_positions, pos,
-                                window=window)
+                                window=window, softcap=logit_softcap)
 
 
 def combine_partials(o, lse, group):
@@ -240,24 +246,24 @@ def sharded_decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
 
     The cache's slot axis W is split over ``ctx.tp_axis`` and the batch
     over ``ctx.dp``; each rank runs B5 with its log-sum-exp on its block
-    of slots (its plain version on the CPU) and :func:`combine_partials`
-    joins the blocks. Where the axis does not divide W, this is
+    of slots (its plain version on the CPU), the scores capped there
+    where ``logit_softcap`` is above 0, and :func:`combine_partials` joins
+    the blocks. Where the axis does not divide W, this is
     :func:`decode_attention` (the reference's fallback). Inputs and output
     are DTensors; q (B, H, hd), the caches (B, W, KV, hd), cache_positions
     (B, W), pos (B,) -> (B, H, hd), split over the batch only."""
-    _no_softcap(logit_softcap)
     if ctx is None:
         ctx = current()
     mesh, tp = ctx.mesh, ctx.tp_axis
     if tp is None or k_cache.shape[1] % mesh.size(
             mesh.mesh_dim_names.index(tp)) != 0:
         return decode_attention(q, k_cache, v_cache, cache_positions, pos,
-                                window=window)
+                                logit_softcap=logit_softcap, window=window)
     group = mesh.get_group(tp)
 
     def local(q, kc, vc, sp, p):
         o, lse = ops.decode_attention(q, kc, vc, sp, p, window=window,
-                                      with_lse=True)
+                                      with_lse=True, softcap=logit_softcap)
         return combine_partials(o, lse, group)
 
     return _on_slot_blocks("flash_decode", local, ctx, q, k_cache, v_cache,
@@ -265,18 +271,20 @@ def sharded_decode_attention(q, k_cache, v_cache, cache_positions, pos, *,
 
 
 def sharded_decode_attention_torch(q, k_cache, v_cache, cache_positions,
-                                   pos, *, window=None, ctx=None):
+                                   pos, *, window=None, logit_softcap=0.0,
+                                   ctx=None):
     """Plain version of :func:`sharded_decode_attention`: the reference's
     ``local`` body (``repro/models/attention.py:286-302``) in PyTorch on
-    each rank's block, f32 scores masked at -1e30, the max of the local
-    maxima, then the sums of the exponentials and of their products with
-    V, over ``ctx.tp_axis``."""
+    each rank's block, f32 scores capped (``logit_softcap`` above 0) and
+    masked at -1e30, the max of the local maxima, then the sums of the
+    exponentials and of their products with V, over ``ctx.tp_axis``."""
     if ctx is None:
         ctx = current()
     group = ctx.mesh.get_group(ctx.tp_axis)
 
     def local(q, kc, vc, sp, p):
-        sc = ref._decode_scores(q, kc, sp, p, window)      # (b, KV, G, w)
+        sc = ref._decode_scores(q, kc, sp, p, window,
+                                logit_softcap)             # (b, KV, G, w)
         m = sc.amax(-1)
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         e = torch.exp(sc - m[..., None])

@@ -12,8 +12,12 @@ projections in the model's dtype.
 
 ``cfg.ssm_chunk`` and ``cfg.ssm_unroll`` choose how the reference's scan is
 chunked and unrolled; they do not change the function, and the port ignores
-them. ``cfg.ssm_scan_dtype`` other than float32 (a reduced-precision scan,
-set only by the reference's dry-run variants) is not ported.
+them. ``cfg.ssm_scan_dtype`` is "float32" or "bfloat16" (the reference's
+``ssm-bf16`` variant): with the latter the scan rounds exp(dt*A) and
+dt*B*u to bf16 and carries its state in bf16 (``bf16_state`` of B6, B6b
+and their plain versions), as the reference's ``ssm_scan`` does
+(``repro/models/ssm.py:74-87``); the D skip, the gate and the decode step
+stay f32, as there.
 """
 from __future__ import annotations
 
@@ -29,14 +33,17 @@ from repro_torch.models.common import (causal_depthwise_conv, conv_step,
 from repro_torch.nn.module import normal_init, uniform_init
 
 
-def check_scan_dtype(cfg: ModelConfig) -> None:
-    """Refuse a scan dtype other than f32 (the reference's
-    ``ssm_scan_dtype``; only its dry-run variants set it)."""
-    if cfg.ssm_scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not ported: the scan "
-            "(kernel B6) runs in f32, and no configuration needs a "
-            "reduced-precision one")
+#: the scan dtypes: whether each carries the state in bf16
+SCAN_DTYPES = {"float32": False, "bfloat16": True}
+
+
+def bf16_state(scan_dtype: str) -> bool:
+    """Whether ``scan_dtype`` (``cfg.ssm_scan_dtype``) carries the scan's
+    state in bf16; raises ValueError for a dtype other than the two."""
+    if scan_dtype not in SCAN_DTYPES:
+        raise ValueError(f"ssm_scan_dtype={scan_dtype!r}: the scan runs in "
+                         f"{' or '.join(map(repr, SCAN_DTYPES))}")
+    return SCAN_DTYPES[scan_dtype]
 
 
 def ssm_init(generator: torch.Generator, cfg: ModelConfig, dtype,
@@ -77,16 +84,19 @@ def ssm_init(generator: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
-def ssm_scan(u, dt, B_mat, C_mat, A):
+def ssm_scan(u, dt, B_mat, C_mat, A, scan_dtype: str = "float32"):
     """Selective scan from a zero state. u, dt: (B, S, d); B_mat, C_mat:
     (B, S, N); A: (d, N). Returns (y (B, S, d) f32, h_last (B, d, N) f32).
+    ``scan_dtype`` "bfloat16" carries the state in bf16 (h_last holds bf16
+    values), as the reference's ``scan_dtype``.
 
     Any S: the reference's ``ssm_scan`` asserts ``S % min(ssm_chunk, S) ==
     0`` and its Pallas kernel ``S % chunk == 0`` and ``d % bd == 0``, but
     neither the function nor its oracle ``mamba_scan_ref`` has that limit,
     and served prompts have any length. On the card this is kernel B6."""
     return ops.mamba_scan(*(t.float().contiguous()
-                            for t in (u, dt, B_mat, C_mat, A)))
+                            for t in (u, dt, B_mat, C_mat, A)),
+                          bf16_state=bf16_state(scan_dtype))
 
 
 def _dt_b_c(p, xdbc, cfg: ModelConfig):
@@ -101,8 +111,9 @@ def _dt_b_c(p, xdbc, cfg: ModelConfig):
 def ssm_apply(p, x, cfg: ModelConfig):
     """Full-sequence mamba block. x: (B, S, D) -> (out (B, S, D) in x's
     dtype, state {"h": (B, d, N), "conv": (B, K-1, d)}), the state in
-    :func:`ssm_decode_step`'s format so prefill hands over to decode."""
-    check_scan_dtype(cfg)
+    :func:`ssm_decode_step`'s format so prefill hands over to decode. The
+    scan runs in ``cfg.ssm_scan_dtype`` (:func:`bf16_state`)."""
+    bf16 = bf16_state(cfg.ssm_scan_dtype)
     k = cfg.ssm_conv
     uz = dense(x, p["in_proj"])
     u_raw, z = uz.chunk(2, dim=-1)
@@ -114,7 +125,7 @@ def ssm_apply(p, x, cfg: ModelConfig):
     # softplus, scan, D skip, gate and the cast to z's (= x's) dtype
     y, h_last = ops.mamba_scan_gated(u, dt_raw, p["dt_bias"],
                                      B_mat.contiguous(), C_mat.contiguous(),
-                                     A, p["D"], z)
+                                     A, p["D"], z, bf16_state=bf16)
     # conv state = the last K-1 raw (pre-conv) inputs, as conv_step takes;
     # a copy, so the state does not hold all of u_raw (B, S, d) alive
     s_len = u_raw.shape[1]

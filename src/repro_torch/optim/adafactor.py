@@ -14,7 +14,11 @@ LM's layers on a leading L axis, so its RMS of the update and its
 parameter scale are taken over all layers of a leaf at once. Here the
 leaves ``layers/<i>/<rest>`` of one ``<rest>`` (and whisper's
 ``enc_layers/<i>/<rest>``) are that stacked leaf (:func:`stack_key`), and
-the two statistics are taken over the group.
+the two statistics are taken over the group. Where the reference factors a
+stacked 1-D leaf over its layer axis (L and the width both at least
+``min_dim_size_to_factor``), the group is factored so: one slot under the
+stacked leaf's path, ``vr`` (L,) and ``vc`` (width,), the reference's
+layout, which a checkpoint keeps (:func:`factored_groups`).
 """
 from __future__ import annotations
 
@@ -55,30 +59,37 @@ def _factored(shape, cfg: AdafactorConfig) -> bool:
             and shape[-2] >= cfg.min_dim_size_to_factor)
 
 
-def _groups(params: dict, cfg: AdafactorConfig) -> list[list[str]]:
-    """The paths of each stacked leaf, in layer order. Raises where the
-    reference would factor a stacked 1-D leaf over its layer axis, which
-    per-layer leaves cannot hold."""
+def _groups(params: dict) -> dict[str, list[str]]:
+    """{stacked leaf's path: the paths of its layers, in layer order}."""
     groups: dict[str, list[str]] = {}
     for key in params:
         groups.setdefault(stack_key(key), []).append(key)
-    for keys in groups.values():
+    return groups
+
+
+def factored_groups(params: dict, cfg: AdafactorConfig) -> dict:
+    """{stacked leaf's path: its layers' paths} of each group of per-layer
+    1-D leaves that the reference, holding them stacked (L, width),
+    factors over the layer axis (L and width both at least
+    ``min_dim_size_to_factor``): their slot is the stacked leaf's."""
+    out = {}
+    for name, keys in _groups(params).items():
         shape = tuple(params[keys[0]].shape)
         if (len(keys) > 1 and len(shape) == 1
                 and _factored((len(keys),) + shape, cfg)):
-            raise NotImplementedError(
-                f"{keys[0]}: the reference factors this 1-D leaf over its "
-                f"{len(keys)} stacked layers; per-layer leaves cannot")
-    return list(groups.values())
+            out[name] = keys
+    return out
 
 
 def adafactor_init(params: dict[str, torch.Tensor],
                    cfg: AdafactorConfig) -> dict:
     """{"step": int32 scalar, "v": {path: slot}}, every slot f32 zeros:
     {"vr" (..., rows), "vc" (..., cols)} for a factored leaf, {"v"} of the
-    leaf's shape otherwise."""
-    _groups(params, cfg)
+    leaf's shape otherwise; a group of :func:`factored_groups` has one
+    slot {"vr" (L,), "vc" (width,)} under the stacked leaf's path."""
     device = next(iter(params.values())).device
+    stacked = factored_groups(params, cfg)
+    in_stack = {k for keys in stacked.values() for k in keys}
 
     def slot(p):
         z = dict(dtype=torch.float32, device=p.device)
@@ -87,8 +98,14 @@ def adafactor_init(params: dict[str, torch.Tensor],
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
         return {"v": torch.zeros(p.shape, **z)}
 
+    slots = {k: slot(p) for k, p in params.items() if k not in in_stack}
+    for name, keys in stacked.items():
+        p = params[keys[0]]
+        z = dict(dtype=torch.float32, device=p.device)
+        slots[name] = {"vr": torch.zeros((len(keys),), **z),
+                       "vc": torch.zeros(p.shape, **z)}
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "v": {k: slot(p) for k, p in params.items()}}
+            "v": slots}
 
 
 def _mean_square(tensors) -> torch.Tensor:
@@ -108,22 +125,34 @@ def adafactor_update(params: dict[str, torch.Tensor],
     beta2 = 1.0 - t ** (-cfg.decay)
     lr = cfg.resolve_lr(step)
     precond, new_slots = {}, {}
-    for key, p in params.items():
-        g = grads[key].to(torch.float32)
+
+    def factored(g, slot):
         g2 = torch.square(g) + cfg.eps1
+        vr = beta2 * slot["vr"] + (1 - beta2) * g2.mean(-1)
+        vc = beta2 * slot["vc"] + (1 - beta2) * g2.mean(-2)
+        denom_r = vr / vr.mean(-1, keepdim=True)
+        return (g * torch.rsqrt(denom_r[..., None])
+                * torch.rsqrt(vc[..., None, :])), {"vr": vr, "vc": vc}
+
+    stacked = factored_groups(params, cfg)
+    for name, keys in stacked.items():  # factored as the stacked (L, width)
+        g = torch.stack([grads[k].to(torch.float32) for k in keys])
+        pre, new_slots[name] = factored(g, opt_state["v"][name])
+        precond.update(zip(keys, pre.unbind(0)))
+    in_stack = {k for keys in stacked.values() for k in keys}
+    for key, p in params.items():
+        if key in in_stack:
+            continue
+        g = grads[key].to(torch.float32)
         slot = opt_state["v"][key]
         if "vr" in slot:
-            vr = beta2 * slot["vr"] + (1 - beta2) * g2.mean(-1)
-            vc = beta2 * slot["vc"] + (1 - beta2) * g2.mean(-2)
-            denom_r = vr / vr.mean(-1, keepdim=True)
-            precond[key] = (g * torch.rsqrt(denom_r[..., None])
-                            * torch.rsqrt(vc[..., None, :]))
-            new_slots[key] = {"vr": vr, "vc": vc}
+            precond[key], new_slots[key] = factored(g, slot)
         else:
+            g2 = torch.square(g) + cfg.eps1
             v = beta2 * slot["v"] + (1 - beta2) * g2
             precond[key] = g * torch.rsqrt(v)
             new_slots[key] = {"v": v}
-    for keys in _groups(params, cfg):
+    for keys in _groups(params).values():
         # update clipping (RMS of the preconditioned update) and the
         # parameter scale, each over the whole stacked leaf
         rms = torch.sqrt(_mean_square([precond[k] for k in keys]) + 1e-30)

@@ -121,9 +121,57 @@ def test_adafactor_scheduled_lr_and_bf16_parameters():
 
 
 def test_adafactor_refuses_a_stacked_1d_leaf_the_reference_factors():
-    params = {f"layers/{i}/norm": torch.zeros(128) for i in range(128)}
-    with pytest.raises(NotImplementedError, match="stacked layers"):
-        topt.adafactor_init(params, topt.AdafactorConfig())
+    """Once refused, now factored as the reference factors it: 128
+    per-layer 1-D leaves of width 128 are the reference's stacked (128,
+    128) leaf, one slot {"vr" (128,), "vc" (128,)} under the stacked path,
+    over three updates against ``repro.optim.adafactor`` (with a 2-D
+    factored leaf and a short stack of 1-D leaves beside it, unfactored
+    per layer), at this file's bars."""
+    layers, width = 128, 128
+    rng = np.random.default_rng(5)
+    stacked = rng.normal(size=(layers, width)).astype(np.float32)
+    short = rng.normal(size=(3, 130)).astype(np.float32)
+    w = rng.normal(size=(128, 136)).astype(np.float32)
+    ref = {"layers/norm": stacked, "enc_layers/scale": short, "w": w}
+    port = {"w": w, **{f"layers/{i}/norm": stacked[i] for i in range(layers)},
+            **{f"enc_layers/{i}/scale": short[i] for i in range(3)}}
+    jcfg, tcfg = jopt.AdafactorConfig(lr=1e-2), topt.AdafactorConfig(lr=1e-2)
+    jp = {k: jnp.asarray(v) for k, v in ref.items()}
+    tp = {k: torch.tensor(v) for k, v in port.items()}
+    jstate, tstate = jopt.adafactor_init(jp, jcfg), topt.adafactor_init(tp,
+                                                                        tcfg)
+    assert {k: {n: tuple(v.shape) for n, v in slot.items()}
+            for k, slot in tstate["v"].items()
+            if k.startswith("layers")} == {
+        "layers/norm": {"vr": (layers,), "vc": (width,)}}
+    assert set(tstate["v"]["enc_layers/1/scale"]) == {"v"}
+    for step in range(3):
+        g = {k: (10.0 ** (step - 1) * rng.normal(size=v.shape)).astype(
+            np.float32) for k, v in ref.items()}
+        gport = {"w": g["w"],
+                 **{f"layers/{i}/norm": g["layers/norm"][i]
+                    for i in range(layers)},
+                 **{f"enc_layers/{i}/scale": g["enc_layers/scale"][i]
+                    for i in range(3)}}
+        jp, jstate = jopt.adafactor_update(
+            jp, {k: jnp.asarray(v) for k, v in g.items()}, jstate, jcfg)
+        tstate = topt.adafactor_update(
+            tp, {k: torch.tensor(v) for k, v in gport.items()}, tstate, tcfg)
+        _close(_stack({k: t.numpy() for k, t in tp.items()}), jp)
+        for slot in ("vr", "vc"):
+            _close({k: s[slot].numpy() for k, s in tstate["v"].items()
+                    if slot in s},
+                   {k: s[slot] for k, s in jstate["v"].items() if slot in s})
+        _close(_stack({k: s["v"].numpy() for k, s in tstate["v"].items()
+                       if "v" in s}),
+               {k: s["v"] for k, s in jstate["v"].items() if "v" in s})
+    # the training checkpoint's leaves are the reference's, shape for shape
+    from repro.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.checkpoint import lm_train_tree
+    flat = lm_train_tree(tp, tstate)
+    want = dict(_flatten_with_paths({"params": jp, "opt_state": jstate})[0])
+    assert {k: tuple(v.shape) for k, v in flat.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
 
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])

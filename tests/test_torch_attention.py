@@ -157,16 +157,30 @@ def test_bf16_inputs_return_bf16():
 
 
 def test_softcap_and_cross_lengths_are_not_ported():
+    """Both were refused and both are ported. The soft cap: the three
+    model functions with a cap of 1.0 (the scores reach 4 here) against
+    the reference's at TOL, and not equal to the uncapped ones
+    (``tests/test_torch_softcap.py`` holds the rest)."""
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 2))
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        attention.flash_attention(q, k, v, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        attention.decode_attention(q[:, 0], k, v, torch.zeros(1, 8,
-                                                              dtype=torch.int32),
-                                   torch.zeros(1, dtype=torch.int32),
-                                   logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        attention.naive_attention(q, k, v, logit_softcap=30.0)
+    jq, jk, jv = (x.numpy() for x in (q, k, v))
+    slots = torch.arange(8, dtype=torch.int32)[None]
+    pos = torch.full((1,), 7, dtype=torch.int32)
+    cases = (
+        (lambda c: attention.flash_attention(q, k, v, chunk=4,
+                                             logit_softcap=c),
+         lambda c: jattn.flash_attention(jq, jk, jv, chunk=4,
+                                         logit_softcap=c)),
+        (lambda c: attention.naive_attention(q, k, v, logit_softcap=c),
+         lambda c: jattn.naive_attention(jq, jk, jv, logit_softcap=c)),
+        (lambda c: attention.decode_attention(q[:, 0], k, v, slots, pos,
+                                              logit_softcap=c),
+         lambda c: jattn.decode_attention(jq[:, 0], jk, jv, slots.numpy(),
+                                          pos.numpy(), logit_softcap=c)))
+    for port, reference in cases:
+        got = port(1.0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(reference(1.0)),
+                                   **TOL)
+        assert float((got - port(0.0)).abs().max()) > 1e-2
     # keys of another length (whisper's cross attention) are ported now
     got = attention.flash_attention(q, k[:, :4], v[:, :4], causal=False)
     want = ref.flash_attention_torch(q, k[:, :4], v[:, :4], causal=False)

@@ -18,7 +18,9 @@ The selective scan (B6) is held at the reference's 5e-4
 (``tests/test_kernels.py:78``), and two calls must give the same bits;
 B6's gated entry too, its bf16 output against the plain version's f32
 value within 5e-4 plus half a bf16 ulp (2^-8 of the value), the rounding
-of the cast itself.
+of the cast itself. The soft cap (B4, B5) is held at the same bars as the
+uncapped kernels; the bf16 scan state (B6, B6b) at 1e-2 of the largest
+|entry| against the plain versions with it (``SCAN_BF16_BAR``).
 """
 import dataclasses
 
@@ -954,6 +956,154 @@ def test_mamba_scan_gated_backward_wrapper_rejects_bad_inputs(cuda_device):
                                   torch.zeros(1, 40, 5, device=cuda_device))
     with pytest.raises(ValueError, match="CUDA tensors"):
         mamba_scan_gated_bwd_cuda(*args, z, states.cpu(), dout)
+
+
+# -- the reference's refused configurations: the soft cap (B4, B5) and the
+# bf16 scan state (B6, B6b) ---------------------------------------------------
+
+SOFTCAP = 1.0  # the inputs' scores are scaled to reach several times it
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,dtype,causal,window", [
+    (1, 300, 32, 8, 128, torch.bfloat16, True, None),  # qwen3 heads
+    (1, 520, 32, 8, 128, torch.bfloat16, True, 256),   # a window, dead tiles
+    (2, 130, 16, 16, 128, torch.float32, True, None),  # olmo heads, f32
+    (2, 100, 4, 2, 16, torch.float32, False, 40),
+    (2, 65, 25, 5, 64, torch.bfloat16, False, None),   # hymba heads
+])
+def test_flash_attention_with_softcap_matches_plain_version(
+        cuda_device, b, s, h, kv, hd, dtype, causal, window):
+    """B4 with a cap: the output at the dtype's bar and the lse within
+    1e-5 of its largest |entry| against the capped plain versions; the
+    capped output differs from the uncapped one beyond the bar."""
+    gen = torch.Generator().manual_seed(s + hd)
+    q = (4 * torch.randn(b, s, h, hd, generator=gen)).to(cuda_device, dtype)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+    build.reset_launch_counts()
+    got, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    with_lse=True, softcap=SOFTCAP)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     softcap=SOFTCAP)
+    tol = _attn_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    wlse = ref.flash_attention_lse_torch(q, k, causal=causal, window=window,
+                                         softcap=SOFTCAP)
+    torch.testing.assert_close(lse, wlse, rtol=0,
+                               atol=1e-5 * float(wlse.abs().max()))
+    uncapped = ref.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window)
+    assert float((want.float() - uncapped.float()).abs().max()) > \
+        10 * tol["atol"]
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window,
+                                                softcap=SOFTCAP))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,h,kv,hd,fills,window,roll", [
+    (4, 4096, 32, 8, 128, (2303, 1100, 600, 503), None, None),  # qwen3-4b
+    (4, 64, 25, 5, 64, (0, 50, 10, 1), 40, (100, None, None, None)),
+    (2, 64, 8, 8, 64, (0, 0), None, None),                      # empty
+])
+def test_decode_attention_with_softcap_matches_plain_version(
+        cuda_device, b, w, h, kv, hd, fills, window, roll, dtype):
+    """B5 with a cap and its lse against the capped plain versions, at the
+    bars of the uncapped tests; an empty lane's lse -1e30 exactly."""
+    kc, vc, slot_pos, pos = _cache(b, w, kv, hd, fills, dtype, cuda_device,
+                                   rolling_from=roll, seed=w + 1)
+    q = (4 * torch.randn(b, h, hd, generator=torch.Generator().manual_seed(
+        6))).to(cuda_device, dtype)
+    build.reset_launch_counts()
+    got, lse = ops.decode_attention(q, kc, vc, slot_pos, pos, window=window,
+                                    with_lse=True, softcap=SOFTCAP)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["decode_attention"] == 1
+    want = ref.decode_attention_torch(q, kc, vc, slot_pos, pos,
+                                      window=window, softcap=SOFTCAP)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    wlse = ref.decode_attention_lse_torch(q, kc, slot_pos, pos,
+                                          window=window, softcap=SOFTCAP)
+    empty = wlse <= -1e29
+    assert torch.equal(lse[empty], wlse[empty])
+    if not bool(empty.all()):
+        torch.testing.assert_close(
+            lse[~empty], wlse[~empty], rtol=0,
+            atol=1e-5 * float(wlse[~empty].abs().max()))
+        uncapped = ref.decode_attention_torch(q, kc, vc, slot_pos, pos,
+                                              window=window)
+        assert float((want.float() - uncapped.float()).abs().max()) > \
+            10 * _attn_tol(dtype)["atol"]
+
+
+#: the bf16 state's bar on the card, of the largest |entry| (of each
+#: gradient's, for B6b): the kernels round where the plain versions round
+#: (``ref._bf16_chunks``), so only an f32 ulp between their exponentials or
+#: sums moves a value to the neighbouring bf16 one; B6b's 8-step segments
+#: round its recomputed states at other points than B6's 16-step ones
+SCAN_BF16_BAR = 1e-2
+
+
+def _bf16_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("b,s,d,n", SCAN_SHAPES)
+def test_mamba_scan_bf16_state_matches_plain_version(cuda_device, b, s, d, n):
+    """B6's bare and gated entries with the bf16 state against their plain
+    versions with it: y, out and h_last within SCAN_BF16_BAR, h_last and
+    the chunk states bf16 values, two calls the same bits, and the f32
+    state's results differ."""
+    args = _scan_inputs(b, s, d, n, cuda_device, seed=s)
+    y, h = ops.mamba_scan(*args, bf16_state=True)
+    y2, h2 = ops.mamba_scan(*args, bf16_state=True)
+    torch.cuda.synchronize()
+    wy, wh = ref.mamba_scan_torch(*args, bf16_state=True)
+    assert _bf16_err(y, wy) <= SCAN_BF16_BAR
+    assert _bf16_err(h, wh) <= SCAN_BF16_BAR
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert torch.equal(h.bfloat16().float(), h)
+    if s > 4:
+        assert not torch.equal(y, ops.mamba_scan(*args)[0])
+    gargs, z = _gated_inputs(b, s, d, n, cuda_device, torch.bfloat16, seed=s)
+    out, gh, states = mamba_scan_gated_cuda(*gargs, z, True,
+                                            with_states=True)
+    assert torch.equal(out, ops.mamba_scan_gated(*gargs, z,
+                                                 bf16_state=True)[0])
+    wout, wgh, wstates = ref.mamba_scan_gated_torch(*gargs, z.float(),
+                                                    chunk=128,
+                                                    bf16_state=True)
+    assert _bf16_err(out, wout) <= SCAN_BF16_BAR
+    assert _bf16_err(gh, wgh) <= SCAN_BF16_BAR
+    assert torch.equal(states.bfloat16().float(), states)
+    assert _bf16_err(states, wstates) <= SCAN_BF16_BAR
+
+
+@pytest.mark.parametrize("zdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,d,n", SCAN_BWD_SHAPES)
+def test_mamba_scan_gated_backward_bf16_state_matches_plain_version(
+        cuda_device, b, s, d, n, zdtype):
+    """B6b with the bf16 state, from B6's bf16 chunk states, against its
+    plain version with the flag: every gradient within SCAN_BF16_BAR of its
+    largest |entry|; two calls the same bits."""
+    args, z = _gated_inputs(b, s, d, n, cuda_device, zdtype, seed=s)
+    gen = torch.Generator().manual_seed(s + 2)
+    dout = torch.randn(b, s, d, generator=gen).to(cuda_device, zdtype)
+    dh = torch.randn(b, d, n, generator=gen).to(cuda_device)
+    _, _, states = mamba_scan_gated_cuda(*args, z, True, with_states=True)
+    got = mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh, True)
+    again = mamba_scan_gated_bwd_cuda(*args, z, states, dout, dh, True)
+    torch.cuda.synchronize()
+    want = ref.mamba_scan_gated_bwd_torch(*args, z, dout, dh,
+                                          bf16_state=True)
+    names = ("du", "ddt_raw", "ddt_bias", "dB", "dC", "dA", "dD", "dz")
+    for name, g, a, w in zip(names, got, again, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert _bf16_err(g, w) <= SCAN_BF16_BAR, (name, _bf16_err(g, w))
+        assert torch.equal(g, a), name
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "dots"])

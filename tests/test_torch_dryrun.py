@@ -352,11 +352,35 @@ def test_the_trace_counts_what_a_real_step_runs(run):
 
 
 def test_the_variants_the_port_refuses_raise():
-    from repro_torch.configs import get_config
+    """An unknown component raises; ``ssm-bf16``, once refused, applies
+    like any variant and its step traces on a reduced cell (a fake world
+    of one, in this process): B6 with its states and B6b run as the
+    f32 scan's do, with the same FLOPs and bytes (the memory term does
+    not move: B6 writes no per-step tensors for bf16 to halve)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config, get_reduced_config
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh
     cfg = get_config("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):
-        dryrun.apply_variant(cfg, dryrun.TrainKnobs(), "ssm-bf16")
+    got, _ = dryrun.apply_variant(cfg, dryrun.TrainKnobs(), "ssm-bf16")
+    assert got.ssm_scan_dtype == "bfloat16"
+    small = get_reduced_config("falcon-mamba-7b")
+    bf16, knobs = dryrun.apply_variant(small, dryrun.TrainKnobs(),
+                                       "ssm-bf16")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=2,
+                                seq_len=64)
+    runs = {}
+    try:
+        for name, c in (("f32", small), ("bf16", bf16)):
+            mesh = make_fake_mesh((1, 1), ("data", "model"), device="cpu")
+            counter = dryrun.trace_step(c, shape, mesh, knobs)["counter"]
+            runs[name] = (dict(counter.ops), counter.flops, counter.bytes)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert runs["bf16"] == runs["f32"]
+    assert runs["bf16"][0]["repro_torch.mamba_scan_gated_bwd"] > 0
     with pytest.raises(KeyError, match="unknown variant"):
         dryrun.apply_variant(cfg, dryrun.TrainKnobs(), "nope")
     got, knobs = dryrun.apply_variant(cfg, dryrun.TrainKnobs(),

@@ -37,7 +37,7 @@ from repro_torch.checkpoint import load_reference_lm_params
 from repro_torch.checkpoint.convert import host_array, stack_layers
 from repro_torch.models import attention, lm
 from repro_torch.nn import named_leaves
-from repro_torch.optim.adafactor import _groups, AdafactorConfig
+from repro_torch.optim.adafactor import _groups
 
 torch.set_num_threads(1)
 
@@ -306,8 +306,7 @@ def test_enc_layers_round_trip_through_convert_and_group_in_adafactor():
                                     for k, t in stacked.items()})
     for key, t in named_leaves(params).items():
         assert torch.equal(named_leaves(back)[key], t), key
-    groups = {tuple(g) for g in _groups(named_leaves(params),
-                                        AdafactorConfig())}
+    groups = {tuple(g) for g in _groups(named_leaves(params)).values()}
     assert tuple(f"enc_layers/{i}/mlp/wi"
                  for i in range(cfg.num_encoder_layers)) in groups
     assert tuple(f"layers/{i}/xattn/wq"

@@ -50,9 +50,15 @@ P0, SEG0, _ = abl.source_plan(SOURCE)
 TILE = 32  # kTC, channels per block: one 128-byte row of f32
 
 
-def design_scan(u, dt, B_mat, C_mat, A, segments, seg_len, tile=TILE):
+def design_scan(u, dt, B_mat, C_mat, A, segments, seg_len, tile=TILE,
+                bf16=False):
     """The kernel's decomposition of the scan from a zero state; u, dt
-    (B, S, d), B_mat, C_mat (B, S, N), A (d, N), f32. Returns (y, h_last)."""
+    (B, S, d), B_mat, C_mat (B, S, N), A (d, N), f32. Returns (y, h_last).
+    ``bf16``: the bf16 state's rounding points (the source's header note):
+    exp(dt * A) and dt * u * B rounded where formed, a segment's decay the
+    product of its rounded exponentials, the state entering a segment and
+    after each step of its walk rounded."""
+    rnd = ref.bf16_round if bf16 else (lambda x: x)
     b, s, d = u.shape
     n = A.shape[-1]
     p, seg = segments, seg_len
@@ -79,9 +85,10 @@ def design_scan(u, dt, B_mat, C_mat, A, segments, seg_len, tile=TILE):
             for i in range(seg):
                 sdv = sdv + dd[:, :, i]
             # each segment's (decay, value) pair, per state
-            ea = torch.exp2(dd[..., None] * a2[cs])        # (b, p, seg, dc, n)
-            eb = duv[..., None] * bb[:, :, :, None, :]
-            ac = torch.exp2(sdv[..., None] * a2[cs])       # (b, p, dc, n)
+            ea = rnd(torch.exp2(dd[..., None] * a2[cs]))   # (b, p, seg, dc, n)
+            eb = rnd(duv[..., None] * bb[:, :, :, None, :])
+            ac = (ea.prod(2) if bf16
+                  else torch.exp2(sdv[..., None] * a2[cs]))  # (b, p, dc, n)
             bc = torch.zeros(b, p, dc, n)
             for i in range(seg):
                 bc = ea[:, :, i] * bc + eb[:, :, i]
@@ -97,10 +104,10 @@ def design_scan(u, dt, B_mat, C_mat, A, segments, seg_len, tile=TILE):
             # carry
             h = torch.empty(b, p, dc, n)
             h[:, 0] = carry
-            h[:, 1:] = ac[:, :-1] * carry[:, None] + bc[:, :-1]
+            h[:, 1:] = rnd(ac[:, :-1] * carry[:, None] + bc[:, :-1])
             yv = torch.zeros(b, p, seg, dc)
             for i in range(seg):
-                h = ea[:, :, i] * h + eb[:, :, i]
+                h = rnd(ea[:, :, i] * h + eb[:, :, i])
                 yv[:, :, i] = (h * cc[:, :, i, None, :]).sum(-1)
             carry = h[:, p - 1]
             y[:, t0:t0 + rows, cs] = yv.reshape(b, chunk, dc)[:, :rows]
@@ -144,6 +151,25 @@ def test_design_matches_reference_oracle_and_pallas(shape, pallas):
         chunk, bd = pallas
         _check(got, jops.mamba_scan(*map(jnp.asarray, args), chunk=chunk,
                                     bd=bd))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 40, 16), (2, 256, 64, 16),
+                                   (1, 200, 70, 4), (2, 37, 33, 1),
+                                   (1, 130, 32, 32), (2, 300, 40, 16)])
+def test_bf16_design_matches_the_plain_bf16_scan(shape):
+    """The source's plan with the bf16 state's rounding points against the
+    plain version with ``bf16_state`` (which rounds at the same points, at
+    the plan ``ref.BF16_SEGMENTS, ref.BF16_SEG_LEN`` names): within 2e-3
+    of the largest |entry| (measured: at most 5.2e-4, where exp2 of dt *
+    (A log2 e) and exp(dt * A) an f32 ulp apart round to neighbouring
+    bf16 decays), h_last equal, and both holding bf16 values."""
+    assert (ref.BF16_SEGMENTS, ref.BF16_SEG_LEN) == (P0, SEG0)
+    args = list(map(torch.from_numpy, _scan_inputs(*shape, seed=shape[1])))
+    y, h = design_scan(*args, P0, SEG0, bf16=True)
+    wy, wh = ref.mamba_scan_torch(*args, bf16_state=True)
+    assert float((y - wy).abs().max()) <= 2e-3 * float(wy.abs().max())
+    assert torch.equal(h, wh)
+    assert torch.equal(h.to(torch.bfloat16).float(), h)
 
 
 @pytest.mark.parametrize("plan", abl.SWEEP)

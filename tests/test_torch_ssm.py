@@ -228,10 +228,26 @@ def test_ssm_init_matches_reference_leaves(arch, dtype):
 
 
 def test_reduced_precision_scan_is_not_ported():
-    cfg, _, p, _ = _block()
+    """The reduced-precision scan was refused; it runs now: the bf16 scan
+    (``ssm_scan_dtype="bfloat16"``) carries the block's state in bf16
+    against the reference's at the bars of
+    ``tests/test_torch_ssm_bf16.py``, and a dtype other than the two
+    raises ValueError naming them."""
+    cfg, jcfg, p, jp = _block()
     cfg = dataclasses.replace(cfg, ssm_scan_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):
-        ssm.ssm_apply(p, torch.zeros(1, 4, cfg.d_model), cfg)
+    jcfg = dataclasses.replace(jcfg, ssm_scan_dtype="bfloat16")
+    x = np.random.default_rng(7).normal(size=(2, 33, cfg.d_model)).astype(
+        np.float32)
+    out, state = ssm.ssm_apply(p, torch.from_numpy(x), cfg)
+    jout, jstate = jssm.ssm_apply(jp, jnp.asarray(x), jcfg)
+    for got, want in ((out, jout), (state["h"], jstate["h"])):
+        want = np.asarray(want)
+        assert float(np.abs(got.numpy() - want).max()) <= 2e-2 * float(
+            np.abs(want).max())
+    assert torch.equal(state["h"].to(torch.bfloat16).float(), state["h"])
+    with pytest.raises(ValueError, match="float32.*bfloat16"):
+        ssm.ssm_apply(p, torch.zeros(1, 4, cfg.d_model),
+                      dataclasses.replace(cfg, ssm_scan_dtype="float16"))
 
 
 def test_ssm_state_shapes_match_reference():

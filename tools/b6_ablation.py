@@ -61,7 +61,7 @@ CUTS = {
                    ("__shfl_up_sync(kFull, bc, 1, P)", "bc")],
     "no_exp": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));',
                 "r = x;")],
-    "no_second_pass": [("          h = fmaf(ea[i + j], h, eb[i + j]);\n"
+    "no_second_pass": [("          h = rnd<R>(fmaf(ea[i + j], h, eb[i + j]));\n"
                         "          yv[i + j] = fmaf(h, cv[j], yv[i + j]);",
                         "          h += cv[j];")],
     "no_memory": [("  const int rows = min(L::kChunk, p.S - t0);\n"
@@ -176,21 +176,21 @@ def main() -> int:
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         bare = lib.corais_mamba_scan
-        bare.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ptr]
+        bare.argtypes = [ptr] * 7 + [ctypes.c_int] * 5 + [ptr]
         gated = lib.corais_mamba_scan_gated
         gated.argtypes = ([ptr] * 8 + [ctypes.c_longlong, ctypes.c_int]
-                          + [ptr] * 3 + [ctypes.c_int] * 4 + [ptr])
+                          + [ptr] * 3 + [ctypes.c_int] * 5 + [ptr])
 
         def run_bare():
             return bare(u.data_ptr(), dt.data_ptr(), bm.data_ptr(),
                         cm.data_ptr(), a.data_ptr(), y.data_ptr(),
-                        h.data_ptr(), b, s, d, n, stream)
+                        h.data_ptr(), b, s, d, n, 0, stream)
 
         def run_gated():
             return gated(u.data_ptr(), dt_raw.data_ptr(), bias.data_ptr(),
                          bm.data_ptr(), cm.data_ptr(), a.data_ptr(),
                          dskip.data_ptr(), z.data_ptr(), z.stride(1), 1,
-                         out.data_ptr(), h.data_ptr(), None, b, s, d, n,
+                         out.data_ptr(), h.data_ptr(), None, b, s, d, n, 0,
                          stream)
 
         row = {}

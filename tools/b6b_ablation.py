@@ -224,7 +224,7 @@ def _inputs(b, s, d, n):
 def _bind(path: Path):
     lib = ctypes.CDLL(str(path))
     fn = lib.corais_mamba_scan_gated_bwd
-    fn.argtypes = ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 11 + [_I] * 5
+    fn.argtypes = ([_P] * 8 + [ctypes.c_longlong, _I] + [_P] * 11 + [_I] * 6
                    + [_P])
     lib.corais_mamba_scan_bwd_block_channels.argtypes = []
     return lib, fn
@@ -252,7 +252,7 @@ def _runner(lib, fn, args, z, dout, states):
                  states.data_ptr(), None, du.data_ptr(), ddt.data_ptr(),
                  dz.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
                  dAp.data_ptr(), dDp.data_ptr(), dbp.data_ptr(), b, s, d, n,
-                 nblk, stream)
+                 nblk, 0, stream)
         if err != 0:
             raise RuntimeError(f"launch refused: CUDA error {err}")
 
@@ -293,10 +293,13 @@ def phases(lib, d: int, s: int, b: int) -> dict:
 
 
 def state_loop_ops(sass: str) -> dict[str, int]:
-    """Opcodes of the Wide plan's bf16 kernel's state loop: the backward
-    branch whose body holds a barrier and an exponential."""
+    """Opcodes of the Wide plan's bf16 kernel's state loop (the f32 state,
+    template flag ``Lb0E``): the backward branch whose body holds a barrier
+    and an exponential."""
     for func in re.split(r"\n\s+Function : ", sass)[1:]:
-        if "PlanILi32E" not in func or "bfloat16" not in func.split("\n")[0]:
+        head = func.split("\n")[0]
+        if ("PlanILi32E" not in func or "bfloat16" not in head
+                or "Lb0E" not in head):
             continue
         lines = [ln for ln in func.splitlines()
                  if re.match(r"\s+/\*[0-9a-f]{4}\*/", ln)]
