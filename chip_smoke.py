@@ -170,18 +170,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
 12b. LM pretraining (``drive_lm_training``): (a) B4's log-sum-exp against
     its plain version within 1e-5 of max |lse| and its output with the lse
     store the same bits as without, and (b) ``FlashAttention``'s gradients
-    (B4 forward, the reference's pair-scan backward) against autograd
-    through the plain version (f32 1e-4, bf16 2^-6 of each gradient's
-    largest entry), at olmo-1b's training heads (8, 1024, 16, 16, 128) in
-    bf16 and f32, qwen3-4b's GQA heads and a ragged S = 65, causal and
-    windowed, every reading the same bits twice; (c) ``launch.train lm
+    (B4 forward, B4b backward, ``csrc/flash_attention_bwd.cu``) against
+    autograd through the plain version and against the plain pair-scan on
+    the same residuals (f32 1e-4, bf16 2^-6 of each gradient's largest
+    entry), at olmo-1b's training heads (8, 1024, 16, 16, 128) in bf16 and
+    f32, qwen3-4b's GQA heads, a ragged S = 65, causal and windowed,
+    hymba-1.5b's heads with its 2048 window, whisper-tiny's encoder (16,
+    1500) and cross attention (16, 448 | 1500), and a cap of 30 in bf16
+    and f32, every reading the same bits twice; (c) ``launch.train lm
     --arch olmo-1b --scale full`` (16 layers, d = 2048, bf16, remat
     "full", random weights from the seed) for 8 steps of 8 x 1024
     tokens in process: losses and grad norms finite, the last three steps'
-    mean below step 0's, B4 exactly 32 times a step, B5 and B6 never, no
-    plain version of B4-B6 reached; step wall p50/p95 over steps 2-7,
-    tokens/s, peak memory and one profiled step (device ms by kind and by
-    piece: the pair-scan backward, the clip, Adam); (d) olmo-1b's widths
+    mean below step 0's, B4 exactly 32 times a step and B4b 16, B5 and B6
+    never, no plain version of B4-B6 or B4b (the pair-scan) reached; step
+    wall p50/p95 over steps 2-7, tokens/s, peak memory and one profiled
+    step (device ms by kind and by piece: the attention's backward, the
+    clip, Adam); (d) olmo-1b's widths
     at 2 layers in f32, ``train_loss`` through the kernel path against the
     plain path (loss 1e-5 relative, every gradient 1e-4 of its largest
     entry); (e) the same widths at 2 layers in bf16: 6 steps, and 4 with a
@@ -284,7 +288,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``LMEdgeBackend`` edge: B4 once per layer an admission, B5 once per
     layer a decode step, no plain version reached; (c) olmo-1b at 2
     layers in f32 with a cap of 0.5: loss and gradients through B4 and
-    the capped ``flash_bwd`` against the plain path, the cap moving the
+    B4b capped against the plain path, the cap moving the
     projections' gradients; (d) B6's bare and gated entries with the
     bf16 state at falcon-mamba's and hymba's prefill shapes and B6b with
     it at hymba's training shape against their plain versions with it
@@ -358,8 +362,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     B3 also at K = Q = 100 normalized under ``sampled``, B2
     at the training shape, B4 at qwen3-4b's and
     hymba-1.5b's 2048-token prefills and, storing its lse, olmo-1b's
-    training shape (with the pair-scan backward beside SDPA's backward
-    there), at mixtral-8x7b's 2048-token prefill and a 4500-token one past
+    training shape, B4b there and at hymba-1.5b's training heads (beside
+    the plain pair-scan and SDPA's backward), B4 at mixtral-8x7b's
+    2048-token prefill and a 4500-token one past
     its window and at qwen2-vl-72b's (2, 2048) prefill, B5 at the 4-lane
     qwen3-4b edge's cache after serving (there also with its lse, beside
     B5 without it, under ``with_lse``), at hymba's and mixtral's rolled
@@ -2723,7 +2728,8 @@ def drive_fleet_data_parallel(card, m, arr, single, single_ms,
 # the smoke's time (its trace took ~62 s at 32; the dry run's FLOPs and
 # bytes are linear in depth, tests/test_torch_dryrun.py)
 DRYRUN_CELLS = (
-    ("olmo-1b", "train_4k", "single", ("flash_attention_lse",), "baseline",
+    ("olmo-1b", "train_4k", "single", ("flash_attention_lse",
+                                       "flash_attention_bwd"), "baseline",
      None),
     ("qwen3-4b", "decode_32k", "single", ("decode_attention",), "baseline",
      None),
@@ -2731,9 +2737,11 @@ DRYRUN_CELLS = (
      "baseline", None),
     ("falcon-mamba-7b", "prefill_32k", "single", ("mamba_scan_gated",),
      "ssm-bf16", None),
-    ("mixtral-8x7b", "train_4k", "single", ("flash_attention_lse",),
+    ("mixtral-8x7b", "train_4k", "single", ("flash_attention_lse",
+                                            "flash_attention_bwd"),
      "baseline", 16),
-    ("olmo-1b", "train_4k", "multi", ("flash_attention_lse",), "baseline",
+    ("olmo-1b", "train_4k", "multi", ("flash_attention_lse",
+                                      "flash_attention_bwd"), "baseline",
      None))
 DRYRUN_TIMEOUT_S = 130
 DRYRUN_PEAK_TOL = 0.10    # predicted peak against the card's, relative
@@ -3398,7 +3406,7 @@ def compare_cross_attention(ops, ref, attention, errs):
     (the decoder's cross attention over the frames), 8 utterances, bf16
     and f32, at the reference's bars, with its lse against the plain one
     (LSE_TOL of max |lse|) and the output the same bits with the lse store;
-    ``FlashAttention``'s gradients (B4 forward, the pair-scan backward) at
+    ``FlashAttention``'s gradients (B4 forward, B4b backward) at
     WHISPER_BWD_CASES against autograd through the plain version
     (ATTN_BWD_TOL); the one-token cross attention
     (``attention.cross_decode_attention``: B5 over the frames' slot map)
@@ -3605,11 +3613,13 @@ def _refuse(module, name, what):
 
 def _plain_guard(ref, ops):
     """Patches that make the plain versions of B4-B6 raise, B6's gated
-    entry's too, and B6's bare entry: the main path on the card must reach
-    only the kernels, and the SSM block only B6's gated entry."""
+    entry's and B4b's (the pair-scan) too, and B6's bare entry: the main
+    path on the card must reach only the kernels, and the SSM block only
+    B6's gated entry."""
     return [_refuse(ref, n, "the plain") for n in (
-        "flash_attention_torch", "decode_attention_torch",
-        "mamba_scan_torch", "mamba_scan_gated_torch")] + [
+        "flash_attention_torch", "flash_attention_bwd_torch",
+        "decode_attention_torch", "mamba_scan_torch",
+        "mamba_scan_gated_torch")] + [
         _refuse(ops, "mamba_scan", "B6's bare entry")]
 
 
@@ -4082,15 +4092,23 @@ TRAIN_LM_TIMED = 2       # steps 2-7 are timed; 0-1 warm the allocator
 TRAIN_LM_LAYERS = 2      # (d) and (e): olmo-1b's widths at 2 layers
 TRAIN_LM_CKPT_AT = 3     # (e): a checkpoint after step 3, of 6
 TRAIN_LM_RESUME_TOL = 1e-3
-# (a) and (b): (B, S, H, KV, hd, dtype, causal, window, chunk): olmo-1b's
-# training heads in bf16 and f32 (chunk = its attn_chunk), qwen3-4b's GQA
-# heads, a ragged S causal and windowed (chunk 16: S pads to 80)
+# (a) and (b): (B, Sq, Sk, H, KV, hd, dtype, causal, window, cap, chunk):
+# olmo-1b's training heads in bf16 and f32 (chunk = its attn_chunk),
+# qwen3-4b's GQA heads, a ragged S causal and windowed (chunk 16: S pads to
+# 80), hymba-1.5b's heads with its 2048 window, whisper-tiny's encoder and
+# its cross attention from 448 tokens to 1500 frames, and a cap of 30 in
+# bf16 and f32
 TRAIN_ATTN_CASES = (
-    (8, 1024, 16, 16, 128, torch.bfloat16, True, None, 512),
-    (8, 1024, 16, 16, 128, torch.float32, True, None, 512),
-    (2, 1024, 32, 8, 128, torch.bfloat16, True, None, 512),
-    (2, 65, 32, 8, 128, torch.bfloat16, True, None, 16),
-    (2, 65, 32, 8, 128, torch.float32, True, 48, 16),
+    (8, 1024, 1024, 16, 16, 128, torch.bfloat16, True, None, 0.0, 512),
+    (8, 1024, 1024, 16, 16, 128, torch.float32, True, None, 0.0, 512),
+    (2, 1024, 1024, 32, 8, 128, torch.bfloat16, True, None, 0.0, 512),
+    (2, 65, 65, 32, 8, 128, torch.bfloat16, True, None, 0.0, 16),
+    (2, 65, 65, 32, 8, 128, torch.float32, True, 48, 0.0, 16),
+    (8, 1024, 1024, 25, 5, 64, torch.bfloat16, True, 2048, 0.0, 512),
+    (16, 1500, 1500, 6, 6, 64, torch.bfloat16, False, None, 0.0, 512),
+    (16, 448, 1500, 6, 6, 64, torch.bfloat16, False, None, 0.0, 512),
+    (2, 1024, 1024, 16, 16, 128, torch.bfloat16, True, None, 30.0, 512),
+    (2, 1024, 1024, 16, 16, 128, torch.float32, True, None, 30.0, 512),
 )
 LSE_TOL = 1e-5           # of max |lse|: f32 sums in another order
 # the backward against autograd through the plain version, of each
@@ -4100,14 +4118,14 @@ LSE_TOL = 1e-5           # of max |lse|: f32 sums in another order
 ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 TRAIN_LOSS_TOL = 1e-5    # (d), relative
 TRAIN_GRAD_TOL = 1e-4    # (d), of each gradient's largest |entry|
-# device ms by kind in the training step's trace: B4's forward kernel, the
-# library GEMMs, PyTorch's element-wise and reduction kernels
-TRAIN_KERNEL_KINDS = (("B4", ("flash_fwd",)),
+# device ms by kind in the training step's trace: B4's forward kernel, B4b's
+# two, the library GEMMs, PyTorch's element-wise and reduction kernels
+TRAIN_KERNEL_KINDS = (("B4", ("flash_fwd",)), ("B4b", ("flash_bwd",)),
                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                       ("elementwise", ("elementwise_kernel",)),
                       ("reduce", ("reduce_kernel",)))
-# host ranges named in the profiled step: the pair-scan backward, the clip
-# and Adam
+# host ranges named in the profiled step: the attention's backward (B4b),
+# the clip and Adam
 TRAIN_RANGES = ("lm_train.attention_backward", "lm_train.clip",
                 "lm_train.adam")
 
@@ -4122,21 +4140,24 @@ def _train_lm_argv(device, steps=None, *extra, arch=TRAIN_LM_ARCH):
 def compare_training_attention(ops, ref, device="cuda"):
     """(a) B4's lse against its plain version (LSE_TOL of max |lse|), the
     output with the lse store the same bits as without it; (b) the
-    gradients of ``FlashAttention`` (B4 forward, the pair-scan backward)
-    against autograd through the plain version (ATTN_BWD_TOL of each
-    gradient's largest |entry|). Every reading the same bits on two
-    calls."""
+    gradients of ``FlashAttention`` (B4 forward, B4b backward) against
+    autograd through the plain version and against the plain pair-scan
+    (``ref.flash_attention_bwd_torch``, B4b's plain version) on the same
+    residuals (ATTN_BWD_TOL of each gradient's largest |entry|), B4b
+    launched once a backward. Every reading the same bits on two calls."""
+    from repro_torch.kernels import build
     gen = torch.Generator().manual_seed(41)
     report = []
-    for b, s, h, kv, hd, dtype, causal, window, chunk in TRAIN_ATTN_CASES:
-        where = (b, s, h, kv, hd, str(dtype), causal, window)
-        q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
-            device, dtype) for n in (h, kv, kv, h))
-        out, lse = LIB.flash_attention_lse(q, k, v, causal, window)
-        out2, lse2 = LIB.flash_attention_lse(q, k, v, causal, window)
-        bare = LIB.flash_attention(q, k, v, causal, window)
+    for (b, s, sk, h, kv, hd, dtype, causal, window, cap,
+         chunk) in TRAIN_ATTN_CASES:
+        where = (b, s, sk, h, kv, hd, str(dtype), causal, window, cap)
+        q, k, v, dout = (torch.randn(b, n, m, hd, generator=gen).to(
+            device, dtype) for n, m in ((s, h), (sk, kv), (sk, kv), (s, h)))
+        out, lse = LIB.flash_attention_lse(q, k, v, causal, window, cap)
+        out2, lse2 = LIB.flash_attention_lse(q, k, v, causal, window, cap)
+        bare = LIB.flash_attention(q, k, v, causal, window, cap)
         want = ref.flash_attention_lse_torch(q, k, causal=causal,
-                                             window=window)
+                                             window=window, softcap=cap)
         lse_err = float((lse - want).abs().max())
         check(lse.shape == (b, h, s) and bool(torch.isfinite(lse).all()),
               f"lse malformed at {where}")
@@ -4155,28 +4176,37 @@ def compare_training_attention(ops, ref, device="cuda"):
 
         def kernel(*x):
             return ops.flash_attention(*x, causal=causal, window=window,
-                                       chunk=chunk)
+                                       chunk=chunk, softcap=cap)
 
+        before = build.LAUNCHES["flash_attention_bwd"]
         got, again = grads(kernel), grads(kernel)
+        check(build.LAUNCHES["flash_attention_bwd"] - before == 2,
+              f"B4b not launched once a backward at {where}")
         plain = grads(lambda *x: ref.flash_attention_torch(
-            *x, causal=causal, window=window))
+            *x, causal=causal, window=window, softcap=cap))
+        pair_scan = ref.flash_attention_bwd_torch(
+            q, k, v, out, lse, dout, chunk=chunk, causal=causal,
+            window=window, softcap=cap)
         bwd = {}
-        for name, g, a, p in zip(("dq", "dk", "dv"), got, again, plain):
-            err = float((g.float() - p.float()).abs().max())
-            rel = err / max(float(p.float().abs().max()), 1e-30)
-            bwd[name] = {"max_abs_err": err, "of_largest": rel}
+        for name, g, a, p, w in zip(("dq", "dk", "dv"), got, again, plain,
+                                    pair_scan):
+            bwd[name] = {}
+            for label, ref_g in (("plain", p), ("pair_scan", w)):
+                err = float((g.float() - ref_g.float()).abs().max())
+                rel = err / max(float(ref_g.float().abs().max()), 1e-30)
+                bwd[name][label] = {"max_abs_err": err, "of_largest": rel}
+                check(rel <= ATTN_BWD_TOL[dtype], f"{name} err {err} ({rel} "
+                      f"of its largest entry) against the {label} path "
+                      f"beyond {ATTN_BWD_TOL[dtype]} at {where}")
             check(g.dtype == dtype and bool(torch.isfinite(g).all()),
                   f"{name} malformed at {where}")
-            check(rel <= ATTN_BWD_TOL[dtype], f"{name} err {err} ({rel} of "
-                  f"its largest entry) beyond {ATTN_BWD_TOL[dtype]} at "
-                  f"{where}")
             check(torch.equal(g, a), f"{name} differs between two calls at "
                   f"{where}")
-        report.append({"B": b, "S": s, "H": h, "KV": kv, "hd": hd,
-                       "dtype": str(dtype), "causal": causal,
-                       "window": window, "chunk": chunk,
+        report.append({"B": b, "Sq": s, "Sk": sk, "H": h, "KV": kv,
+                       "hd": hd, "dtype": str(dtype), "causal": causal,
+                       "window": window, "softcap": cap, "chunk": chunk,
                        "lse_max_abs_err": lse_err, "backward": bwd})
-        del q, k, v, dout, got, again, plain
+        del q, k, v, dout, got, again, plain, pair_scan
         torch.cuda.empty_cache()
     return report
 
@@ -4184,11 +4214,13 @@ def compare_training_attention(ops, ref, device="cuda"):
 @contextlib.contextmanager
 def _train_ranges(m):
     """Name the training step's pieces in a torch.profiler trace: the
-    pair-scan backward (``models.attention.flash_bwd``, which
+    attention's backward (the op ``flash_attention_bwd``, B4b, which
     ``FlashAttention.backward`` looks up at each call), and the clip and
     Adam that ``launch.steps`` binds when a step is built."""
     from unittest import mock
     from torch.profiler import record_function
+
+    from repro_torch.kernels import flash_attention_bwd as b4b
 
     def ranged(label, fn):
         def wrapped(*args, **kwargs):
@@ -4198,7 +4230,8 @@ def _train_ranges(m):
 
     with contextlib.ExitStack() as stack:
         for module, name, label in (
-                (m.attention, "flash_bwd", "lm_train.attention_backward"),
+                (b4b, "flash_attention_bwd_op",
+                 "lm_train.attention_backward"),
                 (m.steps, "clip_by_global_norm", "lm_train.clip"),
                 (m.steps, "adam_update", "lm_train.adam")):
             stack.enter_context(mock.patch.object(
@@ -4251,7 +4284,7 @@ def _loss_aux_grads(m, params, batch, cfg):
 
 def train_loss_vs_plain(m, ref, cfg, params, batch, want, routes=None):
     """``train_loss`` and its gradients through the kernels (B4 with its
-    lse and the pair-scan backward; B6's gated entry and B6b) against the
+    lse and B4b; B6's gated entry and B6b) against the
     plain path (autograd through the plain versions of B4 and of B6's gated
     entry), the plain path first, the same weights and batch: the loss
     within TRAIN_LOSS_TOL relative, ``aux_loss`` and every gradient within
@@ -4316,7 +4349,8 @@ def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
                              batch_size=TRAIN_LM_BATCH):
     """(d) ``arch``'s widths at TRAIN_LM_LAYERS layers in f32: one batch of
     ``batch_size`` x TRAIN_LM_SEQ tokens through :func:`train_loss_vs_plain`;
-    under remat 'full' B4 and B6 twice per layer of theirs, B6b once."""
+    under remat 'full' B4 and B6 twice per layer of theirs, B4b and B6b
+    once."""
     cfg = dataclasses.replace(m.get_config(arch),
                               num_layers=TRAIN_LM_LAYERS, dtype="float32")
     params = m.lm.init_params(cfg, generator=torch.Generator(
@@ -4328,6 +4362,7 @@ def training_kernel_vs_plain(m, ref, device="cuda", arch=TRAIN_LM_ARCH,
     attn = cfg.family != "ssm"
     ssm = cfg.family in ("ssm", "hybrid")
     want = {"flash_attention": 2 * TRAIN_LM_LAYERS * attn,
+            "flash_attention_bwd": TRAIN_LM_LAYERS * attn,
             "mamba_scan": 2 * TRAIN_LM_LAYERS * ssm,
             "mamba_scan_bwd": TRAIN_LM_LAYERS * ssm}
     return {"arch": arch, **train_loss_vs_plain(m, ref, cfg, params, batch,
@@ -4400,6 +4435,7 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     and read just after: every loss and grad norm finite, the last three
     steps' mean loss below step 0's, B4 exactly twice per layer per step
     (forward and recompute), B5 and B6 never, no plain version of B4-B6
+    reached; B4b once per layer per step, the plain pair-scan never
     reached; the step wall p50 and p95 over steps 2-7, tokens/s, the peak
     memory, one profiled step; (d) ``training_kernel_vs_plain``; (e)
     ``training_resume``. Returns (summary, launches of (c))."""
@@ -4430,6 +4466,9 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
     check(counts["flash_attention"] == want, f"B4 launched "
           f"{counts['flash_attention']} times in {TRAIN_LM_STEPS} steps, "
           f"not {want}")
+    check(counts["flash_attention_bwd"] == want // 2, f"B4b launched "
+          f"{counts['flash_attention_bwd']} times in {TRAIN_LM_STEPS} "
+          f"steps, not {want // 2}")
     check(counts["decode_attention"] == 0 and counts["mamba_scan"] == 0
           and counts["mamba_scan_bwd"] == 0,
           f"B5, B6 or B6b launched while training: {counts}")
@@ -4446,7 +4485,9 @@ def drive_lm_training(m, card, root=ROOT, device="cuda"):
         "step_p95_ms": float(np.percentile(timed, 95)),
         "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / p50 * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "b4_launches_per_step": counts["flash_attention"] / TRAIN_LM_STEPS}
+        "b4_launches_per_step": counts["flash_attention"] / TRAIN_LM_STEPS,
+        "b4b_launches_per_step": counts["flash_attention_bwd"]
+        / TRAIN_LM_STEPS}
     out["full_width"]["profile"] = profile_training(m, run, device)
     print(f"lm training: {json.dumps(out['full_width'])}", flush=True)
     del run
@@ -4607,8 +4648,9 @@ def drive_ssm_training(m, card, device="cuda"):
     """Phase 12c. (a) ``compare_scan_backward``; (b) ``launch.train lm``
     at hymba-1.5b ``CONFIG`` (32 layers, d = 1600, bf16, remat "full",
     random weights from the seed): per step B6 64 times (forward and
-    recompute), B6b 32, B4 64; (c) falcon-mamba-7b ``CONFIG`` at full width
-    cut to TRAIN_SSM_LAYERS layers: B6 16, B6b 8, B4 none; each through
+    recompute), B6b 32, B4 64, B4b 32; (c) falcon-mamba-7b ``CONFIG`` at
+    full width cut to TRAIN_SSM_LAYERS layers: B6 16, B6b 8, B4 and B4b
+    none; each through
     ``_train_family``; (d) ``training_kernel_vs_plain`` at both families'
     widths and TRAIN_LM_LAYERS layers in f32. Returns (summary,
     {path: launches of (b) and (c)})."""
@@ -4622,8 +4664,10 @@ def drive_ssm_training(m, card, device="cuda"):
                                 ("ssm", TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS)):
         cfg = m.get_config(arch)
         n = layers or cfg.num_layers
+        attn = cfg.family == "hybrid"
         want = {"mamba_scan": 2 * n, "mamba_scan_bwd": n,
-                "flash_attention": 2 * n if cfg.family == "hybrid" else 0}
+                "flash_attention": 2 * n * attn,
+                "flash_attention_bwd": n * attn}
         out[label], counts[f"{label}_lm_training"] = _train_family(
             m, arch, want, layers, device)
         print(f"{label} lm training: {json.dumps(out[label])}", flush=True)
@@ -4855,10 +4899,10 @@ def drive_vlm_lm(m):
 
 # -- phases 12f and 12g: whisper (served and trained) and MoE training ------
 
-# device ms by kind in the training steps of 12f and 12g: B4, the MoE
+# device ms by kind in the training steps of 12f and 12g: B4, B4b, the MoE
 # layer's index kernels, the library GEMMs, element-wise, reductions
-MOE_TRAIN_KINDS = MOE_KERNEL_KINDS[:1] + MOE_KERNEL_KINDS[2:] + (
-    ("reduce", ("reduce_kernel",)),)
+MOE_TRAIN_KINDS = MOE_KERNEL_KINDS[:1] + (("B4b", ("flash_bwd",)),) + \
+    MOE_KERNEL_KINDS[2:] + (("reduce", ("reduce_kernel",)),)
 
 
 def _whisper_frames(cfg, batch, seed, device="cuda"):
@@ -4999,8 +5043,10 @@ def whisper_training(m, cfg, device="cuda"):
           f"not fall: {losses}")
     b4 = 2 * (cfg.num_encoder_layers + 2 * cfg.num_layers)
     check(counts["flash_attention"] == b4 * TRAIN_LM_STEPS
+          and counts["flash_attention_bwd"] == b4 // 2 * TRAIN_LM_STEPS
           and counts["decode_attention"] == 0 and counts["mamba_scan"] == 0,
-          f"whisper training launched {counts}, not B4 {b4} a step")
+          f"whisper training launched {counts}, not B4 {b4} and B4b "
+          f"{b4 // 2} a step")
     timed = step_ms[TRAIN_LM_TIMED:]
     p50 = float(np.percentile(timed, 50))
     out = {"arch": cfg.name, "dtype": cfg.dtype, "remat": tcfg.remat,
@@ -5011,6 +5057,8 @@ def whisper_training(m, cfg, device="cuda"):
            "utterances_per_s": WHISPER_TRAIN_BATCH / p50 * 1e3,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "b4_launches_per_step": counts["flash_attention"]
+           / TRAIN_LM_STEPS,
+           "b4b_launches_per_step": counts["flash_attention_bwd"]
            / TRAIN_LM_STEPS}
     out["profile"] = profile_training(
         m, {"cfg": tcfg, "params": params, "opt_state": opt_state,
@@ -5069,6 +5117,7 @@ def drive_whisper_lm(m, card):
             "tokens": tokens[:, :-1].contiguous(),
             "labels": tokens[:, 1:].contiguous()},
         {"flash_attention": 2 * (cfg.num_encoder_layers + 2 * cfg.num_layers),
+         "flash_attention_bwd": cfg.num_encoder_layers + 2 * cfg.num_layers,
          "mamba_scan": 0, "mamba_scan_bwd": 0})
     print(f"whisper lm training kernel vs plain: "
           f"{json.dumps(out['training_kernel_vs_plain'])}", flush=True)
@@ -5119,7 +5168,7 @@ def moe_training_rerun(m, device="cuda"):
 def drive_moe_training(m, card, device="cuda"):
     """Phase 12g: (a) ``launch.train lm --arch mixtral-8x7b --scale full``
     cut to MOE_TRAIN_LAYERS layers through ``_train_family`` (B4 twice per
-    layer a step, B5 and B6 never, losses, aux losses and grad norms
+    layer a step, B4b once, B5 and B6 never, losses, aux losses and grad norms
     finite, the loss falling; a profiled step with the MoE layer's pieces
     as in 12d); (b) :func:`moe_training_rerun`; (c) at MOE_TRAIN_LAYERS
     layers in f32 on MOE_PARITY_BATCH x MOE_PARITY_SEQ tokens, the kernel
@@ -5129,8 +5178,8 @@ def drive_moe_training(m, card, device="cuda"):
     out = {"card": card}
     n = MOE_TRAIN_LAYERS
     out["full_width"], counts = _train_family(
-        m, MOE_ARCH, {"flash_attention": 2 * n, "mamba_scan": 0,
-                      "mamba_scan_bwd": 0}, n, device,
+        m, MOE_ARCH, {"flash_attention": 2 * n, "flash_attention_bwd": n,
+                      "mamba_scan": 0, "mamba_scan_bwd": 0}, n, device,
         kinds=MOE_TRAIN_KINDS, ranges=lambda: _moe_ranges(m.moe))
     pieces = out["full_width"]["profile"]["device_ms_by_piece"]
     pieces["moe.route_dispatch_combine"] = (pieces["moe.layer"]
@@ -5147,6 +5196,7 @@ def drive_moe_training(m, card, device="cuda"):
                           seed=1)).items()}
     out["kernel_vs_plain"] = train_loss_vs_plain(
         m, m.ref, cfg, params, batch, {"flash_attention": 2 * n,
+                                       "flash_attention_bwd": n,
                                        "mamba_scan": 0, "mamba_scan_bwd": 0},
         routes=_RouteForcing(m.moe))
     print(f"moe lm training kernel vs plain: "
@@ -5196,7 +5246,8 @@ def sharded_training(m, mesh, device="cuda"):
     SHARDED_TRAIN_STEPS steps of TRAIN_LM_BATCH x TRAIN_LM_SEQ tokens,
     meshless and through the sharded ``build_train_step`` on ``mesh``,
     from the same weights and batches: every parameter, Adam slot and loss
-    the same bits; B4 twice per layer a step on both. The step times
+    the same bits; B4 twice per layer a step on both, B4b once. The step
+    times
     (host: until the step returns; wall: until the card is done) and the
     redistributions a sharded step makes."""
     cfg = dataclasses.replace(m.get_config(TRAIN_LM_ARCH),
@@ -5235,9 +5286,12 @@ def sharded_training(m, mesh, device="cuda"):
                            "wall_ms": wall_ms,
                            "redistributes": dict(m.ctx.REDISTRIBUTES)}
             want = 2 * cfg.num_layers * SHARDED_TRAIN_STEPS
-            check(counts["flash_attention"] == want,
+            check(counts["flash_attention"] == want
+                  and counts["flash_attention_bwd"] == want // 2,
                   f"{label} olmo-1b training launched B4 "
-                  f"{counts['flash_attention']} times, not {want}")
+                  f"{counts['flash_attention']} and B4b "
+                  f"{counts['flash_attention_bwd']} times, not {want} and "
+                  f"{want // 2}")
     a, b = runs["meshless"], runs["sharded"]
     differ = (_bits_differ(a["params"], b["params"])
               + _bits_differ(a["opt"], b["opt"]))
@@ -5687,7 +5741,7 @@ def serve_softcap(m):
 def train_softcap(m):
     """(c) olmo-1b's widths at TRAIN_LM_LAYERS layers in f32 with the cap
     SOFTCAP_TRAIN: ``train_loss`` and its gradients through B4 (with its
-    lse) and ``flash_bwd`` against the plain path (``train_loss_vs_plain``:
+    lse) and B4b against the plain path (``train_loss_vs_plain``:
     TRAIN_LOSS_TOL, and TRAIN_GRAD_TOL, which is ATTN_BWD_TOL's f32 bar);
     the capped gradients of the attention's projections must differ from
     the uncapped ones beyond TRAIN_GRAD_TOL (at the initialisation the
@@ -5700,7 +5754,8 @@ def train_softcap(m):
     pipe = m.SyntheticTokens(cfg.vocab_size, SOFTCAP_TRAIN_BATCH,
                              TRAIN_LM_SEQ, seed=1)
     batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
-    want = {"flash_attention": 2 * TRAIN_LM_LAYERS, "mamba_scan": 0,
+    want = {"flash_attention": 2 * TRAIN_LM_LAYERS,
+            "flash_attention_bwd": TRAIN_LM_LAYERS, "mamba_scan": 0,
             "mamba_scan_bwd": 0}
     out = train_loss_vs_plain(m, m.ref, cfg, params, batch, want)
     _, _, capped = _loss_aux_grads(m, params, batch, cfg)
@@ -5925,7 +5980,7 @@ def drive_refused_configs(m, card, qwen3_cache, f32_losses):
     """Phase 12i: the reference's configurations the port refused, on the
     card. (a) ``compare_softcap``; (b) ``serve_softcap``; (c)
     ``train_softcap``; (d) ``compare_scan_bf16``; (e) ``bf16_scan_lm``.
-    Returns (report, {path: launches of (b) and (e)}, the timing rows)."""
+    Returns (report, {path: launches of (b), (c) and (e)})."""
     t_phase = time.perf_counter()
     errs = {}
     out = {"card": card}
@@ -5944,6 +5999,7 @@ def drive_refused_configs(m, card, qwen3_cache, f32_losses):
     out["bf16_scan_lm"], counts = bf16_scan_lm(m, f32_losses)
     print(f"bf16 scan lm: {json.dumps(out['bf16_scan_lm'])}", flush=True)
     counts["softcap_lm_serving"] = served
+    counts["softcap_lm_training"] = out["softcap_training"]["launches"]
     out["errs"] = errs
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"refused configurations phase: {out['phase_s']:.1f} s", flush=True)
@@ -6027,7 +6083,8 @@ def _elastic_card_phase(job: dict) -> dict:
     """A card child of phase 15 (a): ``elastic.run_phase`` on a (1, 1)
     mesh over a world of one (NCCL on the card), the launch counters set
     to 0 before and read after, every plain version of B4-B6 and of B4's
-    and B5's lse refused; a restored run's leaves held to the file."""
+    and B5's lse and B4b's refused; a restored run's leaves held to the
+    file."""
     from unittest import mock
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.kernels import build, ops, ref
@@ -6188,7 +6245,7 @@ def drive_examples(m, device="cuda") -> tuple:
     counts = dict(m.build.LAUNCHES)
     if device == "cuda":
         for name in ("policy_score", "policy_score_bwd", "flash_attention",
-                     "decode_attention"):
+                     "flash_attention_bwd", "decode_attention"):
             check(counts[name] > 0, f"the examples launched {name} "
                   f"{counts[name]} times")
     shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm", ignore_errors=True)
@@ -6282,12 +6339,14 @@ def drive_elastic(m, card, device="cuda", scale="full") -> tuple:
     if device == "cuda":
         for label, r in (("A", a), ("B", b), ("whole", w)):
             want = 2 * r["layers"] * len(r["losses"])
-            others = {k: v for k, v in r["counts"].items()
-                      if v and k != "flash_attention"}
-            check(r["counts"]["flash_attention"] == want and not others
-                  and "nccl" in r["backend"].lower(), f"elastic {label} "
-                  f"launched {r['counts']} on {r['backend']}, not B4 "
-                  f"{want} times (twice per layer a step) over NCCL")
+            others = {k: v for k, v in r["counts"].items() if v and k not in
+                      ("flash_attention", "flash_attention_bwd")}
+            check(r["counts"]["flash_attention"] == want
+                  and r["counts"]["flash_attention_bwd"] == want // 2
+                  and not others and "nccl" in r["backend"].lower(),
+                  f"elastic {label} launched {r['counts']} on "
+                  f"{r['backend']}, not B4 {want} times (twice per layer a "
+                  f"step) and B4b {want // 2} over NCCL")
     check(a["losses"] + b["losses"] == w["losses"]
           and all(math.isfinite(x) for x in w["losses"]),
           f"phase A then B gave losses {a['losses']} + {b['losses']}, the "
@@ -6812,41 +6871,71 @@ def _flash_row(ops, ref, gen, b, s, h, kv, hd, window, launches, *,
                 peak=BF16_FLOPS, reps=10, inner=5)
 
 
-def _flash_backward_row(attention, gen, b, s, h, kv, hd, chunk):
-    """The training attention's backward (the pair-scan ``flash_bwd`` over
-    ``chunk``-row blocks, plain PyTorch) at (b, s, h, kv, hd) bf16 causal,
-    beside PyTorch's ``scaled_dot_product_attention`` backward on the same
-    inputs, a yardstick only, and the bound of the same work: the five
-    products of the kept (row, column) pairs (s, dp, dv, dq, dk) on the
-    bf16 tensor cores against q, k, v, o, dO and lse read and dq, dk, dv
-    written."""
+def _flash_backward_row(ref, gen, b, s, h, kv, hd, window, launches, *,
+                        chunk=512):
+    """B4b at (b, s, h, kv, hd) bf16 causal with ``window``, from B4's
+    residuals on random inputs, held against its plain version (the
+    pair-scan over ``chunk``-row blocks) on the inputs it is timed on (the
+    largest |kernel - plain| over dq, dk, dv, each within ATTN_BWD_TOL of
+    its gradient's largest |entry|; the same bits twice), beside that
+    version, PyTorch's ``scaled_dot_product_attention`` backward on the
+    same inputs (a yardstick only) and the bound from
+    ``counts.flash_attention_bwd_counts``: the five products of the kept
+    pairs on the bf16 tensor cores against q, k, v, out, dout and lse read
+    and dq, dk, dv written."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import counts
     q, k, v, dout = (torch.randn(b, s, n, hd, generator=gen).to(
         "cuda", torch.bfloat16) for n in (h, kv, kv, h))
-    out, lse = LIB.flash_attention_lse(q, k, v, True, None)
+    out, lse = LIB.flash_attention_lse(q, k, v, True, window)
+    where = (f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal"
+             + (f" window {window}" if window else ""))
 
-    def pair_scan():
-        return attention.flash_bwd(q, k, v, out, lse, dout, chunk=chunk)
+    def kern():
+        return LIB.flash_attention_bwd(q, k, v, out, lse, dout, True, window,
+                                       0.0, chunk)
 
+    def plain():
+        return ref.flash_attention_bwd_torch(q, k, v, out, lse, dout,
+                                             chunk=chunk, window=window)
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    check(all(map(torch.equal, got, again)), f"timed B4b at {where}: two "
+          "calls differ")
+    err, err_rel = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = float((g.float() - w.float()).abs().max())
+        rel = diff / max(float(w.float().abs().max()), 1e-30)
+        check(bool(torch.isfinite(g).all()) and rel <= ATTN_BWD_TOL[
+            torch.bfloat16], f"timed B4b at {where}: {name} {rel} of its "
+              "largest entry")
+        err, err_rel = max(err, diff), max(err_rel, rel)
+    del got, again, want
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    mask = None
+    if window is not None and window < s:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       is_causal=mask is None,
                                        enable_gqa=True)
     dot = dout.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
-
-    pairs = b * s * (s + 1) // 2
-    bound_ms, bound_by = bound(
-        5 * 2 * h * hd * pairs,
-        2 * (3 * b * s * h * hd + 2 * b * s * kv * hd) + 4 * b * h * s
-        + 2 * (b * s * h * hd + 2 * b * s * kv * hd), peak=BF16_FLOPS)
-    return {"shape": f"B={b} S={s} H={h} KV={kv} hd={hd} bf16 causal, "
-                     f"chunk {chunk}",
-            "ms": time_ms(pair_scan, reps=5, inner=3),
-            "sdpa_backward_ms": time_ms(sdpa, reps=5, inner=3),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    row = _row("flash_attention_bwd", "166-233", kern, plain,
+               *counts.flash_attention_bwd_counts(b, s, s, h, kv, hd,
+                                                  window=window),
+               launches, err, f"{where}, the pair-scan's chunk {chunk}",
+               source="flash_attention_bwd.cu",
+               replaces="models/attention.py",
+               library=lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                   retain_graph=True),
+               peak=BF16_FLOPS, reps=10, inner=5)
+    row["max_err_of_largest"] = err_rel
+    del q, k, v, dout, out, lse, qt, kt, vt, o, dot
+    torch.cuda.empty_cache()
+    return row
 
 
 def _decode_row(ops, ref, da, gen, cache, h, window, launches,
@@ -6957,8 +7046,7 @@ def op_host_cost(ops, da, gen, cache, h, calls=200, runs=5):
     return {k: sorted(v) for k, v in out.items()}
 
 
-def attention_timings(ops, ref, da, cache, launches, errs, attention,
-                      vlm_cache):
+def attention_timings(ops, ref, da, cache, launches, errs, vlm_cache):
     """B4 and B5 at the main paths' shapes, each held against its plain
     version on the inputs it is timed on (that error is the row's
     ``max_abs_err``; ``compare_max_abs_err`` is compare_attention's), beside
@@ -6972,8 +7060,11 @@ def attention_timings(ops, ref, da, cache, launches, errs, attention,
     through its op, its wrapper and ``ops`` (:func:`op_host_cost`) under
     ``host_us_per_call``. The hymba readings go
     into each row under ``hymba_shape``; B4 storing its lse at olmo-1b's
-    training shape (8, 1024, 16, 16, 128) under ``training_shape``, and the
-    pair-scan backward there beside SDPA's under ``training_backward``.
+    training shape (8, 1024, 16, 16, 128) under ``training_shape``. B4b's
+    row (:func:`_flash_backward_row`) at that shape, with hymba-1.5b's
+    training heads (8, 1024, 25, 5, 64) and its 2048 window under
+    ``hymba_shape``; its ``compare_max_abs_err`` is phase 12b(b)'s largest
+    error against the pair-scan.
     Under ``mixtral_shapes``: B4 at mixtral-8x7b's 2048-token prefill and
     a 4500-token one past its 4096 window, B5 at its rolled 4-lane cache
     (MIXTRAL_CACHE); under ``qwen2_vl_shape``: B4 at qwen2-vl-72b's
@@ -6987,9 +7078,16 @@ def attention_timings(ops, ref, da, cache, launches, errs, attention,
     shape = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, 16, 16, 128)
     train = _flash_row(ops, ref, gen, *shape, None, {}, with_lse=True)
     b4["training_shape"] = {k: train[k] for k in SHAPE_KEYS}
-    b4["training_backward"] = _flash_backward_row(attention, gen,
-                                                  *shape, 512)
     b4["compare_max_abs_err"] = errs["flash_attention"]
+    b4b = _flash_backward_row(ref, gen, *shape, None,
+                              launches["flash_attention_bwd"])
+    hymba = _flash_backward_row(ref, gen, TRAIN_LM_BATCH, TRAIN_LM_SEQ, 25,
+                                5, 64, 2048, {})
+    b4b["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS
+                          + ("max_err_of_largest",)}
+    b4b["replaces_note"] = ("no TPU kernel: the reference's flash backward "
+                            "_flash_bwd is a pure-jnp pair-scan")
+    b4b["compare_max_abs_err"] = errs["flash_attention_bwd"]
     b5 = _decode_row(ops, ref, da, gen, cache, 32, None,
                      launches["decode_attention"], with_lse=True)
     b5["host_us_per_call"] = op_host_cost(ops, da, gen, cache, 32)
@@ -7038,7 +7136,7 @@ def attention_timings(ops, ref, da, cache, launches, errs, attention,
     b5["whisper_shape"] = {k: frames[k] for k in b5_keys}
     b5["compare_max_abs_err"] = errs["decode_attention"]
     b5["compare_lse_max_abs_err"] = errs["decode_attention_lse"]
-    return [b4, b5]
+    return [b4, b4b, b5]
 
 
 def scan_timing(ops, ref, args, gated, launches, errs):
@@ -7248,10 +7346,11 @@ def main() -> int:
     from repro_torch.paper import table4_characteristics
 
     t_run = time.perf_counter()
+    stamps = {}  # phase -> seconds since the start, into chip_smoke.json
 
     def stamp(phase):
-        print(f"[{time.perf_counter() - t_run:.1f} s] phase {phase} done",
-              flush=True)
+        stamps[phase] = time.perf_counter() - t_run
+        print(f"[{stamps[phase]:.1f} s] phase {phase} done", flush=True)
 
     # phase 1: the card
     card = card_line()
@@ -7273,7 +7372,8 @@ def main() -> int:
     # phase 3: policy-head kernels against their plain versions
     errs = {"policy_score": 0.0, "policy_score_decode": 0.0,
             "policy_score_bwd": 0.0, "policy_score_bwd_rel": 0.0,
-            "flash_attention": 0.0, "decode_attention": 0.0,
+            "flash_attention": 0.0, "flash_attention_bwd": 0.0,
+            "decode_attention": 0.0,
             "decode_attention_lse": 0.0, "mamba_scan": 0.0,
             "mamba_scan_gated": 0.0, "mamba_scan_bwd": 0.0}
     buckets = random_cases(fpm.DEFAULT_BUCKETS)
@@ -7487,7 +7587,7 @@ def main() -> int:
     stamp("12")
 
     # phase 12b: LM pretraining at full width (olmo-1b, bf16): B4 with its
-    # log-sum-exp in every layer's forward and recompute, the pair-scan
+    # log-sum-exp in every layer's forward and recompute, B4b in its
     # backward, Adam; the kernel path against the plain one; a resume
     lm_training, counts = drive_lm_training(types.SimpleNamespace(
         ops=ops, ref=ref, build=build, lm=lm, steps=launch_steps,
@@ -7495,6 +7595,9 @@ def main() -> int:
         checkpoint=checkpoint, get_config=get_config,
         SyntheticTokens=SyntheticTokens, named_leaves=named_leaves), card)
     record("lm_training", counts)
+    errs["flash_attention_bwd"] = max(
+        row["backward"][name]["pair_scan"]["max_abs_err"]
+        for row in lm_training["attention"] for name in ("dq", "dk", "dv"))
     torch.cuda.empty_cache()
     stamp("12b")
 
@@ -7532,8 +7635,8 @@ def main() -> int:
 
     # phase 12f: whisper-tiny at full width, bf16: served (B4 over the
     # frames and over the decoder's own tokens, B5 for the self and cross
-    # attention of a step) and trained (B4 with its lse, the pair-scan
-    # backward); the kernel path against the plain one
+    # attention of a step) and trained (B4 with its lse, B4b); the kernel
+    # path against the plain one
     train_ns = types.SimpleNamespace(
         ops=ops, ref=ref, build=build, lm=lm, moe=moe, steps=launch_steps,
         attention=lm_attention, launch_train=launch_train,
@@ -7615,7 +7718,7 @@ def main() -> int:
     kernels = timings(ops, ref, policy_score, enc, enc_train, launches, errs,
                       rollout_inputs[0], temporal_inputs)
     kernels += attention_timings(ops, ref, da, qwen3_cache, launches, errs,
-                                 lm_attention, vlm_cache)
+                                 vlm_cache)
     kernels.append(scan_timing(ops, ref, scan_args, gated_args,
                                launches["mamba_scan"], errs))
     b6b, kernels[-1]["training_shape"] = scan_bwd_timing(
@@ -7671,7 +7774,7 @@ def main() -> int:
         "temporal": temporal, "temporal_s": temporal_s,
         "serving_host": serving_host, "fleet_data_parallel": fleet_dp,
         "rollout_arrivals_s": arrivals_s, "engine_parity_s": eng_parity_s,
-        "rollout_s": rollout_s,
+        "rollout_s": rollout_s, "stamps": stamps,
         "kernels": kernels}, indent=1))
 
     print(json.dumps({"decision_ms": summary["decision_ms"],

@@ -23,8 +23,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("policy_score.cu", "flash_attention.cu", "decode_attention.cu",
-           "mamba_scan.cu", "mamba_scan_bwd.cu")
+SOURCES = ("policy_score.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "mamba_scan.cu", "mamba_scan_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: Launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"policy_score": 0, "policy_score_bwd": 0, "policy_score_decode": 0,
-            "flash_attention": 0, "decode_attention": 0, "mamba_scan": 0,
-            "mamba_scan_bwd": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "decode_attention": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}  # source -> library, loaded at first use
 
@@ -63,8 +63,12 @@ def build(force: bool = False) -> dict[str, str]:
     {source: nvcc's report (registers, shared memory, spills)}; raises if a
     compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a source's library is stale when older than it or than any header
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                  default=0.0)
     stale = [s for s in SOURCES if force or not _library(s).exists()
-             or _library(s).stat().st_mtime < (CSRC / s).stat().st_mtime]
+             or _library(s).stat().st_mtime < max(
+                 (CSRC / s).stat().st_mtime, headers)]
     procs = {}
     nvcc = _nvcc() if stale else None
     for src in stale:

@@ -10,7 +10,8 @@ roofline. Each returns ``(operations, bytes)``.
 The bytes count each input read once and each output written once. The
 operations count what the algorithm needs: for B1-B3 the reference
 decode's fold (px = c Wpx, pxy = Wpy px^T, h pxy), for B4 and B5 the two
-products of every (row, key) pair the masks keep, for B6 and B6b the f32
+products of every (row, key) pair the masks keep, for B4b the five of the
+backward, for B6 and B6b the f32
 arithmetic per (step, channel, state), an exponential counted as one.
 """
 from __future__ import annotations
@@ -78,6 +79,19 @@ def flash_attention_counts(b: int, s: int, sk: int, h: int, kv: int,
     flops = 4 * h * hd * attention_pairs(b, s, sk, causal, window)
     nbytes = itemsize * (2 * b * s * h * hd + 2 * b * sk * kv * hd)
     return flops, nbytes + (F32 * b * h * s if with_lse else 0)
+
+
+def flash_attention_bwd_counts(b: int, s: int, sk: int, h: int, kv: int,
+                               hd: int, *, causal: bool = True, window=None,
+                               itemsize: int = 2) -> tuple[int, int]:
+    """B4b: the five products of the kept pairs of each of the h heads (S =
+    QK^T, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q); q, out and
+    dout, k and v read in ``itemsize``-byte elements and the (b, h, s) f32
+    log-sum-exp read, dq, dk and dv written in the inputs' elements."""
+    flops = 10 * h * hd * attention_pairs(b, s, sk, causal, window)
+    q_like, kv_like = b * s * h * hd, b * sk * kv * hd
+    return flops, (itemsize * (4 * q_like + 4 * kv_like)
+                   + F32 * b * h * s)
 
 
 def decode_attention_counts(b: int, w: int, h: int, kv: int, hd: int, *,

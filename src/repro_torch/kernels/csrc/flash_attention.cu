@@ -21,7 +21,8 @@
 // Optionally it also writes each row's log-sum-exp of the scaled, masked
 // scores, lse[b, h, s] = m + log(max(l, 1e-30)) from the running max m and
 // sum l, (B, H, Sq) f32: the residual the training attention's backward
-// (the reference's pair-scan `_flash_bwd`, models/attention.py:166) takes.
+// (B4b, flash_attention_bwd.cu; the reference's pair-scan `_flash_bwd`,
+// models/attention.py:166) takes.
 // A null lse pointer writes nothing; `o` is the same either way.
 // Logit soft-capping (the reference's `logit_softcap`,
 // models/attention.py:32-35, :134): with a cap above 0 every scaled score s
@@ -81,9 +82,14 @@
 // a 4x4 block of the score tile and a 4x8 block of the output, f32 FMAs on
 // the CUDA cores; the row max, sum and rescale factor in shared memory;
 // dead tiles skipped; K and V in 16-byte loads (hd a multiple of 4).
+//
+// The bf16 plan's tiles, copies and products are those of mma_bf16.cuh,
+// which B4b's bf16 plan shares.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -326,92 +332,8 @@ constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;  // 16 query rows per warp
 constexpr int kStages = 2;                 // K/V tiles in flight: j and j+1
 
-using bf16 = __nv_bfloat16;
-
-// Shared-memory tile of 64 rows of HD bf16: HD/8 16-byte chunks per row,
-// the row padded to a multiple of 8 chunks, chunk c of row r stored at
-// c ^ (r % 8).
-template <int HD>
-struct Tile {
-  static constexpr int kChunks = HD / 8;
-  static constexpr int kRowElems = (kChunks + 7) / 8 * 64;
-  static constexpr int kElems = kBK * kRowElems;
-};
-
-__device__ __forceinline__ int swz(int row, int chunk, int row_elems) {
-  return row * row_elems + ((chunk ^ (row & 7)) << 3);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row) . b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<unsigned*>(&x);
-}
-
-// (x0, x1) -> bf16x2 of the rounded pair (hi) and of what it left (lo)
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
-}
-
-// Copy rows r0 .. r0+63 of a (row stride `stride`) matrix into a swizzled
-// tile, zero-filling rows at or past S (the matrix's rows: Sq or Sk).
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long stride, int r0, int S,
-                                          int tid) {
-  using L = Tile<HD>;
-#pragma unroll
-  for (int c = tid; c < kBK * L::kChunks; c += kTcThreads) {
-    const int r = c / L::kChunks, ch = c % L::kChunks, s = r0 + r;
-    const bool ok = s < S;
-    cp_async16(dst + swz(r, ch, L::kRowElems),
-               src + (long)(ok ? s : 0) * stride + ch * 8, ok);
-  }
-}
+using namespace tc;  // mma_bf16.cuh: the tiles, copies and products
+static_assert(kBK == kRows, "B4's K/V tiles are mma_bf16.cuh's 64 rows");
 
 template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -447,10 +369,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int lo = 0;
   if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / kBK;
 
-  load_tile<HD>(qs, qb, q_stride, q0, Sq, tid);
-  load_tile<HD>(ks, kb, kv_stride, lo * kBK, Sk, tid);
+  load_tile<HD, kTcThreads>(qs, qb, q_stride, q0, Sq, tid);
+  load_tile<HD, kTcThreads>(ks, kb, kv_stride, lo * kBK, Sk, tid);
   cp_async_commit();  // Q and K[lo]
-  load_tile<HD>(vs, vb, kv_stride, lo * kBK, Sk, tid);
+  load_tile<HD, kTcThreads>(vs, vb, kv_stride, lo * kBK, Sk, tid);
   cp_async_commit();  // V[lo]
 
   unsigned qf[kKSteps][4];
@@ -472,11 +394,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();     // K[j] visible; every warp is past tile j-1
     if (j < hi) {        // tile j+1 into the other stage
       const int nxt = (stage + 1) % kStages;
-      load_tile<HD>(ks + nxt * L::kElems, kb, kv_stride, (j + 1) * kBK, Sk,
-                    tid);
+      load_tile<HD, kTcThreads>(ks + nxt * L::kElems, kb, kv_stride,
+                                (j + 1) * kBK, Sk, tid);
       cp_async_commit();
-      load_tile<HD>(vs + nxt * L::kElems, vb, kv_stride, (j + 1) * kBK, Sk,
-                    tid);
+      load_tile<HD, kTcThreads>(vs + nxt * L::kElems, vb, kv_stride,
+                                (j + 1) * kBK, Sk, tid);
     } else {
       cp_async_commit();  // empty groups keep the count
     }
@@ -565,10 +487,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       unsigned ph[4], pl[4];  // A fragments: rows g, g+8; columns 2t, 2t+8
-      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      split_frags(sc[2 * kk], sc[2 * kk + 1], ph, pl);
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         unsigned vf[4];

@@ -3,11 +3,12 @@
 A CUDA tensor launches the hand-written kernel
 (:mod:`repro_torch.kernels.policy_score` for B1-B3,
 :mod:`~repro_torch.kernels.flash_attention` for B4,
+:mod:`~repro_torch.kernels.flash_attention_bwd` for its backward B4b,
 :mod:`~repro_torch.kernels.decode_attention` for B5,
 :mod:`~repro_torch.kernels.mamba_scan` for B6, bare and gated, and B6b);
 if the build or the launch fails, the call raises. A CPU tensor runs the
 plain PyTorch version (:mod:`repro_torch.kernels.ref`). Nothing falls back
-from one to the other. B4-B6b are ``torch.library`` ops
+from one to the other. B4-B6b (B4b among them) are ``torch.library`` ops
 (``torch.ops.repro_torch.*``), so the dispatcher chooses by the tensors'
 device, and a fake tensor runs the op's fake implementation: the LM's
 steps trace under ``FakeTensorMode`` (:mod:`repro_torch.launch.dryrun`)
@@ -20,12 +21,13 @@ kernels' layouts.
 counterpart of the reference's ``custom_vjp``: B1 forward and B2 backward
 on the card, their plain versions on the CPU. :func:`flash_attention` is
 differentiable through :class:`FlashAttention`: B4 forward with its
-log-sum-exp, and the reference's pair-scan backward in plain PyTorch on
-either device. :func:`mamba_scan_gated` is differentiable through
-:class:`MambaScanGated`: B6's gated entry saving its chunk states, and
-B6b, on the card; their plain versions on the CPU. B5 and B6's bare entry
-have no backward: on a CUDA tensor that needs a gradient they raise,
-rather than return an output cut off from autograd.
+log-sum-exp and B4b backward on the card, their plain versions (the
+backward the reference's pair-scan) on the CPU. :func:`mamba_scan_gated`
+is differentiable through :class:`MambaScanGated`: B6's gated entry
+saving its chunk states, and B6b, on the card; their plain versions on the
+CPU. B5 and B6's bare entry have no backward: on a CUDA tensor that needs
+a gradient they raise, rather than return an output cut off from
+autograd.
 
 **DTensors.** On a mesh (:mod:`repro_torch.launch.steps`) the attention
 and scan wrappers take DTensors and run the kernel, or its plain version,
@@ -50,6 +52,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import decode_attention as _b5
 from repro_torch.kernels import flash_attention as _b4
+from repro_torch.kernels import flash_attention_bwd as _b4b
 from repro_torch.kernels import mamba_scan as _b6
 from repro_torch.kernels import ref
 from repro_torch.kernels.policy_score import (policy_score_bwd_cuda,
@@ -135,11 +138,15 @@ class FlashAttention(torch.autograd.Function):
     a CPU tensor); when a gradient is wanted (``train``) it is
     ``flash_attention_lse``, which also gives the rows' log-sum-exp, and
     it saves (q, k, v, out, lse), otherwise it saves nothing and B4 stores
-    no lse, as serving needs. The backward is the pair-scan over
-    ``chunk``-sized blocks in plain PyTorch on either device
-    (:func:`repro_torch.models.attention.flash_bwd`): the reference's is
-    pure jnp, with no Pallas kernel behind it. A ``softcap`` above 0 caps
-    the scores in both (saved for the backward)."""
+    no lse, as serving needs. The backward is the op
+    ``flash_attention_bwd``: B4b on a CUDA tensor (a failed build or
+    launch raises), on a CPU tensor its plain version, the pair-scan over
+    ``chunk``-sized blocks
+    (:func:`repro_torch.kernels.ref.flash_attention_bwd_torch`, which the
+    model knows as :func:`repro_torch.models.attention.flash_bwd`).
+    The reference's backward is pure jnp, with no Pallas kernel behind it.
+    A ``softcap`` above 0 caps the scores in both (saved for the
+    backward)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, train, softcap):
@@ -155,14 +162,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        # the pair-scan lives beside the model's attention, as in the
-        # reference; imported here, since models imports this module
-        from repro_torch.models import attention
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = attention.flash_bwd(q, k, v, out, lse, dout,
-                                         chunk=ctx.chunk, causal=ctx.causal,
-                                         window=ctx.window,
-                                         softcap=ctx.softcap)
+        dq, dk, dv = _b4b.flash_attention_bwd_op(
+            q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window,
+            ctx.softcap, ctx.chunk)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -314,9 +317,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=512,
     """B4: GQA flash attention, q (B, Sq, H, hd), k, v (B, Sk, KV, hd) ->
     (B, Sq, H, hd) in q's dtype, any Sq and Sk, the scaled scores capped
     at ``softcap * tanh(s / softcap)`` where ``softcap`` is above 0;
-    differentiable through :class:`FlashAttention`, whose backward runs the
-    pair-scan over ``chunk``-sized blocks. DTensors: the batch and the
-    heads may be split (the module's docstring)."""
+    differentiable through :class:`FlashAttention`, whose backward is B4b
+    on the card and the pair-scan over ``chunk``-sized blocks on the CPU.
+    DTensors: the batch and the heads may be split (the module's
+    docstring)."""
     train = _wants_grad(q, k, v)
 
     def run(q, k, v):

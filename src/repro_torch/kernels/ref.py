@@ -9,7 +9,8 @@ the CPU. On a CUDA tensor ``ops`` launches the hand-written kernels of
 holds those kernels against the ``*_torch`` functions here. The B2
 kernel's plain version, :func:`policy_score_bwd_torch`, is the head's
 explicit backward; :func:`flash_attention_lse_torch` is that of B4's
-optional log-sum-exp output. The attention twins
+optional log-sum-exp output, and :func:`flash_attention_bwd_torch`, the
+reference's pair-scan backward, that of B4b. The attention twins
 (:func:`flash_attention_torch`, :func:`decode_attention_torch`) use f32
 math, the -1e30 mask, GQA by reshape, and return the input dtype, as the
 reference's oracles do.
@@ -195,6 +196,114 @@ def flash_attention_lse_torch(q, k, *, causal=True, window=None,
     lse = torch.logsumexp(_masked_scores(q, k, causal, window, softcap),
                           dim=-1)
     return lse.reshape(b, h, s)
+
+
+def block_pairs(nq: int, nk: int, window_chunks, causal: bool):
+    """The (i, j) block pairs the pair-scan visits, in the reference's
+    order: row blocks i, and for each the column blocks from the window's
+    first (or 0) to i (causal) or the last."""
+    pairs = []
+    for i in range(nq):
+        lo = 0 if window_chunks is None else max(0, i - window_chunks)
+        hi = i if causal else nk - 1
+        pairs.extend((i, j) for j in range(lo, hi + 1))
+    return pairs
+
+
+def block_mask(i, j, cq, ck, causal, window, kv_len, device):
+    """(cq, ck) bool: the allowed (row, column) pairs of block (i, j)."""
+    rows = i * cq + torch.arange(cq, device=device)[:, None]
+    cols = j * ck + torch.arange(ck, device=device)[None, :]
+    mask = (cols < kv_len).expand(cq, ck)
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    return mask
+
+
+def _needs_mask(causal, window, kv_len, nk, ck) -> bool:
+    return causal or window is not None or kv_len != nk * ck
+
+
+def flash_attention_bwd_torch(q, k, v, out, lse, dout, *, chunk: int = 512,
+                              causal: bool = True, window=None,
+                              softcap: float = 0.0):
+    """Plain version of B4b: the reference's flash backward (``_flash_bwd``,
+    ``repro/models/attention.py:166-233``) in plain PyTorch: from the
+    forward's residuals q (B, Sq, H, hd), k, v (B, Sk, KV, hd), out (B, Sq,
+    H, hd), lse (B, H, Sq) f32 and the cotangent dout, the gradients (dq,
+    dk, dv) in the inputs' dtypes.
+
+    As the reference (``flash_attention``, ``:236-257``): ``chunk`` capped
+    at Sq, q zero-padded by Sq and k, v by Sk to the chunk grid, columns at
+    or past Sk masked (``kv_len``), one pass over :func:`block_pairs`,
+    scores in f32 capped (``softcap`` above 0: ``cap * tanh(s_raw / cap)``
+    of the scaled score s_raw) and masked at -1e30, ``delta = rowsum(dO *
+    O)``, ``p = exp(s - lse)``, ``ds = p * (dp - delta)``, times ``1 -
+    tanh^2(s_raw / cap)`` under a cap, masked to 0, the scale on dq and
+    dk, and dq, dk, dv summed in f32. A causal block pair past the keys'
+    last block (Sq > Sk) is fully masked and skipped: the reference visits
+    it on a clamped index and adds zeros. The blocks are held as (B, KV,
+    rows, hd) with a block's G query heads folded into its rows, so each
+    product is one batched matmul over (B, KV); padded rows carry lse 0
+    and a zero cotangent, and add nothing."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    chunk = min(chunk, max(s, 1))
+    pad = (-s) % chunk
+    pad_k = (-sk) % chunk
+    n = (s + pad) // chunk
+    nk = (sk + pad_k) // chunk
+    wc = None if window is None else -(-window // chunk)
+    masked = _needs_mask(causal, window, sk, nk, chunk)
+    scale = 1.0 / math.sqrt(hd)
+
+    def rows(x):  # (B, Sq, H, hd) -> (B, KV, n, chunk * G, hd) f32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        x = x.reshape(b, n * chunk, kv, g, hd).permute(0, 2, 1, 3, 4)
+        return x.reshape(b, kv, n, chunk * g, hd)
+
+    def cols(x):  # (B, Sk, KV, hd) -> (B, KV, nk, chunk, hd) f32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad_k)).permute(0, 2, 1, 3)
+        return x.reshape(b, kv, nk, chunk, hd)
+
+    qg, og, dog = rows(q), rows(out), rows(dout)
+    kg, vg = cols(k), cols(v)
+    delta = (og * dog).sum(-1)  # (B, KV, n, chunk * G)
+    lse_g = F.pad(lse.reshape(b, kv, g, s).permute(0, 1, 3, 2),
+                  (0, 0, 0, pad)).reshape(b, kv, n, chunk * g)
+    dq, dk, dv = (torch.zeros_like(x) for x in (qg, kg, vg))
+    for i, j in block_pairs(n, nk, wc, causal):
+        if j >= nk:
+            continue
+        qi, kj, vj, do_i = qg[:, :, i], kg[:, :, j], vg[:, :, j], dog[:, :, i]
+        sc = (qi @ kj.transpose(-1, -2)) * scale  # (B, KV, chunk*G, chunk)
+        if softcap > 0:
+            th = torch.tanh(sc / softcap)
+            sc = softcap * th
+        if masked:
+            mask = block_mask(i, j, chunk, chunk, causal, window, sk,
+                              q.device).repeat_interleave(g, dim=0)
+            sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - lse_g[:, :, i, :, None])
+        dv[:, :, j] += p.transpose(-1, -2) @ do_i
+        dp = do_i @ vj.transpose(-1, -2)
+        ds = p * (dp - delta[:, :, i, :, None])
+        if softcap > 0:
+            ds = ds * (1.0 - torch.square(th))
+        if masked:
+            ds = torch.where(mask, ds, 0.0)
+        dq[:, :, i] += (ds @ kj) * scale
+        dk[:, :, j] += (ds.transpose(-1, -2) @ qi) * scale
+    dq = dq.reshape(b, kv, n * chunk, g, hd).permute(0, 2, 1, 3, 4)
+    dq = dq.reshape(b, n * chunk, h, hd)[:, :s]
+
+    def unpack(x):  # (B, KV, nk, chunk, hd) -> (B, Sk, KV, hd)
+        return x.reshape(b, kv, nk * chunk, hd).permute(0, 2, 1, 3)[:, :sk]
+
+    return (dq.to(q.dtype), unpack(dk).to(k.dtype), unpack(dv).to(v.dtype))
 
 
 def _decode_scores(q, k_cache, slot_pos, pos, window, softcap=0.0):

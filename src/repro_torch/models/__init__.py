@@ -1,6 +1,6 @@
 """The LM model zoo's dense, MoE, VLM-backbone, SSM and hybrid families in
 PyTorch (counterpart of ``repro.models``): attention prefill and training
-through kernel B4 (its backward the reference's pair-scan), attention
+through kernel B4 (its backward kernel B4b), attention
 decode through kernel B5, the SSM prefill scan through kernel B6; the MoE
 layer's routing, dispatch and expert products in plain PyTorch, as the
 reference computes them in jnp."""

@@ -29,7 +29,7 @@ the MoE dispatch's token groups, as in the reference; a decode step
 dispatches its B tokens as one group. ``train_loss`` runs every layer
 under ``cfg.remat`` (``torch.utils.checkpoint``) and adds the MoE layers'
 mean load-balance loss at 0.01; on the card attention trains through B4
-and its pair-scan backward, and the SSM block through B6's gated entry
+and its backward B4b, and the SSM block through B6's gated entry
 and its backward B6b (``ops.MambaScanGated``).
 The optimizers and checkpoints name every leaf by its "/"-path
 (``repro_torch.nn.named_leaves``), a layer's as ``layers/<i>/...`` or

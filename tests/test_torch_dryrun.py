@@ -8,7 +8,7 @@ runs, with ``device="cpu"`` at the configs' full widths:
 * ``python -m repro_torch.launch.dryrun --all --mesh single --layers 1
   --jobs 4 --out DIR/all.json`` (every architecture x shape, one layer);
 * beside it, in two more processes, three cells at 2 and 3 layers
-  (olmo-1b training: B4 and the pair-scan backward; falcon-mamba-7b
+  (olmo-1b training: B4 and its backward B4b; falcon-mamba-7b
   training: B6 with its states and B6b; qwen3-4b decode: B5), and olmo-1b
   training at 8 x 1024 tokens on the pod and on a fake world of one, and
   on the 512-rank multi-pod mesh;
@@ -271,14 +271,14 @@ def test_costs_are_linear_in_depth(arch, shape_name, run):
 def test_each_family_runs_its_kernels(run):
     cells = run["cells"]
     assert set(cells[("olmo-1b", "train_4k")]["kernel_ops"]) == {
-        "flash_attention_lse"}
+        "flash_attention_lse", "flash_attention_bwd"}
     assert set(cells[("qwen3-4b", "decode_32k")]["kernel_ops"]) == {
         "decode_attention"}
     assert set(cells[("falcon-mamba-7b", "prefill_32k")]["kernel_ops"]) == {
         "mamba_scan_gated"}
     assert set(cells[("hymba-1.5b", "train_4k")]["kernel_ops"]) == {
-        "flash_attention_lse", "mamba_scan_gated_states",
-        "mamba_scan_gated_bwd"}
+        "flash_attention_lse", "flash_attention_bwd",
+        "mamba_scan_gated_states", "mamba_scan_gated_bwd"}
 
 
 def test_json_has_the_reference_keys(run):
@@ -317,7 +317,7 @@ def test_a_world_of_one_counts_the_whole_step(run):
     assert (one["global_batch"], one["seq_len"]) == (8, 1024)
     assert one["kernel_launches"] == 0
     assert one["kernel_ops"] == pod["kernel_ops"] == {
-        "flash_attention_lse": 2}
+        "flash_attention_lse": 2, "flash_attention_bwd": 1}
     cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=1)
     shape = dataclasses.replace(SHAPES["train_4k"], global_batch=8,
                                 seq_len=1024)
@@ -332,7 +332,8 @@ def test_multi_pod_cell_runs_on_512_ranks(run):
     multi = run["multi"]
     assert multi["status"] == "ok", multi.get("error")
     assert (multi["chips"], multi["mesh"]) == (512, "multi")
-    assert multi["kernel_ops"] == {"flash_attention_lse": 2}
+    assert multi["kernel_ops"] == {"flash_attention_lse": 2,
+                                   "flash_attention_bwd": 1}
     assert multi["arg_bytes_per_device"] == _reference_arg_bytes(
         "olmo-1b", "train_4k", (("pod", 2), ("data", 16), ("model", 16)))
 
