@@ -176,8 +176,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     entry), at olmo-1b's training heads (8, 1024, 16, 16, 128) in bf16 and
     f32, qwen3-4b's GQA heads, a ragged S = 65, causal and windowed,
     hymba-1.5b's heads with its 2048 window, whisper-tiny's encoder (16,
-    1500) and cross attention (16, 448 | 1500), and a cap of 30 in bf16
-    and f32, every reading the same bits twice; (c) ``launch.train lm
+    1500) and cross attention (16, 448 | 1500), a cap of 30 in bf16
+    and f32, and hd 32 (B4b's mma.sync plan) with a row no key is allowed
+    to (the plain path's dv brought to the reference's p = 1 at every
+    key), every reading the same bits twice; (c) ``launch.train lm
     --arch olmo-1b --scale full`` (16 layers, d = 2048, bf16, remat
     "full", random weights from the seed) for 8 steps of 8 x 1024
     tokens in process: losses and grad norms finite, the last three steps'
@@ -4096,8 +4098,10 @@ TRAIN_LM_RESUME_TOL = 1e-3
 # olmo-1b's training heads in bf16 and f32 (chunk = its attn_chunk),
 # qwen3-4b's GQA heads, a ragged S causal and windowed (chunk 16: S pads to
 # 80), hymba-1.5b's heads with its 2048 window, whisper-tiny's encoder and
-# its cross attention from 448 tokens to 1500 frames, and a cap of 30 in
-# bf16 and f32
+# its cross attention from 448 tokens to 1500 frames, a cap of 30 in bf16
+# and f32, and hd 32 (B4b's mma.sync plan) with a window that leaves the
+# last row no allowed column (chunk 512: the pair-scan adds such a row's
+# dout to the keys of the blocks it visits, and one block holds them all)
 TRAIN_ATTN_CASES = (
     (8, 1024, 1024, 16, 16, 128, torch.bfloat16, True, None, 0.0, 512),
     (8, 1024, 1024, 16, 16, 128, torch.float32, True, None, 0.0, 512),
@@ -4109,6 +4113,7 @@ TRAIN_ATTN_CASES = (
     (16, 448, 1500, 6, 6, 64, torch.bfloat16, False, None, 0.0, 512),
     (2, 1024, 1024, 16, 16, 128, torch.bfloat16, True, None, 30.0, 512),
     (2, 1024, 1024, 16, 16, 128, torch.float32, True, None, 30.0, 512),
+    (1, 64, 50, 2, 1, 32, torch.bfloat16, True, 14, 0.0, 512),
 )
 LSE_TOL = 1e-5           # of max |lse|: f32 sums in another order
 # the backward against autograd through the plain version, of each
@@ -4137,6 +4142,15 @@ def _train_lm_argv(device, steps=None, *extra, arch=TRAIN_LM_ARCH):
             device, *extra]
 
 
+def _empty_rows(s, sk, causal, window, device):
+    """(s,) bool: the query rows that no key is allowed to (top-left
+    causal and window masks, as ``ref._masked_scores``)."""
+    r = torch.arange(s, device=device)
+    lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
+    hi = r.clamp(max=sk - 1) if causal else torch.full_like(r, sk - 1)
+    return lo > hi
+
+
 def compare_training_attention(ops, ref, device="cuda"):
     """(a) B4's lse against its plain version (LSE_TOL of max |lse|), the
     output with the lse store the same bits as without it; (b) the
@@ -4144,7 +4158,11 @@ def compare_training_attention(ops, ref, device="cuda"):
     autograd through the plain version and against the plain pair-scan
     (``ref.flash_attention_bwd_torch``, B4b's plain version) on the same
     residuals (ATTN_BWD_TOL of each gradient's largest |entry|), B4b
-    launched once a backward. Every reading the same bits on two calls."""
+    launched once a backward. Every reading the same bits on two calls. A
+    row with no allowed column has lse -1e30: the plain softmax spreads it
+    over the Sk keys (p = 1 / Sk), the reference's backward takes p = 1 at
+    every key, so the plain path's dv gains the rest of that row's dout,
+    summed over the G heads, at every key."""
     from repro_torch.kernels import build
     gen = torch.Generator().manual_seed(41)
     report = []
@@ -4184,6 +4202,11 @@ def compare_training_attention(ops, ref, device="cuda"):
               f"B4b not launched once a backward at {where}")
         plain = grads(lambda *x: ref.flash_attention_torch(
             *x, causal=causal, window=window, softcap=cap))
+        empty = _empty_rows(s, sk, causal, window, device)
+        if bool(empty.any()):
+            rest = dout[:, empty].float().sum(1).reshape(
+                b, kv, h // kv, hd).sum(2)
+            plain[2] = plain[2].float() + (1 - 1 / sk) * rest[:, None]
         pair_scan = ref.flash_attention_bwd_torch(
             q, k, v, out, lse, dout, chunk=chunk, causal=causal,
             window=window, softcap=cap)
@@ -5653,6 +5676,8 @@ def compare_softcap(m, qwen3_cache, errs):
             ref.flash_attention_lse_torch(q, k, softcap=cap),
             ref.flash_attention_lse_torch(q, k)),
         peak=F32_FLOPS, reps=5, inner=2)
+    out["B4_training"]["library_ms"], out["B4_training"]["library_note"] = \
+        _flex_ms(q, k, v, cap)
     del q, k, v
     # B5 over qwen3-4b's served 4-lane cache
     kc, vc, slot_pos, pos = qwen3_cache
@@ -6933,9 +6958,33 @@ def _flash_backward_row(ref, gen, b, s, h, kv, hd, window, launches, *,
                                                    retain_graph=True),
                peak=BF16_FLOPS, reps=10, inner=5)
     row["max_err_of_largest"] = err_rel
+    row["plan"] = _b4b_plan(kern)
     del q, k, v, dout, out, lse, qt, kt, vt, o, dot
     torch.cuda.empty_cache()
     return row
+
+
+def _b4b_plan(kern):
+    """B4b's bf16 plan as the names of its kernels in a profile of three
+    calls say: ``flash_bwd_*_wg`` the wgmma plan, ``flash_bwd_*_tc`` the
+    mma.sync plan."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        kern()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a trace now and then holds no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kern()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")
+                 and "flash_bwd_" in e.name}
+        if names:
+            break
+    plans = {"wgmma, TMA, mbarrier ring" if "_wg" in n else
+             "mma.sync" if "_tc" in n else "f32" for n in names}
+    return ", ".join(sorted(plans)) or "not traced"
 
 
 def _decode_row(ops, ref, da, gen, cache, h, window, launches,
@@ -7084,7 +7133,7 @@ def attention_timings(ops, ref, da, cache, launches, errs, vlm_cache):
     hymba = _flash_backward_row(ref, gen, TRAIN_LM_BATCH, TRAIN_LM_SEQ, 25,
                                 5, 64, 2048, {})
     b4b["hymba_shape"] = {k: hymba[k] for k in SHAPE_KEYS
-                          + ("max_err_of_largest",)}
+                          + ("max_err_of_largest", "plan")}
     b4b["replaces_note"] = ("no TPU kernel: the reference's flash backward "
                             "_flash_bwd is a pure-jnp pair-scan")
     b4b["compare_max_abs_err"] = errs["flash_attention_bwd"]

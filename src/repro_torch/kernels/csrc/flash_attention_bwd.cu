@@ -37,35 +37,59 @@
 //
 // Two passes and no float atomics, so that every call gives the same bits
 // (a resumed training run is bit-identical to an uninterrupted one):
-//  1. the dq pass, one block per (64-row q tile, head, batch row): computes
+//  1. the dq pass, one block per q tile, head and batch row: computes
 //     delta for its rows in its prologue and writes it (B, H, Sq) f32, then
 //     walks the live K/V tiles and sums ds k for its rows in registers;
-//  2. the dk/dv pass, one block per (64-key tile, KV head, batch row): keeps
+//  2. the dk/dv pass, one block per key tile, KV head and batch row: keeps
 //     dk and dv of its keys in registers and walks the G query heads and,
 //     for each, the q tiles that hold an allowed pair (then the q tiles of
 //     rows with no allowed column), in that fixed order, reading delta.
 // S and dP are computed in both passes: seven products where an atomic
-// plan has five. Dead tiles are not visited; the masks are evaluated only
-// on tiles that cut the diagonal, the window edge or the end of Sq or Sk.
+// plan has five, and P and dS enter dV = P^T dO, dQ = dS K and dK = dS^T Q
+// as two bf16 terms, hi + lo (the reference keeps them in f32, and one
+// bf16 rounding would move every gradient): ten products' worth of tensor
+// work a kept pair, twice the bound's five. Dead tiles are not visited;
+// the masks are evaluated only on tiles that cut the diagonal, the window
+// edge or the end of Sq or Sk.
 //
-// bf16 (the training path), `flash_bwd_dq_tc` and `flash_bwd_dkdv_tc`:
-// B4's machinery (mma_bf16.cuh): 4 warps, each owning 16 rows of the
-// block's tile (queries in pass 1, keys in pass 2); tiles of 64 rows in
-// swizzled shared memory, filled by 16-byte cp.async copies in a 2-stage
-// ring (the next K/V tile in pass 1, the next Q/dO tile with its lse and
-// delta in pass 2); the products mma.sync m16n8k16 with f32 sums, operands
-// by ldmatrix (.trans for the (k, n)-stored ones). S = QK^T and dP = dO V^T
-// are products of bf16 inputs, exact with f32 sums. P and dS are f32 and
-// enter dV = P^T dO, dQ = dS K and dK = dS^T Q as two bf16 terms, hi + lo,
-// as B4 carries P: the reference keeps them in f32, and one bf16 rounding
-// would move every gradient. The warp's 16 x hd accumulators (dq; dk and
-// dv) stay in registers, the K and V (pass 2) or Q and dO (pass 1) operands
-// are read from shared memory at each use rather than held: at hd = 128
-// dk and dv alone are 128 f32 registers a thread, and both passes spill a
-// few hundred bytes a thread at 255 registers, which costs less than
-// rolling the products' k16 loop (5 % slower). hd is a template parameter,
-// a multiple of 16 up to 128; shared memory is 6 tiles (96 KB at hd =
-// 128, 48 KB at 64, where three blocks share an SM).
+// bf16 at hd = 64 and 128 (every card path's), `flash_bwd_dq_wg` and
+// `flash_bwd_dkdv_wg`: Hopper's own machinery (wgmma_bf16.cuh). A block is
+// a producer warpgroup and two consumer warpgroups (384 threads, one block
+// an SM; setmaxnreg leaves the producer 24 registers a thread and gives
+// the consumers 240). One producer thread loads the block's stationary
+// tiles (Q and dO of its 128 rows in pass 1; K and V of its 128 keys in
+// pass 2) by TMA, then runs a ring of kRing stages through full and empty
+// mbarriers (the K/V tiles in pass 1; the Q/dO tiles with their lse and
+// delta, which the producer warp's lanes load, in pass 2). Tiles are 64
+// rows of 64 bf16 per box in TMA's 128-byte swizzle, zero past Sq or Sk,
+// the layout the wgmma descriptors read. Each consumer warpgroup owns 64
+// of the block's rows (pass 1) or keys (pass 2): S = Q K^T and dP = dO V^T
+// (S^T = K Q^T and dP^T = V dO^T in pass 2) are wgmma with both operands
+// in shared memory, K-major; P is formed from the accumulators while dP is
+// in flight, then dS; both split into hi + lo A fragments in registers
+// (wgmma's m64nN accumulator layout is mma.sync's A fragment layout), and
+// dQ += dS K (dV += P^T dO, dK += dS^T Q) are register-A wgmma with the B
+// operand MN-major. A group waits for its own products at the end of each
+// tile, and the other group's products run under its element-wise work
+// (issuing the next tile's S behind the RS products made ptxas serialize
+// every product, C7514-C7520 in its report, and was slower). The
+// exponentials are one ex2 each, log2 e folded into the scale and lse, and
+// the masks are evaluated in a loop of their own on the edge tiles only.
+// What bounds it on an H100 (80GB HBM3, 700 W): 0.41 ms at olmo-1b's heads,
+// 4.7x the bound. Per tile a group spends about a third of its cycles (two
+// fifths at hd = 64) on P, dS and the split, which only the other group's
+// products hide, and the split's lo products are a fifth of the time
+// (`tools/b4b_timing.py --probes` and `--variants`).
+//
+// bf16 at the other multiples of 16 up to 128, `flash_bwd_dq_tc` and
+// `flash_bwd_dkdv_tc`: B4's machinery (mma_bf16.cuh): 4 warps, each owning
+// 16 rows of the block's 64-row tile (queries in pass 1, keys in pass 2);
+// tiles in swizzled shared memory, filled by 16-byte cp.async copies in a
+// 2-stage ring; the products mma.sync m16n8k16 with f32 sums, operands by
+// ldmatrix (.trans for the (k, n)-stored ones), the B operands read again
+// by every warp (about 16 operations a byte of shared memory). The warp's
+// 16 x hd accumulators stay in registers; shared memory is 6 tiles (three
+// blocks an SM at hd <= 64).
 //
 // f32 (parity runs), `flash_bwd_dq_f32` and `flash_bwd_dkdv_f32`: the same
 // two passes on the CUDA cores, as B4's f32 plan: 256 threads, the tiles
@@ -76,6 +100,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -279,10 +304,11 @@ struct QTiles {
   }
 };
 
+template <int kKeys = kBK>  // keys of the tile
 __device__ __forceinline__ QTiles q_tiles(int k0, int Sq, int Sk, int causal,
                                           int window) {
   const int nq = (Sq + kBQ - 1) / kBQ;
-  const long long cmax = min(k0 + kBK - 1, Sk - 1);
+  const long long cmax = min(k0 + kKeys - 1, Sk - 1);
   const int qlo = causal ? k0 / kBQ : 0;
   int qhi = nq - 1;  // the last q tile with a row before cmax + window
   if (window > 0 && (cmax + window - 1) / kBQ < qhi)
@@ -485,7 +511,7 @@ constexpr int kStages = 2;                 // tiles in flight: this and next
 constexpr int kNT = kBK / 8;               // n8 tiles of a 64-wide product
 // Blocks an SM asked of the compiler: three at hd <= 64 (168 registers a
 // thread), one at larger hd, where three spill over 1 KB a thread in the
-// dk/dv pass (tools/b4b_timing.py --variants).
+// dk/dv pass.
 template <int HD>
 constexpr int kMinBlocks = HD <= 64 ? 3 : 1;
 static_assert(kTcThreads == 2 * kBQ, "pass 2 loads lse and delta by row");
@@ -561,34 +587,69 @@ __device__ __forceinline__ void add_split_by(float (&acc)[HD / 8][4],
   }
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one ex2, results below 2^-126 flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// lse log2 e, rounded on its own: never fused into the fma of x - lse
+// log2 e, which would leave a row with no allowed column (lse -1e30) the
+// product's rounding error, some 2^76, in place of 0 against the refused
+// pair's -1e30 log2 e, so p inf or 0 where it is 1
+__device__ __forceinline__ float lse_log2e(float lse) {
+  return __fmul_rn(lse, kLog2e);
+}
+
 // p = exp(s - lse) over a warp's 16 x 64 block of scaled, capped, masked
-// scores, in place; the cap's tanh kept in th and the allowed pairs in
-// the bits of `live` (bit 4 nt + e). Fragment element (nt, e) sits at
-// row `row(e)` (the warp's rows) and column `col(nt, e)`.
-template <bool kCap, typename RowOf, typename ColOf, typename Lse,
-          typename Ok>
-__device__ __forceinline__ unsigned probabilities(
-    float (&c)[kNT][4], float (&th)[kCap ? kNT : 1][4], bool edge,
-    float scale, float cap, float inv_cap, RowOf row, ColOf col, Lse lse,
-    Ok ok) {
+// scores, in place, as 2^(s log2 e - lse log2 e): `lse2` gives lse log2 e,
+// so that an uncapped score takes one fma and one ex2. The cap's tanh is
+// kept in th and the allowed pairs in the bits of `live` (bit 4 nt + e).
+// Fragment element (nt, e) sits at row `row(e)` (the warp's rows) and
+// column `col(nt, e)`. The masks are evaluated on the tiles that cut an
+// edge only (kMasked), in a loop of their own; a refused pair's score is
+// -1e30 log2 e, so that a row with no allowed column (lse -1e30) has p = 1.
+template <bool kCap, bool kMasked, typename RowOf, typename ColOf,
+          typename Lse, typename Ok>
+__device__ __forceinline__ unsigned probabilities_of(
+    float (&c)[kNT][4], float (&th)[kCap ? kNT : 1][4], float scale,
+    float cap, float inv_cap, RowOf row, ColOf col, Lse lse2, Ok ok) {
+  const float scale2 = scale * kLog2e, cap2 = cap * kLog2e;
   unsigned live = 0xffffffffu;
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float s = c[nt][e] * scale;
+      float x;
       if constexpr (kCap) {
-        const float t = tanhf(s * inv_cap);
+        const float t = tanhf(c[nt][e] * scale * inv_cap);
         th[nt][e] = t;
-        s = cap * t;
+        x = cap2 * t;
+      } else {
+        x = c[nt][e] * scale2;
       }
-      if (edge && !ok(row(e), col(nt, e))) {
-        s = kNegInf;
+      if (kMasked && !ok(row(e), col(nt, e))) {
+        x = kNegInf * kLog2e;
         live &= ~(1u << (4 * nt + e));
       }
-      c[nt][e] = expf(s - lse(nt, e));
+      c[nt][e] = ex2(x - lse2(nt, e));
     }
   return live;
+}
+
+template <bool kCap, typename RowOf, typename ColOf, typename Lse,
+          typename Ok>
+__device__ __forceinline__ unsigned probabilities(
+    float (&c)[kNT][4], float (&th)[kCap ? kNT : 1][4], bool edge,
+    float scale, float cap, float inv_cap, RowOf row, ColOf col, Lse lse2,
+    Ok ok) {
+  return edge ? probabilities_of<kCap, true>(c, th, scale, cap, inv_cap, row,
+                                             col, lse2, ok)
+              : probabilities_of<kCap, false>(c, th, scale, cap, inv_cap,
+                                              row, col, lse2, ok);
 }
 
 // ds = p (dp - delta) (1 - th^2 under a cap), 0 off the allowed pairs, in
@@ -680,7 +741,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's two rows: row0 (fragment elements 0, 1), row0 + 8 (2, 3);
   // delta over the quad's columns 2 tq + 8 m, summed over the quad
   const int row0 = q0 + warp * 16 + gq;
-  float lse_r[2], dl_r[2];
+  float lse_r[2], dl_r[2];  // lse log2 e, delta
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s = row0 + 8 * i;
@@ -701,7 +762,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     d += __shfl_xor_sync(0xffffffffu, d, 2);
     dl_r[i] = d;
-    lse_r[i] = s < Sq ? lse[roff + s] : 0.f;
+    lse_r[i] = s < Sq ? lse_log2e(lse[roff + s]) : 0.f;
     if (tq == 0 && s < Sq) delta[roff + s] = d;
   }
 
@@ -838,7 +899,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         p, th, cuts(q0, k0, Sq, Sk, causal, window), scale, cap, inv_cap,
         [&](int e) { return key0 + (e / 2) * 8; },
         [&](int nt, int e) { return q0 + qcol(nt, e); },
-        [&](int nt, int e) { return ls[qcol(nt, e)]; },
+        [&](int nt, int e) { return lse_log2e(ls[qcol(nt, e)]); },
         [&](int key, int r) {
           return allowed(r, key, Sq, Sk, causal, window);
         });
@@ -912,21 +973,476 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
                                          window, scale, cap, st);
 }
 
+// ---- bf16 at hd = 64 and 128: wgmma on TMA tiles (wgmma_bf16.cuh) ----
+
+constexpr int kWgRows = 64;    // rows of a consumer warpgroup's share
+constexpr int kConsumers = 2;  // consumer warpgroups a block
+constexpr int kBlockRows = kConsumers * kWgRows;  // keys (dk/dv), queries (dq)
+constexpr int kWgThreads = 128 * (1 + kConsumers);  // + the producer's group
+constexpr int kRing = 2;  // stages of the producer's ring
+// setmaxnreg: the producer's group gives up what the consumers take
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(kWgRows == kBQ && kWgRows == kBK, "cuts and allowed");
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
+              "one block an SM");
+
+// A warpgroup's 64 x 64 accumulators as the mma.sync plan's kNT n8 tiles
+// (wgmma's m64nN layout is four warps of mma.sync's m16n8 one side by side)
+__device__ __forceinline__ float (&as_tiles(float (&c)[32]))[kNT][4] {
+  return *reinterpret_cast<float(*)[kNT][4]>(&c);
+}
+
+// A warpgroup's 64 x 64 f32 accumulators as the A fragments of the four
+// k16 steps of a product over their 64 columns, hi + lo bf16 terms
+__device__ __forceinline__ void split_steps(const float (&c)[32],
+                                            unsigned (&hi)[4][4],
+                                            unsigned (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1], hi[kk][r],
+                 lo[kk][r]);
+}
+
+// d (64 x HD) += (hi + lo) . b: the two bf16 terms of an f32 operand, one
+// product each
+template <int HD>
+__device__ __forceinline__ void mma_rs_split(float (&d)[HD / 2],
+                                             const unsigned (&hi)[4],
+                                             const unsigned (&lo)[4],
+                                             uint64_t db) {
+  wg::mma_rs<HD>(d, hi, db);
+  wg::mma_rs<HD>(d, lo, db);
+}
+
+// A warpgroup's 64 x HD accumulators times `mul` to bf16, rows below S of
+// dst (row stride `stride`) from r0; this thread's rows r0 + 16 warp + gq
+// and + 8, columns 8 j + 2 tq and + 1
+template <int HD>
+__device__ __forceinline__ void store_acc(const float (&acc)[HD / 2],
+                                          float mul, bf16* dst, long stride,
+                                          int r0, int S, int t) {
+  const int warp = t / 32, gq = (t % 32) / 4, tq = t % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = r0 + 16 * warp + gq + 8 * i;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + s * stride + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul,
+                                acc[4 * j + 2 * i + 1] * mul);
+  }
+}
+
+// the first 1024-byte boundary of shared memory at or after p (a swizzle
+// atom's 8 rows of 128 bytes start on one)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - wg::smem_u32(p) % 1024) % 1024);
+}
+
+template <int HD>
+constexpr size_t smem_dq_wg() {  // Q and dO of the block; the K/V ring
+  return 1024 + 2 * wg::Tile<HD, kBlockRows>::kBytes +
+         2 * kRing * wg::Tile<HD, kWgRows>::kBytes;
+}
+
+// The dq pass: one block per (128-row q tile, head, batch row). The
+// producer warp loads the block's Q and dO once, then runs the ring of
+// (K, V) tiles over the live key tiles; consumer warpgroup w owns the rows
+// q0 + 64 w .. + 63: S = Q K^T and dP = dO V^T (SS; P formed while dP is
+// in flight), then dQ += dS K (RS, dS as hi + lo, K MN-major). Both groups
+// work every tile of the block's walk; one whose pairs are all refused
+// adds zeros. delta is computed in the consumers' prologue and written.
+template <int HD, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ dq,
+                float* __restrict__ delta, int Sq, int Sk, int H, int KV,
+                int causal, int window, float scale, float cap) {
+  using QT = wg::Tile<HD, kBlockRows>;
+  using KT = wg::Tile<HD, kWgRows>;
+  extern __shared__ unsigned char smem_wg[];
+  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_wg));
+  bf16* dos = qs + QT::kElems;
+  bf16* ks = dos + QT::kElems;         // kRing tiles
+  bf16* vs = ks + kRing * KT::kElems;  // kRing tiles
+  __shared__ uint64_t q_bar, full[kRing], empty[kRing];
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // heaviest first
+  const int b = blockIdx.z, kvh = h / (H / KV);
+  // the block's live kv tiles [lo, hi], B4's range over its 128 rows
+  const int last_row = min(q0 + kBlockRows - 1, Sq - 1);
+  const int hi = (causal ? min(last_row, Sk - 1) : Sk - 1) / kBK;
+  const int lo =
+      window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    wg::bar_init(&q_bar, 1);
+    for (int s = 0; s < kRing; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], 4 * kConsumers);  // each consumer warp
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer's group: one thread loads
+    wg::regs_down<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      wg::bar_arrive_tx(&q_bar, 2 * QT::kBytes);
+      wg::tma_rows<HD, kBlockRows>(qs, &tm_q, &q_bar, h, q0, b);
+      wg::tma_rows<HD, kBlockRows>(dos, &tm_do, &q_bar, h, q0, b);
+      for (int j = lo; j <= hi; ++j) {
+        const int it = j - lo, st = it % kRing;
+        wg::bar_wait(&empty[st], ((it / kRing) & 1) ^ 1);
+        wg::bar_arrive_tx(&full[st], 2 * KT::kBytes);
+        wg::tma_rows<HD, kWgRows>(ks + st * KT::kElems, &tm_k, &full[st], kvh,
+                                  j * kBK, b);
+        wg::tma_rows<HD, kWgRows>(vs + st * KT::kElems, &tm_v, &full[st], kvh,
+                                  j * kBK, b);
+      }
+    }
+  } else {  // consumer warpgroup w: rows qw .. qw + 63
+    wg::regs_up<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
+    const int qw = q0 + w * kWgRows;
+    const float inv_cap = kCap ? 1.f / cap : 0.f;
+    const long q_stride = (long)H * HD;
+    const long qoff = (long)b * Sq * q_stride + (long)h * HD;
+    const long roff = ((long)b * H + h) * Sq;
+    const bf16* qw_s = qs + w * kWgRows * wg::kBox;
+    const bf16* dow_s = dos + w * kWgRows * wg::kBox;
+
+    // this thread's rows row0 (elements 0, 1 of an n8 tile) and row0 + 8
+    // (2, 3); delta over the quad's columns, summed over the quad
+    const int row0 = qw + warp * 16 + gq;
+    float lse_r[2], dl_r[2];  // lse log2 e, delta
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int s = row0 + 8 * i;
+      float d = 0.f;
+      if (s < Sq) {
+        const bf16* orow = o + qoff + s * q_stride;
+        const bf16* drow = dout + qoff + s * q_stride;
+#pragma unroll
+        for (int c = 2 * tq; c < HD; c += 8) {
+          const float2 of = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(orow + c));
+          const float2 df = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow + c));
+          d = fmaf(of.x, df.x, d);
+          d = fmaf(of.y, df.y, d);
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dl_r[i] = d;
+      lse_r[i] = s < Sq ? lse_log2e(lse[roff + s]) : 0.f;
+      if (tq == 0 && s < Sq) delta[roff + s] = d;
+    }
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float th[kCap ? kNT : 1][4];
+    float sc[32], dp[32];
+    unsigned dhi[4][4], dlo[4][4];
+    wg::bar_wait(&q_bar, 0);
+
+    for (int j = lo; j <= hi; ++j) {
+      const int it = j - lo, st = it % kRing, k0 = j * kBK;
+      const bf16* kt = ks + st * KT::kElems;
+      const bf16* vt = vs + st * KT::kElems;
+      wg::bar_wait(&full[st], (it / kRing) & 1);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)  // S = Q K^T
+        wg::mma_ss_n64(sc, wg::k_major<HD, kBlockRows>(qw_s, 0, kk),
+                       wg::k_major<HD, kWgRows>(kt, 0, kk), kk > 0);
+      wg::mma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)  // dP = dO V^T
+        wg::mma_ss_n64(dp, wg::k_major<HD, kBlockRows>(dow_s, 0, kk),
+                       wg::k_major<HD, kWgRows>(vt, 0, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<1>();  // S; P formed while dP is in flight
+      wg::hold(sc);
+      const unsigned live = probabilities<kCap>(
+          as_tiles(sc), th, cuts(qw, k0, Sq, Sk, causal, window), scale, cap,
+          inv_cap, [&](int e) { return row0 + (e / 2) * 8; },
+          [&](int nt, int e) { return k0 + nt * 8 + 2 * tq + (e & 1); },
+          [&](int, int e) { return lse_r[e / 2]; },
+          [&](int r, int c) { return allowed(r, c, Sq, Sk, causal, window); });
+      wg::mma_wait<0>();
+      wg::hold(dp);
+      score_grads<kCap>(as_tiles(dp), as_tiles(sc), th, live,
+                        [&](int, int e) { return dl_r[e / 2]; });
+      split_steps(dp, dhi, dlo);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dQ += dS K
+        mma_rs_split<HD>(acc, dhi[kk], dlo[kk],
+                         wg::mn_major<HD, kWgRows>(kt, kk));
+      wg::mma_commit();
+      wg::mma_wait<0>();  // dQ's products: the stage is free
+      wg::hold(acc);
+      wg::hold(dhi);
+      wg::hold(dlo);
+      __syncwarp();
+      if (lane == 0) wg::bar_arrive(&empty[st]);
+    }
+    store_acc<HD>(acc, scale, dq + qoff, q_stride, qw, Sq, t);
+  }
+}
+
+template <int HD>
+constexpr size_t smem_dkdv_wg() {  // K and V of the block; the Q/dO ring
+  return 1024 + 2 * wg::Tile<HD, kBlockRows>::kBytes +
+         2 * kRing * wg::Tile<HD, kWgRows>::kBytes +
+         2 * kRing * kBQ * sizeof(float);
+}
+
+// The dk/dv pass: one block per (128-key tile, KV head, batch row). The
+// producer warp loads the block's K and V once, then runs the ring of (Q
+// tile, dO tile, lse, delta) over the G query heads and their q tiles, as
+// `q_tiles` lists them for the 128 keys; consumer warpgroup w owns the keys
+// k0 + 64 w .. + 63: S^T = K Q^T and dP^T = V dO^T (SS; P^T formed while
+// dP^T is in flight), then dV += P^T dO and dK += dS^T Q (RS, P and dS as
+// hi + lo, dO and Q MN-major), both groups every pair of the walk.
+template <int HD, bool kCap>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                  int causal, int window, float scale, float cap) {
+  using KT = wg::Tile<HD, kBlockRows>;
+  using QT = wg::Tile<HD, kWgRows>;
+  extern __shared__ unsigned char smem_wg[];
+  bf16* ks = reinterpret_cast<bf16*>(align1024(smem_wg));
+  bf16* vs = ks + KT::kElems;
+  bf16* qs = vs + KT::kElems;           // kRing tiles
+  bf16* dos = qs + kRing * QT::kElems;  // kRing tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kRing * QT::kElems);  // log2 e
+  float* dl_s = lse_s + kRing * kBQ;
+  __shared__ uint64_t kv_bar, full[kRing], empty[kRing];
+
+  const int kvh = blockIdx.x, k0 = blockIdx.y * kBlockRows, b = blockIdx.z;
+  const int G = H / KV;
+  const QTiles tiles = q_tiles<kBlockRows>(k0, Sq, Sk, causal, window);
+  const int per_head = tiles.n1 + tiles.n2;
+  const int total = G * per_head;
+
+  if (threadIdx.x == 0) {
+    wg::bar_init(&kv_bar, 1);
+    for (int s = 0; s < kRing; ++s) {
+      wg::bar_init(&full[s], 32);               // the producer warp's lanes
+      wg::bar_init(&empty[s], 4 * kConsumers);  // each consumer warp
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer's group: its first warp loads
+    wg::regs_down<kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        wg::bar_arrive_tx(&kv_bar, 2 * KT::kBytes);
+        wg::tma_rows<HD, kBlockRows>(ks, &tm_k, &kv_bar, kvh, k0, b);
+        wg::tma_rows<HD, kBlockRows>(vs, &tm_v, &kv_bar, kvh, k0, b);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int st = it % kRing;
+        const int h = kvh * G + it / per_head;
+        const int q0 = tiles.at(it % per_head) * kBQ;
+        const long roff = ((long)b * H + h) * Sq;
+        wg::bar_wait(&empty[st], ((it / kRing) & 1) ^ 1);
+        if (lane == 0) {  // the tiles first, then lse and delta beside them
+          wg::bar_expect_tx(&full[st], 2 * QT::kBytes);
+          wg::tma_rows<HD, kWgRows>(qs + st * QT::kElems, &tm_q, &full[st], h,
+                                    q0, b);
+          wg::tma_rows<HD, kWgRows>(dos + st * QT::kElems, &tm_do, &full[st],
+                                    h, q0, b);
+        }
+#pragma unroll
+        for (int r = lane; r < kBQ; r += 32) {  // 0 past Sq
+          const int s = q0 + r;
+          lse_s[st * kBQ + r] = s < Sq ? lse_log2e(lse[roff + s]) : 0.f;
+          dl_s[st * kBQ + r] = s < Sq ? delta[roff + s] : 0.f;
+        }
+        wg::bar_arrive(&full[st]);
+      }
+    }
+  } else {  // consumer warpgroup w: keys kw .. kw + 63
+    wg::regs_up<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
+    const int kw = k0 + w * kWgRows;
+    const float inv_cap = kCap ? 1.f / cap : 0.f;
+    const long kv_stride = (long)KV * HD;
+    const long koff = (long)b * Sk * kv_stride + (long)kvh * HD;
+    const bf16* kw_s = ks + w * kWgRows * wg::kBox;
+    const bf16* vw_s = vs + w * kWgRows * wg::kBox;
+    const int key0 = kw + warp * 16 + gq;  // this thread's keys key0, + 8
+
+    float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    float th[kCap ? kNT : 1][4];
+    float sc[32], dp[32];
+    unsigned phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+    wg::bar_wait(&kv_bar, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kRing;
+      const int q0 = tiles.at(it % per_head) * kBQ;
+      const bf16* qt = qs + st * QT::kElems;
+      const bf16* dot = dos + st * QT::kElems;
+      const float* ls = lse_s + st * kBQ;
+      const float* dls = dl_s + st * kBQ;
+      auto qcol = [&](int nt, int e) { return nt * 8 + 2 * tq + (e & 1); };
+      wg::bar_wait(&full[st], (it / kRing) & 1);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)  // S^T = K Q^T
+        wg::mma_ss_n64(sc, wg::k_major<HD, kBlockRows>(kw_s, 0, kk),
+                       wg::k_major<HD, kWgRows>(qt, 0, kk), kk > 0);
+      wg::mma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)  // dP^T = V dO^T
+        wg::mma_ss_n64(dp, wg::k_major<HD, kBlockRows>(vw_s, 0, kk),
+                       wg::k_major<HD, kWgRows>(dot, 0, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<1>();  // S^T; P^T formed while dP^T is in flight
+      wg::hold(sc);
+      const unsigned live = probabilities<kCap>(
+          as_tiles(sc), th, cuts(q0, kw, Sq, Sk, causal, window), scale, cap,
+          inv_cap, [&](int e) { return key0 + (e / 2) * 8; },
+          [&](int nt, int e) { return q0 + qcol(nt, e); },
+          [&](int nt, int e) { return ls[qcol(nt, e)]; },
+          [&](int key, int r) {
+            return allowed(r, key, Sq, Sk, causal, window);
+          });
+      wg::mma_wait<0>();
+      wg::hold(dp);
+      score_grads<kCap>(as_tiles(dp), as_tiles(sc), th, live,
+                        [&](int nt, int e) { return dls[qcol(nt, e)]; });
+      split_steps(sc, phi, plo);
+      split_steps(dp, dhi, dlo);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO
+        mma_rs_split<HD>(dva, phi[kk], plo[kk],
+                         wg::mn_major<HD, kWgRows>(dot, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
+        mma_rs_split<HD>(dka, dhi[kk], dlo[kk],
+                         wg::mn_major<HD, kWgRows>(qt, kk));
+      wg::mma_commit();
+      wg::mma_wait<0>();  // dV's and dK's products: the stage is free
+      wg::hold(dka);
+      wg::hold(dva);
+      wg::hold(phi);
+      wg::hold(plo);
+      wg::hold(dhi);
+      wg::hold(dlo);
+      __syncwarp();
+      if (lane == 0) wg::bar_arrive(&empty[st]);
+    }
+    store_acc<HD>(dka, scale, dk + koff, kv_stride, kw, Sk, t);
+    store_acc<HD>(dva, 1.f, dv + koff, kv_stride, kw, Sk, t);
+  }
+}
+
+template <int HD, bool kCap>
+int launch_wg_plan(const void* q, const void* k, const void* v,
+                   const void* o, const float* lse, const void* dout,
+                   void* dq, void* dk, void* dv, float* delta, int B, int Sq,
+                   int Sk, int H, int KV, int causal, int window, float scale,
+                   float cap, cudaStream_t st) {
+  // The runtime calls first: they make the device's context current on
+  // this thread (a thread PyTorch's autograd starts may have none yet),
+  // which the driver's tensor-map encoder needs.
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wg<HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_dq_wg<HD>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wg<HD, kCap>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_dkdv_wg<HD>());
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv, mdo;
+  if ((err = wg::rows_map(&mq, q, B, Sq, H, HD)) != cudaSuccess ||
+      (err = wg::rows_map(&mk, k, B, Sk, KV, HD)) != cudaSuccess ||
+      (err = wg::rows_map(&mv, v, B, Sk, KV, HD)) != cudaSuccess ||
+      (err = wg::rows_map(&mdo, dout, B, Sq, H, HD)) != cudaSuccess)
+    return (int)err;
+  const int nq = (Sq + kBlockRows - 1) / kBlockRows;
+  const int nk = (Sk + kBlockRows - 1) / kBlockRows;
+  flash_bwd_dq_wg<HD, kCap><<<dim3(H, nq, B), kWgThreads, smem_dq_wg<HD>(),
+                              st>>>(
+      mq, mk, mv, mdo, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, Sq,
+      Sk, H, KV, causal, window, scale, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_wg<HD, kCap><<<dim3(KV, nk, B), kWgThreads,
+                                smem_dkdv_wg<HD>(), st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Sk, H, KV, causal, window, scale, cap);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_wg(const void* q, const void* k, const void* v, const void* o,
+              const float* lse, const void* dout, void* dq, void* dk,
+              void* dv, float* delta, int B, int Sq, int Sk, int H, int KV,
+              int causal, int window, float scale, float cap,
+              cudaStream_t st) {
+  return cap > 0.f
+             ? launch_wg_plan<HD, true>(q, k, v, o, lse, dout, dq, dk, dv,
+                                        delta, B, Sq, Sk, H, KV, causal,
+                                        window, scale, cap, st)
+             : launch_wg_plan<HD, false>(q, k, v, o, lse, dout, dq, dk, dv,
+                                         delta, B, Sq, Sk, H, KV, causal,
+                                         window, scale, cap, st);
+}
+
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const float* lse, const void* dout, void* dq, void* dk,
                 void* dv, float* delta, int B, int Sq, int Sk, int H, int KV,
                 int hd, int causal, int window, float scale, float cap,
                 cudaStream_t st) {
-#define B4B_HD(N)                                                          \
+// hd = 64 and 128 (every card path's) take the wgmma plan, the other
+// multiples of 16 the mma.sync plan
+#define B4B_WG(N)                                                          \
+  case N:                                                                  \
+    return launch_wg<N>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,   \
+                        Sk, H, KV, causal, window, scale, cap, st);
+#define B4B_TC(N)                                                          \
   case N:                                                                  \
     return launch_tc<N>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq,   \
                         Sk, H, KV, causal, window, scale, cap, st);
   switch (hd) {
-    B4B_HD(16) B4B_HD(32) B4B_HD(48) B4B_HD(64)
-    B4B_HD(80) B4B_HD(96) B4B_HD(112) B4B_HD(128)
+    B4B_TC(16) B4B_TC(32) B4B_TC(48) B4B_WG(64)
+    B4B_TC(80) B4B_TC(96) B4B_TC(112) B4B_WG(128)
     default: return (int)cudaErrorInvalidValue;
   }
-#undef B4B_HD
+#undef B4B_TC
+#undef B4B_WG
 }
 
 bool aligned16(const void* p) {

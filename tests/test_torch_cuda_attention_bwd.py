@@ -12,7 +12,10 @@ held against ``ref.flash_attention_bwd_torch`` on the same residuals and
 cotangent (its chunk at least Sq, so that one block holds all of Sq), each
 within ``ATTN_BWD_TOL`` of the gradient's largest |entry| (f32: sums in
 another order; bf16: P and dS carried as hi + lo bf16 terms, the
-gradients rounded to bf16), and two calls must give the same bits.
+gradients rounded to bf16), and two calls must give the same bits. In
+bf16 the split itself is held too: the gradients stay within
+``SPLIT_TOL`` (relative norm) of the bf16 rounding of the pair-scan in f32
+on the same bf16 values, which P and dS rounded once to bf16 exceed.
 """
 import pytest
 import torch
@@ -23,6 +26,7 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 pytestmark = pytest.mark.cuda
 
 ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+SPLIT_TOL = 1e-3
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -53,6 +57,19 @@ def _residuals(device, b, sq, sk, h, kv, hd, dtype, causal, window, cap,
     (2, 200, 70, 4, 1, 64, BF16, True, 40, 0.0),
     (1, 64, 50, 2, 1, 64, F32, True, 14, 0.0),
     (2, 130, 130, 4, 2, 16, BF16, False, 20, 0.0),
+    # the wgmma plan (hd 64 and 128): whisper's ragged cross attention, GQA
+    # of five heads with a window, the cap, rows with no allowed column;
+    # the kept mma.sync plan at hd 32
+    (2, 448, 1500, 6, 6, 64, BF16, False, None, 0.0),
+    (1, 448, 1500, 4, 4, 128, BF16, False, None, 0.0),
+    (2, 300, 300, 10, 2, 64, BF16, True, 70, 0.0),
+    (1, 300, 300, 10, 2, 128, BF16, True, 100, 0.0),
+    (1, 200, 200, 4, 2, 64, BF16, True, None, 30.0),
+    (1, 256, 256, 4, 4, 128, BF16, True, None, 50.0),
+    (1, 64, 50, 2, 1, 64, BF16, True, 14, 0.0),
+    (1, 200, 70, 4, 1, 128, BF16, True, 40, 0.0),
+    (2, 130, 200, 4, 2, 32, BF16, True, None, 0.0),
+    (1, 64, 50, 2, 1, 32, BF16, True, 14, 0.0),
 ])
 def test_kernel_matches_the_pair_scan(cuda_device, b, sq, sk, h, kv, hd,
                                       dtype, causal, window, cap):
@@ -69,6 +86,67 @@ def test_kernel_matches_the_pair_scan(cuda_device, b, sq, sk, h, kv, hd,
         err = float((g.float() - w.float()).abs().max())
         assert err <= ATTN_BWD_TOL[dtype] * float(w.float().abs().max()), \
             f"{name}: {err}"
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+def test_an_empty_row_adds_its_dout_to_every_key(cuda_device, hd):
+    """Row Sk + window - 1 = Sq - 1 sees no key: lse -1e30, p = 1 at every
+    key. Zeroing its dout takes exactly that dout, summed over the G heads,
+    off every dv[c] (to the bf16 rounding of dv), and changes neither dq's
+    other rows nor dk beyond it."""
+    b, sq, sk, h, kv, window = 1, 64, 50, 4, 2, 14
+    q, k, v, out, lse, dout = _residuals(cuda_device, b, sq, sk, h, kv, hd,
+                                         BF16, True, window, 0.0)
+    row = sk + window - 1
+    empty = torch.tensor(-1e30).item()  # f32 lse of a row with no column
+    assert row == sq - 1 and float(lse[0, 0, row]) == empty
+    quiet = dout.clone()
+    quiet[:, row] = 0
+    dq1, dk1, dv1 = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                             window=window)
+    dq0, dk0, dv0 = flash_attention_bwd_cuda(q, k, v, out, lse, quiet,
+                                             window=window)
+    assert float(dq1[:, row].float().abs().max()) == 0.0
+    added = dout[:, row].float().reshape(b, kv, h // kv, hd).sum(2)
+    bar = ATTN_BWD_TOL[BF16] * float(dv1.float().abs().max())
+    err = float((dv1.float() - dv0.float() - added[:, None]).abs().max())
+    assert err <= bar, err
+    assert float((dk1.float() - dk0.float()).abs().max()) <= \
+        ATTN_BWD_TOL[BF16] * float(dk1.float().abs().max())
+
+
+def split_err(g, w32):
+    """|g - bf16(w32)| / |w32| over the whole gradient (Frobenius)."""
+    w = w32.float()
+    return float((g.float() - w.to(BF16).float()).norm() / w.norm())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window,cap", [
+    (2, 256, 256, 8, 8, 128, True, None, 0.0),
+    (2, 300, 300, 10, 2, 64, True, 70, 0.0),
+    (1, 448, 1500, 4, 4, 64, False, None, 0.0),
+    (1, 256, 256, 4, 4, 128, True, None, 50.0),
+    (2, 130, 200, 4, 2, 32, True, None, 0.0),
+])
+def test_the_split_keeps_the_f32_probabilities(cuda_device, b, sq, sk, h, kv,
+                                               hd, causal, window, cap):
+    """P and dS enter dV, dQ and dK as hi + lo bf16 terms: each bf16
+    gradient stays within SPLIT_TOL of the bf16 rounding of the pair-scan
+    in f32 on the same bf16 residuals; P and dS as one bf16 term miss it."""
+    q, k, v, out, lse, dout = _residuals(cuda_device, b, sq, sk, h, kv, hd,
+                                         BF16, causal, window, cap)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ref.flash_attention_bwd_torch(
+            q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+            chunk=max(512, sq), **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert split_err(g, w) <= SPLIT_TOL, (name, split_err(g, w))
 
 
 def test_flash_attention_trains_through_b4b(cuda_device):
